@@ -1,0 +1,426 @@
+"""Whole-model compression pass — one canonical compressed representation.
+
+``compile_model`` takes a transformer parameter tree (plus optional
+per-leaf keep-masks) and lowers every attention/MLP linear onto the
+engine-free datapath under its per-leaf policy:
+
+* ``dense``  — the weight kept as is;
+* ``quant``  — per-output-channel int codes (``{"w_q", "w_s"}``, or the
+  bit-packed ``{"w_qp", "w_s"}`` at 4 bits);
+* ``sparse`` — block-compacted codes against one shared
+  :class:`BlockSparsePattern` per (K, N) shape (``{"w_blk"[, "w_s"]}``, or
+  ``{"w_blkp", "w_s"}`` bit-packed at <= 4 bits).
+
+The shared bitmap scores blocks by their L1 mass summed over the layer
+stack; inside surviving blocks every layer keeps its own unstructured
+element mask.  The analysis runs in host numpy with the reference's exact
+arithmetic, so policies, patterns, codes, scales and containers equal
+``repro.core.compile_sparse``'s byte for byte.
+
+The reference picks a policy per leaf from a TPU cost model; that model
+(and an H100 ``HWSpec`` for it) is a later slice of the port, so here a
+leaf needs an explicit ``policies`` entry unless it is below
+``min_weight_elems`` (kept dense, as the reference does).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import payload_registry
+from .families._util import to_numpy_f32
+from .sparsity import BlockSparsePattern, pattern_from_bitmap, pattern_from_mask
+
+__all__ = [
+    "CompileRules",
+    "CompressedModel",
+    "LayerReport",
+    "compile_model",
+    "compile_policies",
+    "decompress_model",
+]
+
+_LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+_LINEAR_SUBTREES = ("attn", "mlp", "shared")
+
+_COST_MODEL_SLICE = (
+    "the per-leaf cost model (and its H100 HWSpec) is not ported yet "
+    "(ROADMAP Queue A item 8)")
+
+
+def compile_policies() -> Tuple[str, ...]:
+    """Valid per-layer policies: ``"dense"`` plus every registered policy
+    compiler."""
+    return ("dense",) + payload_registry.policy_names()
+
+
+@dataclasses.dataclass(frozen=True)
+class CompileRules:
+    """Knobs of the compression pass (all compile-time)."""
+
+    block: Tuple[int, int] = (128, 128)   # clipped per-shape to (K, N)
+    quant_bits: int = 8
+    block_density: float = 0.25           # target when deriving masks
+    in_block_density: float = 1.0         # unstructured level inside blocks
+    min_weight_elems: int = 4096          # below this: always dense
+    quantize_sparse: bool = True          # sparse blocks stored as int codes
+    dtype: Any = torch.float32            # float storage dtype (non-quant)
+    policies: Optional[Dict[str, str]] = None  # per-leaf-name override
+
+
+@dataclasses.dataclass
+class LayerReport:
+    name: str
+    policy: str
+    shape: Tuple[int, int]
+    n_layers: int
+    dense_bytes: int
+    compressed_bytes: int        # int8-container accounting (codes + scales)
+    block_density: float
+    element_density: float
+    # bytes the payload holds in memory (bit-packed leaves: their uint8
+    # containers); None = same as compressed_bytes
+    container_bytes: Optional[int] = None
+
+    @property
+    def realised_bytes(self) -> int:
+        return self.compressed_bytes if self.container_bytes is None \
+            else self.container_bytes
+
+
+@dataclasses.dataclass
+class CompressedModel:
+    """``params`` drop into ``decode_step`` / ``prefill_step`` /
+    ``ServeEngine`` together with ``patterns``, the static side-table
+    (K, N) -> BlockSparsePattern."""
+
+    params: Any
+    patterns: Dict[Tuple[int, int], BlockSparsePattern]
+    report: List[LayerReport]
+
+    @property
+    def storage_bytes(self) -> int:
+        """Int8-container accounting: payload bytes of every layer plus
+        each shared schedule's metadata once."""
+        return sum(r.compressed_bytes for r in self.report) \
+            + sum(p.meta_bytes for p in self.patterns.values())
+
+    @property
+    def container_storage_bytes(self) -> int:
+        """Bytes the compiled model holds: bit-packed leaves count their
+        uint8 containers."""
+        return sum(r.realised_bytes for r in self.report) \
+            + sum(p.meta_bytes for p in self.patterns.values())
+
+    @property
+    def dense_bytes(self) -> int:
+        return sum(r.dense_bytes for r in self.report)
+
+    @property
+    def compression(self) -> float:
+        return self.dense_bytes / max(1, self.storage_bytes)
+
+    @property
+    def byte_compression(self) -> float:
+        return self.dense_bytes / max(1, self.container_storage_bytes)
+
+    def policy_of(self, name: str) -> str:
+        for r in self.report:
+            if r.name == name:
+                return r.policy
+        raise KeyError(name)
+
+
+def _fit_block(K: int, N: int, block: Tuple[int, int]) -> Optional[Tuple[int, int]]:
+    """Clip the rule block to the shape; None if it cannot tile (K, N)."""
+    bk, bn = min(block[0], K), min(block[1], N)
+    if bk < 1 or bn < 1 or K % bk or N % bn:
+        return None
+    return bk, bn
+
+
+def _shared_bitmap(stack: np.ndarray, block: Tuple[int, int],
+                   block_density: float) -> np.ndarray:
+    """One block bitmap for a whole (L, K, N) stack: score by summed |w|."""
+    L, K, N = stack.shape
+    bk, bn = block
+    score = np.abs(stack).reshape(L, K // bk, bk, N // bn, bn).sum(axis=(0, 2, 4))
+    n_total = score.size
+    n_keep = max(1, int(np.ceil(block_density * n_total)))
+    flat = score.ravel()
+    keep = np.argpartition(flat, n_total - n_keep)[n_total - n_keep:]
+    bitmap = np.zeros(n_total, dtype=bool)
+    bitmap[keep] = True
+    return bitmap.reshape(score.shape)
+
+
+def _element_mask(w: np.ndarray, bitmap: np.ndarray, block: Tuple[int, int],
+                  in_block_density: float) -> np.ndarray:
+    """Per-layer element mask under a fixed bitmap; >= 1 element survives in
+    every present block."""
+    K, N = w.shape
+    bk, bn = block
+    gb = w.reshape(K // bk, bk, N // bn, bn)
+    if in_block_density >= 1.0:
+        em = np.broadcast_to(bitmap[:, None, :, None], gb.shape)
+        return em.reshape(K, N).copy()
+    k_in = max(1, int(np.ceil(in_block_density * bk * bn)))
+    m4 = np.zeros(gb.shape, dtype=bool)
+    for r, c in zip(*np.nonzero(bitmap)):
+        blk = np.abs(gb[r, :, c, :])
+        thr = np.partition(blk.ravel(), blk.size - k_in)[blk.size - k_in]
+        m4[r, :, c, :] = blk >= thr
+    return m4.reshape(K, N)
+
+
+def _mask_bitmap(mask: np.ndarray, block: Tuple[int, int]) -> np.ndarray:
+    return pattern_from_mask(mask, block).bitmap
+
+
+def _decide_policy(name: str, override: Optional[str], K: int, N: int,
+                   rules: CompileRules, *,
+                   block: Optional[Tuple[int, int]]) -> Tuple[str, int]:
+    """Per-layer (policy, quant_bits): the explicit override, else dense
+    below ``min_weight_elems``; a cost-model pick raises until that slice
+    is ported."""
+    valid = compile_policies()
+    if override == "autotune":
+        raise NotImplementedError(
+            f"{name}: policy 'autotune' needs the autotuner, which is not "
+            "ported yet (ROADMAP Queue A item 8)")
+    if override is not None and override not in valid:
+        raise ValueError(
+            f"{name}: unknown policy {override!r} — valid: {valid}")
+    if override is not None and block is None and \
+            payload_registry.policy_eliminates_blocks(override):
+        raise ValueError(
+            f"{name}: policy {override!r} was explicitly requested but "
+            f"block {rules.block} cannot tile shape {(K, N)} — pick a "
+            "dividing block or drop the override")
+    if override is None:
+        if K * N < rules.min_weight_elems:
+            return "dense", rules.quant_bits
+        raise NotImplementedError(
+            f"{name}: no explicit policy for this {(K, N)} leaf, and "
+            f"{_COST_MODEL_SLICE} — give CompileRules.policies an entry")
+    return override, rules.quant_bits
+
+
+@dataclasses.dataclass
+class _LeafPlan:
+    path: str
+    parent: dict
+    key: str
+    stack: np.ndarray            # (L, K, N) f32
+    stacked: bool
+    mask: Optional[np.ndarray]   # (L, K, N) bool or None
+    block: Optional[Tuple[int, int]]
+    bitmap: Optional[np.ndarray]
+    policy: str
+    bits: int
+    bd: float
+    ed: float
+
+
+def _iter_linears(tree: Any, path: str = "", in_linear_subtree: bool = False):
+    """Yield (path, parent_dict, key) for every (compiled or raw) linear."""
+    if not isinstance(tree, dict):
+        return
+    weight_leaves = payload_registry.weight_leaf_names()
+    for k, v in tree.items():
+        p = f"{path}/{k}" if path else k
+        if (in_linear_subtree and k in _LINEAR_KEYS and isinstance(v, dict)
+                and any(lk in v for lk in weight_leaves)):
+            yield p, tree, k
+        elif isinstance(v, dict):
+            yield from _iter_linears(
+                v, p, in_linear_subtree or k in _LINEAR_SUBTREES)
+
+
+def _copy_spine(tree):
+    """Copy the dict structure; tensor leaves are shared, never mutated."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _copy_spine(v) for k, v in tree.items()}
+
+
+def compile_model(
+    params: Any,
+    cfg: Any,
+    *,
+    masks: Optional[Dict[str, np.ndarray]] = None,
+    rules: CompileRules = CompileRules(),
+    device=None,
+) -> CompressedModel:
+    """Lower a dense-family transformer parameter tree onto the compressed
+    datapath; the compiled leaves land on ``device`` (CUDA unless
+    ``device="cpu"``).
+
+    ``masks`` maps leaf names ("wq", ...) or full paths ("blocks/attn/wq")
+    to (L, K, N) / (K, N) boolean keep-masks; absent entries are derived by
+    two-level pruning at ``rules.block_density`` x
+    ``rules.in_block_density``.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the port compiles the dense family only, got {cfg.family!r}")
+    dev = resolve_device(device)
+    patterns: Dict[Tuple[int, int], BlockSparsePattern] = {}
+    report: List[LayerReport] = []
+    consumed_mask_keys, consumed_policy_keys = set(), set()
+
+    def _lookup(table, path, leaf, consumed):
+        if not table:
+            return None
+        key = path if path in table else (leaf if leaf in table else None)
+        if key is None:
+            return None
+        consumed.add(key)
+        return table[key]
+
+    new_params = _copy_spine(params)
+    sites = list(_iter_linears(new_params["blocks"], "blocks"))
+    if isinstance(params.get("head"), dict) and any(
+            lk in params["head"]
+            for lk in payload_registry.weight_leaf_names()):
+        sites.append(("head", new_params, "head"))
+
+    # Phase A — analyse each leaf: policy + (for sparse) its own bitmap.
+    plans: List[_LeafPlan] = []
+    for path, parent, key in sites:
+        leaf = parent[key]
+        if "w" not in leaf:
+            raise ValueError(
+                f"{path}: leaf is already compiled ({sorted(leaf)}); "
+                "compile_model expects a raw dense parameter tree — use "
+                "decompress_model() first to recompile")
+        w = to_numpy_f32(leaf["w"])
+        stacked = w.ndim == 3
+        stack = w if stacked else w[None]
+        L, K, N = stack.shape
+        m = _lookup(masks, path, key, consumed_mask_keys)
+        mask = None
+        if m is not None:
+            mask = np.asarray(m, bool)
+            mask = mask if mask.ndim == 3 else mask[None]
+            if mask.shape[1:] != (K, N) or mask.shape[0] not in (1, L):
+                raise ValueError(
+                    f"{path}: mask shape {mask.shape} does not match "
+                    f"weight stack {(L, K, N)}")
+            if mask.shape[0] == 1 and L > 1:
+                mask = np.broadcast_to(mask, (L, K, N)).copy()
+        block = _fit_block(K, N, rules.block)
+        bitmap = None
+        if mask is not None and block is not None:
+            bitmap = _mask_bitmap(mask[0], block)
+            for ml in mask[1:]:
+                bitmap |= _mask_bitmap(ml, block)
+            bd = bitmap.sum() / bitmap.size
+            ed = mask.sum() / mask.size
+        else:
+            bd = rules.block_density
+            ed = rules.block_density * rules.in_block_density
+        policy, bits = _decide_policy(
+            path, _lookup(rules.policies, path, key, consumed_policy_keys),
+            K, N, rules, block=block)
+        if payload_registry.policy_eliminates_blocks(policy) and bitmap is None:
+            bitmap = _shared_bitmap(stack, block, rules.block_density)
+            bd = bitmap.sum() / bitmap.size
+        plans.append(_LeafPlan(path, parent, key, stack, stacked, mask,
+                               block, bitmap, policy, bits, float(bd),
+                               float(ed)))
+
+    valid = sorted(pl.path for pl in plans)
+    unused = set(masks or {}) - consumed_mask_keys
+    if unused:
+        raise ValueError(
+            f"masks keys matched no linear leaf: {sorted(unused)} — valid "
+            f"keys are leaf names or full paths from {valid}; a typo here "
+            "would silently drop pruning")
+    unused = set(rules.policies or {}) - consumed_policy_keys
+    if unused:
+        raise ValueError(
+            f"policies keys matched no linear leaf: {sorted(unused)} — "
+            f"valid keys are leaf names or full paths from {valid}")
+
+    # Phase B — one pattern per (K, N) shape: union of the leaf bitmaps.
+    for pl in plans:
+        if not payload_registry.policy_eliminates_blocks(pl.policy):
+            continue
+        K, N = pl.stack.shape[1:]
+        prev = patterns.get((K, N))
+        bitmap = pl.bitmap.copy() if prev is None else prev.bitmap | pl.bitmap
+        patterns[(K, N)] = pattern_from_bitmap((K, N), pl.block, bitmap)
+
+    # Phase C — rewrite the leaves.
+    for pl in plans:
+        leaf = pl.parent[pl.key]
+        L, K, N = pl.stack.shape
+        w0 = leaf["w"]
+        dense_bytes = int(w0.numel() * w0.element_size())
+        out = {k: v for k, v in leaf.items() if k != "w"}
+        bd, ed = pl.bd, pl.ed
+        eliminates = payload_registry.policy_eliminates_blocks(pl.policy)
+        if not eliminates:
+            bd = 1.0
+            ed = 1.0 if pl.mask is None else pl.mask.sum() / pl.mask.size
+        if pl.policy == "dense":
+            if pl.mask is None:
+                out["w"] = w0.to(dev)
+            else:
+                masked = pl.stack * pl.mask
+                w = masked if pl.stacked else masked[0]
+                out["w"] = torch.from_numpy(w).to(device=dev, dtype=w0.dtype)
+            comp_bytes = cont_bytes = dense_bytes
+        else:
+            pc = payload_registry.policy_compiler(pl.policy)
+            mask, pattern = pl.mask, None
+            if eliminates:
+                if mask is None:
+                    mask = np.stack([
+                        _element_mask(wl, pl.bitmap, pl.block,
+                                      rules.in_block_density)
+                        for wl in pl.stack])
+                pattern = patterns[(K, N)]
+            leaves, comp_bytes, cont_bytes, ed_r = pc.compile_stack(
+                pl.stack, mask, pattern=pattern, bits=pl.bits, rules=rules)
+            if ed_r is not None:
+                ed = ed_r
+            if pattern is not None:
+                bd = pattern.block_density
+            if not pl.stacked:
+                leaves = {k: v[0] for k, v in leaves.items()}
+            out.update({k: v.to(dev) for k, v in leaves.items()})
+        pl.parent[pl.key] = out
+        report.append(LayerReport(
+            name=pl.path, policy=pl.policy, shape=(K, N), n_layers=L,
+            dense_bytes=dense_bytes, compressed_bytes=int(comp_bytes),
+            block_density=float(bd), element_density=float(ed),
+            container_bytes=int(cont_bytes)))
+    return CompressedModel(params=new_params, patterns=patterns, report=report)
+
+
+def _decompress_leaf(leaf, pattern, dtype, shape=None):
+    fam = payload_registry.family_for_leaves(leaf)
+    if fam is None or fam.decompress is None:
+        return leaf
+    return fam.decompress(leaf, pattern=pattern, shape=shape, dtype=dtype)
+
+
+def decompress_model(cm: CompressedModel, *, dtype=torch.float32) -> Any:
+    """Dense oracle: a plain-``w`` tree rebuilt from the compressed one
+    (dequantised, blocks scattered back)."""
+    shape_of = {r.name: r.shape for r in cm.report}
+    out = _copy_spine(cm.params)
+    for path, parent, k in _iter_linears(out["blocks"], "blocks"):
+        parent[k] = _decompress_leaf(parent[k], cm.patterns.get(shape_of.get(path)),
+                                     dtype, shape=shape_of.get(path))
+    if isinstance(out.get("head"), dict):
+        out["head"] = _decompress_leaf(
+            out["head"], cm.patterns.get(shape_of.get("head")), dtype,
+            shape=shape_of.get("head"))
+    return out

@@ -1,0 +1,201 @@
+"""Per-output-channel quant families: int8 codes and the bit-packed int4
+container, plus the ``"quant"`` policy compiler.
+
+Leaf forms:
+
+* ``quant``        — ``{"w_q": (K, N) int8, "w_s": (N,) f32}``
+* ``quant_packed`` — ``{"w_qp": (ceil(K/2), N) uint8, "w_s": (N,) f32}``
+  (two 4-bit codes per byte along K; the logical K comes from the
+  activation)
+
+Payload forms: :class:`QuantizedTensor` and :class:`PackedTensor`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import dispatch as _d
+from .. import payload_registry as _reg
+from ..quant import (
+    PackedTensor,
+    QuantizedTensor,
+    pack_int4,
+    quantize,
+    unpack_int4,
+)
+
+
+def _apply_quant(p, x, *, pattern, cfg, bias, activation, compute_dtype,
+                 leaf):
+    del pattern
+    N = int(p["w_q"].shape[-1])
+    qt = QuantizedTensor(values=p["w_q"], scales=p["w_s"].reshape(N), axis=1,
+                         bits=8)
+    return _d.quant_linear(x, qt, bias=bias, activation=activation,
+                           out_dtype=compute_dtype,
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+
+
+def _apply_quant_packed(p, x, *, pattern, cfg, bias, activation,
+                        compute_dtype, leaf):
+    # the container cannot tell K from K+1 when K is odd: K comes from x
+    del pattern
+    wp = p["w_qp"]
+    K, N = int(x.shape[-1]), int(wp.shape[-1])
+    if wp.shape[-2] != (K + 1) // 2:
+        raise ValueError(
+            f"packed quant container rows {wp.shape[-2]} do not match "
+            f"activation K={K} (expected ceil(K/2)={(K + 1) // 2}) — "
+            "w_qp leaves are packed two codes per byte along K")
+    pt = PackedTensor(data=wp, shape=(K, N), axis=0,
+                      scales=p["w_s"].reshape(N), bits=4, per_byte=2)
+    return _d.quant_linear(x, pt, bias=bias, activation=activation,
+                           out_dtype=compute_dtype,
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+
+
+# ------------------------------------------------------------------ payload
+
+
+def _matches_packed(payload):
+    return isinstance(payload, PackedTensor) and payload.per_byte == 2 \
+        and payload.axis % len(payload.shape) == 0
+
+
+def _from_payload_packed(payload):
+    if not _matches_packed(payload):
+        return None
+    K, N = payload.shape
+    return {"w_qp": payload.data, "w_s": payload.scales.reshape(N)}, None
+
+
+def _from_payload(payload):
+    if isinstance(payload, PackedTensor):
+        # an N-axis container (odd K) unpacks to the int8 codes
+        K, N = payload.shape
+        return {"w_q": payload.unpack(), "w_s": payload.scales.reshape(N)}, \
+            None
+    if isinstance(payload, QuantizedTensor):
+        K, N = payload.values.shape
+        return {"w_q": payload.values, "w_s": payload.scales.reshape(N)}, None
+    return None
+
+
+# --------------------------------------------------------------- decompress
+
+
+def _decompress(leaf, *, pattern, shape, dtype):
+    del pattern, shape
+    w_q, w_s = leaf["w_q"], leaf["w_s"]
+    w = w_q.to(torch.float32) * (
+        w_s[..., None, :] if w_q.ndim == 3 else w_s[None, :])
+    out = {k: v for k, v in leaf.items() if k not in ("w_q", "w_s")}
+    out["w"] = w.to(dtype)
+    return out
+
+
+def _decompress_packed(leaf, *, pattern, shape, dtype):
+    # the logical K comes from the report's (K, N) shape
+    assert shape is not None, "packed quant leaf without a report shape"
+    w_q = unpack_int4(leaf["w_qp"], shape[0], axis=-2)
+    leaf = {**{k: v for k, v in leaf.items() if k != "w_qp"}, "w_q": w_q}
+    return _decompress(leaf, pattern=pattern, shape=shape, dtype=dtype)
+
+
+# ------------------------------------------------------------------- policy
+
+
+def _quantize_stack(stack: np.ndarray, bits: int):
+    """(L, K, N) -> w_q (L, K, N) int8, w_s (L, N) f32 per-out-channel."""
+    qs, ss = [], []
+    for wl in stack:
+        qt = quantize(torch.from_numpy(np.ascontiguousarray(wl)), bits, axis=1)
+        qs.append(qt.values)
+        ss.append(qt.scales.reshape(-1))
+    return torch.stack(qs), torch.stack(ss).to(torch.float32)
+
+
+def _compile_stack(stack, masks, *, pattern, bits, rules):
+    """Quantise an (L, K, N) stack: 8-bit ``{"w_q", "w_s"}``; 3/4-bit codes
+    bit-packed two per byte along K into ``{"w_qp", "w_s"}``.  Returns
+    (leaves, code_bytes, container_bytes, None)."""
+    del pattern, rules
+    if bits <= 2 and stack.shape[1] % 4 == 0:
+        raise NotImplementedError(
+            "quant policy at <=2 bits emits the int2x4 family (w_q2), which "
+            "the port does not have yet (ROADMAP Queue A, remaining "
+            "families)")
+    masked = stack if masks is None else stack * masks
+    w_q, w_s = _quantize_stack(masked, bits)
+    code_bytes = int(w_q.numel() + w_s.numel() * 4)
+    if bits <= 4:
+        w_qp = pack_int4(w_q, axis=1)
+        leaves = {"w_qp": w_qp, "w_s": w_s}
+        return leaves, code_bytes, int(w_qp.numel() + w_s.numel() * 4), None
+    return {"w_q": w_q, "w_s": w_s}, code_bytes, code_bytes, None
+
+
+# ------------------------------------------------------------------ samples
+
+
+def _validate_scales(name: str, key_leaf: str):
+    """The per-output-channel scales must match the code leaf's N axis."""
+
+    def validate(p, pattern):
+        del pattern
+        w, s = p.get(key_leaf), p.get("w_s")
+        if w is None or s is None:
+            return
+        if s.shape[-1] != w.shape[-1]:
+            raise ValueError(
+                f"{name} payload: scale leaf 'w_s' has {s.shape[-1]} "
+                f"channels but code leaf {key_leaf!r} has N="
+                f"{w.shape[-1]} output columns (shapes {tuple(s.shape)} "
+                f"vs {tuple(w.shape)}) — stale scales from a different "
+                "compile would dequantise silently wrong")
+
+    return validate
+
+
+def _sample(rng):
+    qt = quantize(torch.as_tensor(rng.normal(size=(16, 8)), dtype=torch.float32),
+                  8, axis=1)
+    return {"w_q": qt.values, "w_s": qt.scales.reshape(8)}, None
+
+
+def _sample_packed(rng):
+    qt = quantize(torch.as_tensor(rng.normal(size=(16, 8)), dtype=torch.float32),
+                  4, axis=1)
+    return {"w_qp": pack_int4(qt.values, axis=0),
+            "w_s": qt.scales.reshape(8)}, None
+
+
+PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
+    name="quant_packed",
+    key_leaf="w_qp",
+    leaf_names=("w_qp", "w_s"),
+    apply=_apply_quant_packed,
+    from_payload=_from_payload_packed,
+    decompress=_decompress_packed,
+    leaf_ndim={"w_qp": 2, "w_s": 1},
+    sample=_sample_packed,
+    validate=_validate_scales("quant_packed", "w_qp"),
+))
+
+FAMILY = _reg.register(_reg.PayloadFamily(
+    name="quant",
+    key_leaf="w_q",
+    leaf_names=("w_q", "w_s"),
+    apply=_apply_quant,
+    from_payload=_from_payload,
+    decompress=_decompress,
+    leaf_ndim={"w_q": 2, "w_s": 1},
+    sample=_sample,
+    validate=_validate_scales("quant", "w_q"),
+))
+
+POLICY = _reg.register_policy(_reg.PolicyCompiler(
+    name="quant",
+    compile_stack=_compile_stack,
+))

@@ -1,0 +1,103 @@
+"""Quantised dense matmul — the wrapper of the CUDA kernel.
+
+``y = act((x @ Wq) * s + b)`` with int8 codes or bit-packed int4x2 / int2x4
+codes along K; the scale multiplies the f32 accumulator at emit.  The kernel
+(``csrc/quant_matmul.cu``) replaces the Pallas ``quant_matmul`` of
+``repro.kernels.quant_matmul.kernel``; its plain PyTorch version is
+:func:`repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`.
+
+The wrapper launches the kernel for CUDA tensors and takes the plain
+version for CPU tensors, and only then.  ``launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import build
+from ..sparse_matmul.kernel import (
+    X_DTYPES,
+    act_args,
+    check_cuda_operand,
+    packed_ratio,
+    ptr,
+    rows_per_cta,
+    vec_f32,
+    w_kind,
+)
+
+__all__ = ["quant_matmul", "launches"]
+
+# kernel launches since the counter was last set to 0
+launches = 0
+
+
+def _lib():
+    fn = build.library("quant_matmul").qmm_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, P, I, I, P, P, P, I, I, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def quant_matmul(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    scales: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    activation=None,
+    packed=False,
+    name: str = "quant_matmul",
+) -> torch.Tensor:
+    """y = act(x @ dequant(W) + b), in x's dtype.
+
+    ``w_q`` is ``(K, N)`` int8, or with ``packed`` "int4x2"/"int2x4" the
+    uint8 container ``(K / ratio, N)`` packed along K (K divisible by the
+    ratio).  ``name`` labels errors (the dispatch passes the leaf name).
+    """
+    global launches
+    ratio = packed_ratio(packed)
+    M, K = x.shape
+    N = int(w_q.shape[1])
+    if packed and K % ratio:
+        raise ValueError(
+            f"{name}: a {packed} container needs K divisible by {ratio}, "
+            f"got K={K}")
+    if int(w_q.shape[0]) * ratio != K:
+        raise ValueError(
+            f"{name}: weight rows {int(w_q.shape[0])} x {ratio} codes/byte "
+            f"!= K={K}")
+    if not x.is_cuda:
+        from .ref import quant_matmul_ref
+        from ...core.quant import unpack_codes
+        codes = unpack_codes(w_q, K, axis=0, bits=8 // ratio) \
+            if ratio > 1 else w_q
+        return quant_matmul_ref(x, codes, scales, bias=bias,
+                                activation=activation, out_dtype=x.dtype)
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+    if M < 1:
+        raise ValueError(f"{name}: needs at least one row, got M={M}")
+    code, tau = act_args(activation)
+    kind = w_kind(w_q, ratio, name)
+    if kind not in (2, 3, 4):
+        raise ValueError(
+            f"{name}: the quant kernel takes int8 or packed uint8 codes, got "
+            f"{w_q.dtype}")
+    dev = x.device
+    check_cuda_operand(x, dev, "x", name)
+    check_cuda_operand(w_q, dev, "w_q", name)
+    s = vec_f32(scales, N, dev, "scales", name)
+    b = vec_f32(bias, N, dev, "bias", name)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    err = _lib()(ptr(x), int(x.dtype == torch.bfloat16), M, K, ptr(w_q), kind,
+                 N, ptr(s), ptr(b), ptr(out), rows_per_cta(M), code, tau,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, name)
+    launches += 1
+    return out

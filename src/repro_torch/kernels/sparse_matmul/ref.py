@@ -1,0 +1,47 @@
+"""Plain PyTorch version of the block-sparse matmul kernel."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kernel import _check_activation, apply_activation
+
+
+def block_sparse_matmul_ref(
+    x: torch.Tensor,
+    blocks: torch.Tensor,
+    block_rows,
+    block_cols,
+    *,
+    n_row_blocks: int,
+    n_col_blocks: int,
+    scales: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation=None,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Scatter the (dequantised) blocks back to dense and matmul in f32; the
+    epilogue applies the kernel's bias + activation formulas.  The block
+    coordinates may be host arrays or tensors on x's device."""
+    _check_activation(activation)
+    P, bk, bn = blocks.shape
+    K, N = n_row_blocks * bk, n_col_blocks * bn
+    dev = x.device
+    rows = torch.as_tensor(block_rows, device=dev).long()
+    cols = torch.as_tensor(block_cols, device=dev).long()
+    w = blocks.to(torch.float32)
+    if scales is not None:
+        s = scales.reshape(n_col_blocks, bn).to(torch.float32)
+        w = w * s[cols][:, None, :]
+    dense = torch.zeros((n_row_blocks, n_col_blocks, bk, bn),
+                        dtype=torch.float32, device=dev)
+    if P:
+        dense[rows, cols] = w
+    dense = dense.permute(0, 2, 1, 3).reshape(K, N)
+    y = x.to(torch.float32) @ dense
+    if bias is not None:
+        y = y + bias.reshape(N).to(torch.float32)[None, :]
+    if activation is not None:
+        y = apply_activation(y, activation)
+    return y.to(out_dtype)

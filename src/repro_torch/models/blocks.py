@@ -1,0 +1,239 @@
+"""Transformer blocks of the dense family: GQA attention over a float or
+bit-packed int4x2 KV cache, and the MLP — every linear through the
+compressed-linear dispatch."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core import payload_registry
+from ..core.dispatch import attn_packed_dispatch
+from ..core.families._util import he_init
+from ..core.quant import pack_int4
+from .config import ArchConfig
+from .layers import (
+    Params,
+    apply_rope,
+    decode_attention,
+    layernorm,
+    linear_apply,
+    prefill_attention,
+    rmsnorm,
+)
+
+# KV-cache containers of the port (attn_cache_init kv_cache=):
+#   "float"  — (B, T, Hkv, Dh) activations at cfg.param_dtype
+#   "int4x2" — int4 codes packed two per byte along Dh + per-(slot, pos,
+#              head) f32 scales
+KV_CACHE_MODES = ("float", "int4x2")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+def norm_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if cfg.norm == "rms" else layernorm(p, x)
+
+
+def lin_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, K: int, N: int,
+              patterns=None, dispatch=None, leaf: Optional[str] = None):
+    """``patterns`` is the compile pass's side-table ((K, N) -> static
+    BlockSparsePattern), looked up for the families that need it."""
+    pat = (patterns or {}).get((K, N)) if payload_registry.pattern_leaf(p) \
+        else None
+    return linear_apply(p, x, pattern=pat, dispatch=dispatch, leaf=leaf)
+
+
+# ------------------------------------------------------------------- init
+
+
+def norm_init(cfg: ArchConfig, L: int, device) -> Params:
+    shape = (L, cfg.d_model) if L else (cfg.d_model,)
+    p = {"g": torch.ones(shape, dtype=_dtype(cfg), device=device)}
+    if cfg.norm != "rms":
+        p["b"] = torch.zeros(shape, dtype=_dtype(cfg), device=device)
+    return p
+
+
+def _lin_init(gen: torch.Generator, cfg: ArchConfig, L: int, K: int, N: int,
+              bias: bool = False) -> Params:
+    p = {"w": he_init(gen, (L, K, N), _dtype(cfg), K)}
+    if bias:
+        p["b"] = torch.zeros((L, N), dtype=_dtype(cfg), device=gen.device)
+    return p
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": _lin_init(gen, cfg, L, D, H * Dh, bias=cfg.qkv_bias),
+        "wk": _lin_init(gen, cfg, L, D, Hkv * Dh, bias=cfg.qkv_bias),
+        "wv": _lin_init(gen, cfg, L, D, Hkv * Dh, bias=cfg.qkv_bias),
+        "wo": _lin_init(gen, cfg, L, H * Dh, D),
+    }
+
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
+    D, F_ = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"wg": _lin_init(gen, cfg, L, D, F_),
+                "wu": _lin_init(gen, cfg, L, D, F_),
+                "wd": _lin_init(gen, cfg, L, F_, D)}
+    return {"wu": _lin_init(gen, cfg, L, D, F_),
+            "wd": _lin_init(gen, cfg, L, F_, D)}
+
+
+# ----------------------------------------------------------------- attention
+
+
+def _kv_quant(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(slot, pos, head) int4 quantisation of KV rows
+    (B, T, Hkv, Dh): one scale per row, so an appended row never rescales
+    the history."""
+    uf = u.to(torch.float32)
+    amax = uf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax / 7.0, 1e-12)            # (B, T, Hkv)
+    codes = torch.clamp(torch.round(uf / scale[..., None]), -7, 7)
+    return codes.to(torch.int8), scale
+
+
+def _kv_insert(cache_kv: torch.Tensor, upd: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """Write ``upd`` (B, C, ...) into ``cache_kv`` (B, T, ...) at rows
+    ``idx[b] .. idx[b] + C - 1``, in place.
+
+    The start row is clamped to ``[0, T - C]``, as ``dynamic_update_slice``
+    clamps it in the reference: an idle slot whose length is T writes its
+    garbage row at T - 1 instead of failing.
+    """
+    B, T = cache_kv.shape[:2]
+    C = upd.shape[1]
+    start = torch.clamp(idx.to(torch.int64), 0, T - C)
+    pos = start[:, None] + torch.arange(C, device=idx.device)[None, :]
+    slot = torch.arange(B, device=idx.device)[:, None].expand(B, C)
+    cache_kv[slot, pos] = upd.to(cache_kv.dtype)
+    return cache_kv
+
+
+def _extent(arr: torch.Tensor, t_bound: Optional[int]) -> torch.Tensor:
+    """The cache leaf bounded to its first ``t_bound`` positions (a view)."""
+    if t_bound is not None and t_bound < arr.shape[1]:
+        return arr[:, :t_bound]
+    return arr
+
+
+def attn_apply(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,                 # (B, T, D)
+    positions: torch.Tensor,         # (B, T)
+    cache: Dict,
+    patterns=None,
+    dispatch=None,
+    *,
+    n_valid: Optional[torch.Tensor] = None,  # (B,) valid rows of the T axis
+    t_bound: Optional[int] = None,   # cache-read extent (axis 1)
+    bt: Optional[int] = None,        # packed-read kv tile rows
+) -> Tuple[torch.Tensor, Dict]:
+    """Cached attention: T == 1 is a decode row, T > 1 a prefill chunk.
+
+    Both insert their K/V at each slot's ``length`` and attend with a
+    per-row causal extent.  The cache is updated IN PLACE (rows, scales
+    and ``length``) and returned.  ``n_valid`` marks how many of the T rows
+    are real; the rest write garbage rows past the new length, masked on
+    every later read or overwritten by the next real write.
+    """
+    B, T, D = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = lin_apply(cfg, p["wq"], x, D, H * Dh, patterns, dispatch,
+                  "attn/wq").reshape(B, T, H, Dh)
+    k = lin_apply(cfg, p["wk"], x, D, Hkv * Dh, patterns, dispatch,
+                  "attn/wk").reshape(B, T, Hkv, Dh)
+    v = lin_apply(cfg, p["wv"], x, D, Hkv * Dh, patterns, dispatch,
+                  "attn/wv").reshape(B, T, Hkv, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    idx = cache["length"]
+    nv = torch.full((B,), T, dtype=torch.int32, device=x.device) \
+        if n_valid is None else n_valid.to(torch.int32)
+    row = torch.arange(T, dtype=torch.int32, device=x.device)
+    # row c attends to idx + c + 1 positions; garbage rows clamp to the
+    # last valid extent (>= 1, so no all-masked softmax row)
+    lengths = idx[:, None] + torch.minimum(row + 1, nv[:, None])
+    lengths = torch.clamp_min(lengths, 1)
+    if "k" in cache:
+        _kv_insert(cache["k"], k, idx)
+        _kv_insert(cache["v"], v, idx)
+        kx, vx = _extent(cache["k"], t_bound), _extent(cache["v"], t_bound)
+        if T == 1:
+            o = decode_attention(q, kx, vx, lengths[:, 0])
+        else:
+            o = prefill_attention(q, kx, vx, lengths)
+    else:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        _kv_insert(cache["k_s"], ks, idx)
+        _kv_insert(cache["v_s"], vs, idx)
+        _kv_insert(cache["k_p"], pack_int4(kq, axis=-1), idx)
+        _kv_insert(cache["v_p"], pack_int4(vq, axis=-1), idx)
+        o = attn_packed_dispatch(
+            q, _extent(cache["k_p"], t_bound), _extent(cache["v_p"], t_bound),
+            _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
+            lengths, dispatch=dispatch, bt=bt, leaf="attn.kv")
+    idx += nv
+    o = o.reshape(B, T, H * Dh)
+    return lin_apply(cfg, p["wo"], o, H * Dh, D, patterns, dispatch,
+                     "attn/wo"), cache
+
+
+def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                    kv_cache: str = "float", *, layers: int = 0,
+                    device=None) -> Dict:
+    """Decode KV cache in one of :data:`KV_CACHE_MODES`; ``layers`` > 0
+    adds a leading layer axis to every leaf."""
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    lead = (layers,) if layers else ()
+    z = lambda *shape, dtype: torch.zeros(lead + shape, dtype=dtype,
+                                          device=device)
+    length = z(batch, dtype=torch.int32)
+    if kv_cache in (None, "float"):
+        return {"k": z(batch, max_len, Hkv, Dh, dtype=_dtype(cfg)),
+                "v": z(batch, max_len, Hkv, Dh, dtype=_dtype(cfg)),
+                "length": length}
+    if kv_cache == "int4":
+        raise NotImplementedError(
+            "kv_cache='int4' (int8 codes) is not ported yet; 'int4x2' holds "
+            "the same codes bit-packed")
+    if kv_cache not in KV_CACHE_MODES:
+        raise ValueError(
+            f"unknown kv_cache container {kv_cache!r} — valid: "
+            f"{KV_CACHE_MODES}")
+    return {
+        "k_p": z(batch, max_len, Hkv, (Dh + 1) // 2, dtype=torch.uint8),
+        "v_p": z(batch, max_len, Hkv, (Dh + 1) // 2, dtype=torch.uint8),
+        "k_s": z(batch, max_len, Hkv, dtype=torch.float32),
+        "v_s": z(batch, max_len, Hkv, dtype=torch.float32),
+        "length": length,
+    }
+
+
+# ----------------------------------------------------------------------- mlp
+
+
+def mlp_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, patterns=None,
+              dispatch=None) -> torch.Tensor:
+    D, F_ = cfg.d_model, cfg.d_ff
+    if "wg" in p:
+        g = F.silu(lin_apply(cfg, p["wg"], x, D, F_, patterns, dispatch,
+                             "mlp/wg").to(torch.float32))
+        u = lin_apply(cfg, p["wu"], x, D, F_, patterns, dispatch,
+                      "mlp/wu").to(torch.float32)
+        return lin_apply(cfg, p["wd"], (g * u).to(x.dtype), F_, D, patterns,
+                         dispatch, "mlp/wd")
+    h = F.gelu(lin_apply(cfg, p["wu"], x, D, F_, patterns, dispatch,
+                         "mlp/wu").to(torch.float32), approximate="tanh")
+    return lin_apply(cfg, p["wd"], h.to(x.dtype), F_, D, patterns, dispatch,
+                     "mlp/wd")

@@ -1,0 +1,158 @@
+"""The dense-family transformer: init, cache and the cached decode/prefill
+steps.
+
+Parameters are plain dicts of tensors whose per-layer leaves are stacked
+along a leading layer axis ``(L, ...)``, as in the JAX reference; the steps
+loop over the layers in Python.  Caches are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .blocks import (
+    _dtype,
+    attn_apply,
+    attn_cache_init,
+    attn_init,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+)
+from .config import ArchConfig
+from .layers import Params, linear_apply
+
+__all__ = ["cache_batch_axes", "decode_step", "init_cache", "init_params",
+           "prefill_step"]
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the port runs the dense family only, got {cfg.family!r} "
+            "(ROADMAP Queue A, remaining families)")
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    L, dt = cfg.n_layers, _dtype(cfg)
+    params: Params = {
+        "embed": {"w": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                                    device=dev) * 0.02).to(dt)},
+        "blocks": {"ln1": norm_init(cfg, L, dev),
+                   "attn": attn_init(gen, cfg, L),
+                   "ln2": norm_init(cfg, L, dev),
+                   "mlp": mlp_init(gen, cfg, L)},
+        "final_norm": norm_init(cfg, 0, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": (torch.randn((cfg.d_model, cfg.vocab),
+                                            generator=gen, device=dev)
+                                * 0.02).to(dt)}
+    return params
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               kv_cache: str = "float", *, device=None) -> Dict:
+    """Stacked decode cache (leading axis = layer): ``"float"`` stores
+    activations, ``"int4x2"`` packed int4 codes + per-row scales."""
+    _check_family(cfg)
+    return attn_cache_init(cfg, batch, max_len, kv_cache=kv_cache,
+                           layers=cfg.n_layers, device=resolve_device(device))
+
+
+def cache_batch_axes(cfg: ArchConfig, kv_cache: str = "float") -> Dict[str, int]:
+    """Per-leaf batch (serving slot) axis of :func:`init_cache`'s leaves:
+    every attention leaf stacks as (L, B, ...)."""
+    _check_family(cfg)
+    leaves = attn_cache_init(cfg, 1, 1, kv_cache=kv_cache, device="meta")
+    return {k: 1 for k in leaves}
+
+
+def _tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layers(params: Params, cache: Dict, cfg: ArchConfig):
+    for i in range(cfg.n_layers):
+        yield _tree_index(params["blocks"], i), \
+            {k: v[i] for k, v in cache.items()}
+
+
+def _dense_block(p, cfg, h, positions, cache, patterns, dispatch, n_valid,
+                 t_bound, bt):
+    a, _ = attn_apply(p["attn"], cfg, norm_apply(cfg, p["ln1"], h), positions,
+                      cache, patterns, dispatch, n_valid=n_valid,
+                      t_bound=t_bound, bt=bt)
+    h = h + a
+    return h + mlp_apply(p["mlp"], cfg, norm_apply(cfg, p["ln2"], h),
+                         patterns=patterns, dispatch=dispatch)
+
+
+def _head(params: Params, cfg: ArchConfig, h: torch.Tensor, patterns,
+          dispatch) -> torch.Tensor:
+    h = norm_apply(cfg, params["final_norm"], h)
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["w"].T.to(h.dtype)
+    return linear_apply(params["head"], h, pattern=(patterns or {}).get(
+        (cfg.d_model, cfg.vocab)), dispatch=dispatch, leaf="head")
+
+
+def _run(params, cfg, cache, tokens, positions, patterns, dispatch, n_valid,
+         t_bound, bt):
+    h = params["embed"]["w"][tokens.to(torch.int64)]
+    for p_layer, c_layer in _layers(params, cache, cfg):
+        h = _dense_block(p_layer, cfg, h, positions, c_layer, patterns,
+                         dispatch, n_valid, t_bound, bt)
+    return _head(params, cfg, h, patterns, dispatch), cache
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Dict,
+                tokens: torch.Tensor, *, patterns=None, dispatch=None,
+                active: Optional[torch.Tensor] = None,
+                t_bound: Optional[int] = None,
+                bt: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    """One token per sequence: tokens (B, 1) -> logits (B, 1, V).
+
+    The cache is updated IN PLACE and returned.  ``active`` is an optional
+    (B,) 0/1 mask: an inactive slot writes a garbage row past its
+    (unadvanced) length.  ``t_bound`` bounds the cache-read extent, ``bt``
+    pins the packed read's kv tile rows; ``patterns`` is the compile pass's
+    side-table and ``dispatch`` the kernel mode.
+    """
+    _check_family(cfg)
+    positions = cache["length"][0][:, None].clone()
+    nv = None if active is None else active.to(torch.int32)
+    return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
+                t_bound, bt)
+
+
+def prefill_step(params: Params, cfg: ArchConfig, cache: Dict,
+                 tokens: torch.Tensor, *, patterns=None, dispatch=None,
+                 n_valid: Optional[torch.Tensor] = None,
+                 t_bound: Optional[int] = None,
+                 bt: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    """One prompt chunk per sequence: tokens (B, C) -> logits (B, C, V).
+
+    Each layer quantise-packs the chunk's K/V and writes it at the slot's
+    length, IN PLACE; row ``c`` attends to ``length + c + 1`` positions.
+    ``n_valid`` (B,) counts the real rows of a ragged final chunk; the
+    final real row's logits give the first generated token.
+    """
+    _check_family(cfg)
+    C = tokens.shape[1]
+    positions = cache["length"][0][:, None] \
+        + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+    nv = None if n_valid is None else n_valid.to(torch.int32)
+    return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
+                t_bound, bt)

@@ -1,0 +1,274 @@
+"""Port transformer steps and serving engine vs the JAX reference.
+
+Logits: f32 ``rtol=1e-5, atol=1e-5`` (the two packages sum matmul products
+in different orders).  Integer cache containers (packed codes) must be
+equal byte for byte; their f32 scales within the same tolerance.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import compile_sparse as jc  # noqa: E402
+from repro.models import model as jm  # noqa: E402
+from repro.models.config import ArchConfig as JCfg  # noqa: E402
+from repro.serve.engine import Request as JReq, ServeEngine as JEng  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import compile_sparse as tc  # noqa: E402
+from repro_torch.kernels.flash_attention import decode_packed as tdp  # noqa: E402
+from repro_torch.kernels.quant_matmul import kernel as tqk  # noqa: E402
+from repro_torch.kernels.sparse_matmul import kernel as tsk  # noqa: E402
+from repro_torch.models import blocks as tb  # noqa: E402
+from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.models.config import ArchConfig as TCfg  # noqa: E402
+from repro_torch.serve.engine import Request as TReq, ServeEngine as TEng  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+POLICIES = {"wq": "quant", "wk": "quant", "wv": "quant", "wo": "quant",
+            "wg": "sparse", "wu": "sparse", "wd": "sparse"}
+
+
+def _pair(**over):
+    kw = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+              n_kv_heads=2, head_dim=16, d_ff=128, vocab=96,
+              param_dtype="float32", tie_embeddings=True)
+    kw.update(over)
+    jcfg, tcfg = JCfg(**kw), TCfg(**kw)
+    jp = jm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _compile(jcfg, tcfg, jp, tp, block):
+    kw = dict(block=block, block_density=0.5, in_block_density=0.5,
+              min_weight_elems=0, quant_bits=4, policies=POLICIES)
+    jcm = jc.compile_model(jp, jcfg, rules=jc.CompileRules(**kw))
+    tcm = tc.compile_model(tp, tcfg, rules=tc.CompileRules(**kw),
+                           device="cpu")
+    return jcm, tcm
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jcfg, tcfg, jp, tp = _pair()
+    jcm, tcm = _compile(jcfg, tcfg, jp, tp, (32, 32))
+    return jcfg, tcfg, jp, tp, jcm, tcm
+
+
+def _cache_np(cache):
+    return {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in cache.items()}
+
+
+def _check_caches(jcache, tcache):
+    j, t = _cache_np(jcache), _cache_np(tcache)
+    assert sorted(j) == sorted(t)
+    for k in j:
+        if j[k].dtype.kind == "f":
+            np.testing.assert_allclose(t[k], j[k], **TOL, err_msg=k)
+        else:
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+@pytest.mark.parametrize("kv", ["float", "int4x2"])
+def test_prefill_and_decode_steps_match_reference(tiny, kv, compiled):
+    jcfg, tcfg, jp, tp, jcm, tcm = tiny
+    jparams, tparams = (jcm.params, tcm.params) if compiled else (jp, tp)
+    jpat, tpat = (jcm.patterns, tcm.patterns) if compiled else (None, None)
+    B, T = 3, 16
+    jcache = jm.init_cache(jcfg, B, T, kv_cache=kv)
+    tcache = tm.init_cache(tcfg, B, T, kv_cache=kv, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 96, size=(B, 8)).astype(np.int32)
+    nv = np.array([8, 5, 0], np.int32)
+    jl, jcache = jm.prefill_step(jparams, jcfg, jcache, jnp.asarray(toks),
+                                 patterns=jpat, dispatch="jnp",
+                                 n_valid=jnp.asarray(nv), t_bound=16, bt=8)
+    tl, tcache = tm.prefill_step(tparams, tcfg, tcache, torch.from_numpy(toks),
+                                 patterns=tpat, n_valid=torch.from_numpy(nv),
+                                 t_bound=16, bt=8)
+    for b in range(B):
+        np.testing.assert_allclose(tl[b, :nv[b]].numpy(),
+                                   np.asarray(jl)[b, :nv[b]], **TOL)
+    _check_caches(jcache, tcache)
+    for step in range(3):
+        tok = rng.integers(0, 96, size=(B, 1)).astype(np.int32)
+        act = np.array([1, 1, step % 2], np.int32)
+        jl, jcache = jm.decode_step(jparams, jcfg, jcache, jnp.asarray(tok),
+                                    patterns=jpat, dispatch="jnp",
+                                    active=jnp.asarray(act), t_bound=16, bt=8)
+        tl, tcache = tm.decode_step(tparams, tcfg, tcache,
+                                    torch.from_numpy(tok), patterns=tpat,
+                                    active=torch.from_numpy(act), t_bound=16,
+                                    bt=8)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _check_caches(jcache, tcache)
+
+
+@pytest.mark.parametrize("kv", ["float", "int4x2"])
+def test_kv_insert_clamps_a_full_slot_like_the_reference(tiny, kv):
+    """A slot whose length equals max_len writes its (inactive) garbage row
+    at max_len - 1, as ``dynamic_update_slice`` clamps the start."""
+    jcfg, tcfg, jp, tp, jcm, tcm = tiny
+    B, T = 2, 8
+    jcache = jm.init_cache(jcfg, B, T, kv_cache=kv)
+    tcache = tm.init_cache(tcfg, B, T, kv_cache=kv, device="cpu")
+    toks = np.arange(16, dtype=np.int32).reshape(B, 8) % 96
+    nv = np.array([8, 3], np.int32)
+    jl, jcache = jm.prefill_step(jp, jcfg, jcache, jnp.asarray(toks),
+                                 dispatch="jnp", n_valid=jnp.asarray(nv), bt=8)
+    tl, tcache = tm.prefill_step(tp, tcfg, tcache, torch.from_numpy(toks),
+                                 n_valid=torch.from_numpy(nv), bt=8)
+    assert tcache["length"][:, 0].tolist() == [T, T]
+    tok = np.array([[5], [7]], np.int32)
+    act = np.array([0, 1], np.int32)
+    jl, jcache = jm.decode_step(jp, jcfg, jcache, jnp.asarray(tok),
+                                dispatch="jnp", active=jnp.asarray(act), bt=8)
+    tl, tcache = tm.decode_step(tp, tcfg, tcache, torch.from_numpy(tok),
+                                active=torch.from_numpy(act), bt=8)
+    np.testing.assert_allclose(tl[1].numpy(), np.asarray(jl)[1], **TOL)
+    _check_caches(jcache, tcache)
+    # the clamp in isolation: rows land at [T - C, T)
+    c = torch.zeros((1, 4, 1))
+    tb._kv_insert(c, torch.ones((1, 2, 1)), torch.tensor([4]))
+    assert c[0, :, 0].tolist() == [0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_reference(dtype):
+    """Norms, RoPE and the float-cache reads round where the reference
+    rounds (bf16 inputs: the same casts give the same bf16 values up to one
+    rounding step, 2^-7 relative)."""
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    tol = TOL if dtype == "float32" else dict(rtol=2 ** -7, atol=2 ** -7)
+    rng = np.random.default_rng(0)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+
+    def both(a):
+        a = np.asarray(a, np.float32)
+        return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
+
+    def close(t, j):
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(j.astype(jnp.float32)), **tol)
+
+    xj, xt = both(rng.normal(size=(2, 5, 32)))
+    gj, gt = both(rng.normal(size=32))
+    bj, bt = both(rng.normal(size=32))
+    close(tl.rmsnorm({"g": gt}, xt), jl.rmsnorm({"g": gj}, xj))
+    close(tl.layernorm({"g": gt, "b": bt}, xt),
+          jl.layernorm({"g": gj, "b": bj}, xj))
+    pos = rng.integers(0, 500, size=(2, 5)).astype(np.int32)
+    qj, qt = both(rng.normal(size=(2, 5, 4, 16)))
+    close(tl.apply_rope(qt, torch.from_numpy(pos), 500000.0),
+          jl.apply_rope(qj, jnp.asarray(pos), 500000.0))
+    kj, kt = both(rng.normal(size=(2, 12, 2, 16)))
+    vj, vt = both(rng.normal(size=(2, 12, 2, 16)))
+    q1j, q1t = both(rng.normal(size=(2, 1, 4, 16)))
+    length = np.array([3, 12], np.int32)
+    close(tl.decode_attention(q1t, kt, vt, torch.from_numpy(length)),
+          jl.decode_attention(q1j, kj, vj, jnp.asarray(length)))
+    lengths = np.array([[1, 2, 3, 4, 5], [8, 9, 10, 11, 12]], np.int32)
+    close(tl.prefill_attention(qt, kt, vt, torch.from_numpy(lengths)),
+          jl.prefill_attention(qj, kj, vj, jnp.asarray(lengths)))
+
+
+def test_init_shapes_and_cache_axes_match_reference():
+    jcfg, tcfg, jp, tp = _pair()
+    ours = tm.init_params(tcfg, seed=3, device="cpu")
+    flat = lambda t, p=(): [x for k, v in t.items() for x in (
+        flat(v, p + (k,)) if isinstance(v, dict) else [(p + (k,), v)])]
+    shapes = lambda t: sorted((p, tuple(v.shape)) for p, v in flat(t))
+    assert shapes(ours) == shapes(jax.tree_util.tree_map(np.asarray, jp))
+    for kv in ("float", "int4x2"):
+        jc_ = jax.tree_util.tree_map(np.asarray, jm.init_cache(jcfg, 2, 8, kv))
+        tc_ = tm.init_cache(tcfg, 2, 8, kv, device="cpu")
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jc_.items()} == \
+            {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+             for k, v in tc_.items()}
+        assert tm.cache_batch_axes(tcfg, kv) == jm.cache_batch_axes(jcfg, kv)
+    with pytest.raises(NotImplementedError, match="int4"):
+        tm.init_cache(tcfg, 2, 8, "int4", device="cpu")
+    with pytest.raises(NotImplementedError, match="dense family"):
+        tm.init_params(dataclasses.replace(tcfg, family="ssm"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tm.init_params(tcfg)
+    cfg = get_config("llama3.2-1b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.param_dtype) == \
+        (16, 2048, 32, 8, 64, 8192, 128256, "bfloat16")
+    assert get_config("llama3_2_1b") is cfg
+
+
+def _serve(engine_cls, req_cls, params, cfg, prompts, **kw):
+    eng = engine_cls(params, cfg, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(req_cls(uid=i, prompt=p, max_new_tokens=6))
+    done = eng.run()
+    return eng, [r.out for r in sorted(done, key=lambda r: r.uid)]
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+def test_serve_engine_tokens_match_reference(compiled):
+    jcfg, tcfg, jp, tp = _pair(d_model=256, n_heads=4, n_kv_heads=2,
+                               head_dim=64, d_ff=512, vocab=512)
+    if compiled:
+        jparams, tparams = _compile(jcfg, tcfg, jp, tp, (128, 128))
+        kv = "int4x2"
+    else:
+        jparams, tparams, kv = jp, tp, "float"
+    rng = np.random.default_rng(1)
+    # the 50-token prompt's 16-row chunk schedule (64 rows) overruns the
+    # 60-row cache, so it is dripped token by token
+    prompts = [rng.integers(0, 512, size=int(n)).astype(np.int32)
+               for n in (3, 17, 40, 9, 50, 33)]
+    kw = dict(batch_slots=3, max_len=60, prefill_chunk=16, kv_cache=kv)
+    jeng, jout = _serve(JEng, JReq, jparams, jcfg, prompts, dispatch="jnp",
+                        **kw)
+    for mod in (tsk, tqk, tdp):
+        mod.launches = 0
+    teng, tout = _serve(TEng, TReq, tparams, tcfg, prompts, device="cpu", **kw)
+    assert tout == jout
+    assert (tsk.launches, tqk.launches, tdp.launches) == (0, 0, 0)
+    assert teng.cache_bytes() == jeng.cache_bytes()
+    js, ts_ = jeng.stats(), teng.stats()
+    for k in ("prefill_steps", "decode_steps", "prefill_tokens",
+              "decode_tokens"):
+        assert ts_[k] == js[k], k
+    assert teng.tokens_processed() == jeng.tokens_processed()
+    assert ts_["prefill_tokens"] == sum(len(p) for p in prompts) - 50
+
+
+def test_serve_engine_lifecycle():
+    jcfg, tcfg, jp, tp = _pair()
+    eng = TEng(tp, tcfg, batch_slots=2, max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit(TReq(uid=0, prompt=np.zeros(0, np.int32)))
+    with pytest.raises(ValueError, match="max_len"):
+        eng.submit(TReq(uid=1, prompt=np.zeros(10, np.int32),
+                        max_new_tokens=8))
+    eng.submit(TReq(uid=2, prompt=np.arange(5, dtype=np.int32),
+                    max_new_tokens=0))
+    eng.submit(TReq(uid=3, prompt=np.arange(4, dtype=np.int32),
+                    max_new_tokens=3))
+    eng.step()
+    done = eng.run()
+    assert sorted(r.uid for r in done) == [2, 3]
+    by = {r.uid: r for r in done}
+    assert by[2].out == [] and len(by[3].out) == 3
+    assert by[3].t_submit <= by[3].t_first <= by[3].t_done
+    st = eng.stats()
+    assert len(st["prefill_ms"]) == st["prefill_steps"] > 0
+    with pytest.raises(ValueError, match="engine runs on"):
+        TEng(tp, tcfg, device="meta")
