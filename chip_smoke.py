@@ -17,7 +17,13 @@ Phases, each fatal on failure:
    to int4x2 quant/block-sparse leaves, serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, require every kernel to have
    launched, and hold a prefill chunk plus 4 decode steps against the
-   plain versions (``dispatch="twin"``).
+   plain versions (``dispatch="twin"``);
+5. lenet   — compile LeNet-5 at its published widths (random weights from a
+   seed) with the Table-I whole-model rules, run the fused forward on 256
+   synthetic digits, require ``block_sparse_conv`` x2 and
+   ``fc_stack_matmul`` x1 per forward (``quant_conv`` x2 with the convs
+   under "quant"), hold the logits against ``dispatch="twin"``, and time
+   images/s beside the masked-dense forward.
 
 Prints the kernels line, the card line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -47,6 +53,18 @@ SERVE_RULES = dict(block=(128, 128), block_density=0.25,
                    policies={"wq": "quant", "wk": "quant", "wv": "quant",
                              "wo": "quant", "wg": "sparse", "wu": "sparse",
                              "wd": "sparse"})
+# benchmarks/table1_lenet.py:85-87 and :105-106, with the densities of a
+# two-level prune (no masks and no cost model needed)
+LENET_BLOCKS = {"fc1": (8, 4), "fc2": (8, 4), "fc3": (4, 2), "conv1": (5, 2),
+                "conv2": (10, 4)}
+LENET_RULES = dict(block=(8, 4), min_weight_elems=0, quant_bits=4,
+                   block_density=0.5, in_block_density=0.25)
+LENET_BATCH = 256
+# LeNet kernel path vs twin: f32 throughout, only the order of summation
+# differs, relative to the largest logit
+LENET_TOL = 1e-4
+# kernel vs plain version on one call, f32: relative to max|ref|
+F32_TOL = 1e-5
 # kernel path vs plain versions through all 16 bf16 layers, relative to the
 # largest logit.  The kernels round like the plain versions but sum in
 # another order, so single bf16 steps differ and grow through the layers.
@@ -262,6 +280,153 @@ def sweep_attention(rng, dev):
     return cases
 
 
+# Conv sweep geometries: (name, (H, W, cin), (kh, kw), strides, dilation,
+# block, N).  The first two are LeNet's conv1 and conv2; the others add
+# strides, dilation and a bk that divides by 4 (int2x4).
+CONV_GEOMS = [
+    ("conv1", (28, 28, 1), (5, 5), (1, 1), (1, 1), (5, 2), 6),
+    ("conv2", (12, 12, 6), (5, 5), (1, 1), (1, 1), (10, 4), 16),
+    ("strided", (11, 11, 4), (3, 3), (2, 2), (1, 1), (12, 4), 8),
+    ("dilated", (13, 13, 4), (3, 3), (1, 1), (2, 2), (12, 4), 8),
+]
+POOLS = [("avg", 2), None, ("max", 2)]
+
+
+def conv_pool(pool, Ho, Wo):
+    """The sweep's pool where its window tiles the output, else a 3x3 max
+    pool where that tiles, else none."""
+    for p in (pool, ("max", 3)):
+        if p is not None and Ho % p[1] == 0 and Wo % p[1] == 0:
+            return p
+    return None
+
+
+def f32_check(name, y, ref):
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    scale = float(ref.abs().max())
+    require(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    require(err <= F32_TOL * scale + 1e-30,
+            f"{name}: max abs err {err} > {F32_TOL} x max|ref| {scale}")
+    return err
+
+
+def sweep_sparse_conv(rng, dev):
+    from repro_torch.core.quant import pack_codes
+    from repro_torch.kernels.sparse_matmul import kernel as K_
+    from repro_torch.kernels.sparse_matmul.kernel import valid_out_hw
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_conv_ref
+
+    cases = 0
+    for gi, (gname, (H, W, C), khw, st, dl, (bk, bn), N) in \
+            enumerate(CONV_GEOMS):
+        K = C * khw[0] * khw[1]
+        nR, nC = K // bk, N // bn
+        Ho, Wo = valid_out_hw(H, W, khw, st, dl)
+        containers = [c for c in ("f32", "int8", "int4x2", "int2x4")
+                      if c in ("f32", "int8") or bk % (2 if c == "int4x2"
+                                                       else 4) == 0]
+        for ci, container in enumerate(containers):
+            for bi, B in enumerate((1, 7, 256)):
+                empty = gi == 1 and ci == 1 and bi == 0
+                bitmap = rng.random((nR, nC)) < 0.5
+                bitmap[:, nC // 2] = False      # an absent column block
+                bitmap[0, 0] = True
+                if empty:
+                    bitmap[:] = False
+                rows, cols = np.nonzero(bitmap)
+                P = rows.size
+                scales, packed = None, False
+                if container == "f32":
+                    vals = torch.randn((P, bk, bn), device=dev) / 4
+                    blocks = vals
+                else:
+                    qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
+                    vals = torch.randint(-qm, qm + 1, (P, bk, bn),
+                                         device=dev).to(torch.int8)
+                    scales = torch.rand((N,), device=dev) / (qm * 4)
+                    blocks = vals
+                    if container != "int8":
+                        packed = container
+                        blocks = pack_codes(vals, axis=1, bits=4 if
+                                            container == "int4x2" else 2)
+                sched = K_.make_schedule(rows, cols, nR, nC, dev)
+                x = torch.randn((B, H, W, C), device=dev)
+                bias = torch.randn((N,), device=dev) if (ci + bi) % 2 \
+                    else None
+                kw = dict(kernel_hw=khw, strides=st, dilation=dl,
+                          activation="relu" if bi % 2 == 0 else None,
+                          pool=conv_pool(POOLS[(ci + bi) % 3], Ho, Wo))
+                y = K_.block_sparse_conv(x, blocks, sched, scales=scales,
+                                         bias=bias, packed=packed, **kw)
+                ref = block_sparse_conv_ref(
+                    x, vals, rows, cols, n_row_blocks=nR, n_col_blocks=nC,
+                    scales=scales, bias=bias, **kw)
+                f32_check(f"block_sparse_conv {gname} {container} B={B} "
+                          f"pool={kw['pool']} empty={empty}", y, ref)
+                cases += 1
+    return cases
+
+
+def sweep_quant_conv(rng, dev):
+    from repro_torch.core.quant import pack_codes
+    from repro_torch.kernels.quant_matmul.kernel import quant_conv
+    from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
+    from repro_torch.kernels.sparse_matmul.kernel import valid_out_hw
+
+    cases = 0
+    for gname, (H, W, C), khw, st, dl, _, N in CONV_GEOMS:
+        K = C * khw[0] * khw[1]
+        Ho, Wo = valid_out_hw(H, W, khw, st, dl)
+        containers = [c for c in ("int8", "int4x2", "int2x4")
+                      if c == "int8" or K % (2 if c == "int4x2" else 4) == 0]
+        for ci, container in enumerate(containers):
+            for bi, B in enumerate((1, 7, 256)):
+                qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
+                codes = torch.randint(-qm, qm + 1, (K, N),
+                                      device=dev).to(torch.int8)
+                scales = torch.rand((N,), device=dev) / (qm * 4)
+                w, packed = codes, False
+                if container != "int8":
+                    packed = container
+                    w = pack_codes(codes, axis=0,
+                                   bits=4 if container == "int4x2" else 2)
+                x = torch.randn((B, H, W, C), device=dev)
+                bias = torch.randn((N,), device=dev) if (ci + bi) % 2 \
+                    else None
+                kw = dict(kernel_hw=khw, strides=st, dilation=dl,
+                          activation="relu" if bi % 2 == 0 else None,
+                          pool=conv_pool(POOLS[(ci + bi) % 3], Ho, Wo))
+                y = quant_conv(x, w, scales, bias, packed=packed, **kw)
+                ref = quant_conv_ref(x, codes, scales, bias, **kw)
+                f32_check(f"quant_conv {gname} {container} B={B} "
+                          f"pool={kw['pool']}", y, ref)
+                cases += 1
+    return cases
+
+
+def sweep_fc_stack(rng, dev):
+    from repro_torch.kernels.fc_stack import (fc_stack_matmul,
+                                              fc_stack_matmul_ref)
+
+    cases = 0
+    stacks = [((256, 120, 84, 10), ["relu", "relu", None]),
+              ((300, 64, 33, 7), ["silu", ("trelu", 0.1), "gelu"]),
+              ((40, 500), [None])]
+    for si, (dims, acts) in enumerate(stacks):
+        ws = [torch.randn((k, n), device=dev) / math.sqrt(k)
+              for k, n in zip(dims, dims[1:])]
+        for bi, B in enumerate((1, 7, 256)):
+            bs = [torch.randn((n,), device=dev) if (si + bi + i) % 2 else None
+                  for i, n in enumerate(dims[1:])]
+            x = torch.randn((B, dims[0]), device=dev)
+            y = fc_stack_matmul(x, ws, bs, acts)
+            ref = fc_stack_matmul_ref(x, ws, bs, acts)
+            f32_check(f"fc_stack_matmul dims={dims} B={B}", y, ref)
+            cases += 1
+    return cases
+
+
 # --------------------------------------------------- main-path measurements
 
 
@@ -392,21 +557,32 @@ def copies(t, n):
 # ---------------------------------------------------------------- serving
 
 
+SERVE_KERNELS = ("block_sparse_matmul", "quant_matmul",
+                 "packed_decode_attention")
+
+
 def counters():
+    """kernel name -> (wrapper module, name of its launch counter)."""
+    from repro_torch.kernels import fc_stack
     from repro_torch.kernels.flash_attention import decode_packed
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.sparse_matmul import kernel as sk
-    return {"block_sparse_matmul": sk, "quant_matmul": qk,
-            "packed_decode_attention": decode_packed}
+    return {"block_sparse_matmul": (sk, "launches"),
+            "quant_matmul": (qk, "launches"),
+            "packed_decode_attention": (decode_packed, "launches"),
+            "block_sparse_conv": (sk, "conv_launches"),
+            "quant_conv": (qk, "conv_launches"),
+            "fc_stack_matmul": (fc_stack, "launches")}
 
 
 def reset_counts():
-    for mod in counters().values():
-        mod.launches = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    return {name: mod.launches for name, mod in counters().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
 
 
 def pct(v, p):
@@ -452,8 +628,8 @@ def serve(dev, report):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    for name, n in counts.items():
-        require(n > 0, f"serving ran without launching {name}")
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0, f"serving ran without launching {name}")
     require(len(done) == 16 and all(len(r.out) == 32 for r in done),
             "not every request got its 32 tokens")
     require(all(0 <= t < cfg.vocab for r in done for t in r.out),
@@ -574,6 +750,322 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
             "launches_per_decode_step": per_step}
 
 
+# ------------------------------------------------------------------ LeNet
+
+
+LENET_NAMES = ("conv1", "conv2", "fc1", "fc2", "fc3")
+# policies of each configuration, and the launches one fused forward needs
+LENET_CONFIGS = {
+    "table1": ({n: "sparse" for n in LENET_NAMES},
+               {"block_sparse_conv": 2, "fc_stack_matmul": 1}),
+    "quant_conv": ({**{n: "sparse" for n in LENET_NAMES}, "conv1": "quant",
+                    "conv2": "quant"},
+                   {"quant_conv": 2, "fc_stack_matmul": 1}),
+}
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Wall-clock per call of ``fn`` (eager: host and device), after a
+    synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def profile_forward(fwd, steps: int = 5):
+    """Device busy time and idle share of one forward (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fwd()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fwd()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[e.key] = e.self_device_time_total / steps
+    busy_ms = sum(dev_us.values()) / 1e3
+    return {"wall_ms_per_forward": wall_ms,
+            "device_busy_ms_per_forward": busy_ms if dev_us else None,
+            "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
+            "device_us_per_forward": dict(sorted(dev_us.items(),
+                                                 key=lambda kv: -kv[1]))}
+
+
+def lenet(dev, report):
+    """Compile LeNet-5 under each configuration, run the fused forward on
+    256 synthetic digits with the counts set to 0 just before it, and hold
+    it against the twin path and the masked-dense forward."""
+    from repro_torch.core.compile_sparse import (CompileRules, compile_lenet,
+                                                 decompress_model)
+    from repro_torch.data.synthetic import synthetic_digits
+    from repro_torch.models.lenet import init_lenet, lenet_forward
+
+    params = init_lenet(seed=0, device=dev)
+    images, _ = synthetic_digits(0, noise=1.1).batch(0, LENET_BATCH)
+    x = torch.from_numpy(images).to(dev)
+    out, cms = {}, {}
+    for cname, (policies, expect) in LENET_CONFIGS.items():
+        t0 = time.perf_counter()
+        cm = compile_lenet(params, rules=CompileRules(**LENET_RULES,
+                                                      policies=policies),
+                           blocks=LENET_BLOCKS, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+
+        def fused():
+            return lenet_forward(params, x, compressed=cm.layers, fusion=True)
+
+        fused()                       # first call: schedules, densify once
+        torch.cuda.synchronize()
+        reset_counts()
+        y = fused()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: expect.get(k, 0) for k in counts}
+        require(counts == want, f"lenet {cname}: one fused forward launched "
+                                f"{counts}, expected {want}")
+        yt = lenet_forward(params, x, compressed=cm.layers, fusion=True,
+                           dispatch="twin")
+        dparams = decompress_model(cm)
+
+        def dense():
+            return lenet_forward(dparams, x)
+
+        yd = dense()
+        torch.cuda.synchronize()
+        require(tuple(y.shape) == (LENET_BATCH, 10) and
+                bool(torch.isfinite(y).all()), f"lenet {cname}: bad logits")
+        top = float(yt.abs().max())
+        err = float((y - yt).abs().max())
+        err_dense = float((yd - yt).abs().max())
+        ak, at = y.argmax(1), yt.argmax(1)
+        diff = (ak != at).nonzero().flatten().tolist()
+        ties = all(abs(float(v[i, ak[i]] - v[i, at[i]])) <= LENET_TOL * top
+                   for i in diff for v in (y, yt))
+        require(err <= LENET_TOL * top,
+                f"lenet {cname}: kernel vs twin logits max abs err {err} > "
+                f"{LENET_TOL} x {top}")
+        require(err_dense <= LENET_TOL * top,
+                f"lenet {cname}: masked-dense vs twin logits max abs err "
+                f"{err_dense} > {LENET_TOL} x {top}")
+        require(ties, f"lenet {cname}: argmax differs beyond a tie at rows "
+                      f"{diff}")
+        fused_ms = [host_ms(fused), host_ms(dense), host_ms(dense),
+                    host_ms(fused)]
+        f_ms = (fused_ms[0] + fused_ms[3]) / 2
+        d_ms = (fused_ms[1] + fused_ms[2]) / 2
+        out[cname] = {
+            "launches_per_forward": counts, "compile_s": compile_s,
+            "max_abs_err_vs_twin": err, "max_abs_err_dense_vs_twin":
+                err_dense, "largest_logit": top, "tol": LENET_TOL * top,
+                "argmax_differs_at": diff,
+            "fused_ms": [fused_ms[0], fused_ms[3]],
+            "masked_dense_ms": [fused_ms[1], fused_ms[2]],
+            "fused_images_per_s": LENET_BATCH / f_ms * 1e3,
+            "masked_dense_images_per_s": LENET_BATCH / d_ms * 1e3,
+            "fused_over_dense": d_ms / f_ms,
+            "container_storage_bytes": cm.container_storage_bytes,
+            "byte_compression": cm.byte_compression,
+            "profile": profile_forward(fused),
+            "profile_masked_dense": profile_forward(dense),
+        }
+        cms[cname] = (cm, counts)
+    report["lenet"] = out
+    return params, x, cms
+
+
+def sparse_conv_operands(cp):
+    """The operands the sparse family hands block_sparse_conv for a
+    compiled conv (core/families/sparse.py ``_conv_fused``)."""
+    pl = cp.payload
+    pat = pl.pattern
+    if pl.packed and pl.blocks.axis % 3 == 1 \
+            and pat.block[0] % pl.blocks.per_byte == 0:
+        return pl.blocks.data, pl.blocks.container
+    return pl.block_values(), False
+
+
+def quant_conv_operands(cp):
+    """The operands the quant family hands quant_conv (``_conv_fused``)."""
+    pl = cp.payload
+    from repro_torch.core.quant import PackedTensor
+    if isinstance(pl, PackedTensor):
+        if pl.axis == 0 and cp.K % pl.per_byte == 0:
+            return pl.data, pl.container, pl.unpack()
+        return pl.unpack(), False, pl.unpack()
+    return pl.values, False, pl.values
+
+
+def measure_lenet_kernels(params, x, cms, dev):
+    """Time each LeNet kernel at B=256 on the compiled model's own leaves,
+    summed over its launches in one forward, beside its bound, its plain
+    version and a library yardstick; inputs are warm in L2, as in the
+    forward (each layer reads what the one before just wrote)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.compile_sparse import conv_weight_unmatrix
+    from repro_torch.core.dispatch import _payload_dense_f32, conv_dispatch
+    from repro_torch.kernels.fc_stack import (fc_stack_matmul,
+                                              fc_stack_matmul_ref)
+    from repro_torch.kernels.quant_matmul.kernel import quant_conv
+    from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
+    from repro_torch.kernels.sparse_matmul.kernel import block_sparse_conv
+    from repro_torch.kernels.sparse_matmul.ops import schedule_for
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_conv_ref
+
+    N_CALLS = 16
+    pool = ("avg", 2)
+    entries, details = [], {}
+
+    def conv_inputs(cm):
+        """(name, conv payload, input) of conv1 and conv2 in the forward."""
+        h1 = conv_dispatch(cm.layers["conv1"], x, bias=params["conv1_b"],
+                           activation="relu", pool=pool)
+        return [("conv1", cm.layers["conv1"], x),
+                ("conv2", cm.layers["conv2"], h1)]
+
+    def library(cp, xin):
+        w4 = conv_weight_unmatrix(_payload_dense_f32(cp.payload, dev),
+                                  cp.kernel).permute(3, 2, 0, 1).contiguous()
+        xn = xin.permute(0, 3, 1, 2).contiguous()
+        return lambda i: lambda: F.conv2d(xn, w4)
+
+    def add(name, source, replaces, counts, rows, shape, library_note):
+        """One kernels-line entry: times summed over the kernel's launches
+        in one forward; the bound of their total bytes and operations."""
+        tot = {k: sum(r[k] for r in rows) for k in
+               ("ms", "plain_ms", "library_ms", "bytes", "ops")
+               if all(r[k] is not None for r in rows)}
+        bms, by = bound(tot["bytes"], tot["ops"], "f32")
+        for r in rows:
+            r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], "f32")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": tot.get("library_ms"), "shape": shape,
+            "library": library_note, "l2": "warm"})
+        details[name] = rows
+
+    # block_sparse_conv: the Table-I configuration's conv1 and conv2
+    cm, counts = cms["table1"]
+    rows = []
+    for lname, cp, xin in conv_inputs(cm):
+        pl = cp.payload
+        pat = pl.pattern
+        nR, nC = pat.bitmap.shape
+        bk, bn = pat.block
+        blocks, packed = sparse_conv_operands(cp)
+        vals = pl.block_values()
+        sched = schedule_for(pat, dev)
+        rws = torch.as_tensor(pat.block_rows, device=dev)
+        cls = torch.as_tensor(pat.block_cols, device=dev)
+        b = params[lname + "_b"]
+        kw = dict(kernel_hw=cp.kernel[:2], activation="relu", pool=pool)
+        y = block_sparse_conv(xin, blocks, sched, scales=pl.scales, bias=b,
+                              packed=packed, **kw)
+        ref = block_sparse_conv_ref(xin, vals, rws, cls, n_row_blocks=nR,
+                                    n_col_blocks=nC, scales=pl.scales,
+                                    bias=b, **kw)
+        err = f32_check(f"block_sparse_conv {lname} at B={LENET_BATCH}", y,
+                        ref)
+        B, H, W, C = xin.shape
+        Ho, Wo = H - cp.kernel[0] + 1, W - cp.kernel[1] + 1
+        P = pat.n_blocks_present
+        rows.append({
+            "bytes": nbytes(xin, blocks, pl.scales, b, y, sched.col_ptr,
+                            sched.rows, sched.pidx),
+            "ops": 2.0 * B * Ho * Wo * P * bk * bn,
+            "layer": lname, "max_abs_err": err,
+            "ms": device_ms(lambda i: lambda: block_sparse_conv(
+                xin, blocks, sched, scales=pl.scales, bias=b, packed=packed,
+                **kw), N_CALLS),
+            "plain_ms": device_ms(lambda i: lambda: block_sparse_conv_ref(
+                xin, vals, rws, cls, n_row_blocks=nR, n_col_blocks=nC,
+                scales=pl.scales, bias=b, **kw), N_CALLS),
+            "library_ms": device_ms(library(cp, xin), N_CALLS),
+            "shape": f"x {tuple(xin.shape)} K={cp.K} N={cp.N} blocks {P}/"
+                     f"{pat.n_blocks_total} of {pat.block} "
+                     f"{packed or str(blocks.dtype).split('.')[-1]}"})
+    add("block_sparse_conv", "src/repro_torch/csrc/block_sparse_conv.cu",
+        "src/repro/kernels/sparse_matmul/kernel.py:537", counts, rows,
+        "; ".join(r["shape"] for r in rows),
+        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)")
+
+    # quant_conv: the quant-conv configuration's conv1 and conv2
+    cm, counts = cms["quant_conv"]
+    rows = []
+    for lname, cp, xin in conv_inputs(cm):
+        w_q, packed, codes = quant_conv_operands(cp)
+        sc = cp.payload.scales.reshape(-1)
+        b = params[lname + "_b"]
+        kw = dict(kernel_hw=cp.kernel[:2], activation="relu", pool=pool)
+        y = quant_conv(xin, w_q, sc, b, packed=packed, **kw)
+        ref = quant_conv_ref(xin, codes, sc, b, **kw)
+        err = f32_check(f"quant_conv {lname} at B={LENET_BATCH}", y, ref)
+        B, H, W, C = xin.shape
+        Ho, Wo = H - cp.kernel[0] + 1, W - cp.kernel[1] + 1
+        rows.append({
+            "bytes": nbytes(xin, w_q, sc, b, y),
+            "ops": 2.0 * B * Ho * Wo * cp.K * cp.N,
+            "layer": lname, "max_abs_err": err,
+            "ms": device_ms(lambda i: lambda: quant_conv(
+                xin, w_q, sc, b, packed=packed, **kw), N_CALLS),
+            "plain_ms": device_ms(lambda i: lambda: quant_conv_ref(
+                xin, codes, sc, b, **kw), N_CALLS),
+            "library_ms": device_ms(library(cp, xin), N_CALLS),
+            "shape": f"x {tuple(xin.shape)} K={cp.K} N={cp.N} "
+                     f"{packed or 'int8'}"})
+    add("quant_conv", "src/repro_torch/csrc/quant_conv.cu",
+        "src/repro/kernels/quant_matmul/kernel.py:242", counts, rows,
+        "; ".join(r["shape"] for r in rows),
+        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)")
+
+    # fc_stack_matmul: the Table-I configuration's fc1 -> fc2 -> fc3
+    cm, counts = cms["table1"]
+    h = x
+    for lname in ("conv1", "conv2"):
+        h = conv_dispatch(cm.layers[lname], h, bias=params[lname + "_b"],
+                          activation="relu", pool=pool)
+    h = h.reshape(h.shape[0], -1).contiguous()
+    names = ("fc1", "fc2", "fc3")
+    ws = [_payload_dense_f32(cm.layers[n], dev) for n in names]
+    bs = [params[n + "_b"] for n in names]
+    acts = ["relu", "relu", None]
+    y = fc_stack_matmul(h, ws, bs, acts)
+    ref = fc_stack_matmul_ref(h, ws, bs, acts)
+    err = f32_check(f"fc_stack_matmul at B={LENET_BATCH}", y, ref)
+    rows = [{"layer": "fc1+fc2+fc3", "max_abs_err": err,
+             "bytes": nbytes(h, *ws, *bs, y),
+             "ops": 2.0 * h.shape[0] * sum(w.numel() for w in ws),
+             "ms": device_ms(lambda i: lambda: fc_stack_matmul(
+                 h, ws, bs, acts), N_CALLS),
+             "plain_ms": device_ms(lambda i: lambda: fc_stack_matmul_ref(
+                 h, ws, bs, acts), N_CALLS),
+             "library_ms": None,
+             "shape": f"x {tuple(h.shape)} W 256x120, 120x84, 84x10 f32"}]
+    add("fc_stack_matmul", "src/repro_torch/csrc/fc_stack.cu",
+        "src/repro/kernels/fc_stack.py:60", counts, rows, rows[0]["shape"],
+        "none: no one PyTorch call chains three linears with their "
+        "epilogues")
+    return entries, details
+
+
 def main() -> int:
     from repro_torch.kernels import build
 
@@ -601,6 +1093,9 @@ def main() -> int:
             "block_sparse_matmul": sweep_sparse(rng, dev),
             "quant_matmul": sweep_quant(rng, dev),
             "packed_decode_attention": sweep_attention(rng, dev),
+            "block_sparse_conv": sweep_sparse_conv(rng, dev),
+            "quant_conv": sweep_quant_conv(rng, dev),
+            "fc_stack_matmul": sweep_fc_stack(rng, dev),
         }
         print(f"kernels vs plain versions: {report['sweep_cases']} cases pass",
               flush=True)
@@ -612,6 +1107,14 @@ def main() -> int:
               flush=True)
 
         kernels = measure_kernels(cm, cfg, dev, counts)
+        del cm
+        params, x, cms = lenet(dev, report)
+        print("lenet: " + json.dumps({
+            c: {k: v for k, v in r.items() if not k.startswith("profile")}
+            for c, r in report["lenet"].items()}), flush=True)
+        lenet_kernels, report["lenet_kernels"] = measure_lenet_kernels(
+            params, x, cms, dev)
+        kernels += lenet_kernels
         report["kernels"] = kernels
     finally:
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

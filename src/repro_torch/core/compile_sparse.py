@@ -17,6 +17,12 @@ element mask.  The analysis runs in host numpy with the reference's exact
 arithmetic, so policies, patterns, codes, scales and containers equal
 ``repro.core.compile_sparse``'s byte for byte.
 
+``compile_lenet`` (the paper's Table-I LeNet-5) and ``compile_conv`` lower
+per-name layers — convolutions included — onto payload objects: a conv's
+``(kh, kw, cin, cout)`` weight becomes its ``(cin*kh*kw, cout)`` im2col
+matrix (:func:`conv_weight_matrix`), compiled like a linear and wrapped in
+a :class:`repro_torch.core.dispatch.ConvPayload` with its geometry.
+
 The reference picks a policy per leaf from a TPU cost model; that model
 (and an H100 ``HWSpec`` for it) is a later slice of the port, so here a
 leaf needs an explicit ``policies`` entry unless it is below
@@ -32,16 +38,28 @@ import torch
 
 from ..device import resolve_device
 from . import payload_registry
+from .dispatch import ConvPayload, conv_out_hw
 from .families._util import to_numpy_f32
-from .sparsity import BlockSparsePattern, pattern_from_bitmap, pattern_from_mask
+from .quant import PackedTensor, QuantizedTensor
+from .sparsity import (
+    BlockSparsePattern,
+    CompressedLinear,
+    pattern_from_bitmap,
+    pattern_from_mask,
+)
 
 __all__ = [
     "CompileRules",
     "CompressedModel",
     "LayerReport",
+    "compile_conv",
+    "compile_lenet",
     "compile_model",
     "compile_policies",
+    "conv_weight_matrix",
+    "conv_weight_unmatrix",
     "decompress_model",
+    "realised_densities",
 ]
 
 _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
@@ -82,6 +100,8 @@ class LayerReport:
     compressed_bytes: int        # int8-container accounting (codes + scales)
     block_density: float
     element_density: float
+    kind: str = "linear"         # "linear" | "conv"
+    m_scale: int = 1             # matmul rows per batch row (conv: H_out*W_out)
     # bytes the payload holds in memory (bit-packed leaves: their uint8
     # containers); None = same as compressed_bytes
     container_bytes: Optional[int] = None
@@ -96,11 +116,15 @@ class LayerReport:
 class CompressedModel:
     """``params`` drop into ``decode_step`` / ``prefill_step`` /
     ``ServeEngine`` together with ``patterns``, the static side-table
-    (K, N) -> BlockSparsePattern."""
+    (K, N) -> BlockSparsePattern.  For LeNet-style models ``layers`` holds
+    the per-name payloads (``lenet_forward(..., compressed=cm.layers)``)
+    and ``fusion`` the fusion plan derived at compile time."""
 
     params: Any
     patterns: Dict[Tuple[int, int], BlockSparsePattern]
     report: List[LayerReport]
+    layers: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    fusion: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def storage_bytes(self) -> int:
@@ -133,6 +157,23 @@ class CompressedModel:
             if r.name == name:
                 return r.policy
         raise KeyError(name)
+
+
+# ------------------------------------------------------- conv <-> matrix
+
+
+def conv_weight_matrix(w4: np.ndarray) -> np.ndarray:
+    """(kh, kw, cin, cout) conv weight (or boolean mask) -> its
+    (cin*kh*kw, cout) im2col matrix, channel major then kh, kw."""
+    kh, kw, cin, cout = w4.shape
+    return w4.transpose(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+
+
+def conv_weight_unmatrix(w2: torch.Tensor,
+                         kernel: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Inverse of :func:`conv_weight_matrix`: (K, N) -> (kh, kw, cin, cout)."""
+    kh, kw, cin, cout = kernel
+    return w2.reshape(cin, kh, kw, cout).permute(1, 2, 0, 3)
 
 
 def _fit_block(K: int, N: int, block: Tuple[int, int]) -> Optional[Tuple[int, int]]:
@@ -404,6 +445,211 @@ def compile_model(
     return CompressedModel(params=new_params, patterns=patterns, report=report)
 
 
+# ------------------------------------------------------- per-name layers
+
+
+def _payload_to(payload: Any, dev: torch.device) -> Any:
+    """A compiled payload object with every tensor moved to ``dev``."""
+    if isinstance(payload, torch.Tensor):
+        return payload.to(dev)
+    if isinstance(payload, PackedTensor):
+        return dataclasses.replace(
+            payload, data=payload.data.to(dev),
+            scales=None if payload.scales is None else payload.scales.to(dev))
+    if isinstance(payload, QuantizedTensor):
+        return dataclasses.replace(payload, values=payload.values.to(dev),
+                                   scales=payload.scales.to(dev))
+    if isinstance(payload, CompressedLinear):
+        return dataclasses.replace(
+            payload, blocks=_payload_to(payload.blocks, dev),
+            scales=None if payload.scales is None else payload.scales.to(dev))
+    raise TypeError(f"no device move for payload {type(payload).__name__}")
+
+
+def _conv_mask(name: str, mask, kernel, K: int, N: int,
+               kind: str) -> Optional[np.ndarray]:
+    """A layer mask as an im2col (K, N) bool array; conv masks may be
+    kernel-shaped (kh, kw, cin, cout)."""
+    if mask is None:
+        return None
+    mask = np.asarray(mask, bool)
+    if kind == "conv" and mask.ndim == 4:
+        if mask.shape != tuple(kernel):
+            raise ValueError(
+                f"{name}: conv mask shape {mask.shape} does not match the "
+                f"kernel {tuple(kernel)}")
+        mask = conv_weight_matrix(mask)
+    if mask.shape != (K, N):
+        raise ValueError(
+            f"{name}: mask shape {mask.shape} does not match the layer — "
+            f"expected {(K, N)}"
+            + (f" (im2col) or kernel-shaped {tuple(kernel)}"
+               if kind == "conv" else ""))
+    return mask
+
+
+def _compile_one(name: str, w: np.ndarray, mask: Optional[np.ndarray],
+                 override: Optional[str], rules: "CompileRules",
+                 block_rule: Tuple[int, int], dev: torch.device):
+    """analyse -> decide -> pack for one (K, N) weight, as the reference's
+    ``compile_lenet`` / ``compile_conv`` loop body.  Returns (payload or
+    None, pattern or None, policy, bd, ed, code_bytes, container_bytes)."""
+    K, N = w.shape
+    block = _fit_block(K, N, block_rule)
+    if mask is not None and block is not None:
+        bitmap = _mask_bitmap(mask, block)
+        bd, ed = bitmap.sum() / bitmap.size, mask.sum() / mask.size
+    else:
+        bd = rules.block_density
+        ed = rules.block_density * rules.in_block_density
+    policy, bits = _decide_policy(name, override, K, N, rules, block=block)
+    dense_bytes = K * N * 4
+    eliminates = payload_registry.policy_eliminates_blocks(policy)
+    if not eliminates:
+        bd = 1.0
+        ed = 1.0 if mask is None else mask.sum() / mask.size
+    payload, pattern = None, None
+    if policy == "dense":
+        if mask is not None:  # masked dense payload (plain tensor)
+            payload = torch.from_numpy(w * mask)
+        comp_bytes = cont_bytes = dense_bytes
+    else:
+        pc = payload_registry.policy_compiler(policy)
+        if eliminates and mask is None:
+            bitmap = _shared_bitmap(w[None], block, rules.block_density)
+            mask = _element_mask(w, bitmap, block, rules.in_block_density)
+        payload, pattern, comp_bytes, cont_bytes, bd_r, ed_r = \
+            pc.compile_payload(w, mask, bits=bits, rules=rules, block=block)
+        if bd_r is not None:
+            bd = bd_r
+        if ed_r is not None:
+            ed = ed_r
+    if payload is not None:
+        payload = _payload_to(payload, dev)
+    return payload, pattern, policy, bd, ed, comp_bytes, cont_bytes
+
+
+def compile_lenet(
+    params: Dict[str, Any],
+    masks: Optional[Dict[str, Any]] = None,
+    *,
+    rules: CompileRules = CompileRules(block=(8, 4), min_weight_elems=512),
+    blocks: Optional[Dict[str, Tuple[int, int]]] = None,
+    device=None,
+) -> CompressedModel:
+    """Compress the whole LeNet-5 — convs and FC layers (Table-I workload).
+
+    Every layer runs the same analyse -> decide -> pack pipeline; a conv is
+    lowered onto its im2col matrix.  ``layers`` plugs into
+    ``lenet_forward(params, x, compressed=cm.layers)``: a
+    :class:`CompressedLinear` (sparse), :class:`QuantizedTensor` /
+    :class:`PackedTensor` (quant) or masked dense tensor per linear, the
+    same wrapped in a :class:`ConvPayload` per conv; an unmasked dense
+    layer is absent.  Conv masks may be kernel-shaped or im2col-shaped; a
+    ``masks`` / ``policies`` / ``blocks`` key naming no layer raises.
+    The payloads land on ``device`` (CUDA unless ``device="cpu"``).
+    """
+    from ..models.lenet import CONV_OUT_HW, LAYERS, lenet_fusion_plan
+
+    dev = resolve_device(device)
+    names = [n for n, _, _ in LAYERS]
+    for label, d in (("masks", masks), ("policies", rules.policies),
+                     ("blocks", blocks)):
+        unknown = set(d or {}) - set(names)
+        if unknown:
+            raise ValueError(
+                f"{label} keys matched no LeNet layer: {sorted(unknown)} — "
+                f"compile_lenet lowers every layer of {names} (convs "
+                "included); a typo here would silently drop the override")
+    patterns: Dict[Tuple[int, int], BlockSparsePattern] = {}
+    report: List[LayerReport] = []
+    layers: Dict[str, Any] = {}
+    for name, kind, shape in LAYERS:
+        w = to_numpy_f32(params[name + "_w"])
+        if kind == "conv":
+            K, N = shape[0] * shape[1] * shape[2], shape[3]
+            w = conv_weight_matrix(w)
+            m_scale = int(np.prod(CONV_OUT_HW[name]))
+        else:
+            K, N = shape
+            m_scale = 1
+        mask = _conv_mask(name, None if not masks else masks.get(name),
+                          shape, K, N, kind)
+        payload, pat, policy, bd, ed, comp_bytes, cont_bytes = _compile_one(
+            name, w, mask, (rules.policies or {}).get(name), rules,
+            (blocks or {}).get(name, rules.block), dev)
+        if pat is not None:
+            patterns[(K, N)] = pat
+        if payload is not None:
+            layers[name] = (ConvPayload(payload=payload, kernel=tuple(shape))
+                            if kind == "conv" else payload)
+        report.append(LayerReport(
+            name=name, policy=policy, shape=(K, N), n_layers=1,
+            dense_bytes=K * N * 4, compressed_bytes=int(comp_bytes),
+            block_density=float(bd), element_density=float(ed), kind=kind,
+            m_scale=m_scale, container_bytes=int(cont_bytes)))
+    return CompressedModel(params=params, patterns=patterns, report=report,
+                           layers=layers, fusion=lenet_fusion_plan(layers))
+
+
+def compile_conv(
+    w4,
+    *,
+    strides: Tuple[int, int] = (1, 1),
+    padding: str = "VALID",
+    dilation: Tuple[int, int] = (1, 1),
+    mask=None,
+    rules: CompileRules = CompileRules(block=(8, 4), min_weight_elems=512),
+    policy: Optional[str] = None,
+    name: str = "conv",
+    in_hw: Optional[Tuple[int, int]] = None,
+    device=None,
+) -> Tuple[ConvPayload, Optional[BlockSparsePattern], LayerReport]:
+    """Compile ONE conv kernel ``(kh, kw, cin, cout)`` to a ConvPayload
+    carrying any static ``strides`` / ``padding`` / ``dilation``.
+
+    ``mask`` may be kernel-shaped or im2col-shaped.  ``in_hw`` (the input's
+    spatial size) sets the report's ``m_scale``.  A dense policy keeps the
+    (masked) im2col matrix as the payload.  Returns ``(conv_payload,
+    pattern_or_None, report_row)``.
+    """
+    dev = resolve_device(device)
+    w4 = to_numpy_f32(w4)
+    if w4.ndim != 4:
+        raise ValueError(
+            f"{name}: expected a 4-d conv kernel (kh, kw, cin, cout), got "
+            f"shape {w4.shape}")
+    kernel = tuple(int(d) for d in w4.shape)
+    kh, kw, cin, cout = kernel
+    K, N = kh * kw * cin, cout
+    w = conv_weight_matrix(w4)
+    mask = _conv_mask(name, mask, kernel, K, N, "conv")
+    payload, pattern, policy, bd, ed, comp_bytes, cont_bytes = _compile_one(
+        name, w, mask, policy, rules, rules.block, dev)
+    if payload is None:  # dense and unmasked: the matrix itself
+        payload = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+    m_scale = 1
+    if in_hw is not None:
+        ho, wo = conv_out_hw(tuple(in_hw), (kh, kw), tuple(strides), padding,
+                             tuple(dilation))
+        m_scale = int(ho * wo)
+    cp = ConvPayload(payload=payload, kernel=kernel,
+                     strides=tuple(int(s) for s in strides), padding=padding,
+                     dilation=tuple(int(d) for d in dilation))
+    rep = LayerReport(
+        name=name, policy=policy, shape=(K, N), n_layers=1,
+        dense_bytes=K * N * 4, compressed_bytes=int(comp_bytes),
+        block_density=float(bd), element_density=float(ed), kind="conv",
+        m_scale=m_scale, container_bytes=int(cont_bytes))
+    return cp, pattern, rep
+
+
+def realised_densities(cm: CompressedModel) -> Dict[str, Tuple[float, float]]:
+    """{layer name: (block_density, element_density)} the pass realised."""
+    return {r.name: (float(r.block_density), float(r.element_density))
+            for r in cm.report}
+
+
 def _decompress_leaf(leaf, pattern, dtype, shape=None):
     fam = payload_registry.family_for_leaves(leaf)
     if fam is None or fam.decompress is None:
@@ -413,7 +659,19 @@ def _decompress_leaf(leaf, pattern, dtype, shape=None):
 
 def decompress_model(cm: CompressedModel, *, dtype=torch.float32) -> Any:
     """Dense oracle: a plain-``w`` tree rebuilt from the compressed one
-    (dequantised, blocks scattered back)."""
+    (dequantised, blocks scattered back).  For a LeNet-style model
+    (``cm.layers``) the param dict with each compressed ``<name>_w``
+    replaced by its dense weight."""
+    if cm.layers:
+        out = dict(cm.params)
+        for name, payload in cm.layers.items():
+            inner = payload.payload if isinstance(payload, ConvPayload) \
+                else payload
+            fam = payload_registry.family_of_payload(inner)
+            w = fam.payload_dense(inner).to(dtype)
+            out[name + "_w"] = conv_weight_unmatrix(w, payload.kernel) \
+                if isinstance(payload, ConvPayload) else w
+        return out
     shape_of = {r.name: r.shape for r in cm.report}
     out = _copy_spine(cm.params)
     for path, parent, k in _iter_linears(out["blocks"], "blocks"):

@@ -25,21 +25,41 @@ Nothing here sends a CUDA tensor to the plain version on its own: a shape or
 dtype the kernel cannot take raises, naming the leaf.  The fused bias +
 activation epilogue rides the kernels' emit step; every other path applies
 the same f32 formulas (:func:`_epilogue`).
+
+Convolutions (:func:`conv_dispatch`) run a compiled :class:`ConvPayload`
+through its family's fused conv kernel (``block_sparse_conv`` /
+``quant_conv``: patches gathered in the kernel, optional pooled emit);
+where the reference has no fused entry (the dense family, a pool window
+that does not tile the output) and under ``twin``, the conv lowers to
+im2col patches and the linear path above.  :func:`fc_stack_dispatch` runs a
+chain of linear payloads through one ``fc_stack_matmul`` launch.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Union
+import weakref
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
+from ..kernels.fc_stack import fc_stack_matmul
 from ..kernels.flash_attention.decode_packed import (
     packed_decode_attention,
     tiled_packed_attention,
 )
+from ..kernels.quant_matmul.kernel import quant_conv
 from ..kernels.quant_matmul.ops import quant_linear
-from ..kernels.sparse_matmul.kernel import _check_activation, apply_activation
+from ..kernels.sparse_matmul.kernel import (
+    POOL_MODES,
+    _check_activation,
+    apply_activation,
+    block_sparse_conv,
+    im2col_valid,
+    pool_nhwc as _pool_nhwc,
+    valid_out_hw,
+)
 from ..kernels.sparse_matmul.ops import sparse_linear
 from . import payload_registry
 from .sparsity import BlockSparsePattern
@@ -48,9 +68,17 @@ __all__ = [
     "ATTN_BT_DEFAULT",
     "DISPATCH_ENV",
     "DISPATCH_MODES",
+    "POOL_MODES",
+    "ConvPayload",
     "DispatchConfig",
     "attn_packed_dispatch",
     "attn_packed_eligible",
+    "conv_dispatch",
+    "conv_im2col",
+    "conv_out_hw",
+    "conv_pre_pad",
+    "derived",
+    "fc_stack_dispatch",
     "linear_dispatch",
     "payload_dispatch",
     "resolve",
@@ -166,7 +194,12 @@ def payload_dispatch(
 ) -> torch.Tensor:
     """Dispatch over a payload object (CompressedLinear — optionally
     bit-packed — PackedTensor, QuantizedTensor or a plain dense tensor):
-    unwrap it to its family's leaf dict and run :func:`linear_dispatch`."""
+    unwrap it to its family's leaf dict and run :func:`linear_dispatch`.
+    A :class:`ConvPayload` raises: it goes through :func:`conv_dispatch`."""
+    if isinstance(payload, ConvPayload):
+        raise TypeError(
+            "ConvPayload must go through conv_dispatch (it carries the "
+            "kernel geometry the conv lowering needs), not payload_dispatch")
     fam, leaves, pattern = payload_registry.unwrap_payload(payload)
     if fam is None:
         raise TypeError(
@@ -209,6 +242,280 @@ def attn_packed_dispatch(
             f"a positive tile, got Dh={q.shape[-1]}, bt={bt}")
     return packed_decode_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
                                    name=name)
+
+
+# --------------------------------------------------- values derived once
+
+# payload id -> (weak reference to the payload, {(what, device): tensor})
+_DERIVED: Dict[int, Tuple[weakref.ref, Dict[Tuple[str, str], torch.Tensor]]] \
+    = {}
+
+
+def derived(payload: Any, what: str, device,
+            make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``make()`` on ``device``, computed once per payload object, ``what``
+    and device, and dropped with the payload — the eager counterpart of the
+    reference's trace-time densify / unpack (a per-call dequantise would
+    cost a pass over the weight on every forward)."""
+    key = id(payload)
+    entry = _DERIVED.get(key)
+    if entry is None or entry[0]() is not payload:
+        entry = (weakref.ref(payload, lambda _, k=key: _DERIVED.pop(k, None)),
+                 {})
+        _DERIVED[key] = entry
+    sub = (what, str(torch.device(device)))
+    t = entry[1].get(sub)
+    if t is None:
+        t = make().to(device).contiguous()
+        if t is payload:  # nothing derived: holding it would keep it alive
+            return t
+        entry[1][sub] = t
+    return t
+
+
+# ------------------------------------------------------------ convolutions
+
+
+@dataclasses.dataclass(eq=False)
+class ConvPayload:
+    """A compiled convolution leaf: one linear-family payload over the
+    im2col weight matrix — ``(kh, kw, cin, cout)`` reshaped to ``(K =
+    cin*kh*kw, N = cout)`` in the channel-major patch order — plus the
+    static geometry it was compiled for.  :func:`conv_dispatch` rejects a
+    call with another geometry."""
+
+    payload: Any
+    kernel: Tuple[int, int, int, int]   # (kh, kw, cin, cout)
+    strides: Tuple[int, int] = (1, 1)
+    padding: str = "VALID"
+    dilation: Tuple[int, int] = (1, 1)
+
+    @property
+    def K(self) -> int:
+        kh, kw, cin, _ = self.kernel
+        return kh * kw * cin
+
+    @property
+    def N(self) -> int:
+        return self.kernel[3]
+
+
+def conv_out_hw(in_hw: Tuple[int, int], kernel_hw: Tuple[int, int],
+                strides: Tuple[int, int], padding: str,
+                dilation: Tuple[int, int] = (1, 1)) -> Tuple[int, int]:
+    """Static (H_out, W_out) of a conv: SAME is ``ceil(H / stride)`` (as
+    XLA); VALID uses the dilated kernel extent ``(k - 1) * d + 1``."""
+    H, W = in_hw
+    if padding == "SAME":
+        return -(-H // strides[0]), -(-W // strides[1])
+    return valid_out_hw(H, W, kernel_hw, strides, dilation)
+
+
+def _same_pads(H: int, k: int, s: int, d: int) -> Tuple[int, int]:
+    """XLA's SAME split for one axis: total ``max((ceil(H/s) - 1)*s +
+    (k-1)*d + 1 - H, 0)``, the low side gets the floor half."""
+    Ho = -(-H // s)
+    p = max((Ho - 1) * s + (k - 1) * d + 1 - H, 0)
+    return p // 2, p - p // 2
+
+
+def conv_pre_pad(x: torch.Tensor, kernel_hw: Tuple[int, int], *,
+                 strides: Tuple[int, int], padding: str,
+                 dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """Resolve SAME padding to an explicit zero-pad of the NHWC input, so
+    every lowering (the fused kernels and im2col) sees VALID geometry."""
+    if padding == "VALID":
+        return x
+    if padding != "SAME":
+        raise ValueError(
+            f"conv supports 'VALID' or 'SAME' padding, got {padding!r}")
+    kh, kw = kernel_hw
+    sh, sw = strides
+    dh, dw = dilation
+    _, H, W, _ = x.shape
+    ph_lo, ph_hi = _same_pads(H, kh, sh, dh)
+    pw_lo, pw_hi = _same_pads(W, kw, sw, dw)
+    if not (ph_lo or ph_hi or pw_lo or pw_hi):
+        return x
+    return F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+
+
+def conv_im2col(x: torch.Tensor, kernel_hw: Tuple[int, int], *,
+                strides: Tuple[int, int] = (1, 1), padding: str = "VALID",
+                dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """NHWC image -> (B, H_out, W_out, cin*kh*kw) patches in the
+    channel-major order f = c*kh*kw + dh*kw + dw (bitwise the reference's
+    ``conv_im2col``); SAME pads first (:func:`conv_pre_pad`)."""
+    if x.ndim != 4:
+        raise ValueError(
+            f"conv_im2col expects NHWC input, got shape {tuple(x.shape)}")
+    x = conv_pre_pad(x, kernel_hw, strides=strides, padding=padding,
+                     dilation=dilation)
+    return im2col_valid(x, kernel_hw, strides, dilation)
+
+
+def _conv_fused(cp: ConvPayload, x: torch.Tensor, cfg: DispatchConfig,
+                bias, activation, compute_dtype, leaf: Optional[str],
+                pool: Optional[Tuple[str, int]]) -> Optional[torch.Tensor]:
+    """The family's fused conv entry over the pre-padded input, or None
+    where the reference has none: a family without a ``conv_fused`` hook
+    (dense), a pool window that does not tile the output, an empty output,
+    or ``twin``."""
+    fam = payload_registry.family_of_payload(cp.payload)
+    if fam is None or fam.conv_fused is None:
+        return None
+    kh, kw = cp.kernel[:2]
+    _, H, W, _ = x.shape
+    Ho, Wo = conv_out_hw((H, W), (kh, kw), cp.strides, cp.padding,
+                         cp.dilation)
+    if Ho < 1 or Wo < 1:
+        return None
+    if pool is not None and (Ho % pool[1] or Wo % pool[1]):
+        return None
+    xp = conv_pre_pad(x, (kh, kw), strides=cp.strides, padding=cp.padding,
+                      dilation=cp.dilation)
+    out_dtype = compute_dtype if compute_dtype is not None else x.dtype
+    return fam.conv_fused(cp, xp, cfg=cfg, bias=bias, activation=activation,
+                          out_dtype=out_dtype, leaf=leaf, pool=pool)
+
+
+def conv_dispatch(
+    cp: ConvPayload,
+    x: torch.Tensor,
+    *,
+    strides: Optional[Tuple[int, int]] = None,
+    padding: Optional[str] = None,
+    dilation: Optional[Tuple[int, int]] = None,
+    dispatch: Union[None, str, DispatchConfig] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation=None,
+    compute_dtype=None,
+    leaf: Optional[str] = None,
+    pool: Optional[Tuple[str, int]] = None,
+) -> torch.Tensor:
+    """Apply one compiled conv leaf: y = pool(act(conv(x, W) + b)).
+
+    The kernel leg is the family's fused conv (``block_sparse_conv`` /
+    ``quant_conv``): patches gathered in the kernel, ``pool=(mode, size)``
+    fused into the emit, one launch.  Where the fused entry does not apply
+    (see :func:`_conv_fused`) the conv lowers to im2col patches through
+    :func:`payload_dispatch`, and ``pool`` follows as a separate step.
+
+    ``strides``/``padding``/``dilation`` default to the compiled geometry;
+    a different value raises — the payload was compiled for one conv.
+    """
+    if not isinstance(cp, ConvPayload):
+        raise TypeError(
+            f"conv_dispatch needs a ConvPayload (from compile_sparse), got "
+            f"{type(cp).__name__}")
+    kh, kw, cin, cout = cp.kernel
+    if strides is not None and tuple(strides) != tuple(cp.strides):
+        raise ValueError(
+            f"conv_dispatch strides {tuple(strides)} do not match the "
+            f"compiled payload's strides {tuple(cp.strides)} — the leaf was "
+            "compiled for that geometry; recompile instead of overriding")
+    if padding is not None and padding != cp.padding:
+        raise ValueError(
+            f"conv_dispatch padding {padding!r} does not match the compiled "
+            f"payload's padding {cp.padding!r} — recompile instead of "
+            "overriding")
+    if dilation is not None and tuple(dilation) != tuple(cp.dilation):
+        raise ValueError(
+            f"conv_dispatch dilation {tuple(dilation)} does not match the "
+            f"compiled payload's dilation {tuple(cp.dilation)} — the leaf "
+            "was compiled for that geometry; recompile instead of "
+            "overriding")
+    if x.ndim != 4 or x.shape[-1] != cin:
+        raise ValueError(
+            f"conv_dispatch: input shape {tuple(x.shape)} does not match the "
+            f"compiled kernel (kh={kh}, kw={kw}, cin={cin}, cout={cout}) — "
+            f"expected NHWC with trailing channel dim {cin}")
+    if pool is not None and (pool[0] not in POOL_MODES or int(pool[1]) < 1):
+        raise ValueError(
+            f"unknown conv pool {pool!r} — expected (mode, size) with mode "
+            f"in {POOL_MODES} and size >= 1")
+    _check_activation(activation)
+    cfg = resolve(dispatch)
+    y = _conv_fused(cp, x, cfg, bias, activation, compute_dtype, leaf, pool)
+    if y is not None:
+        return y
+    patches = conv_im2col(x, (kh, kw), strides=cp.strides,
+                          padding=cp.padding, dilation=cp.dilation)
+    y = payload_dispatch(cp.payload, patches, dispatch=cfg, bias=bias,
+                         activation=activation, compute_dtype=compute_dtype,
+                         leaf=leaf)
+    if pool is not None:
+        y = _pool_nhwc(y, pool)
+    return y
+
+
+# ------------------------------------------------------------ layer fusion
+
+
+def _payload_dense_f32(payload: Any, device) -> torch.Tensor:
+    """A linear payload densified to (K, N) f32 on ``device`` by its
+    family's ``payload_dense`` hook, once per payload and device."""
+    fam = payload_registry.family_of_payload(payload)
+    if fam is None or fam.payload_dense is None:
+        raise TypeError(
+            f"no registered payload family densifies {type(payload).__name__}")
+    return derived(payload, "dense_f32", device,
+                   lambda: fam.payload_dense(payload))
+
+
+def _payload_kn(payload: Any) -> Tuple[int, int]:
+    fam = payload_registry.family_of_payload(payload)
+    if fam is None or fam.payload_kn is None:
+        raise TypeError(
+            f"no registered payload family matches {type(payload).__name__}")
+    return fam.payload_kn(payload)
+
+
+def fc_stack_dispatch(
+    payloads: Sequence[Any],
+    x: torch.Tensor,
+    *,
+    biases: Sequence[Optional[torch.Tensor]],
+    activations: Sequence,
+    dispatch: Union[None, str, DispatchConfig] = None,
+    compute_dtype=None,
+    leaves: Optional[Sequence[str]] = None,
+) -> torch.Tensor:
+    """Apply a chain of compiled linear payloads as one fused stack.
+
+    The kernel leg runs :func:`repro_torch.kernels.fc_stack.fc_stack_matmul`
+    over the densified f32 weights (:func:`_payload_dense_f32`): one launch,
+    intermediates never leave the chip.  ``twin`` chains the per-leaf
+    :func:`payload_dispatch` plain versions — the same result to float
+    tolerance (a sparse container's twin sums K block by block).
+    """
+    n = len(payloads)
+    if not (n == len(biases) == len(activations)):
+        raise ValueError(
+            f"fc_stack_dispatch needs matching payloads/biases/activations, "
+            f"got lengths {n}/{len(biases)}/{len(activations)}")
+    cfg = resolve(dispatch)
+    if compute_dtype is None:
+        compute_dtype = x.dtype
+    leaves = list(leaves) if leaves is not None else [None] * n
+    dims = [_payload_kn(p) for p in payloads]
+    for (lp, (_, n_prev)), (lf, (k_next, _)) in zip(
+            zip(leaves, dims), zip(leaves[1:], dims[1:])):
+        if n_prev != k_next:
+            raise ValueError(
+                f"fc_stack_dispatch: {lp} outputs {n_prev} features but {lf} "
+                f"takes {k_next}")
+    stack_leaf = "+".join(str(lf) for lf in leaves)
+    if use_kernel(cfg, x, stack_leaf):
+        ws = [_payload_dense_f32(p, x.device) for p in payloads]
+        return fc_stack_matmul(x.to(compute_dtype), ws, list(biases),
+                               list(activations), name=stack_leaf)
+    y = x
+    for payload, b, act, lf in zip(payloads, biases, activations, leaves):
+        y = payload_dispatch(payload, y, dispatch=cfg, bias=b,
+                             activation=act, compute_dtype=compute_dtype,
+                             leaf=lf)
+    return y
 
 
 # Register the built-in payload families: the family modules take their

@@ -25,6 +25,18 @@ def _from_payload(payload):
     return {"w": payload}, None
 
 
+def _matches(payload):
+    return isinstance(payload, torch.Tensor)
+
+
+def _payload_dense(payload):
+    return payload.to(torch.float32)
+
+
+def _payload_kn(payload):
+    return tuple(map(int, payload.shape))
+
+
 def _sample(rng: np.random.Generator):
     return {"w": torch.as_tensor(rng.normal(size=(16, 8)), dtype=torch.float32)}, \
         None
@@ -35,7 +47,10 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w",
     leaf_names=("w",),
     apply=_apply,
+    matches=_matches,
     from_payload=_from_payload,
+    payload_dense=_payload_dense,
+    payload_kn=_payload_kn,
     leaf_ndim={"w": 2},
     sample=_sample,
 ))

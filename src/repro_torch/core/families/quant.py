@@ -21,9 +21,14 @@ from ..quant import (
     PackedTensor,
     QuantizedTensor,
     pack_int4,
+    pack_quantized,
     quantize,
     unpack_int4,
 )
+
+_INT2_SLICE = (
+    "quant policy at <=2 bits emits the int2x4 family (w_q2), which the port "
+    "does not have yet (ROADMAP Queue A, remaining families)")
 
 
 def _apply_quant(p, x, *, pattern, cfg, bias, activation, compute_dtype,
@@ -70,6 +75,10 @@ def _from_payload_packed(payload):
     return {"w_qp": payload.data, "w_s": payload.scales.reshape(N)}, None
 
 
+def _matches(payload):
+    return isinstance(payload, (PackedTensor, QuantizedTensor))
+
+
 def _from_payload(payload):
     if isinstance(payload, PackedTensor):
         # an N-axis container (odd K) unpacks to the int8 codes
@@ -80,6 +89,51 @@ def _from_payload(payload):
         K, N = payload.values.shape
         return {"w_q": payload.values, "w_s": payload.scales.reshape(N)}, None
     return None
+
+
+def _payload_dense(payload):
+    """(K, N) f32: the codes times the per-output-channel scales."""
+    if isinstance(payload, PackedTensor):
+        K, N = payload.shape
+        codes = payload.unpack()
+    else:
+        K, N = payload.values.shape
+        codes = payload.values
+    return codes.to(torch.float32) * \
+        payload.scales.reshape(N).to(torch.float32)[None, :]
+
+
+def _payload_kn(payload):
+    if isinstance(payload, PackedTensor):
+        return tuple(map(int, payload.shape))
+    return tuple(map(int, payload.values.shape))
+
+
+# --------------------------------------------------------------- fused conv
+
+
+def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool):
+    """The quant_conv entry (patches gathered in the kernel, pooled emit)
+    over a pre-padded VALID input; shared by the int8 and packed payload
+    forms.  ``twin`` returns None: the caller takes the im2col leg."""
+    if not _d.use_kernel(cfg, x, leaf):
+        return None
+    payload = cp.payload
+    K, N = cp.K, cp.N
+    packed = False
+    if isinstance(payload, PackedTensor):
+        if payload.axis % len(payload.shape) == 0 \
+                and K % payload.per_byte == 0:
+            w_q, packed = payload.data, payload.container
+        else:  # an N-axis container (odd K): the int8 codes, unpacked once
+            w_q = _d.derived(payload, "codes", x.device, payload.unpack)
+    else:
+        w_q = payload.values
+    return _d.quant_conv(
+        x.to(out_dtype).contiguous(), w_q, payload.scales.reshape(N), bias,
+        kernel_hw=cp.kernel[:2], activation=activation, strides=cp.strides,
+        dilation=cp.dilation, pool=pool, packed=packed,
+        name=leaf or "quant_conv")
 
 
 # --------------------------------------------------------------- decompress
@@ -122,10 +176,7 @@ def _compile_stack(stack, masks, *, pattern, bits, rules):
     (leaves, code_bytes, container_bytes, None)."""
     del pattern, rules
     if bits <= 2 and stack.shape[1] % 4 == 0:
-        raise NotImplementedError(
-            "quant policy at <=2 bits emits the int2x4 family (w_q2), which "
-            "the port does not have yet (ROADMAP Queue A, remaining "
-            "families)")
+        raise NotImplementedError(_INT2_SLICE)
     masked = stack if masks is None else stack * masks
     w_q, w_s = _quantize_stack(masked, bits)
     code_bytes = int(w_q.numel() + w_s.numel() * 4)
@@ -134,6 +185,27 @@ def _compile_stack(stack, masks, *, pattern, bits, rules):
         leaves = {"w_qp": w_qp, "w_s": w_s}
         return leaves, code_bytes, int(w_qp.numel() + w_s.numel() * 4), None
     return {"w_q": w_q, "w_s": w_s}, code_bytes, code_bytes, None
+
+
+def _compile_payload(w, mask, *, bits, rules, block):
+    """One (K, N) weight to a :class:`QuantizedTensor` payload, or at
+    3-4 bits its int4x2 :class:`PackedTensor`.  Returns (payload, None,
+    code_bytes, container_bytes, None, None)."""
+    del rules, block
+    if bits <= 2:
+        raise NotImplementedError(_INT2_SLICE)
+    K, N = w.shape
+    qt = quantize(torch.from_numpy(w if mask is None else w * mask), bits,
+                  axis=1)
+    qt = QuantizedTensor(values=qt.values, scales=qt.scales.reshape(N),
+                         axis=1, bits=bits)
+    comp_bytes = cont_bytes = K * N + N * 4
+    if bits <= 4:  # bit-packed int4 container: two codes per byte
+        payload = pack_quantized(qt)
+        cont_bytes = payload.container_bytes
+    else:
+        payload = qt
+    return payload, None, comp_bytes, cont_bytes, None, None
 
 
 # ------------------------------------------------------------------ samples
@@ -176,8 +248,12 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_qp",
     leaf_names=("w_qp", "w_s"),
     apply=_apply_quant_packed,
+    matches=_matches_packed,
     from_payload=_from_payload_packed,
+    conv_fused=_conv_fused,
     decompress=_decompress_packed,
+    payload_dense=_payload_dense,
+    payload_kn=_payload_kn,
     leaf_ndim={"w_qp": 2, "w_s": 1},
     sample=_sample_packed,
     validate=_validate_scales("quant_packed", "w_qp"),
@@ -188,8 +264,12 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_q",
     leaf_names=("w_q", "w_s"),
     apply=_apply_quant,
+    matches=_matches,
     from_payload=_from_payload,
+    conv_fused=_conv_fused,
     decompress=_decompress,
+    payload_dense=_payload_dense,
+    payload_kn=_payload_kn,
     leaf_ndim={"w_q": 2, "w_s": 1},
     sample=_sample,
     validate=_validate_scales("quant", "w_q"),
@@ -198,4 +278,5 @@ FAMILY = _reg.register(_reg.PayloadFamily(
 POLICY = _reg.register_policy(_reg.PolicyCompiler(
     name="quant",
     compile_stack=_compile_stack,
+    compile_payload=_compile_payload,
 ))

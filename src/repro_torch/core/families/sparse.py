@@ -26,6 +26,7 @@ from ..quant import (
     unpack_codes,
 )
 from ..sparsity import CompressedLinear, compress, decompress, pattern_from_mask
+from ...kernels.sparse_matmul.ops import schedule_for
 
 _NEED_PATTERN = (
     "sparse linear needs its static pattern — pass the compile_sparse "
@@ -95,6 +96,10 @@ def _from_payload_packed(payload):
     return leaves, payload.pattern
 
 
+def _matches(payload):
+    return isinstance(payload, CompressedLinear)
+
+
 def _from_payload(payload):
     if not isinstance(payload, CompressedLinear):
         return None
@@ -104,6 +109,41 @@ def _from_payload(payload):
     if payload.scales is not None:
         leaves["w_s"] = payload.scales
     return leaves, payload.pattern
+
+
+def _payload_dense(payload):
+    return decompress(payload).to(torch.float32)
+
+
+def _payload_kn(payload):
+    return tuple(map(int, payload.pattern.shape))
+
+
+# --------------------------------------------------------------- fused conv
+
+
+def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool):
+    """The block_sparse_conv entry (patches gathered in the kernel, pooled
+    emit) over a pre-padded VALID input; shared by both container forms.
+    ``twin`` returns None: the caller takes the im2col leg."""
+    if not _d.use_kernel(cfg, x, leaf):
+        return None
+    payload = cp.payload
+    pat = payload.pattern
+    if payload.packed and payload.blocks.axis % 3 == 1 \
+            and pat.block[0] % payload.blocks.per_byte == 0:
+        blocks, packed = payload.blocks.data, payload.blocks.container
+    elif payload.packed:  # a bn-axis container: the int8 codes, unpacked once
+        blocks = _d.derived(payload, "block_values", x.device,
+                            payload.block_values)
+        packed = False
+    else:
+        blocks, packed = payload.blocks, False
+    return _d.block_sparse_conv(
+        x.to(out_dtype).contiguous(), blocks, schedule_for(pat, x.device),
+        kernel_hw=cp.kernel[:2], scales=payload.scales, bias=bias,
+        activation=activation, strides=cp.strides, dilation=cp.dilation,
+        pool=pool, packed=packed, name=leaf or "block_sparse_conv")
 
 
 # --------------------------------------------------------------- decompress
@@ -187,6 +227,25 @@ def _compile_stack(stack, masks, *, pattern, bits, rules):
     return leaves, int(total_bytes), int(cont_bytes), nnz / (L * K * N)
 
 
+def _compile_payload(w, mask, *, bits, rules, block):
+    """One (K, N) weight to a :class:`CompressedLinear` payload (codes
+    bit-packed at <= 4 bits).  Returns (payload, pattern, code_bytes,
+    container_bytes, block_density, element_density)."""
+    if rules.quantize_sparse:
+        qt = quantize(torch.from_numpy(w * mask), bits, axis=1)
+        cl = compress(w, mask, block,
+                      quant_scales=qt.scales.reshape(-1).numpy(),
+                      quant_bits=bits, pack=bits <= 4)
+    else:
+        cl = compress(w, mask, block, dtype=rules.dtype)
+    cont_bytes = cl.storage_bytes - cl.pattern.meta_bytes
+    comp_bytes = cont_bytes
+    if cl.packed:
+        comp_bytes += int(np.prod(cl.blocks.shape)) - int(cl.blocks.data.numel())
+    return cl, cl.pattern, comp_bytes, cont_bytes, \
+        cl.pattern.block_density, cl.pattern.element_density
+
+
 # ------------------------------------------------------------------ samples
 
 
@@ -241,8 +300,12 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_names=("w_blkp", "w_s"),
     apply=_apply_sparse_packed,
     needs_pattern=True,
+    matches=_matches_packed,
     from_payload=_from_payload_packed,
+    conv_fused=_conv_fused,
     decompress=_decompress_packed,
+    payload_dense=_payload_dense,
+    payload_kn=_payload_kn,
     leaf_ndim={"w_blkp": 3, "w_s": 1},
     sample=_sample_packed,
     validate=_validate_blocks("sparse_packed", "w_blkp"),
@@ -254,8 +317,12 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_names=("w_blk", "w_s"),
     apply=_apply_sparse,
     needs_pattern=True,
+    matches=_matches,
     from_payload=_from_payload,
+    conv_fused=_conv_fused,
     decompress=_decompress,
+    payload_dense=_payload_dense,
+    payload_kn=_payload_kn,
     leaf_ndim={"w_blk": 3, "w_s": 1},
     # float blocks on the unquantised path, int8 codes with w_s scales
     leaf_dtype_kinds={"w_blk": "fi"},
@@ -267,4 +334,5 @@ POLICY = _reg.register_policy(_reg.PolicyCompiler(
     name="sparse",
     eliminates_blocks=True,
     compile_stack=_compile_stack,
+    compile_payload=_compile_payload,
 ))

@@ -24,6 +24,7 @@ __all__ = [
     "all_families",
     "ensure_registered",
     "family_for_leaves",
+    "family_of_payload",
     "pattern_leaf",
     "policy_compiler",
     "policy_eliminates_blocks",
@@ -44,9 +45,15 @@ class PayloadFamily:
       belongs to the family iff ``key_leaf`` is in it.
     * ``apply(p, x, *, pattern, cfg, bias, activation, compute_dtype,
       leaf)`` — execute ``y = act(x @ W + b)``, kernel or plain version.
-    * ``from_payload(payload)`` — payload-object unwrap to
-      ``(leaves, pattern)`` (None when the payload is not this family's).
-    * ``decompress(leaf, pattern, shape, dtype)`` — a plain ``{"w"}`` dict.
+    * ``matches(payload)`` — does a payload object belong to the family;
+      ``from_payload(payload)`` — its unwrap to ``(leaves, pattern)``
+      (None when the payload is not this family's).
+    * ``conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf,
+      pool)`` — the fused conv entry (patches gathered in the kernel) for
+      a pre-padded VALID input; None when the family has none.
+    * ``decompress(leaf, pattern, shape, dtype)`` — a plain ``{"w"}`` dict;
+      ``payload_dense(payload)`` — a payload object densified to (K, N)
+      f32; ``payload_kn(payload)`` — its logical (K, N).
     * ``leaf_ndim`` — unstacked ndim per leaf (stacked leaves carry one more
       leading axis); ``leaf_dtype_kinds`` — allowed dtype kinds where the
       storage dtype legitimately varies; ``sample(rng)`` — an exemplar
@@ -60,8 +67,12 @@ class PayloadFamily:
     leaf_names: Tuple[str, ...]
     apply: Optional[Callable] = None
     needs_pattern: bool = False
+    matches: Optional[Callable] = None
     from_payload: Optional[Callable] = None
+    conv_fused: Optional[Callable] = None
     decompress: Optional[Callable] = None
+    payload_dense: Optional[Callable] = None
+    payload_kn: Optional[Callable] = None
     leaf_ndim: Mapping[str, int] = dataclasses.field(default_factory=dict)
     sample: Optional[Callable] = None
     validate: Optional[Callable] = None
@@ -81,6 +92,10 @@ class PolicyCompiler:
 
     ``compile_stack(stack, masks, *, pattern, bits, rules)`` takes an
     (L, K, N) numpy stack to ``(leaves, code_bytes, container_bytes, ed)``;
+    ``compile_payload(w, mask, *, bits, rules, block)`` takes one (K, N)
+    weight to ``(payload, pattern, code_bytes, container_bytes, bd, ed)``
+    for the payload-style passes (``compile_lenet`` / ``compile_conv``;
+    ``pattern``/``bd``/``ed`` are None for families without one);
     ``eliminates_blocks`` marks policies compacted against a shared
     :class:`BlockSparsePattern`.
     """
@@ -88,6 +103,7 @@ class PolicyCompiler:
     name: str
     eliminates_blocks: bool = False
     compile_stack: Optional[Callable] = None
+    compile_payload: Optional[Callable] = None
 
 
 _FAMILIES: Dict[str, PayloadFamily] = {}
@@ -231,6 +247,15 @@ def unwrap_payload(payload: Any):
             leaves, pattern = out
             return fam, leaves, pattern
     return None, None, None
+
+
+def family_of_payload(payload: Any) -> Optional[PayloadFamily]:
+    """The family a payload object belongs to (first match in
+    registration order), or None."""
+    for fam in all_families():
+        if fam.matches is not None and fam.matches(payload):
+            return fam
+    return None
 
 
 def weight_leaf_names() -> Tuple[str, ...]:

@@ -1,14 +1,16 @@
-"""Quantised dense matmul — the wrapper of the CUDA kernel.
+"""Quantised dense matmul and conv — the wrappers of the CUDA kernels.
 
 ``y = act((x @ Wq) * s + b)`` with int8 codes or bit-packed int4x2 / int2x4
 codes along K; the scale multiplies the f32 accumulator at emit.  The kernel
 (``csrc/quant_matmul.cu``) replaces the Pallas ``quant_matmul`` of
 ``repro.kernels.quant_matmul.kernel``; its plain PyTorch version is
 :func:`repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`.
+:func:`quant_conv` is the fused conv over the same codes
+(``csrc/quant_conv.cu``, plain version ``quant_conv_ref``).
 
-The wrapper launches the kernel for CUDA tensors and takes the plain
-version for CPU tensors, and only then.  ``launches`` counts kernel
-launches.
+A wrapper launches the kernel for CUDA tensors and takes the plain version
+for CPU tensors, and only then.  ``launches`` counts launches of the matmul
+kernel, ``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ import torch
 from .. import build
 from ..sparse_matmul.kernel import (
     X_DTYPES,
+    _check_activation,
     act_args,
+    check_conv_input,
     check_cuda_operand,
+    conv_geom,
     packed_ratio,
     ptr,
     rows_per_cta,
@@ -29,10 +34,11 @@ from ..sparse_matmul.kernel import (
     w_kind,
 )
 
-__all__ = ["quant_matmul", "launches"]
+__all__ = ["conv_launches", "launches", "quant_conv", "quant_matmul"]
 
 # kernel launches since the counter was last set to 0
-launches = 0
+launches = 0         # quant_matmul
+conv_launches = 0    # quant_conv
 
 
 def _lib():
@@ -100,4 +106,87 @@ def quant_matmul(
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
     launches += 1
+    return out
+
+
+def _conv_lib():
+    fn = build.library("quant_conv").qconv_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, I, P, P, I, I, I, P, P, P, I,
+                       ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def quant_conv(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    scales: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    kernel_hw,
+    activation=None,
+    strides=(1, 1),
+    dilation=(1, 1),
+    pool=None,
+    packed=False,
+    name: str = "quant_conv",
+) -> torch.Tensor:
+    """y = pool(act(conv(x, Wq) * s + b)) in one launch, in x's dtype.
+
+    ``x`` is NHWC and already padded (VALID geometry).  ``w_q`` is the
+    ``(K, N)`` int8 im2col code matrix (K = cin*kh*kw, channel-major), or
+    with ``packed`` "int4x2"/"int2x4" its uint8 container ``(K / ratio, N)``
+    packed along K.  The scale multiplies the f32 accumulator at emit.
+    ``pool=(mode, z)`` pools non-overlapping windows at emit.
+    """
+    global conv_launches
+    _check_activation(activation)
+    strides = (int(strides[0]), int(strides[1]))
+    dilation = (int(dilation[0]), int(dilation[1]))
+    kh, kw = (int(k) for k in kernel_hw)
+    check_conv_input(x, (kh, kw), strides, dilation, pool, name)
+    B, H, W, C = (int(d) for d in x.shape)
+    K = C * kh * kw
+    ratio = packed_ratio(packed)
+    N = int(w_q.shape[1])
+    if packed and K % ratio:
+        raise ValueError(
+            f"{name}: a {packed} container needs K divisible by {ratio}, "
+            f"got K={K}")
+    if int(w_q.shape[0]) * ratio != K:
+        raise ValueError(
+            f"{name}: im2col K={K} (cin*kh*kw) != weight rows "
+            f"{int(w_q.shape[0])} x {ratio} codes/byte")
+    if not x.is_cuda:
+        from .ref import quant_conv_ref
+        from ...core.quant import unpack_codes
+        codes = unpack_codes(w_q, K, axis=0, bits=8 // ratio) \
+            if ratio > 1 else w_q
+        return quant_conv_ref(x, codes, scales, bias, kernel_hw=(kh, kw),
+                              activation=activation, strides=strides,
+                              dilation=dilation, pool=pool, out_dtype=x.dtype)
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+    code, tau = act_args(activation)
+    kind = w_kind(w_q, ratio, name)
+    if kind not in (2, 3, 4):
+        raise ValueError(
+            f"{name}: the quant kernel takes int8 or packed uint8 codes, got "
+            f"{w_q.dtype}")
+    dev = x.device
+    check_cuda_operand(x, dev, "x", name)
+    check_cuda_operand(w_q, dev, "w_q", name)
+    geom, Hp, Wp = conv_geom(x, (kh, kw), strides, dilation, pool,
+                             min(N, 32), name)
+    s = vec_f32(scales, N, dev, "scales", name)
+    b = vec_f32(bias, N, dev, "bias", name)
+    out = torch.empty((B, Hp, Wp, N), dtype=x.dtype, device=dev)
+    g = (ctypes.c_int * 12)(*geom)
+    err = _conv_lib()(ptr(x), int(x.dtype == torch.bfloat16), B, H, W, C, g,
+                      ptr(w_q), kind, K, N, ptr(s), ptr(b), ptr(out), code,
+                      tau, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, name)
+    conv_launches += 1
     return out

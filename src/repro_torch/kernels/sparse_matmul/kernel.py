@@ -1,13 +1,17 @@
-"""Engine-free static block-sparse matmul — the wrapper of the CUDA kernel.
+"""Engine-free static block-sparse matmul and conv — the wrappers of the
+CUDA kernels.
 
 ``y[M, N] = act(x[M, K] @ W + b)`` where W is stored block-compacted: only
 present (bk, bn) blocks exist, enumerated by a static schedule.  The kernel
 (``csrc/block_sparse_matmul.cu``) replaces the Pallas kernel of
 ``repro.kernels.sparse_matmul.kernel``; its plain PyTorch version is
 :func:`repro_torch.kernels.sparse_matmul.ref.block_sparse_matmul_ref`.
+:func:`block_sparse_conv` is the fused conv over the same block format
+(``csrc/block_sparse_conv.cu``, plain version ``block_sparse_conv_ref``).
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
-for CPU tensors, and only then.  ``launches`` counts kernel launches.
+for CPU tensors, and only then.  ``launches`` counts launches of the
+matmul kernel, ``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
@@ -21,11 +25,13 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["ACTIVATIONS", "Schedule", "apply_activation",
-           "block_sparse_matmul", "make_schedule", "launches"]
+__all__ = ["ACTIVATIONS", "POOL_MODES", "Schedule", "apply_activation",
+           "block_sparse_conv", "block_sparse_matmul", "conv_launches",
+           "im2col_valid", "launches", "make_schedule", "pool_nhwc"]
 
 # kernel launches since the counter was last set to 0
-launches = 0
+launches = 0         # block_sparse_matmul
+conv_launches = 0    # block_sparse_conv
 
 # Fused epilogue nonlinearities, applied in f32.  gelu is the tanh form,
 # which is jax.nn.gelu's default (torch's own default is the erf form).
@@ -250,4 +256,230 @@ def block_sparse_matmul(
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
     launches += 1
+    return out
+
+
+# -------------------------------------------------------------------- conv
+
+# Fused pooling modes of the conv kernels' emit step.
+POOL_MODES = ("avg", "max")
+# floats of decoded weight rows per round (csrc/conv_common.cuh CONV_WCAP)
+_CONV_WCAP = 2048
+# dynamic shared memory a CTA may take before a smaller band is chosen,
+# and the H100's per-block maximum
+_CONV_SMEM_SOFT = 48 * 1024
+_CONV_SMEM_MAX = 232448
+
+
+def _check_pool(pool, Ho: int, Wo: int) -> None:
+    if pool is None:
+        return
+    mode, size = pool
+    if mode not in POOL_MODES or int(size) < 1:
+        raise ValueError(
+            f"unknown fused pool {pool!r} — expected (mode, size) with "
+            f"mode in {POOL_MODES} and size >= 1")
+    if Ho % size or Wo % size:
+        raise ValueError(
+            f"fused pool window {size} does not tile the conv output "
+            f"({Ho}x{Wo}) — the emit step pools non-overlapping windows")
+
+
+def valid_out_hw(H: int, W: int, kernel_hw, strides, dilation):
+    """(Ho, Wo) of a VALID conv with the given strides and dilation."""
+    kh, kw = kernel_hw
+    ekh = (kh - 1) * dilation[0] + 1
+    ekw = (kw - 1) * dilation[1] + 1
+    return (H - ekh) // strides[0] + 1, (W - ekw) // strides[1] + 1
+
+
+def im2col_valid(x: torch.Tensor, kernel_hw, strides=(1, 1),
+                 dilation=(1, 1)) -> torch.Tensor:
+    """(B, H, W, C) padded image -> (B, Ho, Wo, C*kh*kw) patches.
+
+    One strided slice per (dh, dw) tap, stacked and transposed into the
+    channel-major patch order of the reference (f = c*kh*kw + dh*kw + dw):
+    bitwise the patches of ``repro``'s ``_im2col_tile`` / ``conv_im2col``.
+    """
+    kh, kw = kernel_hw
+    sh, sw = strides
+    dl_h, dl_w = dilation
+    B, H, W, C = x.shape
+    Ho, Wo = valid_out_hw(H, W, kernel_hw, strides, dilation)
+    taps = [x[:, dh * dl_h:dh * dl_h + sh * (Ho - 1) + 1:sh,
+              dw * dl_w:dw * dl_w + sw * (Wo - 1) + 1:sw, :]
+            for dh in range(kh) for dw in range(kw)]
+    t = torch.stack(taps, dim=-2)            # (B, Ho, Wo, kh*kw, C)
+    t = t.transpose(-1, -2)                  # (B, Ho, Wo, C, kh*kw)
+    return t.reshape(B, Ho, Wo, C * kh * kw)
+
+
+def pool_nhwc(y: torch.Tensor, pool) -> torch.Tensor:
+    """(B, H, W, C) non-overlapping z x z window pool (VALID: a ragged
+    edge is dropped).  ``avg`` sums the window, then divides by z²."""
+    mode, z = pool
+    B, H, W, C = y.shape
+    Hp, Wp = H // z, W // z
+    t = y[:, :Hp * z, :Wp * z, :].reshape(B, Hp, z, Wp, z, C)
+    if mode == "max":
+        return t.amax(dim=(2, 4))
+    return t.sum(dim=(2, 4)) / float(z * z)
+
+
+def _conv_smem(band: int, W: int, C: int, kh: int, dh: int, sh: int,
+               Wo: int, bns: int) -> int:
+    """Shared-memory bytes of one conv CTA (csrc/conv_common.cuh)."""
+    img = ((band - 1) * sh + (kh - 1) * dh + 1) * W * C
+    acc = band * Wo * bns
+    return (img + acc + _CONV_WCAP) * 4 + (_CONV_WCAP // bns) * 4
+
+
+def conv_geom(x: torch.Tensor, kernel_hw, strides, dilation, pool, bns: int,
+              name: str):
+    """The 12 geometry ints of a conv launch (kh, kw, sh, sw, dh, dw, Ho,
+    Wo, z, pool_max, band, bns) and the output's (Hp, Wp).
+
+    ``band`` is the most conv output rows (a multiple of the pool window)
+    whose image rows and accumulators fit one CTA's shared memory."""
+    B, H, W, C = (int(d) for d in x.shape)
+    kh, kw = kernel_hw
+    sh, sw = strides
+    dh, dw = dilation
+    Ho, Wo = valid_out_hw(H, W, kernel_hw, strides, dilation)
+    z = 1 if pool is None else int(pool[1])
+    pool_max = int(pool is not None and pool[0] == "max")
+
+    def smem(band):
+        return _conv_smem(band, W, C, kh, dh, sh, Wo, bns)
+
+    band = Ho
+    while band > z and smem(band) > _CONV_SMEM_SOFT:
+        band -= z
+    if smem(band) > _CONV_SMEM_MAX:
+        raise ValueError(
+            f"{name}: one band of {band} output rows of a {H}x{W}x{C} image "
+            f"needs {smem(band)} bytes of shared memory, more than a CTA's "
+            f"{_CONV_SMEM_MAX}")
+    geom = (kh, kw, sh, sw, dh, dw, Ho, Wo, z, pool_max, band, bns)
+    return geom, Ho // z, Wo // z
+
+
+def check_conv_input(x: torch.Tensor, kernel_hw, strides, dilation, pool,
+                     name: str):
+    """Validate an NHWC conv input; returns (Ho, Wo)."""
+    if x.ndim != 4:
+        raise ValueError(f"{name} expects NHWC input, got shape "
+                         f"{tuple(x.shape)}")
+    H, W = int(x.shape[1]), int(x.shape[2])
+    Ho, Wo = valid_out_hw(H, W, kernel_hw, strides, dilation)
+    if Ho < 1 or Wo < 1:
+        raise ValueError(
+            f"{name}: conv kernel {tuple(kernel_hw)} does not fit the "
+            f"{H}x{W} input")
+    _check_pool(pool, Ho, Wo)
+    return Ho, Wo
+
+
+def epilogue_of_zero(N: int, bias, activation, device) -> torch.Tensor:
+    """act(0 + b) per output channel: the output of a column with no block."""
+    v = torch.zeros((N,), dtype=torch.float32, device=device)
+    if bias is not None:
+        v = v + bias.reshape(N).to(torch.float32)
+    return apply_activation(v, activation)
+
+
+def _conv_lib():
+    fn = build.library("block_sparse_conv").bsc_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, I, P, P, I, I, I, P, P, P, P, P, I, P,
+                       I, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def block_sparse_conv(
+    x: torch.Tensor,
+    blocks: torch.Tensor,
+    schedule: Schedule,
+    *,
+    kernel_hw,
+    scales: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation=None,
+    strides=(1, 1),
+    dilation=(1, 1),
+    pool=None,
+    packed=False,
+    name: str = "block_sparse_conv",
+) -> torch.Tensor:
+    """y = pool(act(conv(x, W) + b)) in one launch, in x's dtype.
+
+    ``x`` is NHWC and already padded (VALID geometry; SAME resolves to a
+    zero-pad upstream).  W is the block-compacted im2col weight: ``blocks``
+    ``(P, bk, bn)`` f32, bf16 or int8 codes with per-channel ``scales``,
+    or with ``packed`` "int4x2"/"int2x4" the uint8 container
+    ``(P, bk / ratio, bn)`` packed along bk.  The patches are gathered
+    inside the kernel: no patch matrix exists.  ``pool=(mode, z)`` pools
+    non-overlapping windows at emit ("avg": sum, then / z²; "max"); the
+    output is then ``(B, Ho / z, Wo / z, N)``.  A column block with no
+    present block emits ``act(b)``; a fully empty pattern launches nothing.
+    """
+    global conv_launches
+    _check_activation(activation)
+    strides = (int(strides[0]), int(strides[1]))
+    dilation = (int(dilation[0]), int(dilation[1]))
+    kh, kw = (int(k) for k in kernel_hw)
+    Ho, Wo = check_conv_input(x, (kh, kw), strides, dilation, pool, name)
+    ratio = packed_ratio(packed)
+    P, bkp, bn = (int(d) for d in blocks.shape)
+    bk = bkp * ratio
+    B, H, W, C = (int(d) for d in x.shape)
+    if C * kh * kw != schedule.n_row_blocks * bk:
+        raise ValueError(
+            f"{name}: im2col K={C * kh * kw} (cin*kh*kw) != "
+            f"n_row_blocks*bk={schedule.n_row_blocks * bk}")
+    N = schedule.n_col_blocks * bn
+    z = 1 if pool is None else int(pool[1])
+    if P == 0:
+        # fully empty pattern: one epilogue application; pooling a constant
+        # returns it, so nothing is launched
+        v = epilogue_of_zero(N, bias, activation, x.device)
+        return v.to(x.dtype).expand(B, Ho // z, Wo // z, N).contiguous()
+    if not x.is_cuda:
+        from .ref import block_sparse_conv_ref
+        from ...core.quant import unpack_codes
+        vals = unpack_codes(blocks, bk, axis=1, bits=8 // ratio) \
+            if ratio > 1 else blocks
+        return block_sparse_conv_ref(
+            x, vals, schedule.block_rows, schedule.block_cols,
+            kernel_hw=(kh, kw), n_row_blocks=schedule.n_row_blocks,
+            n_col_blocks=schedule.n_col_blocks, scales=scales, bias=bias,
+            activation=activation, strides=strides, dilation=dilation,
+            pool=pool, out_dtype=x.dtype)
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+    code, tau = act_args(activation)
+    kind = w_kind(blocks, ratio, name)
+    dev = x.device
+    check_cuda_operand(x, dev, "x", name)
+    check_cuda_operand(blocks, dev, "blocks", name)
+    check_cuda_operand(schedule.col_ptr, dev, "the schedule", name)
+    if P != int(schedule.rows.numel()):
+        raise ValueError(
+            f"{name}: {P} blocks but the schedule lists "
+            f"{int(schedule.rows.numel())}")
+    geom, Hp, Wp = conv_geom(x, (kh, kw), strides, dilation, pool,
+                             min(bn, 32), name)
+    s = vec_f32(scales, N, dev, "scales", name)
+    b = vec_f32(bias, N, dev, "bias", name)
+    out = torch.empty((B, Hp, Wp, N), dtype=x.dtype, device=dev)
+    g = (ctypes.c_int * 12)(*geom)
+    err = _conv_lib()(ptr(x), int(x.dtype == torch.bfloat16), B, H, W, C, g,
+                      ptr(blocks), kind, bk, bn, ptr(s), ptr(b),
+                      ptr(schedule.col_ptr), ptr(schedule.rows),
+                      ptr(schedule.pidx), schedule.n_col_blocks, ptr(out),
+                      code, tau, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, name)
+    conv_launches += 1
     return out

@@ -1,11 +1,11 @@
-"""Plain PyTorch version of the block-sparse matmul kernel."""
+"""Plain PyTorch versions of the block-sparse matmul and conv kernels."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from .kernel import _check_activation, apply_activation
+from .kernel import _check_activation, apply_activation, im2col_valid, pool_nhwc
 
 
 def block_sparse_matmul_ref(
@@ -44,4 +44,37 @@ def block_sparse_matmul_ref(
         y = y + bias.reshape(N).to(torch.float32)[None, :]
     if activation is not None:
         y = apply_activation(y, activation)
+    return y.to(out_dtype)
+
+
+def block_sparse_conv_ref(
+    x: torch.Tensor,
+    blocks: torch.Tensor,
+    block_rows,
+    block_cols,
+    *,
+    kernel_hw,
+    n_row_blocks: int,
+    n_col_blocks: int,
+    scales: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation=None,
+    strides=(1, 1),
+    dilation=(1, 1),
+    pool=None,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """im2col patches of the padded NHWC ``x`` through
+    :func:`block_sparse_matmul_ref` (scale before the dot, bias and
+    activation in f32), then the non-overlapping window pool."""
+    B = x.shape[0]
+    patches = im2col_valid(x.to(torch.float32), kernel_hw, strides, dilation)
+    _, Ho, Wo, K = patches.shape
+    y = block_sparse_matmul_ref(
+        patches.reshape(B * Ho * Wo, K), blocks, block_rows, block_cols,
+        n_row_blocks=n_row_blocks, n_col_blocks=n_col_blocks, scales=scales,
+        bias=bias, activation=activation)
+    y = y.reshape(B, Ho, Wo, -1)
+    if pool is not None:
+        y = pool_nhwc(y, pool)
     return y.to(out_dtype)
