@@ -10,20 +10,31 @@ Phases, each fatal on failure:
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile every CUDA kernel from ``src/repro_torch/csrc``;
 3. kernels — hold each kernel against its plain PyTorch version over every
-   container, row count and activation, then time kernel, plain version
-   and a one-call PyTorch yardstick at the shapes the serving path gives
-   it, beside the least time the card could take (``bound_ms``);
+   container, row count and activation (the flash kernel: causal or not,
+   GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's gradient),
+   then time kernel, plain version and a one-call PyTorch yardstick at the
+   shapes the main paths give it, beside the least time the card could
+   take (``bound_ms``);
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
    to int4x2 quant/block-sparse leaves, serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, require every kernel to have
    launched, and hold a prefill chunk plus 4 decode steps against the
-   plain versions (``dispatch="twin"``);
+   plain versions (``dispatch="twin"``); then run the compiled model's
+   full-sequence forward (B = 1, T = 512) through ``block_sparse_matmul``,
+   ``quant_matmul`` and the flash kernel, held against the twin path;
 5. lenet   — compile LeNet-5 at its published widths (random weights from a
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
    ``fc_stack_matmul`` x1 per forward (``quant_conv`` x2 with the convs
    under "quant"), hold the logits against ``dispatch="twin"``, and time
-   images/s beside the masked-dense forward.
+   images/s beside the masked-dense forward;
+6. train   — llama3.2-1b at full width (random weights from a seed),
+   ``block_aware_prune`` masks on every MLP weight, one step under
+   ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
+   through ``TrainRunner`` (global batch 4 x 2048, 2 micro-batches,
+   remat): the loss must fall, pruned weights stay exactly zero and the
+   flash kernel runs 64 times per step; step ms, tokens/s, peak memory and
+   the device idle share of one step (torch.profiler).
 
 Prints the kernels line, the card line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -278,6 +289,61 @@ def sweep_attention(rng, dev):
                         f"max abs err {err}")
                 cases += 1
     return cases
+
+
+def sweep_flash(rng, dev):
+    """The flash kernel against its plain version: causal and not, G in
+    {1, 4}, Dh in {16, 64, 128} (and 40, 256), ragged T, Tq != Tk, B in
+    {1, 3}, bf16 and f32, q read through a strided view; then the op's
+    gradient against autograd through ``chunked_attention``."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.layers import chunked_attention
+
+    shapes = [(causal, G, Dh, Tq, Tq) for causal in (True, False)
+              for G in (1, 4) for Dh in (16, 64, 128) for Tq in (100, 257)]
+    shapes += [(False, 4, 64, 100, 257), (False, 1, 16, 257, 33),
+               (True, 4, 64, 257, 100), (True, 2, 40, 130, 130),
+               (True, 1, 256, 70, 70)]
+    cases = 0
+    for i, (causal, G, Dh, Tq, Tk) in enumerate(shapes):
+        B, Hkv = (1, 3)[i % 2], 2
+        for dt in (torch.float32, torch.bfloat16):
+            base = torch.randn((B, Tq, 2 * Hkv * G, Dh), device=dev).to(dt)
+            q = base[:, :, Hkv * G:]            # strided over heads
+            k = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
+            v = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
+            y = flash_attention_fwd(q, k, v, causal=causal)
+            ref = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            require(err <= flash_tol(dt, ref),
+                    f"flash_attention causal={causal} G={G} Dh={Dh} Tq={Tq} "
+                    f"Tk={Tk} B={B} {dt}: max abs err {err}")
+            cases += 1
+    # the op's gradient: its backward is autograd through chunked_attention
+    q, k, v = (torch.randn(s_, device=dev).to(torch.bfloat16)
+               for s_ in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64)))
+    g = torch.randn((2, 300, 8, 64), device=dev).to(torch.bfloat16)
+    grads = []
+    for fn in (lambda a, b, c: flash_attention(a, b, c, True),
+               lambda a, b, c: chunked_attention(a, b, c, causal=True)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad.float() for t in leaves])
+    for name, a, b in zip("qkv", *grads):
+        err = float((a - b).abs().max())
+        require(err <= flash_tol(torch.bfloat16, b),
+                f"flash_attention gradient d{name}: max abs err {err}")
+    return cases + 1
+
+
+def flash_tol(dtype, ref) -> float:
+    """bf16: one output rounding step (2^-7 of the largest value); f32: the
+    sum-order error of an f32 online softmax (``F32_TOL`` of the largest)."""
+    scale = float(ref.float().abs().max()) + 1e-6
+    return (2 ** -7 if dtype == torch.bfloat16 else F32_TOL) * scale
 
 
 # Conv sweep geometries: (name, (H, W, cin), (kh, kw), strides, dilation,
@@ -565,6 +631,7 @@ def counters():
     """kernel name -> (wrapper module, name of its launch counter)."""
     from repro_torch.kernels import fc_stack
     from repro_torch.kernels.flash_attention import decode_packed
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.sparse_matmul import kernel as sk
     return {"block_sparse_matmul": (sk, "launches"),
@@ -572,7 +639,8 @@ def counters():
             "packed_decode_attention": (decode_packed, "launches"),
             "block_sparse_conv": (sk, "conv_launches"),
             "quant_conv": (qk, "conv_launches"),
-            "fc_stack_matmul": (fc_stack, "launches")}
+            "fc_stack_matmul": (fc_stack, "launches"),
+            "flash_attention": (fk, "launches")}
 
 
 def reset_counts():
@@ -652,7 +720,42 @@ def serve(dev, report):
     report["twin_check"] = {
         kv: twin_check(cm, cfg, dev, prompts[0][:16], kv) for kv in TWIN_TOL}
     report["decode_profile"] = profile_decode(cm, cfg, dev)
+    report["compiled_forward"] = compiled_forward(cm, cfg, dev)
     return cm, cfg, counts
+
+
+def compiled_forward(cm, cfg, dev):
+    """The full-sequence forward of the compiled model (B = 1, T = 512):
+    its linears reach block_sparse_matmul and quant_matmul at M = 512, its
+    attention the flash kernel; logits held against ``dispatch="twin"``
+    within the serving path's float tolerance."""
+    from repro_torch.models.model import forward
+
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, 512)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        yt = forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns,
+                     dispatch="twin")
+    want = {"block_sparse_matmul": 3 * cfg.n_layers,
+            "quant_matmul": 4 * cfg.n_layers, "flash_attention": cfg.n_layers}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"compiled forward launched {counts}, expected {want}")
+    y, yt = y.float(), yt.float()
+    require(tuple(y.shape) == (1, 512, cfg.vocab) and
+            bool(torch.isfinite(y).all()), "compiled forward: bad logits")
+    top = float(yt.abs().max())
+    rel = float((y - yt).abs().max()) / top
+    tol = TWIN_TOL["float"]
+    require(rel <= tol, f"compiled forward: kernel vs twin logits max rel "
+                        f"err {rel} > {tol}")
+    return {"launches": {k: counts[k] for k in want}, "max_rel_err": rel,
+            "tol": tol, "largest_logit": top}
 
 
 def profile_decode(cm, cfg, dev, steps: int = 5):
@@ -776,8 +879,9 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_forward(fwd, steps: int = 5):
-    """Device busy time and idle share of one forward (torch.profiler)."""
+def profile_forward(fwd, steps: int = 5, unit: str = "forward"):
+    """Device busy time and idle share of one call of ``fwd`` (a forward,
+    or a train step with ``unit="step"``), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fwd()
@@ -797,10 +901,10 @@ def profile_forward(fwd, steps: int = 5):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[e.key] = e.self_device_time_total / steps
     busy_ms = sum(dev_us.values()) / 1e3
-    return {"wall_ms_per_forward": wall_ms,
-            "device_busy_ms_per_forward": busy_ms if dev_us else None,
+    return {f"wall_ms_per_{unit}": wall_ms,
+            f"device_busy_ms_per_{unit}": busy_ms if dev_us else None,
             "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
-            "device_us_per_forward": dict(sorted(dev_us.items(),
+            f"device_us_per_{unit}": dict(sorted(dev_us.items(),
                                                  key=lambda kv: -kv[1]))}
 
 
@@ -1066,6 +1170,182 @@ def measure_lenet_kernels(params, x, cms, dev):
     return entries, details
 
 
+# ---------------------------------------------------------------- training
+
+
+# The training slice: global batch 4 x 2048 tokens in 2 micro-batches,
+# 6 AdamW steps on one batch (a falling loss checks the gradients), frozen
+# masks on every MLP weight as the serve compile prunes them.
+TRAIN = dict(batch=4, seq=2048, n_micro=2, steps=6)
+TRAIN_PRUNE = dict(block=(128, 128), block_density=0.25, in_block_density=0.5)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+# One train step under dispatch="kernel" vs "twin" from the same state.  Only
+# the attention forward differs (flash kernel vs chunked_attention): both
+# compute in f32 and round to bf16, so single outputs differ by a bf16 step,
+# which the 16 bf16 layers carry on.  The loss is a mean over 8192 tokens:
+# within one bf16 step (2^-8) relative.  The gradient norm comes from the
+# same backward code at those slightly different activations: within the
+# 2% relative that the serving path allows its float-cache logits.
+TRAIN_TWIN_TOL = {"loss": 2 ** -8, "grad_norm": 2e-2}
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Mean device time per call from CUDA events around ``reps`` calls,
+    after one warm-up call (for work a CUDA graph should not capture)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def train(dev, report):
+    """Train llama3.2-1b at full width for a few steps through
+    ``make_train_step`` and ``TrainRunner``, with frozen block-sparse masks
+    on every ``wg``/``wu``/``wd``; the counts are set to 0 just before the
+    run.  Holds one step against ``dispatch="twin"`` first."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import block_aware_prune
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.runtime import RunnerConfig, TrainRunner
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("llama3.2-1b")
+    require(cfg.remat, "the training slice runs with remat")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    masks = {"blocks": {"mlp": {}}}
+    for name in ("wg", "wu", "wd"):
+        w = params["blocks"]["mlp"][name]["w"]
+        m = np.stack([block_aware_prune(w[i].float().cpu().numpy(),
+                                        **TRAIN_PRUNE)
+                      for i in range(cfg.n_layers)])
+        mt = torch.from_numpy(m).to(dev)
+        w.mul_(mt.to(w.dtype))          # pruned before training, in place
+        masks["blocks"]["mlp"][name] = {"w": mt}
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    opt = adamw_init(params, opt_cfg)
+    toks, labels = token_batch(0, TRAIN["batch"], TRAIN["seq"], cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # kernel vs twin: one step each from the same state
+    twin = {}
+    for mode in ("kernel", "twin"):
+        step = make_train_step(cfg, opt_cfg, TRAIN["n_micro"], masks,
+                               dispatch=mode)
+        _, _, met = step(params, opt, batch)
+        twin[mode] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+        del met
+    for k, tol in TRAIN_TWIN_TOL.items():
+        a, b = twin["kernel"][k], twin["twin"][k]
+        rel = abs(a - b) / abs(b)
+        twin[f"{k}_rel_err"] = rel
+        require(math.isfinite(a) and rel <= tol,
+                f"train step kernel vs twin {k}: {a} vs {b}, rel err {rel} > "
+                f"{tol}")
+
+    step = make_train_step(cfg, opt_cfg, TRAIN["n_micro"], masks)
+    runner = TrainRunner(step, lambda i: batch, RunnerConfig(
+        total_steps=TRAIN["steps"], ckpt_every=0, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    params, opt = runner.run(params, opt)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    log = runner.metrics_log
+    losses = [m["loss"] for m in log]
+    require(len(log) == TRAIN["steps"] and all(map(math.isfinite, losses)),
+            f"train: {len(log)} steps, losses {losses}")
+    require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    for name, m in masks["blocks"]["mlp"].items():
+        w = params["blocks"]["mlp"][name]["w"]
+        require(bool((w[~m["w"]] == 0).all()),
+                f"train: pruned {name} weights are not exactly zero")
+    want = cfg.n_layers * 2 * TRAIN["n_micro"] * TRAIN["steps"]
+    require(counts["flash_attention"] == want,
+            f"train: {counts['flash_attention']} flash launches, expected "
+            f"{want} (forward + remat recompute per layer and micro-batch)")
+    step_ms = [m["step_s"] * 1e3 for m in log]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    report["train"] = {
+        **TRAIN, "setup_s": setup_s, "losses": losses,
+        "grad_norms": [m["grad_norm"] for m in log], "step_ms": step_ms,
+        "step_ms_p50": pct(step_ms, 50),
+        "tokens_per_s": tokens / pct(step_ms, 50) * 1e3,
+        "peak_memory_bytes": peak, "launches": counts,
+        "flash_launches_per_step": counts["flash_attention"] / len(log),
+        "twin_check": twin, "twin_tol": TRAIN_TWIN_TOL,
+        "profile": profile_forward(lambda: step(params, opt, batch), steps=1,
+                                   unit="step"),
+    }
+    return counts
+
+
+def measure_flash(dev, counts):
+    """Row 7: the flash kernel at the training shape (one micro-batch of one
+    layer) beside its bound, its plain version and SDPA; and the backward
+    that recomputes ``chunked_attention`` there."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    from repro_torch.models.layers import chunked_attention
+
+    B, T, H, Hkv, Dh = TRAIN["batch"] // TRAIN["n_micro"], TRAIN["seq"], 32, \
+        8, 64
+    ins = [[torch.randn(s_, device=dev).to(torch.bfloat16)
+            for s_ in ((B, T, H, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
+           for _ in range(4)]
+    q, k, v = ins[0]
+    y = flash_attention_fwd(q, k, v, causal=True)
+    ref = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    tol = flash_tol(torch.bfloat16, ref)
+    require(err <= tol, f"flash_attention at the training shape: max abs err "
+                        f"{err} > {tol}")
+    heads = [[t.permute(0, 2, 1, 3) for t in qkv] for qkv in ins]
+    ops = 4.0 * B * H * Dh * T * (T + 1) / 2    # causal pairs k <= q
+    b_ms, b_by = bound(nbytes(q, k, v, y), ops, "bf16")
+    g = torch.randn_like(q)
+
+    def backward():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(chunked_attention(*leaves, causal=True), leaves,
+                            g)
+
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "launches": counts["flash_attention"], "max_abs_err": err,
+        "tol": tol,
+        "ms": device_ms(lambda i: lambda: flash_attention_fwd(
+            *ins[i], causal=True), 4),
+        "plain_ms": device_ms(lambda i: lambda: flash_attention_plain(
+            *ins[i], causal=True), 2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda i: lambda: F.scaled_dot_product_attention(
+            *heads[i], is_causal=True, enable_gqa=True), 4),
+        "backward_recompute_ms": event_ms(backward),
+        "shape": f"B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True), (B, H, T, Dh) views"}
+
+
 def main() -> int:
     from repro_torch.kernels import build
 
@@ -1096,6 +1376,7 @@ def main() -> int:
             "block_sparse_conv": sweep_sparse_conv(rng, dev),
             "quant_conv": sweep_quant_conv(rng, dev),
             "fc_stack_matmul": sweep_fc_stack(rng, dev),
+            "flash_attention": sweep_flash(rng, dev),
         }
         print(f"kernels vs plain versions: {report['sweep_cases']} cases pass",
               flush=True)
@@ -1104,6 +1385,8 @@ def main() -> int:
         print(f"serve: {json.dumps(report['serve'])}", flush=True)
         print(f"twin check: {json.dumps(report['twin_check'])}", flush=True)
         print(f"decode profile: {json.dumps(report['decode_profile'])}",
+              flush=True)
+        print(f"compiled forward: {json.dumps(report['compiled_forward'])}",
               flush=True)
 
         kernels = measure_kernels(cm, cfg, dev, counts)
@@ -1115,6 +1398,18 @@ def main() -> int:
         lenet_kernels, report["lenet_kernels"] = measure_lenet_kernels(
             params, x, cms, dev)
         kernels += lenet_kernels
+        del params, x, cms
+        train_counts = train(dev, report)
+        print("train: " + json.dumps({k: v for k, v in report["train"].items()
+                                      if k != "profile"}), flush=True)
+        prof = report["train"]["profile"]
+        top = sorted(prof["device_us_per_step"].items(),
+                     key=lambda kv: -kv[1])[:8]
+        print("train profile: " + json.dumps({
+            **{k: v for k, v in prof.items() if k != "device_us_per_step"},
+            "top_device_us_per_step": {k[:80]: v for k, v in top}}),
+            flush=True)
+        kernels.append(measure_flash(dev, train_counts))
         report["kernels"] = kernels
     finally:
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

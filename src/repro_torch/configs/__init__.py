@@ -1,6 +1,8 @@
-"""Architecture registry of the port: ``get_config(arch)``."""
+"""Architecture registry of the port: ``get_config(arch)`` and
+``reduced_config(arch)``."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from ..models.config import ArchConfig
@@ -20,3 +22,15 @@ def get_config(arch: str) -> ArchConfig:
     if key not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port has: {ARCH_IDS}")
     return importlib.import_module(f".{_MODULES[key]}", __package__).CONFIG
+
+
+def reduced_config(arch: str) -> ArchConfig:
+    """Tiny same-family config for CPU runs and tests (a copy of
+    ``repro.configs.reduced_config`` for the dense family)."""
+    cfg = get_config(arch)
+    small: dict = dict(
+        n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=128,
+        head_dim=16, param_dtype="float32", remat=False,
+    )
+    small["n_kv_heads"] = 4 if cfg.n_kv_heads == cfg.n_heads else 2
+    return dataclasses.replace(cfg, **small)

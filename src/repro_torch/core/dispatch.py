@@ -14,6 +14,11 @@ resolves the compiled leaves to their registered
   sparse_packed {"w_blkp", "w_s"} block_sparse_matmul     block_sparse_matmul_ref
              (int4x2 / int2x4)
 
+Full-sequence attention (:func:`attn_full_dispatch`, the training and
+prefill forward) takes the ``flash_attention`` op — the CUDA kernel forward
+with a recomputed ``chunked_attention`` backward — and its plain version is
+``chunked_attention`` itself.
+
 Modes (:class:`DispatchConfig`, from an explicit ``dispatch=`` argument, else
 the ``REPRO_TORCH_DISPATCH`` environment variable, else ``auto``):
 
@@ -71,6 +76,7 @@ __all__ = [
     "POOL_MODES",
     "ConvPayload",
     "DispatchConfig",
+    "attn_full_dispatch",
     "attn_packed_dispatch",
     "attn_packed_eligible",
     "conv_dispatch",
@@ -242,6 +248,30 @@ def attn_packed_dispatch(
             f"a positive tile, got Dh={q.shape[-1]}, bt={bt}")
     return packed_decode_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
                                    name=name)
+
+
+def attn_full_dispatch(
+    q: torch.Tensor,        # (B, T, H, Dh)
+    k: torch.Tensor,        # (B, T, Hkv, Dh)
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    dispatch: Union[None, str, DispatchConfig] = None,
+    leaf: Optional[str] = None,
+) -> torch.Tensor:
+    """Full-sequence attention, causal positions aligned at 0.  A CUDA tensor
+    takes the ``flash_attention`` op under ``auto`` and ``kernel`` (a shape
+    the kernel cannot take raises); ``twin``, and ``auto`` on the CPU, take
+    :func:`repro_torch.models.layers.chunked_attention`, which is also what
+    the op's backward recomputes."""
+    # imported here: models.layers imports this module
+    from ..kernels.flash_attention.ops import flash_attention
+    from ..models.layers import chunked_attention
+
+    cfg = resolve(dispatch)
+    if use_kernel(cfg, q, leaf or "attn.full") and q.is_cuda:
+        return flash_attention(q, k, v, causal)
+    return chunked_attention(q, k, v, causal=causal)
 
 
 # --------------------------------------------------- values derived once

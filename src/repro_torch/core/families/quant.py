@@ -255,6 +255,7 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
     leaf_ndim={"w_qp": 2, "w_s": 1},
+    container_leaves=("w_qp",),
     sample=_sample_packed,
     validate=_validate_scales("quant_packed", "w_qp"),
 ))

@@ -307,6 +307,7 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
     leaf_ndim={"w_blkp": 3, "w_s": 1},
+    container_leaves=("w_blkp",),
     sample=_sample_packed,
     validate=_validate_blocks("sparse_packed", "w_blkp"),
 ))

@@ -60,6 +60,8 @@ class PayloadFamily:
       ``(leaves, pattern)`` whose dtype kinds pin the others;
       ``validate(leaves, pattern)`` — cross-leaf lint, raising ValueError
       prefixed with the family name.
+    * ``container_leaves`` — leaf names whose buffers are bit-exact storage
+      containers, which the checkpointer must never widen.
     """
 
     name: str
@@ -78,6 +80,7 @@ class PayloadFamily:
     validate: Optional[Callable] = None
     leaf_dtype_kinds: Mapping[str, str] = dataclasses.field(
         default_factory=dict)
+    container_leaves: Tuple[str, ...] = ()
 
     def __post_init__(self):
         if self.key_leaf not in self.leaf_names:
@@ -261,6 +264,12 @@ def family_of_payload(payload: Any) -> Optional[PayloadFamily]:
 def weight_leaf_names() -> Tuple[str, ...]:
     """Every registered key leaf."""
     return tuple(fam.key_leaf for fam in all_families())
+
+
+def container_leaf_names() -> Tuple[str, ...]:
+    """Leaf names whose buffers are bit-exact storage containers (the
+    checkpointer must never widen them)."""
+    return tuple(n for fam in all_families() for n in fam.container_leaves)
 
 
 def pattern_leaf(p: Mapping[str, Any]) -> bool:

@@ -5,7 +5,9 @@
 * ``pack_codes`` / ``unpack_codes`` — two 4-bit (int4x2) or four 2-bit
   (int2x4) codes per uint8 byte along one axis, lowest field = lowest index,
   sign-extended on the way back as ``(c ^ s) - s``;
-* ``PackedTensor`` — a bit-packed container plus its logical shape.
+* ``PackedTensor`` — a bit-packed container plus its logical shape;
+* ``fake_quant`` — quantise-dequantise with a straight-through gradient
+  (quantisation-aware training).
 
 Byte for byte the layout of ``repro.core.quant``: a container written by one
 package unpacks to the same codes in the other.  Every function works on
@@ -26,6 +28,7 @@ __all__ = [
     "codes_per_byte",
     "container_tag",
     "dequantize",
+    "fake_quant",
     "pack_codes",
     "pack_int4",
     "pack_quantized",
@@ -84,6 +87,21 @@ def quantize(w: torch.Tensor, bits: int = 8, axis: int = -1) -> QuantizedTensor:
     q = torch.clamp(torch.round(w / scale), -qmax(bits), qmax(bits))
     return QuantizedTensor(values=q.to(torch.int8), scales=scale.squeeze(),
                            axis=axis, bits=bits)
+
+
+def fake_quant(w: torch.Tensor, bits: int = 8, axis: int = -1) -> torch.Tensor:
+    """Quantise-dequantise with a straight-through gradient.
+
+    forward:  round(w / s).clip * s       backward:  identity
+    """
+    axis = axis % w.dim()
+    reduce_axes = tuple(i for i in range(w.dim()) if i != axis)
+    # an empty dim list would reduce every axis in torch, none in JAX
+    amax = w.abs().amax(dim=reduce_axes, keepdim=True) if reduce_axes \
+        else w.abs()
+    scale = torch.clamp_min(amax / qmax(bits), 1e-12)
+    q = torch.clamp(torch.round(w / scale), -qmax(bits), qmax(bits)) * scale
+    return w + (q - w).detach()
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:

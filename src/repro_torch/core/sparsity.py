@@ -21,6 +21,7 @@ __all__ = [
     "BlockSparsePattern",
     "CompressedLinear",
     "compress",
+    "compression_ratio",
     "decompress",
     "pattern_from_bitmap",
     "pattern_from_mask",
@@ -245,3 +246,23 @@ def _shared_pattern_cached(K: int, N: int, block: Tuple[int, int],
     stride = max(1, round(1.0 / max(density, 1e-6)))
     i, j = np.meshgrid(np.arange(nR), np.arange(nC), indexing="ij")
     return pattern_from_bitmap((K, N), block, (i + j) % stride == 0)
+
+
+def compression_ratio(
+    shape: Tuple[int, int],
+    nnz: int,
+    *,
+    bits: int = 8,
+    dense_bits: int = 32,
+    index_bits_per_nnz: float = 0.0,
+    block_meta_bits: int = 0,
+) -> float:
+    """Paper's compression metric: dense fp32 bits / compressed bits.
+
+    For the engine-free format the per-nnz index cost is ~0 (the pattern is
+    compiled into the program, mirroring the paper's "weights become
+    wires"); ``block_meta_bits`` accounts the bitmap honestly.
+    """
+    dense = shape[0] * shape[1] * dense_bits
+    comp = nnz * (bits + index_bits_per_nnz) + block_meta_bits
+    return dense / max(comp, 1)

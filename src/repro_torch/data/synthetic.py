@@ -1,4 +1,6 @@
-"""Deterministic synthetic digits — an MNIST-like 10-class task, numpy only.
+"""Deterministic synthetic data, numpy only: digits and token batches.
+
+Digits are an MNIST-like 10-class task.
 
 Each class is a fixed random 28×28 prototype, smoothed by a 3×3 box filter;
 samples are prototypes plus Gaussian noise.  The port keeps its own copy of
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["DigitTask", "synthetic_digits"]
+__all__ = ["DigitTask", "synthetic_digits", "token_batch"]
 
 
 class DigitTask:
@@ -46,3 +48,20 @@ class DigitTask:
 
 def synthetic_digits(seed=0, noise=0.35) -> DigitTask:
     return DigitTask(seed, noise)
+
+
+def token_batch(step: int, batch: int, seq: int, vocab: int, *,
+                seed: int = 0, shard: int = 0, n_shards: int = 1):
+    """(tokens, labels) with Zipf marginals + deterministic bigram structure
+    (a copy of ``repro.data.synthetic.token_batch``: byte-equal output)."""
+    rng = np.random.default_rng((seed * 1_000_003 + step) * 65_537 + shard)
+    # zipf draw clipped to vocab
+    z = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64)
+    toks = (z % (vocab - 1)) + 1
+    # bigram structure: with p=0.5, next token = f(prev) for a fixed affine f
+    follow = rng.random((batch, seq + 1)) < 0.5
+    affine = (toks * 31 + 7) % (vocab - 1) + 1
+    toks[:, 1:] = np.where(follow[:, 1:], affine[:, :-1], toks[:, 1:])
+    tokens = toks[:, :-1].astype(np.int32)
+    labels = toks[:, 1:].astype(np.int32)
+    return tokens, labels

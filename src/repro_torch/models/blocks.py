@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import payload_registry
-from ..core.dispatch import attn_packed_dispatch
+from ..core.dispatch import attn_full_dispatch, attn_packed_dispatch
 from ..core.families._util import he_init
 from ..core.quant import pack_int4
 from .config import ArchConfig
@@ -51,10 +51,12 @@ def lin_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, K: int, N: int,
 
 
 def norm_init(cfg: ArchConfig, L: int, device) -> Params:
+    """Norm gains (and biases) in bf16 whatever ``param_dtype`` is, as the
+    reference's ``rmsnorm_init`` / ``layernorm_init`` make them."""
     shape = (L, cfg.d_model) if L else (cfg.d_model,)
-    p = {"g": torch.ones(shape, dtype=_dtype(cfg), device=device)}
+    p = {"g": torch.ones(shape, dtype=torch.bfloat16, device=device)}
     if cfg.norm != "rms":
-        p["b"] = torch.zeros(shape, dtype=_dtype(cfg), device=device)
+        p["b"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return p
 
 
@@ -130,21 +132,27 @@ def attn_apply(
     cfg: ArchConfig,
     x: torch.Tensor,                 # (B, T, D)
     positions: torch.Tensor,         # (B, T)
-    cache: Dict,
+    cache: Optional[Dict] = None,
     patterns=None,
     dispatch=None,
     *,
     n_valid: Optional[torch.Tensor] = None,  # (B,) valid rows of the T axis
     t_bound: Optional[int] = None,   # cache-read extent (axis 1)
     bt: Optional[int] = None,        # packed-read kv tile rows
-) -> Tuple[torch.Tensor, Dict]:
-    """Cached attention: T == 1 is a decode row, T > 1 a prefill chunk.
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Attention over the full sequence (``cache=None``) or a cache.
 
-    Both insert their K/V at each slot's ``length`` and attend with a
-    per-row causal extent.  The cache is updated IN PLACE (rows, scales
-    and ``length``) and returned.  ``n_valid`` marks how many of the T rows
-    are real; the rest write garbage rows past the new length, masked on
-    every later read or overwritten by the next real write.
+    Without a cache (training and prefill forward) q, k and v of all T
+    positions go through :func:`attn_full_dispatch` — the flash kernel
+    forward on the card — and the returned cache is None; the reference's
+    ``seq_shard`` hints are dropped, as the port runs on one card.
+
+    With a cache, T == 1 is a decode row and T > 1 a prefill chunk.  Both
+    insert their K/V at each slot's ``length`` and attend with a per-row
+    causal extent.  The cache is updated IN PLACE (rows, scales and
+    ``length``) and returned.  ``n_valid`` marks how many of the T rows are
+    real; the rest write garbage rows past the new length, masked on every
+    later read or overwritten by the next real write.
     """
     B, T, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -156,6 +164,11 @@ def attn_apply(
                   "attn/wv").reshape(B, T, Hkv, Dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        o = attn_full_dispatch(q, k, v, causal=cfg.causal, dispatch=dispatch,
+                               leaf="attn.full")
+        return lin_apply(cfg, p["wo"], o.reshape(B, T, H * Dh), H * Dh, D,
+                         patterns, dispatch, "attn/wo"), None
     idx = cache["length"]
     nv = torch.full((B,), T, dtype=torch.int32, device=x.device) \
         if n_valid is None else n_valid.to(torch.int32)

@@ -25,9 +25,11 @@ class ArchConfig:
     head_dim: Optional[int] = None
     act: str = "swiglu"       # swiglu | gelu
     norm: str = "rms"         # rms | ln
+    causal: bool = True
     qkv_bias: bool = False
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
+    remat: bool = True        # forward recomputes each layer in backward
     param_dtype: str = "bfloat16"
 
     def __post_init__(self):

@@ -1,8 +1,11 @@
-"""Shared building blocks: norms, RoPE, the float-cache attention reads and
-the compressed-linear alias.
+"""Shared building blocks: norms, RoPE, the full-sequence and float-cache
+attention reads and the compressed-linear alias.
 
 Every cast sits where the reference (``repro.models.layers``) puts it, so
-the same inputs round at the same places.
+the same inputs round at the same places.  The reference scales q as
+``(q * scale).astype(f32)`` with ``scale = 1 / np.sqrt(Dh)`` a numpy
+float64, which JAX promotes to f32 before the multiply; the port writes
+that as ``q.to(f32) * scale``.
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.dispatch import linear_dispatch
 from ..core.sparsity import BlockSparsePattern
@@ -68,6 +72,58 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ----------------------------------------------------------------- attention
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Memory-efficient (online-softmax) attention over KV chunks: q (B, Tq,
+    H, Dh), k / v (B, Tk, Hkv, Dh) -> (B, Tq, H, Dh) in q's dtype.
+
+    Peak temp is (B, H, Tq, kv_chunk) instead of (B, H, Tq, Tk).  A ragged
+    Tk pads to whole chunks and masks ``k_pos < Tk``; masked scores are
+    ``-inf``.  GQA: head h reads kv head h // G through the (Hkv, G) layout.
+    ``q_offset`` is the absolute position of q[0].  Differentiable: the
+    flash op's backward recomputes this function under autograd.
+    """
+    B, Tq, H, Dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"chunked_attention: H={H} is not a multiple of "
+                         f"Hkv={Hkv}")
+    G = H // Hkv
+    nchunks = max(1, -(-Tk // kv_chunk))
+    pad = nchunks * kv_chunk - Tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).reshape(
+        B, Tq, Hkv, G, Dh)
+    q_pos = q_offset + torch.arange(Tq, device=q.device)
+    m = torch.full((B, Hkv, G, Tq), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, G, Tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, Tq, Dh), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nchunks):
+        lo = c * kv_chunk
+        kb = k[:, lo:lo + kv_chunk].to(torch.float32)
+        vb = v[:, lo:lo + kv_chunk].to(torch.float32)
+        s = torch.einsum("bqHgd,bcHd->bHgqc", qf, kb)
+        k_pos = lo + torch.arange(kv_chunk, device=q.device)
+        mask = (k_pos < Tk)[None, :].expand(Tq, kv_chunk)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        s = s.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bHgqc,bcHd->bHgqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    # (B, Hkv, G, Tq, Dh) -> (B, Tq, H, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dh).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """One query row per slot over a float cache: q (B, 1, H, Dh),
@@ -75,7 +131,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, H, Dh = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
-    qf = (q * (1.0 / math.sqrt(Dh))).to(torch.float32).reshape(B, Hkv, G, Dh)
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).reshape(B, Hkv, G, Dh)
     s = torch.einsum("bHgd,btHd->bHgt", qf, k_cache.to(torch.float32))
     mask = torch.arange(T, device=q.device)[None, :] < length[:, None]
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
@@ -91,7 +147,8 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, C, H, Dh = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
-    qf = (q * (1.0 / math.sqrt(Dh))).to(torch.float32).reshape(B, C, Hkv, G, Dh)
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).reshape(
+        B, C, Hkv, G, Dh)
     s = torch.einsum("bcHgd,btHd->bcHgt", qf, k_cache.to(torch.float32))
     mask = torch.arange(T, device=q.device)[None, None, :] < lengths[:, :, None]
     s = s.masked_fill(~mask[:, :, None, None, :], float("-inf"))

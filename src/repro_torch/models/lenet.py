@@ -25,12 +25,13 @@ from ..core.dispatch import (
     resolve as resolve_dispatch,
 )
 from ..core.families._util import he_init
+from ..core.quant import fake_quant
 from ..device import resolve_device
 from ..kernels.sparse_matmul.kernel import pool_nhwc
 
 __all__ = ["ACT_IN_ELEMS", "ACT_OUT_ELEMS", "CONV_OUT_HW", "LAYERS",
            "LENET_CONV_IN_HW", "init_lenet", "lenet_forward",
-           "lenet_fusion_plan"]
+           "lenet_fusion_plan", "lenet_loss"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -100,15 +101,13 @@ def lenet_forward(
     fusion=None,
 ) -> torch.Tensor:
     """Logits (B, 10).  ``masks`` applies static pruning to the dense
-    layers; ``compressed`` switches named layers (convs and FCs) to their
-    compiled payloads; ``dispatch`` selects kernel or plain versions
-    ("auto" | "kernel" | "twin" | None = ``REPRO_TORCH_DISPATCH``);
+    layers; ``qat_bits`` ({name: bits}) fake-quantises their weights per
+    output channel with a straight-through gradient (quantisation-aware
+    re-sparse fine-tuning); ``compressed`` switches named layers (convs and
+    FCs) to their compiled payloads; ``dispatch`` selects kernel or plain
+    versions ("auto" | "kernel" | "twin" | None = ``REPRO_TORCH_DISPATCH``);
     ``fusion=True`` derives :func:`lenet_fusion_plan` from ``compressed``,
     a dict is used as the plan, None/False runs layer by layer."""
-    if qat_bits:
-        raise NotImplementedError(
-            "qat_bits needs fake_quant, which comes with training (ROADMAP "
-            "Queue A item 10)")
     dcfg = resolve_dispatch(dispatch)
     if fusion is True:
         plan = lenet_fusion_plan(compressed)
@@ -121,6 +120,8 @@ def lenet_forward(
         ww = params[name + "_w"]
         if masks is not None and name in masks:
             ww = ww * masks[name].to(ww.dtype)
+        if qat_bits and name in qat_bits:
+            ww = fake_quant(ww, qat_bits[name], axis=-1)
         return ww
 
     def conv_block(name, x):
@@ -158,3 +159,13 @@ def lenet_forward(
             y = x @ w(name) + params[name + "_b"]
             x = torch.relu(y) if name != "fc3" else y
     return x
+
+
+def lenet_loss(params: Params, images: torch.Tensor, labels: torch.Tensor,
+               masks: Optional[Dict[str, torch.Tensor]] = None,
+               qat_bits: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """Mean cross-entropy of the dense (optionally masked / fake-quantised)
+    forward."""
+    logits = lenet_forward(params, images, masks=masks, qat_bits=qat_bits)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.to(torch.int64)[:, None]).mean()

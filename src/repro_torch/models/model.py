@@ -1,5 +1,5 @@
-"""The dense-family transformer: init, cache and the cached decode/prefill
-steps.
+"""The dense-family transformer: init, the full-sequence forward and loss
+(training and prefill), and the cached decode/prefill steps.
 
 Parameters are plain dicts of tensors whose per-layer leaves are stacked
 along a leading layer axis ``(L, ...)``, as in the JAX reference; the steps
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .blocks import (
@@ -25,8 +26,8 @@ from .blocks import (
 from .config import ArchConfig
 from .layers import Params, linear_apply
 
-__all__ = ["cache_batch_axes", "decode_step", "init_cache", "init_params",
-           "prefill_step"]
+__all__ = ["cache_batch_axes", "decode_step", "embed_inputs", "forward",
+           "init_cache", "init_params", "loss_fn", "prefill_step"]
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -106,6 +107,66 @@ def _head(params: Params, cfg: ArchConfig, h: torch.Tensor, patterns,
         return h @ params["embed"]["w"].T.to(h.dtype)
     return linear_apply(params["head"], h, pattern=(patterns or {}).get(
         (cfg.d_model, cfg.vocab)), dispatch=dispatch, leaf="head")
+
+
+def embed_inputs(params: Params, cfg: ArchConfig,
+                 batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embedding of ``batch["tokens"]`` (B, T): returns (h, positions).
+    The reference's stub frontends (frame / prefix embeddings) belong to
+    families the port does not run, and raise."""
+    _check_family(cfg)
+    if "frame_embeds" in batch or "prefix_embeds" in batch:
+        raise NotImplementedError(
+            "stub modality frontends are not ported (ROADMAP Queue A, "
+            "remaining families)")
+    tokens = batch["tokens"]
+    h = params["embed"]["w"][tokens.to(torch.int64)]
+    B, T = h.shape[:2]
+    pos = torch.arange(T, device=h.device)[None].expand(B, T)
+    return h, pos
+
+
+def _full_block(p, cfg, h, positions, patterns, dispatch):
+    a, _ = attn_apply(p["attn"], cfg, norm_apply(cfg, p["ln1"], h), positions,
+                      None, patterns, dispatch)
+    h = h + a
+    return h + mlp_apply(p["mlp"], cfg, norm_apply(cfg, p["ln2"], h),
+                         patterns=patterns, dispatch=dispatch)
+
+
+def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
+            dispatch=None) -> torch.Tensor:
+    """Full-sequence forward (train / prefill): logits (B, T, V).
+
+    Attention runs through the flash op on the card (its backward
+    recomputes ``chunked_attention``).  With ``cfg.remat`` and autograd on,
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, as ``jax.checkpoint`` does
+    in the reference.  ``patterns`` / ``dispatch`` as in
+    :func:`decode_step`, for compiled parameter trees.
+    """
+    h, positions = embed_inputs(params, cfg, batch)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        p_layer = _tree_index(params["blocks"], i)
+        if remat:
+            h = checkpoint(_full_block, p_layer, cfg, h, positions, patterns,
+                           dispatch, use_reentrant=False)
+        else:
+            h = _full_block(p_layer, cfg, h, positions, patterns, dispatch)
+    return _head(params, cfg, h, patterns, dispatch)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
+            dispatch=None) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["labels"] >= 0``, from f32
+    logits by logsumexp (no (B, T, V) log-prob tensor)."""
+    logits = forward(params, cfg, batch, dispatch=dispatch).to(torch.float32)
+    labels = batch["labels"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return -((picked - lse) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _run(params, cfg, cache, tokens, positions, patterns, dispatch, n_valid,

@@ -1,0 +1,103 @@
+"""AdamW with optional bf16 moments and frozen-sparsity masks.
+
+A port of ``repro.train.optimizer``.  ``masks`` (True = keep) implement
+the paper's re-sparse fine-tuning: after each update the new parameters are
+multiplied by their masks, so pruned weights stay exactly zero and the
+pruned connectivity never regrows.  The math runs in f32 and casts back to
+each parameter's dtype (bf16 master weights at full width); integer leaves
+(int8 / packed storage) are frozen.  Functional: the inputs are left
+untouched, new trees are returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from ..core.pruning import apply_masks
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+           "schedule"]
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"  # moments dtype ("bfloat16" for 405B)
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay, as an f32 tensor on ``step``'s
+    device."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def adamw_init(params: PyTree, cfg: AdamWConfig) -> PyTree:
+    """Zero moments in ``cfg.state_dtype`` beside every leaf, and the step
+    counter (int32, on the device of the first leaf)."""
+    dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else None
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sq))
+
+
+def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
+                 cfg: AdamWConfig, masks: Optional[PyTree] = None):
+    """Returns (new_params, new_state, metrics)."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gn, 1e-12), max=1.0) \
+        if cfg.grad_clip > 0 else 1.0
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.to(torch.float32)
+    bc2 = 1 - b2 ** step.to(torch.float32)
+
+    def upd(g, m, v, p):
+        if not p.is_floating_point():
+            return p, m, v  # frozen integer storage (int8 weights)
+        g = g.to(torch.float32) * scale
+        m32 = m.to(torch.float32) * b1 + (1 - b1) * g
+        v32 = v.to(torch.float32) * b2 + (1 - b2) * g * g
+        mhat = m32 / bc1
+        vhat = v32 / bc2
+        step_ = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if cfg.weight_decay:
+            step_ = step_ + cfg.weight_decay * p.to(torch.float32)
+        new_p = p.to(torch.float32) - lr * step_
+        return new_p.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    flat = tree_map(upd, grads, state["m"], state["v"], params)
+    pick = lambda i: tree_map(lambda t: t[i], flat)
+    # frozen sparsity: pruned weights stay exactly zero
+    new_params = apply_masks(pick(0), masks)
+    new_state = {"m": pick(1), "v": pick(2), "step": step}
+    return new_params, new_state, {"grad_norm": gn, "lr": lr}

@@ -1,0 +1,113 @@
+"""Train / prefill step factories — the entry points the launcher runs.
+
+``make_train_step``: microbatched gradient accumulation, AdamW, frozen
+sparsity masks; with ``n_micro > 1`` the gradients accumulate in f32 and
+are divided by ``n_micro``, with ``n_micro == 1`` they keep the parameter
+dtype (bf16 at full width), as in ``repro.train.trainer``.  The reference's
+``jax.jit`` / ``lax.scan`` become eager calls and a Python loop.
+
+``make_prefill_step``: the full-sequence forward's last-position logits.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..models.config import ArchConfig
+from ..models.model import forward, loss_fn
+from .optimizer import AdamWConfig, adamw_update
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["make_prefill_step", "make_train_step", "pick_n_micro"]
+
+PyTree = Any
+
+
+def pick_n_micro(cfg: ArchConfig, global_batch: int, dp_size: int,
+                 *, seqs_per_shard: int = 2) -> int:
+    """Microbatching policy, activation-budget driven: target
+    ``seqs_per_shard`` sequences per data shard per microbatch (remat keeps
+    the per-layer working set at one microbatch)."""
+    per_shard = max(1, global_batch // max(dp_size, 1))
+    n = max(1, per_shard // seqs_per_shard)
+    n = min(n, global_batch)
+    while global_batch % n or (global_batch // n) % dp_size:
+        n -= 1
+    return max(n, 1)
+
+
+def _split_trainable(params: PyTree):
+    """Partition params into (trainable float leaves, frozen int leaves):
+    float leaves become autograd leaves (detached views that require grad,
+    so the caller's tensors are untouched); integer leaves (int8 / packed
+    storage) are frozen — differentiating them is a type error."""
+    trainable = tree_map(lambda x: x.detach().requires_grad_()
+                         if x.is_floating_point() else None, params)
+    frozen = tree_map(lambda x: None if x.is_floating_point() else x, params)
+    return trainable, frozen
+
+
+def _merge(trainable: PyTree, frozen: PyTree) -> PyTree:
+    return tree_map(lambda a, b: a if a is not None else b, trainable, frozen)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
+                    masks: Optional[PyTree] = None, *, dispatch=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``batch`` holds ``tokens`` and ``labels`` (B, T) with B a
+    multiple of ``n_micro``; ``dispatch`` selects kernels or their plain
+    versions (``repro_torch.core.dispatch``)."""
+
+    def value_and_grad(trainable, frozen, batch):
+        leaves = tree_leaves(trainable)
+        loss = loss_fn(_merge(trainable, frozen), cfg, batch,
+                       dispatch=dispatch)
+        grads = torch.autograd.grad(loss, leaves)
+        by_id = {id(t): g for t, g in zip(leaves, grads)}
+        return loss.detach(), tree_map(
+            lambda t: None if t is None else by_id[id(t)], trainable)
+
+    def train_step(params, opt_state, batch):
+        trainable, frozen = _split_trainable(params)
+        if n_micro == 1:
+            loss, grads = value_and_grad(trainable, frozen, batch)
+            losses = loss[None]
+        else:
+            micro = {k: v.reshape(n_micro, v.shape[0] // n_micro,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            grads = tree_map(lambda p: None if p is None else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), trainable)
+            losses = []
+            for i in range(n_micro):
+                loss, g = value_and_grad(trainable, frozen,
+                                         {k: v[i] for k, v in micro.items()})
+                # the accumulator is this step's own: add in place
+                tree_map(lambda a, b: None if a is None
+                         else a.add_(b.to(a.dtype)), grads, g)
+                losses.append(loss)
+                del g
+            losses = torch.stack(losses)
+            grads = tree_map(lambda g: None if g is None else g / n_micro,
+                             grads)
+        # frozen (integer) leaves get scalar-zero placeholders so the
+        # optimizer tree matches; adamw skips non-float params.
+        grads = tree_map(lambda g, p: g if g is not None else torch.zeros(
+            (), dtype=torch.float32, device=p.device), grads, params)
+        params, opt_state, metrics = adamw_update(
+            grads, opt_state, params, opt_cfg, masks=masks)
+        metrics["loss"] = torch.mean(losses)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch) -> (B, V)``: the next-token logits of
+    the last position only, without autograd."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch: Dict):
+        return forward(params, cfg, batch)[:, -1]
+
+    return prefill_step

@@ -21,6 +21,7 @@ from repro.core import compile_sparse as jc  # noqa: E402
 from repro.data.synthetic import synthetic_digits as j_digits  # noqa: E402
 from repro.models import lenet as jl  # noqa: E402
 from repro_torch.core import compile_sparse as tc  # noqa: E402
+from repro_torch.core.quant import fake_quant  # noqa: E402
 from repro_torch.data.synthetic import synthetic_digits as t_digits  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.kernels import fc_stack as tfk  # noqa: E402
@@ -222,9 +223,16 @@ def test_init_lenet_shapes_and_the_default_device(monkeypatch):
 
 
 def test_lenet_forward_rejects_qat_bits(params):
+    """``qat_bits`` was rejected until ``fake_quant`` was ported; now it
+    fake-quantises the named dense layers' weights (the reference's QAT
+    forward, held against ``repro`` in ``test_torch_train.py``)."""
     tp = params_from_numpy(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tl.lenet_forward(tp, torch.zeros((1, 28, 28, 1)), qat_bits={"fc1": 4})
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 28, 28, 1)).astype(np.float32))
+    got = tl.lenet_forward(tp, x, qat_bits={"fc1": 4})
+    fq = dict(tp, fc1_w=fake_quant(tp["fc1_w"], 4, axis=-1))
+    torch.testing.assert_close(got, tl.lenet_forward(fq, x), rtol=0, atol=0)
+    assert not torch.equal(got, tl.lenet_forward(tp, x))
 
 
 def test_compile_lenet_errors(params):
