@@ -10,18 +10,23 @@ Phases, each fatal on failure:
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile every CUDA kernel from ``src/repro_torch/csrc``;
 3. kernels — hold each kernel against its plain PyTorch version over every
-   container, row count and activation (the flash kernel: causal or not,
-   GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's gradient),
-   then time kernel, plain version and a one-call PyTorch yardstick at the
-   shapes the main paths give it, beside the least time the card could
-   take (``bound_ms``);
+   container, row count and activation, on both routes of ``quant_matmul``
+   (thin-M, M <= 16, and tiled) and of the flash kernel (tensor cores for
+   bf16 Dh 64/128, CUDA cores for the rest: causal or not, GQA, ragged and
+   unequal Tq / Tk, bf16 and f32, and its op's gradient), requiring each
+   call to take the route its shape rule names; then time kernel, plain
+   version and a one-call PyTorch yardstick at the shapes the main paths
+   give it, beside the least time the card could take (``bound_ms``) and
+   the first version of each redesigned kernel;
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
    to int4x2 quant/block-sparse leaves, serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, require every kernel to have
    launched, and hold a prefill chunk plus 4 decode steps against the
-   plain versions (``dispatch="twin"``); then run the compiled model's
-   full-sequence forward (B = 1, T = 512) through ``block_sparse_matmul``,
-   ``quant_matmul`` and the flash kernel, held against the twin path;
+   plain versions (``dispatch="twin"``), each decode step's 64
+   ``quant_matmul`` calls on the thin-M route; then run the compiled
+   model's full-sequence forward (B = 1, T = 512) through
+   ``block_sparse_matmul``, ``quant_matmul`` (tiled route) and the flash
+   kernel (tensor-core route), held against the twin path;
 5. lenet   — compile LeNet-5 at its published widths (random weights from a
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
@@ -33,7 +38,8 @@ Phases, each fatal on failure:
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
    through ``TrainRunner`` (global batch 4 x 2048, 2 micro-batches,
    remat): the loss must fall, pruned weights stay exactly zero and the
-   flash kernel runs 64 times per step; step ms, tokens/s, peak memory and
+   flash kernel runs 64 times per step, all on its tensor-core route; step
+   ms, tokens/s, peak memory and
    the device idle share of one step (torch.profiler).
 
 Prints the kernels line, the card line and, last, the result line
@@ -220,14 +226,34 @@ def sweep_sparse(rng, dev):
     return len(cases)
 
 
+def took_route(mod, routes, want, fn):
+    """Run ``fn`` and require that it added one launch to the counter
+    ``routes[want]`` of ``mod`` and none to the other routes' counters."""
+    before = {r: getattr(mod, a) for r, a in routes.items()}
+    out = fn()
+    moved = {r: getattr(mod, a) - before[r] for r, a in routes.items()}
+    require(moved == {r: int(r == want) for r in routes},
+            f"expected one launch on the {want} route, counters moved {moved}")
+    return out
+
+
 def sweep_quant(rng, dev):
+    """quant_matmul against its plain version on both routes: the first
+    design's shapes (M in {1, 8, 16, 128}, an odd N that keeps M = 8 on the
+    tiled kernel) and the thin-M cases (M in {1, 3, 8, 16}, K in {2048,
+    8192}, N in {96, 512, 2048}), every container, with and without bias,
+    over the activations; each call must take the route ``qmm_plan``
+    names."""
     from repro_torch.core.quant import pack_codes
-    from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+    from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
+    routes = {"thin_m": "launches_thin", "tiled": "launches_tiled"}
+    shapes = [(512, 320, M) for M in (1, 8, 16, 128)] + [
+        (2560, 96, 8), (2560, 96, 16), (512, 90, 8)]
+    shapes += [(K, N, M) for M in (1, 3, 8, 16) for K in (2048, 8192)
+               for N in (96, 512, 2048)]
     cases = 0
-    shapes = [(512, 320, M) for M in (1, 8, 16, 128)] + [(2560, 96, 8),
-                                                          (2560, 96, 16)]
     for ci, container in enumerate(("int8", "int4x2", "int2x4")):
         for mi, (K, N, M) in enumerate(shapes):
             act = ACTS[(ci + mi) % len(ACTS)]
@@ -235,21 +261,25 @@ def sweep_quant(rng, dev):
             qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
             codes = torch.randint(-qm, qm + 1, (K, N), device=dev).to(torch.int8)
             scales = torch.rand((N,), device=dev) / (qm * 16)
-            w, packed = codes, False
+            w, packed, ratio = codes, False, 1
             if container != "int8":
                 packed = container
-                w = pack_codes(codes, axis=0, bits=4 if container == "int4x2"
-                               else 2)
+                ratio = 2 if container == "int4x2" else 4
+                w = pack_codes(codes, axis=0, bits=8 // ratio)
             x = torch.randn((M, K), device=dev).to(xdt)
-            bias = torch.randn((N,), device=dev) if mi % 2 == 0 else None
-            y = quant_matmul(x, w, scales, bias, activation=act, packed=packed)
+            bias = torch.randn((N,), device=dev) if (mi + ci) % 2 == 0 \
+                else None
+            route = "tiled" if qk.qmm_plan(M, K, N, ratio, w.data_ptr()) \
+                is None else "thin_m"
+            y = took_route(qk, routes, route, lambda: qk.quant_matmul(
+                x, w, scales, bias, activation=act, packed=packed))
             ref = quant_matmul_ref(x, codes, scales, bias=bias,
                                    activation=act, out_dtype=xdt)
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
             require(err <= tol_for(xdt, ref.float()),
-                    f"quant_matmul {container} M={M} K={K} act={act}: max abs "
-                    f"err {err}")
+                    f"quant_matmul {route} {container} M={M} K={K} N={N} "
+                    f"act={act} bias={bias is not None}: max abs err {err}")
             cases += 1
     return cases
 
@@ -292,35 +322,54 @@ def sweep_attention(rng, dev):
 
 
 def sweep_flash(rng, dev):
-    """The flash kernel against its plain version: causal and not, G in
-    {1, 4}, Dh in {16, 64, 128} (and 40, 256), ragged T, Tq != Tk, B in
-    {1, 3}, bf16 and f32, q read through a strided view; then the op's
-    gradient against autograd through ``chunked_attention``."""
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_fwd, flash_attention_plain)
+    """The flash kernels against their plain version.  The CUDA-core cases:
+    causal and not, G in {1, 4}, Dh in {16, 64, 128} (and 40, 256), ragged
+    T, Tq != Tk, B in {1, 3}, bf16 and f32, q read through a strided view,
+    and bf16 Dh 64 with rows that are not 16-byte multiples.  The
+    tensor-core cases: bf16, Dh 64 and 128, causal and not, G in {1, 2, 4},
+    Tq / Tk ragged and unequal up to 2048, B in {1, 3}, q strided.  Each
+    call must take the route ``flash_route`` names.  Then the op's gradient
+    against autograd through ``chunked_attention``."""
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.layers import chunked_attention
 
-    shapes = [(causal, G, Dh, Tq, Tq) for causal in (True, False)
+    routes = {"tensor_core": "launches_tc", "cuda_core": "launches_cc"}
+    shapes = [(causal, G, Dh, Tq, Tq, 0) for causal in (True, False)
               for G in (1, 4) for Dh in (16, 64, 128) for Tq in (100, 257)]
-    shapes += [(False, 4, 64, 100, 257), (False, 1, 16, 257, 33),
-               (True, 4, 64, 257, 100), (True, 2, 40, 130, 130),
-               (True, 1, 256, 70, 70)]
+    shapes += [(False, 4, 64, 100, 257, 0), (False, 1, 16, 257, 33, 0),
+               (True, 4, 64, 257, 100, 0), (True, 2, 40, 130, 130, 0),
+               (True, 1, 256, 70, 70, 0), (True, 2, 64, 100, 100, 1),
+               (False, 1, 64, 257, 100, 1)]
+    both = (torch.float32, torch.bfloat16)
+    runs = [(s_, both) for s_ in shapes] + [
+        ((causal, G, Dh, Tq, Tk, 0), (torch.bfloat16,))
+        for causal in (True, False) for Dh in (64, 128) for G in (1, 2, 4)
+        for Tq, Tk in ((100, 100), (257, 257), (2048, 1000), (257, 2048))]
     cases = 0
-    for i, (causal, G, Dh, Tq, Tk) in enumerate(shapes):
+    for i, (shape, dts) in enumerate(runs):
+        causal, G, Dh, Tq, Tk, pad = shape
         B, Hkv = (1, 3)[i % 2], 2
-        for dt in (torch.float32, torch.bfloat16):
-            base = torch.randn((B, Tq, 2 * Hkv * G, Dh), device=dev).to(dt)
-            q = base[:, :, Hkv * G:]            # strided over heads
+        for dt in dts:
+            # pad > 0: rows of Dh + 1 elements, not whole 16-byte copies
+            base = torch.randn((B, Tq, 2 * Hkv * G, Dh + pad),
+                               device=dev).to(dt)
+            q = base[:, :, Hkv * G:, :Dh]       # strided over heads
             k = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
             v = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
-            y = flash_attention_fwd(q, k, v, causal=causal)
-            ref = flash_attention_plain(q, k, v, causal=causal)
+            route = fk.flash_route(q, k, v)
+            want = "tensor_core" if dt == torch.bfloat16 and Dh in (64, 128) \
+                and not pad else "cuda_core"
+            require(route == want, f"flash_route sent {shape} {dt} to the "
+                                   f"{route} route, not {want}")
+            y = took_route(fk, routes, route, lambda: fk.flash_attention_fwd(
+                q, k, v, causal=causal))
+            ref = fk.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
             require(err <= flash_tol(dt, ref),
-                    f"flash_attention causal={causal} G={G} Dh={Dh} Tq={Tq} "
-                    f"Tk={Tk} B={B} {dt}: max abs err {err}")
+                    f"flash_attention {route} causal={causal} G={G} Dh={Dh} "
+                    f"Tq={Tq} Tk={Tk} B={B} {dt}: max abs err {err}")
             cases += 1
     # the op's gradient: its backward is autograd through chunked_attention
     q, k, v = (torch.randn(s_, device=dev).to(torch.bfloat16)
@@ -506,6 +555,7 @@ def measure_kernels(cm, cfg, dev, counts):
     from repro_torch.core.sparsity import CompressedLinear, decompress
     from repro_torch.kernels.flash_attention.decode_packed import (
         packed_decode_attention, tiled_packed_attention)
+    from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.kernel import quant_matmul
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
     from repro_torch.kernels.sparse_matmul.kernel import block_sparse_matmul
@@ -516,19 +566,22 @@ def measure_kernels(cm, cfg, dev, counts):
     out = []
     x = torch.randn((M, D), device=dev).to(torch.bfloat16)
 
-    def entry(name, source, replaces, y, ref, nbytes_, ops, shape, run_k,
-              run_p, run_lib, sizes):
+    def timing(name, y, ref, nbytes_, ops, shape, run_k, run_p, run_lib,
+               sizes):
         err = float((y.float() - ref.float()).abs().max())
         tol = tol_for(y.dtype, ref.float())
-        require(err <= tol, f"{name} at the serving shape: max abs err {err}")
+        require(err <= tol, f"{name} at {shape}: max abs err {err}")
         b, f = bound(nbytes_, ops, "bf16")
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
-                "max_abs_err": err, "tol": tol,
+        return {"max_abs_err": err, "tol": tol,
                 "ms": device_ms(run_k, sizes[0]),
                 "plain_ms": device_ms(run_p, sizes[1]),
                 "bound_ms": b, "bound_by": f,
                 "library_ms": device_ms(run_lib, sizes[2]), "shape": shape}
+
+    def entry(name, source, replaces, *args):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                **timing(name, *args)}
 
     # block-sparse: mlp/wg of layer 0, int4x2 blocks
     leaf = cm.params["blocks"]["mlp"]["wg"]
@@ -561,24 +614,41 @@ def measure_kernels(cm, cfg, dev, counts):
             scales=ws, out_dtype=x.dtype),
         lambda i: lambda: x @ denses[i], (16, 8, 2)))
 
-    # quant: attn/wq of layer 0, int4x2 along K
-    leaf = cm.params["blocks"]["attn"]["wq"]
-    wq, sq = leaf["w_qp"][0].contiguous(), leaf["w_s"][0].contiguous()
-    N = int(wq.shape[1])
-    codes = unpack_codes(wq, D, axis=0, bits=4)
-    dense = (codes.float() * sq[None, :]).to(torch.bfloat16)
-    wqs, codess, denses = (copies(t, n) for t, n in ((wq, 32), (codes, 16),
-                                                     (dense, 8)))
-    y = quant_matmul(x, wq, sq, packed="int4x2")
-    ref = quant_matmul_ref(x, codes, sq, out_dtype=x.dtype)
-    out.append(entry(
-        "quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
-        "src/repro/kernels/quant_matmul/kernel.py:125", y, ref,
-        nbytes(x, wq, sq, y), 2.0 * M * D * N, f"M={M} K={D} N={N} int4x2",
-        lambda i: lambda: quant_matmul(x, wqs[i], sq, packed="int4x2"),
-        lambda i: lambda: quant_matmul_ref(x, codess[i], sq,
-                                           out_dtype=x.dtype),
-        lambda i: lambda: x @ denses[i], (32, 16, 8)))
+    # quant: attn/wq of layer 0, int4x2 along K (thin-M route); then attn/wk
+    # (N = 512) and the compiled forward's M = 512 (tiled route)
+    def quant_case(leaf_name, xq, n_copies):
+        leaf = cm.params["blocks"]["attn"][leaf_name]
+        wq, sq = leaf["w_qp"][0].contiguous(), leaf["w_s"][0].contiguous()
+        Mq, N = int(xq.shape[0]), int(wq.shape[1])
+        codes = unpack_codes(wq, D, axis=0, bits=4)
+        dense = (codes.float() * sq[None, :]).to(torch.bfloat16)
+        wqs, codess, denses = (copies(t, n) for t, n in zip(
+            (wq, codes, dense), n_copies))
+        route = "thin_m" if qk.qmm_plan(Mq, D, N, 2, wq.data_ptr()) \
+            else "tiled"
+        y = quant_matmul(xq, wq, sq, packed="int4x2")
+        ref = quant_matmul_ref(xq, codes, sq, out_dtype=xq.dtype)
+        t = timing(
+            "quant_matmul", y, ref, nbytes(xq, wq, sq, y), 2.0 * Mq * D * N,
+            f"{leaf_name}: M={Mq} K={D} N={N} int4x2, {route} route",
+            lambda i: lambda: quant_matmul(xq, wqs[i], sq, packed="int4x2"),
+            lambda i: lambda: quant_matmul_ref(xq, codess[i], sq,
+                                               out_dtype=xq.dtype),
+            lambda i: lambda: xq @ denses[i], n_copies)
+        return t, xq, wqs, sq
+
+    wq_t, xq, wqs, sq = quant_case("wq", x, (32, 16, 8))
+    # the first design (tiled kernel) at the same shape, in the same run
+    wq_t["first_version_ms"] = device_ms(lambda i: lambda: qk._launch(
+        xq, wqs[i], sq, None, None, 2, None, "quant_matmul"), 32)
+    wq_t["also"] = [
+        quant_case("wk", x, (32, 16, 8))[0],
+        quant_case("wq", torch.randn((512, D), device=dev).to(torch.bfloat16),
+                   (4, 2, 4))[0]]
+    out.append({"name": "quant_matmul", "route": "cuda",
+                "source": "src/repro_torch/csrc/quant_matmul.cu",
+                "replaces": "src/repro/kernels/quant_matmul/kernel.py:125",
+                "launches": counts["quant_matmul"], **wq_t})
 
     # attention: a decode read over 8 slots of a 512-row cache
     B, H, Hkv, Dh, T, bt = M, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 512, 64
@@ -625,6 +695,8 @@ def copies(t, n):
 
 SERVE_KERNELS = ("block_sparse_matmul", "quant_matmul",
                  "packed_decode_attention")
+QMM_THIN, QMM_TILED = "quant_matmul/thin_m", "quant_matmul/tiled"
+FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
 
 
 def counters():
@@ -640,7 +712,12 @@ def counters():
             "block_sparse_conv": (sk, "conv_launches"),
             "quant_conv": (qk, "conv_launches"),
             "fc_stack_matmul": (fc_stack, "launches"),
-            "flash_attention": (fk, "launches")}
+            "flash_attention": (fk, "launches"),
+            # the launches of each route, beside the totals above
+            QMM_THIN: (qk, "launches_thin"),
+            QMM_TILED: (qk, "launches_tiled"),
+            FLASH_TC: (fk, "launches_tc"),
+            FLASH_CC: (fk, "launches_cc")}
 
 
 def reset_counts():
@@ -696,7 +773,7 @@ def serve(dev, report):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    for name in SERVE_KERNELS:
+    for name in SERVE_KERNELS + (QMM_THIN,):
         require(counts[name] > 0, f"serving ran without launching {name}")
     require(len(done) == 16 and all(len(r.out) == 32 for r in done),
             "not every request got its 32 tokens")
@@ -743,7 +820,9 @@ def compiled_forward(cm, cfg, dev):
         yt = forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns,
                      dispatch="twin")
     want = {"block_sparse_matmul": 3 * cfg.n_layers,
-            "quant_matmul": 4 * cfg.n_layers, "flash_attention": cfg.n_layers}
+            "quant_matmul": 4 * cfg.n_layers, "flash_attention": cfg.n_layers,
+            QMM_TILED: 4 * cfg.n_layers, QMM_THIN: 0,
+            FLASH_TC: cfg.n_layers, FLASH_CC: 0}
     require(all(counts[k] == n for k, n in want.items()),
             f"compiled forward launched {counts}, expected {want}")
     y, yt = y.float(), yt.float()
@@ -842,6 +921,11 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
                                        t_bound=64, bt=64)[0]
         if i == 0:
             per_step = read_counts()
+            quant = 4 * cfg.n_layers
+            require(per_step[QMM_THIN] == quant and per_step[QMM_TILED] == 0,
+                    f"{kv_cache} cache: a decode step launched "
+                    f"{per_step[QMM_THIN]} thin-M and {per_step[QMM_TILED]} "
+                    f"tiled quant_matmul calls, expected {quant} thin-M")
     max_rel = max(s_["rel_err"] for s_ in steps)
     require(max_rel <= tol, f"{kv_cache} cache: kernel vs plain logits max "
                             f"rel err {max_rel} > {tol}")
@@ -1278,6 +1362,10 @@ def train(dev, report):
     require(counts["flash_attention"] == want,
             f"train: {counts['flash_attention']} flash launches, expected "
             f"{want} (forward + remat recompute per layer and micro-batch)")
+    require(counts[FLASH_TC] == want and counts[FLASH_CC] == 0,
+            f"train: {counts[FLASH_TC]} flash launches on the tensor-core "
+            f"route and {counts[FLASH_CC]} on the CUDA cores, expected {want} "
+            f"and 0")
     step_ms = [m["step_s"] * 1e3 for m in log]
     tokens = TRAIN["batch"] * TRAIN["seq"]
     report["train"] = {
@@ -1300,6 +1388,7 @@ def measure_flash(dev, counts):
     that recomputes ``chunked_attention`` there."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
     from repro_torch.models.layers import chunked_attention
@@ -1310,6 +1399,9 @@ def measure_flash(dev, counts):
             for s_ in ((B, T, H, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
            for _ in range(4)]
     q, k, v = ins[0]
+    route = fk.flash_route(q, k, v)
+    require(route == "tensor_core", f"flash_route sends the training shape "
+                                    f"to the {route} route")
     y = flash_attention_fwd(q, k, v, causal=True)
     ref = flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -1329,7 +1421,7 @@ def measure_flash(dev, counts):
 
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
         "launches": counts["flash_attention"], "max_abs_err": err,
         "tol": tol,
@@ -1340,8 +1432,14 @@ def measure_flash(dev, counts):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda i: lambda: F.scaled_dot_product_attention(
             *heads[i], is_causal=True, enable_gqa=True), 4),
+        # the first design (CUDA-core kernel) at the same shape, in this run
+        "first_version_ms": device_ms(lambda i: lambda: fk._launch(
+            *ins[i], True, "cuda_core"), 4),
+        "launches_by_route": {FLASH_TC: counts[FLASH_TC],
+                              FLASH_CC: counts[FLASH_CC]},
         "backward_recompute_ms": event_ms(backward),
-        "shape": f"B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
+        "shape": f"B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} bf16 causal, "
+                 f"{route} route",
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True), (B, H, T, Dh) views"}
 

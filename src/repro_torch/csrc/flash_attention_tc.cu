@@ -1,0 +1,445 @@
+// Full-sequence flash attention forward on the tensor cores: bf16 q, k, v
+// with Dh 64 or 128, causal or not, GQA, any Tq / Tk.
+//
+// Replaces the Pallas kernel repro/kernels/flash_attention/kernel.py:76
+// (`flash_attention`, body `_kernel` at :31), the forward of the training
+// path's attention, for the shapes `flash_route` in
+// kernels/flash_attention/kernel.py sends here: bf16, Dh in {64, 128}, unit
+// stride along Dh, every other stride a multiple of 8 elements and 16-byte
+// aligned base pointers.  Everything else (f32, other Dh, odd strides) takes
+// the CUDA-core kernel of flash_attention.cu, which computes the same thing.
+//
+// What it computes, as the TPU kernel does: o = softmax(q.k^T * scale) . v per
+// (batch, head) with an online softmax over 64-key tiles (running max m, sum
+// l and accumulator in f32), masked scores set to the finite -1e30, output
+// acc / max(l, 1e-30) in bf16; causal masking keeps kpos <= qpos with both
+// aligned at position 0; head h reads kv head h / (H / Hkv).  bf16 x bf16
+// products are exact in f32, so s = (q.k) * scale, with the scale applied in
+// f32 after the product, matches the reference's q.float() * scale before
+// the dot up to summation order.  The one new rounding is P to bf16 before
+// P.V, as in every tensor-core flash kernel.  Softmax exponentials are taken
+// as the hardware's exp2 (ex2.approx) of log2(e)-scaled scores, the scale
+// and the running max folded into one FMA: the same function, rounded
+// differently.
+//
+// What bounds it on the H100: operations.  At the training shape (B = 2,
+// T = 2048, H = 32, Hkv = 8, Dh = 64, causal) it does 34 GFLOP of causal
+// pairs against 42 MB of q, k, v and o: 0.035 ms at 989 TFLOP/s.  The design:
+// one CTA per (batch.head, 128-row q tile), two warpgroups of 64 q rows each
+// (wgmma takes 64 rows), the longest causal q tiles first.  The q tile is
+// staged once in shared memory; K and V tiles of 64 keys arrive in a ring of
+// two shared-memory stages through 16-byte cp.async copies (zero fill at the
+// ragged edge), the next tile's copies in flight while this tile is
+// computed.  All tiles are stored in the 128-byte-swizzled layout wgmma
+// reads.  S = Q.K^T is one wgmma chain from shared memory (m64n64k16, f32
+// accumulators); the online softmax runs on the accumulator fragment in
+// registers, with the row max and sum over the 4 lanes of a quad; P is cast
+// to bf16 in registers and is the A operand of O += P.V (V transposed from
+// shared memory), so P never touches shared memory.  Key tiles wholly in a
+// warpgroup's future are skipped, and only tiles on the diagonal or the
+// ragged edge are masked element by element.  Two CTAs of two warpgroups
+// share an SM at Dh 64 (about 110 registers a thread), and it is across
+// those four warpgroups that the tensor cores overlap the exponentials:
+// overlapping a warpgroup's softmax with its own P.V (a third stage, both
+// products issued every tile) measured slower at Dh 64 on an H100.  Not yet
+// done: TMA loads from a producer warp with mbarriers.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;  // q rows per CTA: two warpgroups of 64
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per CTA
+constexpr int NS = 2;    // K/V stages in shared memory
+constexpr float NEG_INF = -1e30f;
+
+// One 64-column half of a tile: `rows` rows of 128 bytes.  A tile of Dh
+// columns is Dh / 64 such halves one after another.
+__host__ __device__ constexpr int half_bytes(int rows) { return rows * 128; }
+template <int DH>
+__host__ __device__ constexpr int smem_bytes() {
+  // q tile, NS stages of K and of V, 1 KB to align the base to 1024 bytes
+  return (DH / 64) * (half_bytes(BQ) + 2 * NS * half_bytes(BK)) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; with `in` false nothing is read and
+// the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a (T, DH) bf16 matrix with row stride `ld`
+// (elements) into shared memory at `dst`: 64-column halves of ROWS x 128
+// bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8) (the 128-byte
+// swizzle; `dst` is 1024-aligned).  Rows >= T are zero-filled.
+template <int ROWS, int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g,
+                                          long long ld, int r0, int T,
+                                          int tid) {
+  constexpr int CPR = DH / 8;  // chunks per row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+    const int e = tid + i * NT;
+    const int r = e / CPR, c = e % CPR;
+    const int t = r0 + r;
+    const bool in = t < T;
+    const bf16* src = g + (in ? (long long)t * ld : 0) + c * 8;
+    cp_async16(dst + (c / 8) * half_bytes(ROWS) + r * 128 +
+                   (((c & 7) ^ (r & 7)) << 4),
+               src, in);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching wgmma accumulators between issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) = [d +] a . b; a (64 x 16) and b (64 x 16) in shared
+// memory, both K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = [d +] a . b; a (64 x 16 bf16) in registers, b
+// (16 x 64) in shared memory, MN-major (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) = [d +] a . b; a (64 x 16 bf16) in registers, b
+// (16 x 128) in shared memory, MN-major (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layout of a 64 x N wgmma accumulator: warp w of the warpgroup
+// holds rows 16 w + lane / 4 (registers 4 j, 4 j + 1) and 16 w + lane / 4 + 8
+// (4 j + 2, 4 j + 3), at columns 8 j + 2 (lane % 4) and the next one.
+template <int DH>
+__global__ void __launch_bounds__(NT, DH == 64 ? 2 : 1)
+    flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
+                    int Tk, int H, int Hkv, long long sqb, long long sqt,
+                    long long sqh, long long skb, long long skt, long long skh,
+                    long long svb, long long svt, long long svh,
+                    float scale_log2, int causal) {
+  constexpr int HALVES = DH / 64;
+  constexpr int KV_BYTES = HALVES * half_bytes(BK);  // one K or V stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + HALVES * half_bytes(BQ);
+  const uint32_t sV = sK + NS * KV_BYTES;
+
+  // blockIdx.x walks batch.head fastest; the longest causal q tiles first
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7;                       // q rows [64 wg, 64 wg + 64)
+  const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);  // and r0 + 8
+  const int cq = 2 * (lane & 3);
+  const int wq0 = q0 + 64 * wg;                  // first q row of the warpgroup
+
+  const bf16* qb = q + b * sqb + h * sqh;
+  const bf16* kb = k + b * skb + hk * skh;
+  const bf16* vb = v + b * svb + hk * svh;
+
+  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_tile<BQ, DH>(sQ, qb, sqt, q0, Tq, tid);
+  load_tile<BK, DH>(sK, kb, skt, 0, Tk, tid);
+  load_tile<BK, DH>(sV, vb, svt, 0, Tk, tid);
+  cp_async_commit();
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < ntiles) {  // the next tile's copies fly while this one runs
+      const int st = (it + 1) % NS;
+      load_tile<BK, DH>(sK + st * KV_BYTES, kb, skt, k0 + BK, Tk, tid);
+      load_tile<BK, DH>(sV + st * KV_BYTES, vb, svt, k0 + BK, Tk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the q tile) has landed
+    // the copies were generic-proxy writes; wgmma reads through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    if (!causal || k0 <= wq0 + 63) {  // else wholly in this warpgroup's future
+      const uint32_t kst = sK + (it % NS) * KV_BYTES;
+      const uint32_t vst = sV + (it % NS) * KV_BYTES;
+
+      // S = Q . K^T: K = Dh in steps of 16 (32 bytes within a swizzled row)
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t koff = (kk % 4) * 32;
+        const uint64_t da = sw128_desc(
+            sQ + (kk / 4) * half_bytes(BQ) + wg * half_bytes(64) + koff, 16,
+            1024);
+        const uint64_t db =
+            sw128_desc(kst + (kk / 4) * half_bytes(BK) + koff, 16, 1024);
+        wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (k0 + BK > Tk || (causal && k0 + BK - 1 > wq0)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + cq + (i & 1);
+          const int qpos = wq0 + r0 + 8 * ((i >> 1) & 1);
+          if (key >= Tk || (causal && key > qpos)) s[i] = NEG_INF;
+        }
+      }
+
+      // online softmax on the unscaled fragment (scale > 0 keeps the max);
+      // l stays a per-lane partial sum (the quad's lanes share corr) and is
+      // reduced once at emit
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float corr[2], ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        corr[e] = ex2((m[e] - mx[e]) * scale_log2);
+        m[e] = mx[e];
+        ms[e] = mx[e] * scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = ex2(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l[e] = l[e] * corr[e] + sum[e];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // P (bf16) in registers is the A operand of O += P . V: the
+      // accumulator's column pairs are exactly the A fragment's k pairs
+      uint32_t p[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // O += P . V: K = 16 keys per step (2 KB of V rows); V is N-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<DH>(o, p[kk],
+                     sw128_desc(vst + kk * 16 * 128, half_bytes(BK), 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    const int t = wq0 + r0 + 8 * e;
+    if (t >= Tq) continue;
+    const float den = fmaxf(l[e], 1e-30f);
+    bf16* orow = out + (((size_t)b * Tq + t) * H + h) * DH + cq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * e] / den, o[4 * j + 2 * e + 1] / den);
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
+                     int B, int Tq, int Tk, int H, int Hkv,
+                     const long long* sq, const long long* sk,
+                     const long long* sv, float scale, int causal,
+                     cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<DH>();
+  auto kern = flash_tc_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  kern<<<grid, NT, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, H, Hkv,
+      sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
+      scale * 1.4426950408889634f, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q: (B, Tq, H, Dh), k / v: (B, Tk, Hkv, Dh), all bf16, unit stride along
+// Dh, the (batch, position, head) strides sq / sk / sv in elements, each a
+// multiple of 8, base pointers 16-byte aligned.  out: (B, Tq, H, Dh)
+// contiguous bf16.  Needs Dh in {64, 128} and H % Hkv == 0 (the wrapper's
+// flash_route checks all of it).  Returns the launch's cudaError_t.
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int Tq,
+    int Tk, int H, int Hkv, int Dh, long long sqb, long long sqt,
+    long long sqh, long long skb, long long skt, long long skh, long long svb,
+    long long svt, long long svh, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long sq[3] = {sqb, sqt, sqh}, sk[3] = {skb, skt, skh},
+                  sv[3] = {svb, svt, svh};
+  if (Dh == 64)
+    return (int)launch_t<64>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                             scale, causal, s);
+  if (Dh == 128)
+    return (int)launch_t<128>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                              scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}

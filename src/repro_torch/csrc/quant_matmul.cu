@@ -1,26 +1,46 @@
 // Quantised dense matmul: y = act((x @ Wq) * s + b) with int8 codes or
-// bit-packed int4x2 / int2x4 codes along K.
+// bit-packed int4x2 / int2x4 codes along K.  Two kernels, one per route of
+// `qmm_plan` in kernels/quant_matmul/kernel.py: the thin-M kernel for M <= 16
+// (decode) with N % 4 == 0, and the tiled kernel for everything else
+// (prefill chunks and full-sequence forwards, M > 16).
 //
-// Replaces the Pallas kernel repro/kernels/quant_matmul/kernel.py
-// (`quant_matmul` / `_kernel` / `_kernel_packed_db`).
+// Replaces the Pallas kernel repro/kernels/quant_matmul/kernel.py:125
+// (`quant_matmul`; bodies `_kernel` :42 and `_kernel_packed_db` :68).
 //
 // What it computes, as the TPU kernel does: codes are decoded in registers
 // and accumulated against x in f32 WITHOUT their scale; the per-output-
-// channel scale is applied once to the accumulator at emit, followed by the
+// channel scale is applied once to the full K sum at emit, followed by the
 // bias and the activation.  (The block-sparse kernel applies its scale
 // before the dot; the two orders are kept as they are in the reference.)
+// Rows >= M are masked.
 //
 // What bounds it on the H100: bytes.  At decode shapes every weight byte
 // feeds only M FMAs, so the floor is the code stream over HBM bandwidth, and
-// the packed containers halve or quarter it.  The design reads the container
-// once, in its packed form, decoding in registers.  Each CTA owns one
-// (m-tile, 32-column slice) of the output and loops over K inside; its eight
-// warps take interleaved byte rows of K, so eight times as many threads share
-// the K walk of a column slice, and their partial sums are reduced once in
-// shared memory.  x is staged in rounds of up to 32 KB (1024 columns of K at
-// 8 rows), so a CTA waits on staging only a few times per call.  Rows >= M
-// are masked.  This is the simple form: the FMAs run on the CUDA cores, with
-// no wgmma, TMA or software pipeline yet.
+// the packed containers halve or quarter it.  Both kernels read the
+// container once, in its packed form, decoding in registers.
+//
+// The thin-M kernel (`qmm_thin_kernel`) is built to keep enough bytes in
+// flight to approach that floor.  Each lane loads 4 bytes (4 columns) of a
+// byte row, so a warp reads a whole 128-byte line; each CTA owns 128
+// columns and one of `k_splits` ranges of whole byte rows, chosen so that
+// even a 512-column leaf launches at least 2 x 132 CTAs; its 4 warps take
+// interleaved byte rows, 16 loads in flight per lane (the first batch while
+// x's slice is staged in shared memory as [k][m], so one 16-byte shared load
+// feeds 16 FMAs; each later batch while the one before is used); codes
+// become floats by an exponent trick (no integer conversion).  Each CTA sums
+// its warps in shared memory and writes an f32 partial to a workspace; a
+// second small kernel (`qmm_reduce_kernel`, a programmatic dependent launch,
+// so it is resident before the first one ends) adds the partials in a fixed
+// order (8 warps take interleaved splits, then their sums are added in warp
+// order), which makes the result the same on every run, and applies scale,
+// bias and activation.  With a single split the first kernel emits directly.
+//
+// The tiled kernel (`qmm_kernel`, the first design) owns one (m-tile,
+// 32-column slice) of the output per CTA and loops over all of K; its eight
+// warps take interleaved byte rows, one byte per lane per load, and their
+// partial sums are reduced once in shared memory.  x is staged in rounds of
+// up to 32 KB.  Its FMAs run on the CUDA cores with no software pipeline; at
+// M > 16 a tensor-core design is the step that approaches the bound.
 #include "common.cuh"
 
 namespace {
@@ -143,6 +163,259 @@ cudaError_t launch_w(int wkind, int tm, const void* x, int M, int K,
   }
 }
 
+// ------------------------------------------------------------ thin-M route
+
+constexpr int TN_COLS = 128;              // output columns per CTA
+constexpr int TN_WARPS = 4;               // warps per CTA, interleaved rows
+constexpr int TN_NT = 32 * TN_WARPS;
+constexpr int TN_KCAP = 512;              // codes of K per split, at most
+constexpr int TN_U = 16;                  // byte rows in flight per lane
+
+// Code `t` of byte `j` of a 4-byte word, as float: the field XOR its sign
+// bit is the code + 2^(bits-1), placed in the mantissa of 2^23.
+template <int BITS>
+__device__ __forceinline__ float code_at(uint32_t word, int shift) {
+  constexpr uint32_t MASK = (1u << BITS) - 1u, SIGN = 1u << (BITS - 1);
+  const uint32_t f = ((word >> shift) & MASK) ^ SIGN;
+  return __uint_as_float(0x4B000000u | f) - (8388608.f + (float)SIGN);
+}
+
+template <typename XT, int WK, int TM>
+__global__ void __launch_bounds__(TN_NT)
+    qmm_thin_kernel(const XT* __restrict__ x, int M, int K,
+                    const uint8_t* __restrict__ w, int N, int rows_per_split,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ bias, float* __restrict__ ws,
+                    XT* __restrict__ out, int act, float tau) {
+  constexpr int R = rt::WTraits<WK>::R;
+  constexpr int BITS = 8 / R;
+  // xs[k * TM + m] for the split's K range; reused for the warp reduction
+  __shared__ __align__(16) float xs[TN_KCAP * TM];
+  static_assert(TN_KCAP * TM >= TN_WARPS * TM * TN_COLS, "reduction fits");
+
+  // the reduce kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.y;
+  const int nb = blockIdx.x * TN_COLS;
+  const int br0 = split * rows_per_split;
+  const int br1 = min(br0 + rows_per_split, K / R);
+  const int kc = (br1 - br0) * R;
+  const int k0 = br0 * R;
+  // N % 4 == 0: a lane's 4 columns are all in or all out; lanes out of N
+  // load nothing and add zeros
+  const int n = nb + 4 * lane;
+  const uint8_t* wcol = w + n;
+  constexpr int STEP = TN_WARPS * TN_U;  // byte rows of one batch of a CTA
+
+  // this lane's byte rows br0 + warp + TN_WARPS * u of one batch, as words
+  auto load = [&](uint32_t(&word)[TN_U], int r) {
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) {
+      const int rr = r + u * TN_WARPS;
+      word[u] = rr < br1 && n < N ? __ldg(reinterpret_cast<const uint32_t*>(
+                                        wcol + (size_t)rr * N))
+                                  : 0u;
+    }
+  };
+  uint32_t next[TN_U];
+  load(next, br0 + warp);  // the first batch flies while x is staged
+
+  // x[:, k0 : k0 + kc] -> xs, rows M .. TM - 1 zero; 8 loads in flight per
+  // thread, all of them at decode shapes (TM * kc <= 8 * TN_NT)
+  for (int e0 = tid; e0 < TM * kc; e0 += 8 * TN_NT) {
+    float xv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * TN_NT, mm = e / kc;
+      xv[u] = e < TM * kc && mm < M
+                  ? rt::to_f32(x[(size_t)mm * K + k0 + e - mm * kc])
+                  : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * TN_NT, mm = e / kc;
+      if (e < TM * kc) xs[(e - mm * kc) * TM + mm] = xv[u];
+    }
+  }
+  __syncthreads();
+
+  float acc[4][TM];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int mm = 0; mm < TM; ++mm) acc[j][mm] = 0.f;
+
+  for (int r = br0 + warp; r < br1; r += STEP) {
+    uint32_t word[TN_U];
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) word[u] = next[u];
+    if (r + STEP < br1) load(next, r + STEP);  // the next batch flies now
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) {
+      const int rr = r + u * TN_WARPS;
+      if (rr >= br1) break;
+      const float* xk = xs + (rr - br0) * R * TM;
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        float xv[TM];
+        if constexpr (TM % 4 == 0) {
+#pragma unroll
+          for (int mm = 0; mm < TM; mm += 4) {
+            const float4 x4 =
+                *reinterpret_cast<const float4*>(xk + t * TM + mm);
+            xv[mm] = x4.x;
+            xv[mm + 1] = x4.y;
+            xv[mm + 2] = x4.z;
+            xv[mm + 3] = x4.w;
+          }
+        } else {
+#pragma unroll
+          for (int mm = 0; mm < TM; ++mm) xv[mm] = xk[t * TM + mm];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float c = code_at<BITS>(word[u], 8 * j + BITS * t);
+#pragma unroll
+          for (int mm = 0; mm < TM; ++mm)
+            acc[j][mm] = fmaf(xv[mm], c, acc[j][mm]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // xs is read by every warp before it becomes red
+  float* red = xs;  // red[(warp * TM + m) * TN_COLS + column]
+#pragma unroll
+  for (int mm = 0; mm < TM; ++mm)
+    *reinterpret_cast<float4*>(red + (warp * TM + mm) * TN_COLS + 4 * lane) =
+        make_float4(acc[0][mm], acc[1][mm], acc[2][mm], acc[3][mm]);
+  __syncthreads();
+  for (int e = tid; e < TM * TN_COLS; e += TN_NT) {
+    const int mm = e / TN_COLS, jx = e - mm * TN_COLS;
+    const int nn = nb + jx;
+    if (mm >= M || nn >= N) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < TN_WARPS; ++g) a += red[(g * TM + mm) * TN_COLS + jx];
+    if (ws != nullptr) {
+      ws[((size_t)split * M + mm) * N + nn] = a;
+    } else {
+      float v = a * scales[nn];
+      if (bias != nullptr) v += bias[nn];
+      out[(size_t)mm * N + nn] = rt::from_f32<XT>(rt::apply_act(v, act, tau));
+    }
+  }
+}
+
+// out[m, n] = act(sum over splits of ws[s, m, n] * s + b) for 32 outputs per
+// CTA: warp w adds splits w, w + 8, ... (32 consecutive floats per load),
+// then warp 0 adds the 8 warps' sums in warp order, so the order is the
+// same on every run.  Launched as a programmatic dependent of the split
+// kernel: its CTAs may start early and wait here for that grid's end.
+constexpr int RD_WARPS = 8;
+
+template <typename XT>
+__global__ void __launch_bounds__(32 * RD_WARPS)
+    qmm_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
+                      const float* __restrict__ scales,
+                      const float* __restrict__ bias, XT* __restrict__ out,
+                      int act, float tau) {
+  __shared__ float part[RD_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const bool in = i < M * N;
+  const size_t stride = (size_t)M * N;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  float a = 0.f;
+  if (in) {
+#pragma unroll 8
+    for (int s = warp; s < splits; s += RD_WARPS) a += ws[s * stride + i];
+  }
+  part[warp][lane] = a;
+  __syncthreads();
+  if (warp != 0 || !in) return;
+  a = part[0][lane];
+#pragma unroll
+  for (int w = 1; w < RD_WARPS; ++w) a += part[w][lane];
+  const int nn = i % N;
+  float v = a * scales[nn];
+  if (bias != nullptr) v += bias[nn];
+  out[i] = rt::from_f32<XT>(rt::apply_act(v, act, tau));
+}
+
+template <typename XT, int WK, int TM>
+cudaError_t thin_t(const void* x, int M, int K, const void* w, int N,
+                   int k_splits, int rows_per_split, const float* scales,
+                   const float* bias, float* ws, void* out, int act, float tau,
+                   cudaStream_t stream) {
+  // the split's codes must fit the kernel's x stage
+  if (k_splits < 1 || rows_per_split * rt::WTraits<WK>::R > TN_KCAP ||
+      N % 4 != 0)
+    return cudaErrorInvalidValue;
+  dim3 grid((N + TN_COLS - 1) / TN_COLS, k_splits);
+  qmm_thin_kernel<XT, WK, TM><<<grid, TN_NT, 0, stream>>>(
+      static_cast<const XT*>(x), M, K, static_cast<const uint8_t*>(w), N,
+      rows_per_split, scales, bias, k_splits > 1 ? ws : nullptr,
+      static_cast<XT*>(out), act, tau);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || k_splits == 1) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M * N + 31) / 32);
+  cfg.blockDim = dim3(32 * RD_WARPS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, qmm_reduce_kernel<XT>,
+                           static_cast<const float*>(ws), k_splits, M, N,
+                           scales, bias, static_cast<XT*>(out), act, tau);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename XT, int WK>
+cudaError_t thin_m(int tm, const void* x, int M, int K, const void* w, int N,
+                   int k_splits, int rows_per_split, const float* scales,
+                   const float* bias, float* ws, void* out, int act, float tau,
+                   cudaStream_t s) {
+  switch (tm) {
+    case 1:
+      return thin_t<XT, WK, 1>(x, M, K, w, N, k_splits, rows_per_split,
+                               scales, bias, ws, out, act, tau, s);
+    case 8:
+      return thin_t<XT, WK, 8>(x, M, K, w, N, k_splits, rows_per_split,
+                               scales, bias, ws, out, act, tau, s);
+    case 16:
+      return thin_t<XT, WK, 16>(x, M, K, w, N, k_splits, rows_per_split,
+                                scales, bias, ws, out, act, tau, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename XT>
+cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
+                   const void* w, int N, int k_splits, int rows_per_split,
+                   const float* scales, const float* bias, float* ws,
+                   void* out, int act, float tau, cudaStream_t s) {
+  switch (wkind) {
+    case rt::W_I8:
+      return thin_m<XT, rt::W_I8>(tm, x, M, K, w, N, k_splits, rows_per_split,
+                                  scales, bias, ws, out, act, tau, s);
+    case rt::W_U4:
+      return thin_m<XT, rt::W_U4>(tm, x, M, K, w, N, k_splits, rows_per_split,
+                                  scales, bias, ws, out, act, tau, s);
+    case rt::W_U2:
+      return thin_m<XT, rt::W_U2>(tm, x, M, K, w, N, k_splits, rows_per_split,
+                                  scales, bias, ws, out, act, tau, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+
 }  // namespace
 
 // x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), row-major; out: (M, N)
@@ -159,4 +432,23 @@ extern "C" int qmm_launch(const void* x, int x_bf16, int M, int K,
                                         out, act, tau, s);
   return (int)launch_w<float>(wkind, tm, x, M, K, w, N, scales, bias, out, act,
                               tau, s);
+}
+
+// The thin-M route: M <= 16 (tm = 1, 8 or 16 rows per CTA), N % 4 == 0, w
+// 4-byte aligned.  The K byte rows are cut into k_splits ranges of
+// rows_per_split (the last may be shorter; rows_per_split * R <= 512 codes).
+// ws: (k_splits, M, N) f32 scratch, unused when k_splits == 1.  Other
+// arguments as qmm_launch.  Returns the launches' cudaError_t.
+extern "C" int qmm_thin_launch(const void* x, int x_bf16, int M, int K,
+                               const void* w, int wkind, int N, int k_splits,
+                               int rows_per_split, const float* scales,
+                               const float* bias, float* ws, void* out, int tm,
+                               int act, float tau, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return (int)thin_w<__nv_bfloat16>(wkind, tm, x, M, K, w, N, k_splits,
+                                      rows_per_split, scales, bias, ws, out,
+                                      act, tau, s);
+  return (int)thin_w<float>(wkind, tm, x, M, K, w, N, k_splits, rows_per_split,
+                            scales, bias, ws, out, act, tau, s);
 }

@@ -22,7 +22,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("block_sparse_matmul", "quant_matmul", "packed_decode_attention",
-           "block_sparse_conv", "quant_conv", "fc_stack", "flash_attention")
+           "block_sparse_conv", "quant_conv", "fc_stack", "flash_attention",
+           "flash_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

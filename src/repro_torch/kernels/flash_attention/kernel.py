@@ -1,10 +1,13 @@
 """Full-sequence flash attention forward — kernel wrapper and plain version.
 
-* :func:`flash_attention_fwd` — the wrapper of ``csrc/flash_attention.cu``
-  (replacing the Pallas kernel ``repro.kernels.flash_attention.kernel.
-  flash_attention``): causal or not, GQA, bf16 or f32, any ``Tq`` / ``Tk``,
-  ``Dh`` up to 256; q, k and v are read through their strides.  CPU tensors
-  take the plain version.
+* :func:`flash_attention_fwd` — the wrapper of the two CUDA kernels that
+  replace the Pallas kernel ``repro.kernels.flash_attention.kernel.
+  flash_attention``: causal or not, GQA, bf16 or f32, any ``Tq`` / ``Tk``,
+  ``Dh`` up to 256; q, k and v are read through their strides.
+  :func:`flash_route` picks the kernel from the shapes: ``"tensor_core"``
+  (``csrc/flash_attention_tc.cu``, wgmma) for bf16 with Dh 64 or 128 and
+  16-byte-aligned rows, ``"cuda_core"`` (``csrc/flash_attention.cu``, f32
+  FMAs) for everything else.  CPU tensors take the plain version.
 * :func:`flash_attention_plain` — the plain PyTorch version of what the
   kernel computes: ``q.float() * scale``, an online softmax over
   :data:`BK`-key tiles with the finite mask value :data:`NEG_INF`, causal
@@ -21,24 +24,53 @@ import torch
 from .. import build
 
 __all__ = ["BK", "NEG_INF", "flash_attention_fwd", "flash_attention_plain",
-           "launches"]
+           "flash_route", "launches", "launches_cc", "launches_tc"]
 
 NEG_INF = -1e30
 BK = 64          # keys per tile of the kernel's online softmax
 MAX_DH = 256
+TC_DH = (64, 128)   # head dims of the tensor-core kernel
+TC_BQ = 128         # q rows per CTA of the tensor-core kernel
+CC_BQ = 64          # q rows per CTA of the CUDA-core kernel
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counters were last set to 0: all of them, and
+# those of each route
 launches = 0
+launches_tc = 0
+launches_cc = 0
 
 
-def _lib():
-    fn = build.library("flash_attention").flash_attention_launch
+def _lib(route: str):
+    if route == "tensor_core":
+        fn = build.library("flash_attention_tc").flash_attention_tc_launch
+        head = []
+    else:
+        fn = build.library("flash_attention").flash_attention_launch
+        head = [ctypes.c_int]        # bf16 flag
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, *head, I, I, I, I, I, I,
                        L, L, L, L, L, L, L, L, L, ctypes.c_float, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these inputs: ``"tensor_core"`` when q, k and v are
+    all bf16 with Dh in :data:`TC_DH`, unit stride along Dh, every other
+    stride of a dimension longer than 1 a multiple of 8 elements and base
+    pointers 16-byte aligned (each row is then whole 16-byte copies);
+    ``"cuda_core"`` otherwise.  A shape rule, not a fallback: the CUDA-core
+    kernel is the one that takes f32, other head dims and odd strides."""
+    ts = (q, k, v)
+    if any(t.dtype != torch.bfloat16 for t in ts) or q.shape[-1] not in TC_DH:
+        return "cuda_core"
+    for t in ts:
+        if t.dim() != 4 or t.stride(3) != 1 or t.data_ptr() % 16:
+            return "cuda_core"
+        if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            return "cuda_core"
+    return "tensor_core"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
@@ -62,10 +94,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         name: str = "flash_attention") -> torch.Tensor:
     """Attention of q (B, Tq, H, Dh) over k, v (B, Tk, Hkv, Dh) -> (B, Tq,
     H, Dh) in q's dtype."""
-    global launches
+    global launches, launches_tc, launches_cc
     _check(q, k, v, name)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal)
+    route = flash_route(q, k, v)
+    out = _launch(q, k, v, causal, route, name)
+    launches += 1
+    if route == "tensor_core":
+        launches_tc += 1
+    else:
+        launches_cc += 1
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            route: str, name: str = "flash_attention") -> torch.Tensor:
+    """Launch the ``route`` kernel on CUDA tensors that passed ``_check``;
+    counts nothing (the wrapper counts)."""
     B, Tq, H, Dh = (int(d) for d in q.shape)
     Tk, Hkv = int(k.shape[1]), int(k.shape[2])
     if q.dtype not in (torch.float32, torch.bfloat16) \
@@ -83,18 +129,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {what} needs unit stride along Dh, got "
                              f"strides {tuple(t.stride())}")
-    if -(-Tq // 64) > 65535:
+    tc = route == "tensor_core"
+    if tc and flash_route(q, k, v) != route:
+        raise ValueError(f"{name}: the tensor-core kernel does not take "
+                         f"these inputs (see flash_route)")
+    if -(-Tq // (TC_BQ if tc else CC_BQ)) > 65535:
         raise ValueError(f"{name}: Tq={Tq} exceeds the kernel's grid")
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     if Tq == 0 or B == 0:
         return out
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, Tq, Tk, H, Hkv, Dh,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 1.0 / math.sqrt(Dh), int(bool(causal)),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    head = () if tc else (int(q.dtype == torch.bfloat16),)
+    err = _lib(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), *head, B, Tq, Tk, H, Hkv, Dh,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      1.0 / math.sqrt(Dh), int(bool(causal)),
+                      torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
-    launches += 1
     return out
 
 

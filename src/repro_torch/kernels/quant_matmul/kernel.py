@@ -1,21 +1,24 @@
 """Quantised dense matmul and conv — the wrappers of the CUDA kernels.
 
 ``y = act((x @ Wq) * s + b)`` with int8 codes or bit-packed int4x2 / int2x4
-codes along K; the scale multiplies the f32 accumulator at emit.  The kernel
-(``csrc/quant_matmul.cu``) replaces the Pallas ``quant_matmul`` of
-``repro.kernels.quant_matmul.kernel``; its plain PyTorch version is
+codes along K; the scale multiplies the f32 accumulator at emit.  The
+kernels of ``csrc/quant_matmul.cu`` replace the Pallas ``quant_matmul`` of
+``repro.kernels.quant_matmul.kernel``; their plain PyTorch version is
 :func:`repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`.
-:func:`quant_conv` is the fused conv over the same codes
-(``csrc/quant_conv.cu``, plain version ``quant_conv_ref``).
+:func:`qmm_plan` picks the route from the shapes: the thin-M kernel (K split
+across CTAs, a deterministic second pass) for decode rows, M <= 16, or the
+tiled kernel for the rest.  :func:`quant_conv` is the fused conv over the
+same codes (``csrc/quant_conv.cu``, plain version ``quant_conv_ref``).
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
-for CPU tensors, and only then.  ``launches`` counts launches of the matmul
-kernel, ``conv_launches`` those of the conv kernel.
+for CPU tensors, and only then.  ``launches`` counts calls of the matmul
+kernels (``launches_thin`` and ``launches_tiled`` those of each route),
+``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,11 +37,49 @@ from ..sparse_matmul.kernel import (
     w_kind,
 )
 
-__all__ = ["conv_launches", "launches", "quant_conv", "quant_matmul"]
+__all__ = ["QmmPlan", "conv_launches", "launches", "launches_thin",
+           "launches_tiled", "qmm_plan", "quant_conv", "quant_matmul"]
 
-# kernel launches since the counter was last set to 0
-launches = 0         # quant_matmul
+# kernel launches since the counters were last set to 0
+launches = 0         # quant_matmul, both routes
+launches_thin = 0    # quant_matmul, thin-M route
+launches_tiled = 0   # quant_matmul, tiled route
 conv_launches = 0    # quant_conv
+
+THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
+THIN_COLS = 128      # output columns per CTA of the thin-M kernel
+THIN_KCAP = 512      # codes of K per split, at most (the kernel's x stage)
+THIN_MIN_ROWS = 8    # byte rows per split, at least: two per warp
+CTA_TARGET = 2 * 132  # CTAs the thin-M route aims for: two per H100 SM
+
+
+class QmmPlan(NamedTuple):
+    """The thin-M kernel's grid: ``cols_per_cta`` output columns by
+    ``k_splits`` ranges of ``rows_per_split`` whole byte rows of the
+    container (the last range may be shorter)."""
+    cols_per_cta: int
+    k_splits: int
+    rows_per_split: int
+
+
+def qmm_plan(M: int, K: int, N: int, ratio: int,
+             w_ptr: int = 0) -> Optional[QmmPlan]:
+    """The route of a quant matmul, as a shape rule: the thin-M plan when
+    ``M <= THIN_M_MAX``, ``N % 4 == 0`` and the container's address
+    ``w_ptr`` is 4-byte aligned (each lane loads 4 bytes of a byte row);
+    ``None`` — the tiled kernel — otherwise.
+
+    The plan cuts the ``K / ratio`` byte rows into splits of whole rows, at
+    most :data:`THIN_KCAP` codes each, and enough of them that the grid of
+    ``ceil(N / THIN_COLS)`` column tiles times the splits reaches
+    :data:`CTA_TARGET` CTAs, unless that would leave fewer than
+    :data:`THIN_MIN_ROWS` rows to a split."""
+    if M > THIN_M_MAX or N % 4 or w_ptr % 4:
+        return None
+    rows = K // ratio
+    want = -(-CTA_TARGET // -(-N // THIN_COLS))
+    per = min(max(rows // want, THIN_MIN_ROWS), THIN_KCAP // ratio, rows)
+    return QmmPlan(THIN_COLS, -(-rows // per), per)
 
 
 def _lib():
@@ -46,6 +87,16 @@ def _lib():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, I, I, P, I, I, P, P, P, I, I, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _thin_lib():
+    fn = build.library("quant_matmul").qmm_thin_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, P, I, I, I, I, P, P, P, P, I, I,
+                       ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -66,7 +117,7 @@ def quant_matmul(
     uint8 container ``(K / ratio, N)`` packed along K (K divisible by the
     ratio).  ``name`` labels errors (the dispatch passes the leaf name).
     """
-    global launches
+    global launches, launches_thin, launches_tiled
     ratio = packed_ratio(packed)
     M, K = x.shape
     N = int(w_q.shape[1])
@@ -89,6 +140,22 @@ def quant_matmul(
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
     if M < 1:
         raise ValueError(f"{name}: needs at least one row, got M={M}")
+    plan = qmm_plan(M, K, N, ratio, w_q.data_ptr())
+    out = _launch(x, w_q, scales, bias, activation, ratio, plan, name)
+    launches += 1
+    if plan is None:
+        launches_tiled += 1
+    else:
+        launches_thin += 1
+    return out
+
+
+def _launch(x, w_q, scales, bias, activation, ratio: int,
+            plan: Optional[QmmPlan], name: str) -> torch.Tensor:
+    """Launch the thin-M kernel with ``plan``, or the tiled kernel when it is
+    None, on CUDA operands; counts nothing (the wrapper counts)."""
+    M, K = x.shape
+    N = int(w_q.shape[1])
     code, tau = act_args(activation)
     kind = w_kind(w_q, ratio, name)
     if kind not in (2, 3, 4):
@@ -101,11 +168,19 @@ def quant_matmul(
     s = vec_f32(scales, N, dev, "scales", name)
     b = vec_f32(bias, N, dev, "bias", name)
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    err = _lib()(ptr(x), int(x.dtype == torch.bfloat16), M, K, ptr(w_q), kind,
-                 N, ptr(s), ptr(b), ptr(out), rows_per_cta(M), code, tau,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if plan is None:
+        err = _lib()(ptr(x), x_bf16, M, K, ptr(w_q), kind, N, ptr(s), ptr(b),
+                     ptr(out), rows_per_cta(M), code, tau, stream)
+    else:
+        ws = torch.empty((plan.k_splits, M, N), dtype=torch.float32,
+                         device=dev) if plan.k_splits > 1 else None
+        err = _thin_lib()(ptr(x), x_bf16, M, K, ptr(w_q), kind, N,
+                          plan.k_splits, plan.rows_per_split, ptr(s), ptr(b),
+                          ptr(ws), ptr(out), rows_per_cta(M), code, tau,
+                          stream)
     build.check(err, name)
-    launches += 1
     return out
 
 

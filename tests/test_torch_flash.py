@@ -15,6 +15,8 @@ keeps ``kpos <= qpos`` with both counted from position 0; the naive oracle
 path; ``test_causal_alignment_differs_from_the_oracle_when_tq_ne_tk``
 pins the difference.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,10 +28,13 @@ from repro.kernels.flash_attention.kernel import flash_attention as j_kernel  # 
 from repro.kernels.flash_attention.ops import flash_attention as j_op  # noqa: E402
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref  # noqa: E402
 from repro.models.layers import chunked_attention as j_chunked  # noqa: E402
+from repro_torch.configs import reduced_config as t_reduced  # noqa: E402
 from repro_torch.core import dispatch as tdisp  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention as t_op  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref as t_ref  # noqa: E402
+from repro_torch.models import blocks as tblocks  # noqa: E402
+from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.layers import chunked_attention as t_chunked  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -168,6 +173,79 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     q, k, v = _t(*_qkv(1, 16, 0, 4, 2, 8))
     with pytest.raises(ValueError, match="Tk=0"):
         tk.flash_attention_fwd(q, k, v)
+
+
+# ------------------------------------------------------------------ routes
+
+
+def _route_case(case):
+    """q, k, v (bf16 unless the case says otherwise) laid out as ``case``
+    names."""
+    B, T, H, Hkv = 2, 24, 4, 2
+    dt = torch.float32 if case == "f32" else torch.float16 \
+        if case == "f16" else torch.bfloat16
+    Dh = {"dh16": 16, "dh40": 40, "dh128": 128, "dh256": 256}.get(case, 64)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((B, T, H, Dh), generator=g).to(dt)
+    k = torch.randn((B, T, Hkv, Dh), generator=g).to(dt)
+    v = torch.randn((B, T, Hkv, Dh), generator=g).to(dt)
+    if case == "q_head_slice":       # q read through a view over heads
+        q = torch.randn((B, T, 2 * H, Dh), generator=g).to(dt)[:, :, H:]
+    elif case == "rows_of_65":       # rows are not whole 16-byte copies
+        q = torch.randn((B, T, H, Dh + 1), generator=g).to(dt)[..., :Dh]
+    elif case == "base_off_by_one":  # a base pointer 2 bytes past alignment
+        q = torch.empty(q.numel() + 8, dtype=dt)[1:1 + q.numel()].view(
+            q.shape).copy_(q)
+    elif case == "dh_strided":       # Dh is not the unit-stride dimension
+        k = k.transpose(1, 3).contiguous().transpose(1, 3)
+    elif case == "k_f32":
+        k = k.float()
+    elif case == "odd_batch_stride_b1":  # a size-1 dimension's stride is moot
+        q = q[:1].as_strided((1, T, H, Dh), (7, H * Dh, Dh, 1))
+        k, v = k[:1], v[:1]
+    return q, k, v
+
+
+@pytest.mark.parametrize("case,route", [
+    ("dh64", "tensor_core"), ("dh128", "tensor_core"),
+    ("q_head_slice", "tensor_core"), ("odd_batch_stride_b1", "tensor_core"),
+    ("f32", "cuda_core"), ("f16", "cuda_core"), ("k_f32", "cuda_core"),
+    ("dh16", "cuda_core"), ("dh40", "cuda_core"), ("dh256", "cuda_core"),
+    ("rows_of_65", "cuda_core"), ("base_off_by_one", "cuda_core"),
+    ("dh_strided", "cuda_core"),
+])
+def test_flash_route_shape_rule(case, route):
+    assert tk.flash_route(*_route_case(case)) == route
+
+
+def test_training_path_takes_the_tensor_core_route(monkeypatch):
+    """The q, k and v that the training forward hands the attention at
+    llama3.2-1b's head layout (Dh 64, GQA, bf16) go to the tensor cores."""
+    cfg = dataclasses.replace(t_reduced("llama3.2-1b"), head_dim=64,
+                              d_model=128, param_dtype="bfloat16")
+    seen = []
+    full = tblocks.attn_full_dispatch
+
+    def spy(q, k, v, **kw):
+        seen.append((tk.flash_route(q, k, v), q.dtype, tuple(q.shape)))
+        return full(q, k, v, **kw)
+
+    monkeypatch.setattr(tblocks, "attn_full_dispatch", spy)
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 32)), dtype=torch.int32)
+    tm.forward(params, cfg, {"tokens": toks})
+    assert len(seen) == cfg.n_layers
+    assert all(r == "tensor_core" and dt == torch.bfloat16 and s[-1] == 64
+               for r, dt, s in seen), seen
+
+
+def test_cpu_calls_count_no_route():
+    for attr in ("launches", "launches_tc", "launches_cc"):
+        setattr(tk, attr, 0)
+    q, k, v = _t(*_qkv(1, 16, 16, 4, 2, 64))
+    tk.flash_attention_fwd(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert (tk.launches, tk.launches_tc, tk.launches_cc) == (0, 0, 0)
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ from repro.kernels.quant_matmul.kernel import quant_matmul as j_qmm  # noqa: E40
 from repro.kernels.quant_matmul.ref import quant_matmul_ref as j_qmm_ref  # noqa: E402
 from repro.kernels.sparse_matmul import kernel as jsk  # noqa: E402
 from repro.kernels.sparse_matmul.ref import block_sparse_matmul_ref as j_bsm_ref  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.core import dispatch as td  # noqa: E402
 from repro_torch.core.quant import PackedTensor, pack_codes  # noqa: E402
 from repro_torch.core.sparsity import CompressedLinear, pattern_from_bitmap  # noqa: E402
@@ -228,10 +229,12 @@ def test_ops_route_thin_m_and_unpack_bn_axis_containers():
 def test_cpu_calls_launch_nothing_and_kernel_mode_raises():
     for mod in (tsk, tqk, tdp):
         mod.launches = 0
+    tqk.launches_thin = tqk.launches_tiled = 0
     test_block_sparse_plain_matches_pallas_interpret("int4x2", "gelu", False)
     test_quant_plain_matches_pallas_interpret("int4x2", None)
     test_packed_attention_plain_matches_pallas_interpret()
     assert (tsk.launches, tqk.launches, tdp.launches) == (0, 0, 0)
+    assert (tqk.launches_thin, tqk.launches_tiled) == (0, 0)
     q, k_p, v_p, k_s, v_s = _attn_case(1, 1, 8, 2, 1, 8, seed=1)
     args = [_t(a) for a in (q, k_p, v_p, k_s, v_s)] + [torch.ones(1, 1,
                                                                   dtype=torch.int32)]
@@ -240,6 +243,75 @@ def test_cpu_calls_launch_nothing_and_kernel_mode_raises():
     twin = td.attn_packed_dispatch(*args, dispatch="twin")
     auto = td.attn_packed_dispatch(*args, dispatch="auto")
     np.testing.assert_array_equal(twin.numpy(), auto.numpy())
+
+
+# ------------------------------------------------- thin-M quant_matmul plan
+
+
+def _split_rows(plan, rows):
+    """The byte-row range of each split, as the thin-M kernel cuts them."""
+    return [(s * plan.rows_per_split,
+             min((s + 1) * plan.rows_per_split, rows))
+            for s in range(plan.k_splits)]
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 512), (8192, 96),
+                                 (8192, 2048), (512, 320), (8, 4)])
+def test_qmm_plan_splits_cover_k_once_in_whole_byte_rows(ratio, K, N):
+    plan = tqk.qmm_plan(8, K, N, ratio)
+    rows = K // ratio
+    ranges = _split_rows(plan, rows)
+    assert plan.cols_per_cta == tqk.THIN_COLS
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows
+    assert all(lo < hi for lo, hi in ranges)                 # none empty
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert plan.rows_per_split * ratio <= tqk.THIN_KCAP      # fits x's stage
+
+
+@pytest.mark.parametrize("container", ["int8", "int4x2", "int2x4"])
+def test_qmm_plan_split_sums_match_the_plain_version(container):
+    """Summing the per-split products in split order, scale at emit, as the
+    thin-M kernel and its second pass do, gives the plain version's output:
+    a gap or an overlap between splits would not."""
+    ratio = {"int8": 1, "int4x2": 2, "int2x4": 4}[container]
+    qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
+    rng = np.random.default_rng(3)
+    M, K, N = 3, 512, 96
+    codes = _t(rng.integers(-qm, qm + 1, size=(K, N)).astype(np.int8))
+    scales = _t((rng.random(N) / (qm * 4)).astype(np.float32))
+    x = _t(rng.normal(size=(M, K)).astype(np.float32))
+    plan = tqk.qmm_plan(M, K, N, ratio)
+    assert plan.k_splits > 1
+    acc = torch.zeros((M, N))
+    for lo, hi in _split_rows(plan, K // ratio):
+        ks = slice(lo * ratio, hi * ratio)
+        acc = acc + x[:, ks] @ codes[ks].float()
+    ref = quant_matmul_ref(x, codes, scales)
+    torch.testing.assert_close(acc * scales, ref, **TOL)
+
+
+def test_llama_decode_leaves_fill_the_card_on_the_thin_m_route():
+    """llama3.2-1b's quant leaves at decode (8 slots, int4x2): wq / wo
+    (2048 x 2048) and wk / wv (2048 x 512) each launch >= 2 x 132 CTAs."""
+    cfg = t_get_config("llama3.2-1b")
+    D, qd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    for K, N in ((D, qd), (D, kvd), (D, kvd), (qd, D)):
+        for M in (1, 8, 16):
+            plan = tqk.qmm_plan(M, K, N, 2)
+            assert plan is not None
+            assert -(-N // plan.cols_per_cta) * plan.k_splits >= 264, (K, N)
+
+
+@pytest.mark.parametrize("M,N,w_ptr,route", [
+    (1, 2048, 0, "thin_m"), (16, 512, 256, "thin_m"), (8, 96, 4, "thin_m"),
+    (17, 2048, 0, "tiled"), (128, 2048, 0, "tiled"), (512, 2048, 0, "tiled"),
+    (8, 90, 0, "tiled"), (8, 2048, 2, "tiled"),
+])
+def test_qmm_route_rule(M, N, w_ptr, route):
+    plan = tqk.qmm_plan(M, 2048, N, 2, w_ptr)
+    assert ("tiled" if plan is None else "thin_m") == route
 
 
 def test_build_paths_are_ignored_and_not_touched_at_import():
