@@ -10,23 +10,28 @@ Phases, each fatal on failure:
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile every CUDA kernel from ``src/repro_torch/csrc``;
 3. kernels — hold each kernel against its plain PyTorch version over every
-   container, row count and activation, on both routes of ``quant_matmul``
-   (thin-M, M <= 16, and tiled) and of the flash kernel (tensor cores for
-   bf16 Dh 64/128, CUDA cores for the rest: causal or not, GQA, ragged and
-   unequal Tq / Tk, bf16 and f32, and its op's gradient), requiring each
-   call to take the route its shape rule names; then time kernel, plain
-   version and a one-call PyTorch yardstick at the shapes the main paths
-   give it, beside the least time the card could take (``bound_ms``) and
-   the first version of each redesigned kernel;
+   container, row count and activation, on both routes of
+   ``block_sparse_matmul`` and ``quant_matmul`` (thin-M, M <= 16, and
+   tiled), of ``packed_decode_attention`` (split across the cache, and the
+   single kernel: C in {1, 16}, G in {1, 4}, Dh in {64, 128}, dead, ragged
+   and full slots, bitwise equal across extents and calls) and of the flash
+   kernel (tensor cores for bf16 Dh 64/128, CUDA cores for the rest: causal
+   or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
+   gradient), requiring each call to take the route its shape rule names;
+   then time kernel, plain version and a one-call PyTorch yardstick at the
+   shapes the main paths give it, beside the least time the card could take
+   (``bound_ms``) and the first version of each redesigned kernel;
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
    to int4x2 quant/block-sparse leaves, serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, require every kernel to have
-   launched, and hold a prefill chunk plus 4 decode steps against the
-   plain versions (``dispatch="twin"``), each decode step's 64
-   ``quant_matmul`` calls on the thin-M route; then run the compiled
-   model's full-sequence forward (B = 1, T = 512) through
-   ``block_sparse_matmul``, ``quant_matmul`` (tiled route) and the flash
-   kernel (tensor-core route), held against the twin path;
+   launched and every packed attention read (decode rows and 16-row
+   prefill chunks) on the split route, and hold a prefill chunk plus 4
+   decode steps against the plain versions (``dispatch="twin"``), each
+   decode step's 64 ``quant_matmul`` and 48 ``block_sparse_matmul`` calls
+   on their thin-M routes and 16 attention reads on the split route; then
+   run the compiled model's full-sequence forward (B = 1, T = 512) through
+   ``block_sparse_matmul`` and ``quant_matmul`` (tiled routes) and the
+   flash kernel (tensor-core route), held against the twin path;
 5. lenet   — compile LeNet-5 at its published widths (random weights from a
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
@@ -192,9 +197,17 @@ def sparse_case(rng, dev, container, bk, nR, empty=False):
 
 
 def sweep_sparse(rng, dev):
-    from repro_torch.kernels.sparse_matmul.kernel import block_sparse_matmul
+    """block_sparse_matmul against its plain version on both routes: the
+    first design's cases (every container, M in {1, 8, 16, 128}, empty
+    patterns, many blocks per column, blocks taller than a staging round)
+    and the thin-M cases (M in {1, 3, 8, 16}, the three byte containers, K
+    up to 8192 with up to 64 blocks per column, an absent column block,
+    bias or not, over the activations); each call must take the route
+    ``bsm_plan`` names."""
+    from repro_torch.kernels.sparse_matmul import kernel as K_
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
 
+    routes = {"thin_m": "launches_thin", "tiled": "launches_tiled"}
     cases = []
     for ci, container in enumerate(("f32", "bf16", "int8", "int4x2", "int2x4")):
         for mi, M in enumerate((1, 8, 16, 128)):
@@ -206,23 +219,38 @@ def sweep_sparse(rng, dev):
         for container in ("int8", "int4x2"):
             cases += [(container, M, 128, 12, False, M),
                       (container, M, 1024, 2, False, M + 1)]
+    # thin-M: K = 8192 (64 row blocks), K = 1536, K = 256
+    for mi, M in enumerate((1, 3, 8, 16)):
+        for ci, container in enumerate(("int8", "int4x2", "int2x4")):
+            for ki, nR in enumerate((64, 12, 2)):
+                cases.append((container, M, 128, nR, False, mi + ci + ki))
     for container, M, bk, nR, empty, ai in cases:
         act = ACTS[ai % len(ACTS)]
         xdt = torch.float32 if container == "f32" or ai % 2 else torch.bfloat16
         blocks, vals, scales, packed, sched, rows, cols, nC = sparse_case(
             rng, dev, container, bk, nR, empty)
         x = torch.randn((M, nR * bk), device=dev).to(xdt)
-        bias = torch.randn((nC * 128,), device=dev)
-        y = block_sparse_matmul(x, blocks, sched, scales=scales, bias=bias,
-                                activation=act, packed=packed)
+        bias = torch.randn((nC * 128,), device=dev) if (ai + M) % 3 else None
+        ratio = K_.packed_ratio(packed)
+        route = "tiled" if K_.bsm_plan(
+            M, bk, 128, ratio, nC, sched.max_blocks_per_col,
+            blocks.data_ptr(), blocks.element_size()) is None else "thin_m"
+        want = "thin_m" if M <= 16 and blocks.element_size() == 1 \
+            and bk * K_.rows_per_cta(M) <= K_.THIN_XCAP else "tiled"
+        require(route == want, f"bsm_plan sent {container} M={M} bk={bk} to "
+                               f"the {route} route, not {want}")
+        y = took_route(K_, routes, route, lambda: K_.block_sparse_matmul(
+            x, blocks, sched, scales=scales, bias=bias, activation=act,
+            packed=packed))
         ref = block_sparse_matmul_ref(
             x, vals, rows, cols, n_row_blocks=nR, n_col_blocks=nC,
             scales=scales, bias=bias, activation=act, out_dtype=xdt)
         torch.cuda.synchronize()
         err = float((y.float() - ref.float()).abs().max())
         require(err <= tol_for(xdt, ref.float()),
-                f"block_sparse_matmul {container} M={M} bk={bk} nR={nR} "
-                f"empty={empty} act={act}: max abs err {err}")
+                f"block_sparse_matmul {route} {container} M={M} bk={bk} "
+                f"nR={nR} empty={empty} act={act} bias={bias is not None}: "
+                f"max abs err {err}")
     return len(cases)
 
 
@@ -295,29 +323,69 @@ def random_cache(B, T, Hkv, Dh, dev):
 
 
 def sweep_attention(rng, dev):
-    from repro_torch.kernels.flash_attention.decode_packed import (
-        packed_decode_attention, tiled_packed_attention)
+    """packed_decode_attention against its plain version on both routes:
+    C in {1, 16}, G in {1, 4}, Dh in {64, 128}, bt 64 (and 16: several
+    tiles per split), slots whose rows are all dead (length 0), start at
+    length 1, end mid-tile and reach the extent; C·G = 128, over the split
+    plan's cap, on the single kernel; f32 and bf16 q.  Each call must take
+    the route ``pda_plan`` names, give the same bits on a second call, and
+    the same bits at the full extent and at a bounded one (lengths <= 128).
+    Tolerance: ``flash_tol`` (one bf16 step, or 1e-5 of the largest value in
+    f32; the split route reorders the online softmax's rescaling)."""
+    from repro_torch.kernels.flash_attention import decode_packed as dp
 
+    routes = {"split": "launches_split", "single": "launches_single"}
+    B, T, Hkv = 4, 200, 2
+    shapes = [(C, G, Dh, 64) for C in (1, 16) for G in (1, 4)
+              for Dh in (64, 128)]
+    shapes += [(1, 4, 64, 16), (16, 4, 128, 16), (4, 2, 64, 32),
+               (16, 8, 64, 64)]
     cases = 0
-    B, H, Hkv, Dh, T, bt = 3, 8, 2, 64, 200, 64
-    k_p, v_p, k_s, v_s, _, _ = random_cache(B, T, Hkv, Dh, dev)
-    for C in (1, 16):
+    for C, G, Dh, bt in shapes:
+        H = Hkv * G
+        k_p, v_p, k_s, v_s, _, _ = random_cache(B, T, Hkv, Dh, dev)
+        base = np.array([0, 0, 69, T - C])
+        lens = base[:, None] + np.arange(1, C + 1)[None, :]
+        lens[0] = 0                       # a slot with every tile dead
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        plan = dp.pda_plan(B, C, H, Hkv, Dh, T, bt, k_p.data_ptr()
+                           | v_p.data_ptr() | int(k_p.stride(0)))
+        route = "single" if plan is None else "split"
+        want = "single" if C * G > dp.SPLIT_MAX_QROWS else "split"
+        require(route == want, f"pda_plan sent C={C} G={G} Dh={Dh} bt={bt} "
+                               f"to the {route} route, not {want}")
         for qdt in (torch.float32, torch.bfloat16):
-            base = np.array([0, 69, T - C])       # dead tiles, ragged tiles
-            lens = base[:, None] + np.minimum(np.arange(C) + 1, C)[None, :]
-            lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
             q = torch.randn((B, C, H, Dh), device=dev).to(qdt)
-            for tb in (T, 128):                   # full and bounded extent
+
+            def call(ln, tb=T):
                 ext = [a[:, :tb] for a in (k_p, v_p, k_s, v_s)]
-                ln = torch.clamp(lengths, max=tb)
-                y = packed_decode_attention(q, *ext, ln, bt=bt)
-                ref = tiled_packed_attention(q, *ext, ln, bt=bt)
-                torch.cuda.synchronize()
-                err = float((y.float() - ref.float()).abs().max())
-                require(err <= tol_for(qdt, ref.float()),
-                        f"packed_decode_attention C={C} {qdt} extent={tb}: "
-                        f"max abs err {err}")
-                cases += 1
+                return took_route(dp, routes, route,
+                                  lambda: dp.packed_decode_attention(
+                                      q, *ext, ln, bt=bt))
+
+            tag = f"packed_decode_attention {route} C={C} G={G} Dh={Dh} " \
+                  f"bt={bt} {qdt}"
+            y = call(lengths)
+            ref = dp.tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths,
+                                            bt=bt)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            require(err <= flash_tol(qdt, ref),
+                    f"{tag}: max abs err {err}")
+            require(torch.equal(y, call(lengths)),
+                    f"{tag}: two calls gave different bits")
+            ln = torch.clamp(lengths, max=128)
+            yb = call(ln, 128)
+            require(torch.equal(call(ln), yb),
+                    f"{tag}: the full and the bounded extent gave different "
+                    f"bits")
+            ref = dp.tiled_packed_attention(
+                q, *(a[:, :128] for a in (k_p, v_p, k_s, v_s)), ln, bt=bt)
+            torch.cuda.synchronize()
+            err = float((yb.float() - ref.float()).abs().max())
+            require(err <= flash_tol(qdt, ref),
+                    f"{tag} extent 128: max abs err {err}")
+            cases += 1
     return cases
 
 
@@ -553,11 +621,13 @@ def measure_kernels(cm, cfg, dev, counts):
 
     from repro_torch.core.quant import unpack_codes
     from repro_torch.core.sparsity import CompressedLinear, decompress
+    from repro_torch.kernels.flash_attention import decode_packed as dp
     from repro_torch.kernels.flash_attention.decode_packed import (
         packed_decode_attention, tiled_packed_attention)
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.kernel import quant_matmul
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.kernels.sparse_matmul import kernel as sk
     from repro_torch.kernels.sparse_matmul.kernel import block_sparse_matmul
     from repro_torch.kernels.sparse_matmul.ops import schedule_for
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
@@ -583,36 +653,65 @@ def measure_kernels(cm, cfg, dev, counts):
                 "replaces": replaces, "launches": counts[name],
                 **timing(name, *args)}
 
-    # block-sparse: mlp/wg of layer 0, int4x2 blocks
-    leaf = cm.params["blocks"]["mlp"]["wg"]
-    pat = cm.patterns[(D, F_)]
-    wp, ws = leaf["w_blkp"][0].contiguous(), leaf["w_s"][0].contiguous()
-    sched = schedule_for(pat, dev)
-    bk, bn = pat.block
-    nR, nC = pat.bitmap.shape
-    vals = unpack_codes(wp, bk, axis=1, bits=4)
-    rows = torch.as_tensor(pat.block_rows, device=dev)
-    cols = torch.as_tensor(pat.block_cols, device=dev)
-    dense = decompress(CompressedLinear(pattern=pat, blocks=vals, scales=ws)
-                       ).to(torch.bfloat16)
-    wps, valss, denses = (copies(t, n) for t, n in ((wp, 16), (vals, 8),
-                                                     (dense, 2)))
-    y = block_sparse_matmul(x, wp, sched, scales=ws, packed="int4x2")
-    ref = block_sparse_matmul_ref(x, vals, rows, cols, n_row_blocks=nR,
-                                  n_col_blocks=nC, scales=ws, out_dtype=x.dtype)
-    out.append(entry(
-        "block_sparse_matmul", "src/repro_torch/csrc/block_sparse_matmul.cu",
-        "src/repro/kernels/sparse_matmul/kernel.py:313", y, ref,
-        nbytes(x, wp, ws, y, sched.col_ptr, sched.rows, sched.pidx),
-        2.0 * M * pat.n_blocks_present * bk * bn,
-        f"M={M} K={D} N={F_} int4x2 blocks {pat.n_blocks_present}/"
-        f"{pat.n_blocks_total} of {pat.block}",
-        lambda i: lambda: block_sparse_matmul(x, wps[i], sched, scales=ws,
-                                              packed="int4x2"),
-        lambda i: lambda: block_sparse_matmul_ref(
-            x, valss[i], rows, cols, n_row_blocks=nR, n_col_blocks=nC,
-            scales=ws, out_dtype=x.dtype),
-        lambda i: lambda: x @ denses[i], (16, 8, 2)))
+    # block-sparse: mlp/wg of layer 0, int4x2 blocks (thin-M route); then
+    # mlp/wd (K = 8192, N = 2048) and the compiled forward's M = 512 (tiled)
+    def bsm_case(leaf_name, xs, n_copies):
+        leaf = cm.params["blocks"]["mlp"][leaf_name]
+        Kl = int(xs.shape[1])
+        pat = cm.patterns[(Kl, leaf["w_s"].shape[-1])]
+        wp, ws = leaf["w_blkp"][0].contiguous(), leaf["w_s"][0].contiguous()
+        sched = schedule_for(pat, dev)
+        bk, bn = pat.block
+        nR, nC = pat.bitmap.shape
+        Ms = int(xs.shape[0])
+        vals = unpack_codes(wp, bk, axis=1, bits=4)
+        rows = torch.as_tensor(pat.block_rows, device=dev)
+        cols = torch.as_tensor(pat.block_cols, device=dev)
+        dense = decompress(CompressedLinear(pattern=pat, blocks=vals,
+                                            scales=ws)).to(torch.bfloat16)
+        wps, valss, denses = (copies(t, n) for t, n in zip(
+            (wp, vals, dense), n_copies))
+        plan = sk.bsm_plan(Ms, bk, bn, 2, nC, sched.max_blocks_per_col,
+                           wp.data_ptr())
+        route = "tiled" if plan is None else "thin_m"
+        y = block_sparse_matmul(xs, wp, sched, scales=ws, packed="int4x2")
+        ref = block_sparse_matmul_ref(xs, vals, rows, cols, n_row_blocks=nR,
+                                      n_col_blocks=nC, scales=ws,
+                                      out_dtype=xs.dtype)
+        t = timing(
+            "block_sparse_matmul", y, ref,
+            nbytes(xs, wp, ws, y, sched.col_ptr, sched.rows, sched.pidx),
+            2.0 * Ms * pat.n_blocks_present * bk * bn,
+            f"{leaf_name}: M={Ms} K={Kl} N={nC * bn} int4x2 blocks "
+            f"{pat.n_blocks_present}/{pat.n_blocks_total} of {pat.block}, "
+            f"{route} route" + ("" if plan is None else
+                                f" ({plan.blocks_per_range} blocks per "
+                                f"range, {nC * plan.ranges_per_col} CTAs)"),
+            lambda i: lambda: block_sparse_matmul(xs, wps[i], sched,
+                                                  scales=ws, packed="int4x2"),
+            lambda i: lambda: block_sparse_matmul_ref(
+                xs, valss[i], rows, cols, n_row_blocks=nR, n_col_blocks=nC,
+                scales=ws, out_dtype=xs.dtype),
+            lambda i: lambda: xs @ denses[i], n_copies)
+        if plan is not None:
+            # the first design (tiled kernel) at the same shape, this run
+            t["first_version_ms"] = device_ms(lambda i: lambda: sk._launch(
+                xs, wps[i], sched, ws, None, None, 2, None), n_copies[0])
+        return t
+
+    wg_t = bsm_case("wg", x, (16, 8, 2))
+    wg_t["also"] = [
+        bsm_case("wd", torch.randn((M, F_), device=dev).to(torch.bfloat16),
+                    (32, 8, 2)),
+        bsm_case("wg", torch.randn((512, D), device=dev).to(torch.bfloat16),
+                    (4, 2, 2))]
+    out.append({"name": "block_sparse_matmul", "route": "cuda",
+                "source": "src/repro_torch/csrc/block_sparse_matmul.cu",
+                "replaces": "src/repro/kernels/sparse_matmul/kernel.py:313",
+                "launches": counts["block_sparse_matmul"],
+                "launches_by_route": {BSM_THIN: counts[BSM_THIN],
+                                      BSM_TILED: counts[BSM_TILED]},
+                **wg_t})
 
     # quant: attn/wq of layer 0, int4x2 along K (thin-M route); then attn/wk
     # (N = 512) and the compiled forward's M = 512 (tiled route)
@@ -650,38 +749,67 @@ def measure_kernels(cm, cfg, dev, counts):
                 "replaces": "src/repro/kernels/quant_matmul/kernel.py:125",
                 "launches": counts["quant_matmul"], **wq_t})
 
-    # attention: a decode read over 8 slots of a 512-row cache
+    # attention: a decode read over 8 slots of a 512-row cache, then the
+    # decode profile's shape (200 live rows of each slot, a 256-row extent
+    # of the 512-row cache)
     B, H, Hkv, Dh, T, bt = M, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 512, 64
     G = H // Hkv
-    lens_np = np.random.default_rng(1).integers(64, 320, size=B)
-    lengths = torch.as_tensor(lens_np[:, None], dtype=torch.int32, device=dev)
     q = torch.randn((B, 1, H, Dh), device=dev).to(torch.bfloat16)
     caches = [random_cache(B, T, Hkv, Dh, dev) for _ in range(32)]
-
-    def sdpa_inputs(c):
-        kd = (c[4].float() * c[2][..., None]).to(torch.bfloat16)
-        vd = (c[5].float() * c[3][..., None]).to(torch.bfloat16)
-        return (kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1),
-                vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1))
-
-    kvd = [sdpa_inputs(c) for c in caches[:4]]
-    mask = (torch.arange(T, device=dev)[None, :] < lengths)[:, None, None, :]
     qh = q.permute(0, 2, 1, 3)
-    y = packed_decode_attention(q, *caches[0][:4], lengths, bt=bt)
-    ref = tiled_packed_attention(q, *caches[0][:4], lengths, bt=bt)
-    live = int(lens_np.sum())
-    out.append(entry(
-        "packed_decode_attention",
-        "src/repro_torch/csrc/packed_decode_attention.cu",
-        "src/repro/kernels/flash_attention/decode_packed.py:128", y, ref,
-        nbytes(q, y, lengths) + live * Hkv * (Dh + 8), 4.0 * H * Dh * live,
-        f"B={B} C=1 H={H} Hkv={Hkv} Dh={Dh} T={T} bt={bt} live rows {live}",
-        lambda i: lambda: packed_decode_attention(q, *caches[i][:4], lengths,
-                                                  bt=bt),
-        lambda i: lambda: tiled_packed_attention(q, *caches[i][:4], lengths,
-                                                 bt=bt),
-        lambda i: lambda: F.scaled_dot_product_attention(
-            qh, *kvd[i], attn_mask=mask), (32, 32, 4)))
+
+    def attention_case(lens_np, tb):
+        lengths = torch.as_tensor(lens_np[:, None], dtype=torch.int32,
+                                  device=dev)
+        ext = [[a[:, :tb] for a in c[:4]] for c in caches]
+
+        def sdpa_inputs(c):
+            kd = (c[4][:, :tb].float() * c[2][:, :tb, :, None]).to(
+                torch.bfloat16)
+            vd = (c[5][:, :tb].float() * c[3][:, :tb, :, None]).to(
+                torch.bfloat16)
+            return (kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1),
+                    vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1))
+
+        kvd = [sdpa_inputs(c) for c in caches[:4]]
+        mask = (torch.arange(tb, device=dev)[None, :] < lengths)[:, None,
+                                                                   None, :]
+        plan = dp.pda_plan(B, 1, H, Hkv, Dh, tb, bt, ext[0][0].data_ptr()
+                           | ext[0][1].data_ptr() | int(ext[0][0].stride(0)))
+        route = "single" if plan is None else "split"
+        y = packed_decode_attention(q, *ext[0], lengths, bt=bt)
+        ref = tiled_packed_attention(q, *ext[0], lengths, bt=bt)
+        live = int(lens_np.sum())
+        t = timing(
+            "packed_decode_attention", y, ref,
+            nbytes(q, y, lengths) + live * Hkv * (Dh + 8),
+            4.0 * H * Dh * live,
+            f"B={B} C=1 H={H} Hkv={Hkv} Dh={Dh} extent {tb} of a {T}-row "
+            f"cache, bt={bt}, live rows {live}, {route} route"
+            + ("" if plan is None else f" ({plan.n_splits * Hkv * B} CTAs)"),
+            lambda i: lambda: packed_decode_attention(q, *ext[i], lengths,
+                                                      bt=bt),
+            lambda i: lambda: tiled_packed_attention(q, *ext[i], lengths,
+                                                     bt=bt),
+            lambda i: lambda: F.scaled_dot_product_attention(
+                qh, *kvd[i], attn_mask=mask), (32, 32, 4))
+        if plan is not None:
+            # the first design (single kernel) at the same shape, this run
+            t["first_version_ms"] = device_ms(lambda i: lambda: dp._launch(
+                q, *ext[i], lengths, bt, None), 32)
+        return t
+
+    attn_t = attention_case(
+        np.random.default_rng(1).integers(64, 320, size=B), T)
+    attn_t["also"] = [attention_case(np.full(B, 200), 256)]
+    out.append({"name": "packed_decode_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/packed_decode_attention.cu",
+                "replaces":
+                    "src/repro/kernels/flash_attention/decode_packed.py:128",
+                "launches": counts["packed_decode_attention"],
+                "launches_by_route": {PDA_SPLIT: counts[PDA_SPLIT],
+                                      PDA_SINGLE: counts[PDA_SINGLE]},
+                **attn_t})
     return out
 
 
@@ -696,6 +824,9 @@ def copies(t, n):
 SERVE_KERNELS = ("block_sparse_matmul", "quant_matmul",
                  "packed_decode_attention")
 QMM_THIN, QMM_TILED = "quant_matmul/thin_m", "quant_matmul/tiled"
+BSM_THIN, BSM_TILED = "block_sparse_matmul/thin_m", "block_sparse_matmul/tiled"
+PDA_SPLIT, PDA_SINGLE = ("packed_decode_attention/split",
+                         "packed_decode_attention/single")
 FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
 
 
@@ -716,6 +847,10 @@ def counters():
             # the launches of each route, beside the totals above
             QMM_THIN: (qk, "launches_thin"),
             QMM_TILED: (qk, "launches_tiled"),
+            BSM_THIN: (sk, "launches_thin"),
+            BSM_TILED: (sk, "launches_tiled"),
+            PDA_SPLIT: (decode_packed, "launches_split"),
+            PDA_SINGLE: (decode_packed, "launches_single"),
             FLASH_TC: (fk, "launches_tc"),
             FLASH_CC: (fk, "launches_cc")}
 
@@ -773,8 +908,12 @@ def serve(dev, report):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    for name in SERVE_KERNELS + (QMM_THIN,):
+    for name in SERVE_KERNELS + (QMM_THIN, BSM_THIN, PDA_SPLIT):
         require(counts[name] > 0, f"serving ran without launching {name}")
+    require(counts[PDA_SINGLE] == 0,
+            f"serving sent {counts[PDA_SINGLE]} packed_decode_attention "
+            f"launches to the single kernel: every decode row and 16-row "
+            f"prefill chunk takes the split route")
     require(len(done) == 16 and all(len(r.out) == 32 for r in done),
             "not every request got its 32 tokens")
     require(all(0 <= t < cfg.vocab for r in done for t in r.out),
@@ -822,6 +961,7 @@ def compiled_forward(cm, cfg, dev):
     want = {"block_sparse_matmul": 3 * cfg.n_layers,
             "quant_matmul": 4 * cfg.n_layers, "flash_attention": cfg.n_layers,
             QMM_TILED: 4 * cfg.n_layers, QMM_THIN: 0,
+            BSM_TILED: 3 * cfg.n_layers, BSM_THIN: 0,
             FLASH_TC: cfg.n_layers, FLASH_CC: 0}
     require(all(counts[k] == n for k, n in want.items()),
             f"compiled forward launched {counts}, expected {want}")
@@ -921,11 +1061,14 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
                                        t_bound=64, bt=64)[0]
         if i == 0:
             per_step = read_counts()
-            quant = 4 * cfg.n_layers
-            require(per_step[QMM_THIN] == quant and per_step[QMM_TILED] == 0,
-                    f"{kv_cache} cache: a decode step launched "
-                    f"{per_step[QMM_THIN]} thin-M and {per_step[QMM_TILED]} "
-                    f"tiled quant_matmul calls, expected {quant} thin-M")
+            L = cfg.n_layers
+            want = {QMM_THIN: 4 * L, QMM_TILED: 0, BSM_THIN: 3 * L,
+                    BSM_TILED: 0}
+            if kv_cache == "int4x2":
+                want.update({PDA_SPLIT: L, PDA_SINGLE: 0})
+            got = {k: per_step[k] for k in want}
+            require(got == want, f"{kv_cache} cache: a decode step launched "
+                                 f"{got} by route, expected {want}")
     max_rel = max(s_["rel_err"] for s_ in steps)
     require(max_rel <= tol, f"{kv_cache} cache: kernel vs plain logits max "
                             f"rel err {max_rel} > {tol}")

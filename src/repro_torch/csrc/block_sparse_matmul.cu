@@ -1,5 +1,9 @@
 // Engine-free static block-sparse matmul: y = act(x @ W + b) over a
-// block-compacted W.
+// block-compacted W.  Two kernels, one per route of `bsm_plan` in
+// kernels/sparse_matmul/kernel.py: the thin-M kernel for decode rows
+// (M <= 16, 1-byte containers: int8, int4x2, int2x4) and the tiled kernel,
+// the first design, for everything else (prefill chunks, the compiled
+// full-sequence forward, f32 / bf16 blocks).
 //
 // Replaces the Pallas kernel repro/kernels/sparse_matmul/kernel.py
 // (`_call` / `_kernel` / `_kernel_packed_db`, reached through
@@ -18,19 +22,34 @@
 // What bounds it on the H100: bytes.  At decode shapes (M = live slots,
 // a handful of rows) every weight byte is used for M FMAs, far below the
 // ~295 operations per byte the card needs before compute is the limit, so
-// the time floor is the packed weight stream over HBM bandwidth.  The design
-// keeps that stream as small as the container allows: blocks travel in their
-// packed form and are decoded in registers, never expanded in memory, and
-// only present blocks are read.  Each CTA owns one (m-tile, 32-column slice of
-// an output column block); its eight warps split the rows of every block, so
-// the decode and the FMAs spread over 256 threads, and the partial sums are
-// reduced once through shared memory.  The x rows of several of the
-// column's blocks are staged in shared memory per round (32 KB), so a CTA
-// waits on staging once per few blocks, not once per block.  No atomics:
-// every output element is written by exactly one CTA.  Thin M is masked
-// (rows >= M read as zero and are never written) instead of padded.  This
-// is the simple form: the FMAs run on the CUDA cores, with no wgmma, TMA
-// or software pipeline yet.
+// the time floor is the packed weight stream over HBM bandwidth.  Blocks
+// travel in their packed form and are decoded in registers, never expanded
+// in memory, and only present blocks are read.  No atomics: every partial
+// and every output element is written by exactly one CTA.  Thin M is masked
+// (rows >= M read as zero and are never written) instead of padded.
+//
+// The thin-M kernel (`bsm_thin_kernel`) keeps enough of that stream in
+// flight to approach the floor.  Each output column block's run of schedule
+// entries is cut into ranges of `blocks_per_range` blocks (one, unless the
+// grid would pass 8 x 132 CTAs); a CTA owns one range and 128 columns and
+// first copies the range's block indices into shared memory, so no weight
+// load waits on an index load.  Each lane loads 4 bytes (4 columns) of a
+// block's byte row, so a warp reads a 128-byte line; its 4 warps take
+// interleaved byte rows of the range, 16 loads in flight per lane (the
+// first batch while the range's x rows are staged in shared memory with
+// 16-byte loads, as [k][m], so one 16-byte shared load feeds 16 FMAs).
+// Each CTA sums its warps in shared memory and writes an f32 partial per
+// range; a second kernel (`bsm_reduce_kernel`, a programmatic dependent
+// launch) adds a column's partials in range order, the same order on every
+// run, then applies bias and activation once, and emits act(b) for columns
+// with no block.
+//
+// The tiled kernel (`bsm_kernel`) owns one (m-tile, 32-column slice of an
+// output column block) per CTA; its eight warps split the rows of every
+// block, one byte per lane per load, and the partial sums are reduced once
+// through shared memory.  The x rows of several of the column's blocks are
+// staged in shared memory per round (32 KB).  Its FMAs run on the CUDA
+// cores, with no wgmma, TMA or software pipeline yet.
 #include "common.cuh"
 
 namespace {
@@ -192,6 +211,316 @@ cudaError_t launch_w(int wkind, int tm, const void* x, int M, int K,
 
 }  // namespace
 
+// ------------------------------------------------------------ thin-M route
+
+namespace {
+
+constexpr int TN_COLS = 128;              // output columns per CTA
+constexpr int TN_WARPS = 4;               // warps per CTA, interleaved rows
+constexpr int TN_NT = 32 * TN_WARPS;
+constexpr int TN_U = 16;                  // byte rows in flight per lane
+constexpr int TN_XCAP = 16384;            // floats of x staged per range
+
+// Code `t` of each of the 4 bytes of a word, as floats: one mask and XOR
+// turn the four fields into code + 2^(bits-1), and a byte permute places
+// each in the mantissa of 2^23.
+template <int BITS>
+__device__ __forceinline__ void codes4(uint32_t word, int t, float (&c)[4]) {
+  constexpr uint32_t MASK = (1u << BITS) - 1u, SIGN = 1u << (BITS - 1);
+  const uint32_t v = ((word >> (BITS * t)) & (MASK * 0x01010101u)) ^
+                     (SIGN * 0x01010101u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    c[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540u + i)) -
+           (8388608.f + (float)SIGN);
+}
+
+// 4-byte slots of a range's block metadata, rounded to keep x 16-byte aligned
+__host__ __device__ inline int meta_floats(int per_range) {
+  return (2 * per_range + 3) & ~3;
+}
+
+// Registers: at TM <= 8 the kernel may take what it needs (116 at TM 8,
+// no spills); at TM 16 it is held to 128 so that four CTAs share an SM.
+template <typename XT, int WK, int TM>
+__global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
+    bsm_thin_kernel(const XT* __restrict__ x, int M, int K,
+                    const uint8_t* __restrict__ blocks, int bk, int bn,
+                    const float* __restrict__ scales,
+                    const int* __restrict__ col_ptr,
+                    const int* __restrict__ rows, const int* __restrict__ pidx,
+                    int n_sub, int per_range, int xvec, float* __restrict__ ws,
+                    int N) {
+  constexpr int R = rt::WTraits<WK>::R;
+  constexpr int BITS = 8 / R;
+  // meta: the range's packed-block indices, then their row blocks; then
+  // xs[(b * bk + k) * TM + m] for the range's blocks, reused for the warps'
+  // reduction
+  extern __shared__ __align__(16) float smem[];
+  int* meta = reinterpret_cast<int*>(smem);
+  float* xs = smem + meta_floats(per_range);
+
+  // the reduce kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x / n_sub;
+  const int jbase = (blockIdx.x % n_sub) * TN_COLS;
+  const int range = blockIdx.y;
+  const int q0 = col_ptr[c] + range * per_range;
+  const int q1 = min(q0 + per_range, col_ptr[c + 1]);
+  if (q0 >= q1) return;  // past this column's blocks: nothing to add
+  const int nb = q1 - q0;
+  for (int b = tid; b < nb; b += TN_NT) {
+    meta[b] = pidx[q0 + b];
+    meta[per_range + b] = rows[q0 + b];
+  }
+  const int bkp = bk / R;
+  const int total = nb * bkp;  // byte rows of the range
+  // bn % 4 == 0: a lane's 4 columns are all in or all out; lanes out of bn
+  // load nothing and add zeros
+  const int j = jbase + 4 * lane;
+  const bool jv = j < bn;
+  float sj[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    sj[i] = (scales != nullptr && jv) ? scales[c * bn + j + i] : 1.f;
+  constexpr int STEP = TN_WARPS * TN_U;  // byte rows of one batch of a CTA
+  __syncthreads();  // meta
+
+  // this lane's byte rows r + TN_WARPS * u of one batch, as words; byte
+  // row rr is row br of the range's block b
+  auto load = [&](uint32_t(&word)[TN_U], int r) {
+    int b = r / bkp, br = r - b * bkp;
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) {
+      uint32_t v = 0u;
+      if (r + u * TN_WARPS < total && jv)
+        v = __ldg(reinterpret_cast<const uint32_t*>(
+            blocks + ((size_t)meta[b] * bkp + br) * bn + j));
+      word[u] = v;
+      for (br += TN_WARPS; br >= bkp; br -= bkp) ++b;
+    }
+  };
+  uint32_t next[TN_U];
+  load(next, warp);  // the first batch flies while x is staged
+
+  // x rows of the range's blocks -> xs, rows M .. TM - 1 zero; neighbouring
+  // lanes take neighbouring rows m, so their stores hit distinct banks
+  if (xvec) {
+    constexpr int V = 16 / sizeof(XT);
+    const int nv = bk / V;  // vectors per block row
+    for (int e = tid; e < TM * nb * nv; e += TN_NT) {
+      const int mm = e % TM, rem = e / TM;
+      const int b = rem / nv, kv = (rem - b * nv) * V;
+      float v[V];
+      if (mm < M) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            x + (size_t)mm * K + (size_t)meta[per_range + b] * bk + kv);
+        const XT* xv = reinterpret_cast<const XT*>(&raw);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = rt::to_f32(xv[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) xs[(b * bk + kv + i) * TM + mm] = v[i];
+    }
+  } else {
+    for (int e = tid; e < TM * nb * bk; e += TN_NT) {
+      const int mm = e % TM, rem = e / TM;
+      const int b = rem / bk, k = rem - b * bk;
+      xs[rem * TM + mm] =
+          mm < M ? rt::to_f32(x[(size_t)mm * K + (size_t)meta[per_range + b] * bk + k])
+                 : 0.f;
+    }
+  }
+  __syncthreads();
+
+  float acc[4][TM];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int mm = 0; mm < TM; ++mm) acc[i][mm] = 0.f;
+
+  for (int r = warp; r < total; r += STEP) {
+    uint32_t word[TN_U];
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) word[u] = next[u];
+    if (r + STEP < total) load(next, r + STEP);  // the next batch flies now
+#pragma unroll
+    for (int u = 0; u < TN_U; ++u) {
+      const int rr = r + u * TN_WARPS;
+      if (rr < total) {
+        // the range's x rows are staged block after block: byte row rr's
+        // R codes meet x rows rr * R .. rr * R + R - 1
+        const float* xk = xs + rr * R * TM;
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          float xv[TM];
+          if constexpr (TM % 4 == 0) {
+#pragma unroll
+            for (int mm = 0; mm < TM; mm += 4) {
+              const float4 x4 =
+                  *reinterpret_cast<const float4*>(xk + t * TM + mm);
+              xv[mm] = x4.x;
+              xv[mm + 1] = x4.y;
+              xv[mm + 2] = x4.z;
+              xv[mm + 3] = x4.w;
+            }
+          } else {
+#pragma unroll
+            for (int mm = 0; mm < TM; ++mm) xv[mm] = xk[t * TM + mm];
+          }
+          float code[4];
+          codes4<BITS>(word[u], t, code);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float w = code[i] * sj[i];  // dequant before the dot
+#pragma unroll
+            for (int mm = 0; mm < TM; ++mm)
+              acc[i][mm] = fmaf(xv[mm], w, acc[i][mm]);
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // xs is read by every warp before it becomes red
+  float* red = xs;  // red[(warp * TM + m) * TN_COLS + column]
+#pragma unroll
+  for (int mm = 0; mm < TM; ++mm)
+    *reinterpret_cast<float4*>(red + (warp * TM + mm) * TN_COLS + 4 * lane) =
+        make_float4(acc[0][mm], acc[1][mm], acc[2][mm], acc[3][mm]);
+  __syncthreads();
+  for (int e = tid; e < TM * TN_COLS; e += TN_NT) {
+    const int mm = e / TN_COLS, jx = e - mm * TN_COLS;
+    const int jj = jbase + jx;
+    if (mm >= M || jj >= bn) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < TN_WARPS; ++g) a += red[(g * TM + mm) * TN_COLS + jx];
+    ws[((size_t)range * M + mm) * N + c * bn + jj] = a;
+  }
+}
+
+// out[m, n] = act(sum over the ranges of n's column block of ws[s, m, n] +
+// b), the ranges added in order; a column block with no present block
+// emits act(b).  One thread per output element.  Launched as a programmatic
+// dependent of the thin-M kernel: its CTAs may start early and wait here
+// for that grid's end.
+template <typename XT>
+__global__ void __launch_bounds__(256)
+    bsm_reduce_kernel(const float* __restrict__ ws, int M, int N, int bn,
+                      const int* __restrict__ col_ptr, int per_range,
+                      const float* __restrict__ bias, XT* __restrict__ out,
+                      int act, float tau) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * N) return;
+  const int n = i % N, c = n / bn;
+  const int nr = (col_ptr[c + 1] - col_ptr[c] + per_range - 1) / per_range;
+  const size_t stride = (size_t)M * N;
+  float a = 0.f;
+  for (int sp = 0; sp < nr; ++sp) a += ws[sp * stride + i];
+  if (bias != nullptr) a += bias[n];
+  out[i] = rt::from_f32<XT>(rt::apply_act(a, act, tau));
+}
+
+template <typename XT, int WK, int TM>
+cudaError_t thin_t(const void* x, int M, int K, const void* blocks, int bk,
+                   int bn, const float* scales, const float* bias,
+                   const int* col_ptr, const int* rows, const int* pidx,
+                   int n_col_blocks, int ranges, int per_range, float* ws,
+                   void* out, int act, float tau, cudaStream_t stream) {
+  constexpr int R = rt::WTraits<WK>::R;
+  const int N = n_col_blocks * bn;
+  const size_t stage = (size_t)per_range * bk * TM;
+  if (bn % 4 != 0 || bk % R != 0 || per_range < 1 || stage > TN_XCAP ||
+      M > TM)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (ranges > 0) {
+    const int n_sub = (bn + TN_COLS - 1) / TN_COLS;
+    const size_t red = (size_t)TN_WARPS * TM * TN_COLS;
+    const int bytes = (int)(sizeof(float) * (meta_floats(per_range) +
+                                             (stage > red ? stage : red)));
+    auto kern = bsm_thin_kernel<XT, WK, TM>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    constexpr int V = 16 / sizeof(XT);
+    const int xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % V == 0 &&
+                     bk % V == 0;
+    kern<<<dim3(n_col_blocks * n_sub, ranges), TN_NT, bytes, stream>>>(
+        static_cast<const XT*>(x), M, K, static_cast<const uint8_t*>(blocks),
+        bk, bn, scales, col_ptr, rows, pidx, n_sub, per_range, xvec, ws, N);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M * N + 255) / 256);
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ranges > 0 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, bsm_reduce_kernel<XT>,
+                           static_cast<const float*>(ws), M, N, bn, col_ptr,
+                           per_range, bias, static_cast<XT*>(out), act, tau);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename XT, int WK>
+cudaError_t thin_m(int tm, const void* x, int M, int K, const void* blocks,
+                   int bk, int bn, const float* scales, const float* bias,
+                   const int* col_ptr, const int* rows, const int* pidx,
+                   int n_col_blocks, int ranges, int per_range, float* ws,
+                   void* out, int act, float tau, cudaStream_t s) {
+  switch (tm) {
+    case 1:
+      return thin_t<XT, WK, 1>(x, M, K, blocks, bk, bn, scales, bias, col_ptr,
+                               rows, pidx, n_col_blocks, ranges, per_range, ws,
+                               out, act, tau, s);
+    case 8:
+      return thin_t<XT, WK, 8>(x, M, K, blocks, bk, bn, scales, bias, col_ptr,
+                               rows, pidx, n_col_blocks, ranges, per_range, ws,
+                               out, act, tau, s);
+    case 16:
+      return thin_t<XT, WK, 16>(x, M, K, blocks, bk, bn, scales, bias, col_ptr,
+                                rows, pidx, n_col_blocks, ranges, per_range,
+                                ws, out, act, tau, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename XT>
+cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
+                   const void* blocks, int bk, int bn, const float* scales,
+                   const float* bias, const int* col_ptr, const int* rows,
+                   const int* pidx, int n_col_blocks, int ranges,
+                   int per_range, float* ws, void* out, int act, float tau,
+                   cudaStream_t s) {
+#define RT_W(KIND)                                                             \
+  case KIND:                                                                   \
+    return thin_m<XT, KIND>(tm, x, M, K, blocks, bk, bn, scales, bias,         \
+                            col_ptr, rows, pidx, n_col_blocks, ranges,         \
+                            per_range, ws, out, act, tau, s);
+  switch (wkind) {
+    RT_W(rt::W_I8)
+    RT_W(rt::W_U4)
+    RT_W(rt::W_U2)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RT_W
+}
+
+}  // namespace
+
 // x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), row-major; out: (M, N)
 // of the same type.  blocks: (P, bk / R, bn) of the `wkind` container.
 // scales / bias: (N,) f32 or null.  col_ptr: (n_col_blocks + 1,) int32;
@@ -211,4 +540,29 @@ extern "C" int bsm_launch(const void* x, int x_bf16, int M, int K,
   return (int)launch_w<float>(wkind, tm, x, M, K, blocks, bk, bn, scales, bias,
                               col_ptr, rows, pidx, n_col_blocks, out, act, tau,
                               s);
+}
+
+// The thin-M route: M <= 16 (tm = 1, 8 or 16 rows per CTA), a 1-byte
+// container (int8, int4x2, int2x4) with bn % 4 == 0 at a 4-byte aligned
+// address.  Column block c's schedule entries col_ptr[c] : col_ptr[c + 1]
+// are cut into ranges of per_range blocks; `ranges` is the most any column
+// has (0: no block at all, only the emit runs).  ws: (ranges, M, N) f32
+// scratch.  Other arguments as bsm_launch.  Returns the launches'
+// cudaError_t (0 on success).
+extern "C" int bsm_thin_launch(const void* x, int x_bf16, int M, int K,
+                               const void* blocks, int wkind, int bk, int bn,
+                               const float* scales, const float* bias,
+                               const int* col_ptr, const int* rows,
+                               const int* pidx, int n_col_blocks, int ranges,
+                               int per_range, float* ws, void* out, int tm,
+                               int act, float tau, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return (int)thin_w<__nv_bfloat16>(wkind, tm, x, M, K, blocks, bk, bn,
+                                      scales, bias, col_ptr, rows, pidx,
+                                      n_col_blocks, ranges, per_range, ws, out,
+                                      act, tau, s);
+  return (int)thin_w<float>(wkind, tm, x, M, K, blocks, bk, bn, scales, bias,
+                            col_ptr, rows, pidx, n_col_blocks, ranges,
+                            per_range, ws, out, act, tau, s);
 }

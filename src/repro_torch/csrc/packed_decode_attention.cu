@@ -1,5 +1,9 @@
 // Attention read over the bit-packed int4x2 KV cache, for decode (C = 1)
-// and prefill chunks (C > 1) alike.
+// and prefill chunks (C > 1) alike.  Two routes, picked by `pda_plan` in
+// kernels/flash_attention/decode_packed.py: the split kernel (`pda_split_*`,
+// the cache cut into fixed runs of whole tiles across CTAs, then a combine
+// pass) and the single kernel (`pda_kernel`, the first design, one CTA walks
+// a slot's whole cache) for the shapes the plan does not take.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/decode_packed.py
 // (`packed_decode_attention` / `_decode_kernel`), and also covers the chunk
@@ -16,14 +20,38 @@
 // share every decoded tile.
 //
 // What bounds it on the H100: bytes.  Each live cache row costs Dh bytes of
-// codes plus two scales and feeds 4·G·Dh operations, far below the card's
-// ridge point.  The design reads each live tile of the packed cache once per
-// (slot, kv head, query row) CTA, decodes and dequantises it into shared
-// memory, and lets all G query heads of that kv head use it, so no
-// dequantised copy of the cache ever reaches device memory; dead tiles cost
-// nothing.  One warp per query head computes its scores, softmax update and
-// P·V from shared memory.  This is the simple form: one tile in flight per
-// CTA, no cp.async/TMA prefetch of the next tile yet.
+// codes plus two scales and feeds 4·G·Dh operations per query row, far below
+// the card's ridge point, so the floor is the live cache over HBM bandwidth
+// -- about 0.3 us at decode -- and what stands between a kernel and it is
+// latency: how many bytes are in flight at once, and how long the chains of
+// dependent operations are.
+//
+// The split kernel is built for that.  Its grid is (slot, kv head, split):
+// a split is `tiles_per_split` whole bt tiles counted from cache row 0, a
+// number fixed by bt alone, so the extent T sets only how many splits exist
+// and never where one ends.  One CTA serves all C·G query rows of its slot
+// and kv head, so a prefill chunk reads each tile once, not C times.  A
+// split at or past every row's length returns at once.  Tiles arrive through
+// a two-stage cp.async ring (16-byte copies of the codes; each row's two
+// scales once), the next tile in flight while the current one is used.  Dh
+// and bt are compile-time, so every index is a shift.  A tile costs three
+// barriers: (1) each lane decodes its slice of one K row into registers and
+// sums its part of that key's score for every query row, the 128 / bt lanes
+// of a key combining by shuffles, while the V tile is decoded to f32 in
+// shared memory; (2) one warp per query row updates the online softmax;
+// (3) P·V, four output columns per lane in two independent partial sums
+// (split over even and odd keys by a shuffle while there are few rows).
+// Each split writes f32 (m, l, acc) per query row; the combine pass
+// (`pda_combine_kernel`, a programmatic dependent launch) rescales the live
+// splits by exp(m_s - m) and adds them in split order, then divides by
+// max(l, 1e-30): no atomics, the same bits on every run and at every extent
+// that holds the live rows.  q is read in its own dtype and scaled in f32
+// inside the kernel.
+//
+// The single kernel reads each live tile once per (slot, kv head, query row)
+// CTA, decodes it into shared memory, and lets one warp per query head
+// compute its scores, softmax update and P·V: one tile in flight, a Dh-long
+// chain per score.
 #include "common.cuh"
 
 namespace {
@@ -193,4 +221,467 @@ extern "C" int pda_launch(const float* q, const uint8_t* kp, const uint8_t* vp,
                                         Hkv, Dh, T, bt, kv_bstride, s_bstride, s);
   return (int)launch_t<float>(q, kp, vp, ks, vs, lengths, out, B, C, H, Hkv, Dh,
                               T, bt, kv_bstride, s_bstride, s);
+}
+
+// ------------------------------------------------------------ split route
+
+namespace {
+
+constexpr int SP_NT = 128;          // threads per split CTA
+constexpr int SP_NW = SP_NT / 32;
+constexpr int SP_MAX_ROWS = 64;     // query rows (C·G) per CTA, at most
+constexpr size_t SP_SMEM_MAX = 232448;
+
+__host__ __device__ constexpr size_t align16(size_t v) {
+  return (v + 15) & ~(size_t)15;
+}
+
+// Row stride of the decoded V tile in floats: DH + 16, so the two key
+// halves P·V reads at once (rows t and t + 1) fall in different banks.
+template <int DH>
+__host__ __device__ constexpr int v_ld() { return DH + 16; }
+
+// Shared memory of a split CTA, in bytes from the base: two ring stages of
+// [k codes (BT, DH/2)][v codes][k scales (BT)][v scales], then the f32 V
+// tile (BT, DH + 16), q rows and acc (R, DH), scores (R, BT), m / l / corr
+// (R), and the rows' lengths (R ints).
+template <int DH, int BT>
+struct SplitSmem {
+  static constexpr size_t stage = align16((size_t)BT * DH) + align16((size_t)8 * BT);
+  static constexpr size_t vf = 2 * stage;
+  static constexpr size_t qs = vf + (size_t)4 * BT * v_ld<DH>();
+  size_t acc, ps, m, l, corr, lens, total;
+  __host__ __device__ explicit SplitSmem(int R) {
+    acc = qs + (size_t)4 * R * DH;
+    ps = acc + (size_t)4 * R * DH;
+    m = ps + align16((size_t)4 * R * BT);
+    l = m + align16((size_t)4 * R);
+    corr = l + align16((size_t)4 * R);
+    lens = corr + align16((size_t)4 * R);
+    total = lens + align16((size_t)4 * R);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// code i (0..7) of a 4-byte word of int4x2 codes, as float: even d = low
+// nibble, as csrc/common.cuh's W_U4
+__device__ __forceinline__ float nib(uint32_t word, int i) {
+  return (float)((int)(((word >> (4 * i)) & 0xFu) ^ 8u) - 8);
+}
+
+// 8 codes of `word` times `scl` into out[0..7]
+__device__ __forceinline__ void dequant8(uint32_t word, float scl, float* out) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = nib(word, i) * scl;
+}
+
+// W 4-byte words from shared memory at `src` (4W-byte aligned), in the
+// widest loads that alignment allows
+template <int W>
+__device__ __forceinline__ void load_words(const uint8_t* src, uint32_t* w) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[i / 4];
+      w[i] = v.x;
+      w[i + 1] = v.y;
+      w[i + 2] = v.z;
+      w[i + 3] = v.w;
+    }
+  } else if constexpr (W % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 2) {
+      const uint2 v = reinterpret_cast<const uint2*>(src)[i / 2];
+      w[i] = v.x;
+      w[i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = reinterpret_cast<const uint32_t*>(src)[i];
+  }
+}
+
+template <int DH, int BT>
+__global__ void __launch_bounds__(SP_NT, 1)
+    pda_split_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
+                     const uint8_t* __restrict__ kp,
+                     const uint8_t* __restrict__ vp, const float* __restrict__ ks,
+                     const float* __restrict__ vs,
+                     const int* __restrict__ lengths, float* __restrict__ ws,
+                     int C, int H, int Hkv, int T, int tiles_per_split,
+                     int n_split, long long kv_bstride, long long s_bstride) {
+  constexpr int DHP = DH / 2;              // code bytes of a row
+  constexpr int DP = SP_NT / BT;           // lanes that sum one score
+  constexpr int SL = DH / DP;              // d values per lane
+  constexpr int VLD = v_ld<DH>();
+  static_assert(SP_NT % BT == 0 && SL % 8 == 0, "one lane holds whole words");
+  using Smem = SplitSmem<DH, BT>;
+  // the combine pass may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv, R = C * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  int lmax = 0;
+  for (int c = 0; c < C; ++c) lmax = max(lmax, lengths[b * C + c]);
+  const int n_t = (T + BT - 1) / BT;
+  const int tile_lo = s * tiles_per_split;
+  const int tile_hi =
+      min(min(tile_lo + tiles_per_split, n_t), (lmax + BT - 1) / BT);
+  if (tile_lo >= tile_hi) return;  // dead for every query row: no load
+  const int row_end = min(T, lmax);  // rows at or past it are zero-filled
+
+  const Smem L(R);
+  float* vf = reinterpret_cast<float*>(smem + Smem::vf);
+  float* qs = reinterpret_cast<float*>(smem + Smem::qs);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* ps = reinterpret_cast<float*>(smem + L.ps);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  float* corr_s = reinterpret_cast<float*>(smem + L.corr);
+  int* lens = reinterpret_cast<int*>(smem + L.lens);
+
+  const uint8_t* kpb = kp + (size_t)b * kv_bstride;
+  const uint8_t* vpb = vp + (size_t)b * kv_bstride;
+  const float* ksb = ks + (size_t)b * s_bstride;
+  const float* vsb = vs + (size_t)b * s_bstride;
+
+  // tile `tile` -> ring stage `st`: 16-byte copies of the codes, 4-byte
+  // copies of the scales, zeros past row_end
+  constexpr int CH = DHP / 16;  // 16-byte chunks of a row
+  uint8_t* const ring = smem;
+  auto issue = [&](int tile, int st) {
+    uint8_t* base = ring + st * Smem::stage;
+    float* sc = reinterpret_cast<float*>(base + align16((size_t)BT * DH));
+    const int t0 = tile * BT;
+    const int live = min(BT, row_end - t0);
+#pragma unroll
+    for (int e = tid; e < 2 * BT * CH; e += SP_NT) {
+      const int kv = e / (BT * CH), rem = e % (BT * CH);
+      const int t = rem / CH, ch = rem % CH;
+      uint8_t* dst = base + (kv * BT + t) * DHP + ch * 16;
+      if (t < live)
+        cp_async16(dst, (kv ? vpb : kpb) + ((size_t)(t0 + t) * Hkv + h) * DHP +
+                            ch * 16);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int e = tid; e < 2 * BT; e += SP_NT) {
+      const int kv = e / BT, t = e % BT;
+      if (t < live)
+        cp_async4(sc + e, (kv ? vsb : ksb) + (size_t)(t0 + t) * Hkv + h);
+      else
+        sc[e] = 0.f;
+    }
+    cp_async_commit();
+  };
+  issue(tile_lo, 0);  // the first tile flies while q and the state are set
+
+  for (int e = tid; e < R * DH; e += SP_NT) {
+    const int r = e / DH, d = e % DH;
+    const int c = r / G, g = r - c * G;
+    const size_t qi = ((size_t)(b * C + c) * H + h * G + g) * DH + d;
+    const float qv = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi])
+                            : static_cast<const float*>(q)[qi];
+    qs[e] = qv * q_scale;  // q.astype(f32) * (1 / sqrt(Dh)), as the reference
+    acc[e] = 0.f;
+  }
+  for (int r = tid; r < R; r += SP_NT) {
+    m_s[r] = NEG_INF;
+    l_s[r] = 0.f;
+    lens[r] = lengths[b * C + r / G];
+  }
+
+  // scores: lane (key kt, part) holds SL decoded values of K row kt
+  const int kt = tid / DP, part = tid % DP;
+  // P·V: output items (row, 4 columns); two lanes per item (even and odd
+  // keys) while there are few items
+  const int items = R * (DH / 4);
+  const int KS = items * 2 <= SP_NT ? 2 : 1;
+  const int n_live = tile_hi - tile_lo;
+  for (int i = 0; i < n_live; ++i) {
+    if (i + 1 < n_live) {
+      issue(tile_lo + i + 1, (i + 1) & 1);  // the next tile flies now
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile landed; the last tile's P·V is done
+    const int t0 = (tile_lo + i) * BT;
+    const uint8_t* base = smem + (i & 1) * Smem::stage;
+    const float* sc = reinterpret_cast<const float*>(base + align16((size_t)BT * DH));
+
+    // V: one 4-byte word (8 codes) of a row per step, times its scale
+#pragma unroll
+    for (int e = tid; e < BT * (DHP / 4); e += SP_NT) {
+      const int t = e / (DHP / 4), w = e % (DHP / 4);
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(
+          base + (BT + t) * DHP + 4 * w);
+      float v[8];
+      dequant8(word, sc[BT + t], v);
+      float4* dst = reinterpret_cast<float4*>(vf + t * VLD + 8 * w);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+
+    // K: this lane's slice of row kt, dequantised in registers
+    float kr[SL];
+    {
+      uint32_t words[SL / 8];
+      load_words<SL / 8>(base + kt * DHP + part * (SL / 2), words);
+      const float scl = sc[kt];
+#pragma unroll
+      for (int w = 0; w < SL / 8; ++w) dequant8(words[w], scl, kr + 8 * w);
+    }
+    // scores of every query row against key kt: SL products per lane in
+    // four independent sums, then the DP lanes of the key by shuffles
+    for (int r = 0; r < R; ++r) {
+      const float* qr = qs + r * DH + part * SL;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int d = 0; d < SL; d += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qr + d);
+        a[0] = fmaf(q4.x, kr[d], a[0]);
+        a[1] = fmaf(q4.y, kr[d + 1], a[1]);
+        a[2] = fmaf(q4.z, kr[d + 2], a[2]);
+        a[3] = fmaf(q4.w, kr[d + 3], a[3]);
+      }
+      float sum = (a[0] + a[1]) + (a[2] + a[3]);
+#pragma unroll
+      for (int o = DP / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (part == 0)
+        ps[r * BT + kt] = (t0 + kt < lens[r]) ? sum : NEG_INF;
+    }
+    __syncthreads();
+
+    // online softmax update, one warp per query row; a row this tile is
+    // dead for keeps its state
+    for (int r = warp; r < R; r += SP_NW) {
+      if (t0 >= lens[r]) continue;
+      float* pr = ps + r * BT;
+      float mx = NEG_INF;
+      for (int t = lane; t < BT; t += 32) mx = fmaxf(mx, pr[t]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < BT; t += 32) {
+        const float p = expf(pr[t] - m_new);
+        pr[t] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        corr_s[r] = corr;
+        l_s[r] = l_s[r] * corr + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P·V: lane (item, ks) sums keys ks, ks + KS, ...
+    // in two independent partial sums; the KS lanes of an item combine by
+    // shuffle.  Every lane runs every step (the shuffles need the warp).
+    for (int i0 = 0; i0 < items; i0 += SP_NT / KS) {
+      const int it = i0 + tid / KS, ksel = tid % KS;
+      const bool valid = it < items;
+      const int r = valid ? it / (DH / 4) : 0;
+      const int d = valid ? 4 * (it % (DH / 4)) : 0;
+      const float* pr = ps + r * BT;
+      float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+#pragma unroll 4
+      for (int t = ksel; t < BT; t += 2 * KS) {
+        const float p0 = pr[t], p1 = pr[t + KS];
+        const float4 v0 = *reinterpret_cast<const float4*>(vf + t * VLD + d);
+        const float4 v1 = *reinterpret_cast<const float4*>(vf + (t + KS) * VLD + d);
+        s0.x = fmaf(p0, v0.x, s0.x);
+        s0.y = fmaf(p0, v0.y, s0.y);
+        s0.z = fmaf(p0, v0.z, s0.z);
+        s0.w = fmaf(p0, v0.w, s0.w);
+        s1.x = fmaf(p1, v1.x, s1.x);
+        s1.y = fmaf(p1, v1.y, s1.y);
+        s1.z = fmaf(p1, v1.z, s1.z);
+        s1.w = fmaf(p1, v1.w, s1.w);
+      }
+      float4 pv = make_float4(s0.x + s1.x, s0.y + s1.y, s0.z + s1.z, s0.w + s1.w);
+      if (KS == 2) {
+        pv.x += __shfl_xor_sync(0xffffffffu, pv.x, 1);
+        pv.y += __shfl_xor_sync(0xffffffffu, pv.y, 1);
+        pv.z += __shfl_xor_sync(0xffffffffu, pv.z, 1);
+        pv.w += __shfl_xor_sync(0xffffffffu, pv.w, 1);
+      }
+      if (valid && ksel == 0 && t0 < lens[r]) {
+        const float corr = corr_s[r];
+        float4* a = reinterpret_cast<float4*>(acc + r * DH + d);
+        float4 v = *a;
+        v.x = v.x * corr + pv.x;
+        v.y = v.y * corr + pv.y;
+        v.z = v.z * corr + pv.z;
+        v.w = v.w * corr + pv.w;
+        *a = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // this split's (m, l, acc) per query row
+  const size_t row0 = ((size_t)(b * Hkv + h) * n_split + s) * R;
+  float4* ws_acc = reinterpret_cast<float4*>(ws + row0 * DH);
+  for (int e = tid; e < R * DH / 4; e += SP_NT)
+    ws_acc[e] = reinterpret_cast<const float4*>(acc)[e];
+  float* ws_ml = ws + (size_t)gridDim.z * Hkv * n_split * R * DH + 2 * row0;
+  for (int r = tid; r < R; r += SP_NT) {
+    ws_ml[2 * r] = m_s[r];
+    ws_ml[2 * r + 1] = l_s[r];
+  }
+}
+
+// out[b, c, h, d] from the live splits of its query row, in split order:
+// m = max m_s, then acc = sum acc_s · exp(m_s - m) and l likewise, then
+// acc / max(l, 1e-30).  One thread per output element.  Launched as a
+// programmatic dependent of the split kernel: its CTAs may start early and
+// wait here for that grid's end.
+template <typename OT>
+__global__ void __launch_bounds__(256)
+    pda_combine_kernel(const float* __restrict__ ws,
+                       const int* __restrict__ lengths, OT* __restrict__ out,
+                       int B, int C, int H, int Hkv, int Dh, int n_split,
+                       int split_rows) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * C * H * Dh) return;
+  const int d = (int)(i % Dh);
+  const size_t row = i / Dh;
+  const int hq = (int)(row % H);
+  const int bc = (int)(row / H);
+  const int c = bc % C, b = bc / C;
+  const int G = H / Hkv, R = C * G;
+  const int h = hq / G, g = hq - h * G;
+  const int len = lengths[bc];
+  const int ns = len > 0 ? min(n_split, (len + split_rows - 1) / split_rows) : 0;
+  const size_t row0 = (size_t)(b * Hkv + h) * n_split * R + c * G + g;
+  const float* ws_ml = ws + (size_t)B * Hkv * n_split * R * Dh;
+  float m = NEG_INF;
+  for (int sp = 0; sp < ns; ++sp) m = fmaxf(m, ws_ml[2 * (row0 + (size_t)sp * R)]);
+  float a = 0.f, l = 0.f;
+  for (int sp = 0; sp < ns; ++sp) {
+    const size_t rs = row0 + (size_t)sp * R;
+    const float w = expf(ws_ml[2 * rs] - m);
+    a += ws[rs * Dh + d] * w;
+    l += ws_ml[2 * rs + 1] * w;
+  }
+  out[i] = rt::from_f32<OT>(a / fmaxf(l, 1e-30f));
+}
+
+template <int DH, int BT, typename OT>
+cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
+                    const uint8_t* vp, const float* ks, const float* vs,
+                    const int* lengths, float* ws, void* out, int B, int C,
+                    int H, int Hkv, int T, int tiles_per_split, int n_split,
+                    long long kv_bstride, long long s_bstride,
+                    cudaStream_t stream) {
+  const int R = C * (H / Hkv);
+  const SplitSmem<DH, BT> L(R);
+  if (R > SP_MAX_ROWS || L.total > SP_SMEM_MAX || tiles_per_split < 1 ||
+      n_split != ((T + BT - 1) / BT + tiles_per_split - 1) / tiles_per_split)
+    return cudaErrorInvalidValue;
+  auto kern = pda_split_kernel<DH, BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(n_split, Hkv, B), SP_NT, L.total, stream>>>(
+      q, q_bf16, q_scale, kp, vp, ks, vs, lengths, ws, C, H, Hkv, T,
+      tiles_per_split, n_split, kv_bstride, s_bstride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n_out = (size_t)B * C * H * DH;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n_out + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pda_combine_kernel<OT>,
+                           static_cast<const float*>(ws), lengths,
+                           static_cast<OT*>(out), B, C, H, Hkv, DH, n_split,
+                           tiles_per_split * BT);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename OT>
+cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
+                        float q_scale, const uint8_t* kp, const uint8_t* vp,
+                        const float* ks, const float* vs, const int* lengths,
+                        float* ws, void* out, int B, int C, int H, int Hkv,
+                        int T, int tiles_per_split, int n_split,
+                        long long kv_bstride, long long s_bstride,
+                        cudaStream_t s) {
+#define RT_SPLIT(DH, BT)                                                      \
+  if (Dh == DH && bt == BT)                                                   \
+    return split_t<DH, BT, OT>(q, q_bf16, q_scale, kp, vp, ks, vs, lengths,   \
+                               ws, out, B, C, H, Hkv, T, tiles_per_split,     \
+                               n_split, kv_bstride, s_bstride, s);
+  RT_SPLIT(64, 16)
+  RT_SPLIT(64, 32)
+  RT_SPLIT(64, 64)
+  RT_SPLIT(64, 128)
+  RT_SPLIT(128, 16)
+  RT_SPLIT(128, 32)
+  RT_SPLIT(128, 64)
+#undef RT_SPLIT
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The split route: (Dh, bt) in {64} x {16, 32, 64, 128} or {128} x {16, 32,
+// 64}, C·(H / Hkv) <= 64 query rows per CTA, k_p / v_p and their slot
+// stride 16-byte aligned.  q: (B, C, H, Dh) f32 (q_bf16 = 0) or bf16,
+// contiguous, not yet scaled; the kernel multiplies it by q_scale in f32.
+// The cache is cut into n_split = ceil(ceil(T / bt) / tiles_per_split)
+// splits of tiles_per_split bt-row tiles from row 0.  ws: f32 scratch of
+// B·Hkv·n_split·C·(H / Hkv)·(Dh + 2) floats.  out: q's dtype.  Other
+// arguments as pda_launch.  Returns the launches' cudaError_t (0 on
+// success).
+extern "C" int pda_split_launch(const void* q, int q_bf16, float q_scale,
+                                const uint8_t* kp, const uint8_t* vp,
+                                const float* ks, const float* vs,
+                                const int* lengths, float* ws, void* out,
+                                int B, int C, int H, int Hkv, int Dh, int T,
+                                int bt, int tiles_per_split, int n_split,
+                                long long kv_bstride, long long s_bstride,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_bf16)
+    return (int)split_shape<__nv_bfloat16>(
+        Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs, lengths, ws, out, B, C, H,
+        Hkv, T, tiles_per_split, n_split, kv_bstride, s_bstride, s);
+  return (int)split_shape<float>(Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs,
+                                 lengths, ws, out, B, C, H, Hkv, T,
+                                 tiles_per_split, n_split, kv_bstride,
+                                 s_bstride, s);
 }

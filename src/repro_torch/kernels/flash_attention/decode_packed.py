@@ -10,7 +10,10 @@ not depend on the cache extent at a fixed ``bt``.
 * :func:`packed_decode_attention` — the wrapper of ``csrc/
   packed_decode_attention.cu`` (replacing the Pallas kernel of
   ``repro.kernels.flash_attention.decode_packed``), for decode (C = 1) and
-  prefill chunks (C > 1).  CPU tensors take the plain version.
+  prefill chunks (C > 1).  :func:`pda_plan` picks the route from the
+  shapes: the split kernel (the cache cut into fixed runs of whole tiles
+  across CTAs, then a combine pass) or the single kernel (the first
+  design).  CPU tensors take the plain version.
 * :func:`tiled_packed_attention` — the plain PyTorch version, the same tile
   walk, masking and final ``acc / max(l, 1e-30)`` division.
 """
@@ -18,22 +21,89 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import build
 from ...core.quant import unpack_int4
 
-__all__ = ["packed_decode_attention", "tiled_packed_attention", "launches"]
+__all__ = ["PdaPlan", "launches", "launches_single", "launches_split",
+           "packed_decode_attention", "pda_plan", "tiled_packed_attention"]
 
 NEG_INF = -1e30
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counters were last set to 0: all of them, and
+# those of each route
 launches = 0
+launches_split = 0
+launches_single = 0
+
+SPLIT_ROWS = 64          # cache rows per split, rounded to whole bt tiles
+SPLIT_MAX_QROWS = 64     # query rows C·G one split CTA serves, at most
+# (Dh, bt) the split kernel is built for: a lane holds whole 4-byte words
+# of one K row, 128 lanes per tile
+SPLIT_SHAPES = {(64, 16), (64, 32), (64, 64), (64, 128), (128, 16),
+                (128, 32), (128, 64)}
+SMEM_MAX = 232448        # shared memory a CTA may take on the H100
 
 
-def _lib():
-    fn = build.library("packed_decode_attention").pda_launch
+class PdaPlan(NamedTuple):
+    """The split kernel's grid: ``n_splits`` runs of ``tiles_per_split``
+    whole ``bt``-row tiles from cache row 0 (the last run may be shorter),
+    times the kv heads, times the slots."""
+    tiles_per_split: int
+    n_splits: int
+
+
+def _align16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def split_smem_bytes(bt: int, Dh: int, rows: int) -> int:
+    """Shared memory of one split CTA (``SplitSmem`` in the source): two
+    ring stages of codes and scales, the f32 V tile (rows of Dh + 16), q
+    rows, acc, scores, m / l / corr and lengths."""
+    stage = _align16(bt * Dh) + _align16(8 * bt)
+    return (2 * stage + 4 * bt * (Dh + 16) + 8 * rows * Dh
+            + _align16(4 * rows * bt) + 4 * _align16(4 * rows))
+
+
+def pda_plan(B: int, C: int, H: int, Hkv: int, Dh: int, T: int, bt: int,
+             kv_addr: int = 0) -> Optional[PdaPlan]:
+    """The route of a packed attention read, as a shape rule: the split
+    plan when ``(Dh, bt)`` is one of :data:`SPLIT_SHAPES`, the ``C·H/Hkv``
+    query rows of a (slot, kv head) number at most
+    :data:`SPLIT_MAX_QROWS`, a CTA's shared memory fits, and ``kv_addr``
+    (the code leaves' addresses and slot stride in bytes, OR-ed) is 16-byte
+    aligned; ``None`` — the single kernel — otherwise.
+
+    A split is ``max(1, SPLIT_ROWS // bt)`` tiles: it depends on ``bt``
+    alone, never on the extent ``T``, which only sets how many splits the
+    grid has.  So a row's result does not depend on ``T``, as long as ``T``
+    holds its live rows."""
+    rows = C * (H // Hkv)
+    if (Dh, bt) not in SPLIT_SHAPES or rows > SPLIT_MAX_QROWS \
+            or kv_addr % 16:
+        return None
+    if split_smem_bytes(bt, Dh, rows) > SMEM_MAX:
+        return None
+    per = max(1, SPLIT_ROWS // bt)
+    n_t = max(1, -(-T // bt))
+    return PdaPlan(per, -(-n_t // per))
+
+
+def _lib(route: str):
+    lib = build.library("packed_decode_attention")
+    if route == "split":
+        fn = lib.pda_split_launch
+        if fn.argtypes is None:
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn.argtypes = [P, I, ctypes.c_float, P, P, P, P, P, P, P, I, I,
+                           I, I, I, I, I, I, I, L, L, P]
+            fn.restype = ctypes.c_int
+        return fn
+    fn = lib.pda_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, L, L, P]
@@ -64,9 +134,21 @@ def packed_decode_attention(
     """Attention of C query rows per slot over the packed cache, in q's
     dtype.  Cache leaves may be views whose slot stride exceeds T rows
     (a bounded extent of a longer cache)."""
-    global launches
+    global launches, launches_split, launches_single
     if not q.is_cuda:
         return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt)
+    plan = pda_plan(*_plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, name))
+    out = _launch(q, k_p, v_p, k_s, v_s, lengths, bt, plan, name)
+    launches += 1
+    if plan is None:
+        launches_single += 1
+    else:
+        launches_split += 1
+    return out
+
+
+def _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt: int, name: str):
+    """Check CUDA operands; the arguments of :func:`pda_plan` for them."""
     B, C, H, Dh = q.shape
     T, Hkv, Dhp = (int(d) for d in k_p.shape[1:])
     if Dh % 2 or Dhp != Dh // 2:
@@ -95,16 +177,39 @@ def packed_decode_attention(
         raise ValueError(f"{name}: k_s and v_s slot strides differ")
     if tuple(lengths.shape) != (B, C):
         raise ValueError(f"{name}: lengths must be (B, C) = {(B, C)}")
+    kv_addr = k_p.data_ptr() | v_p.data_ptr() | kv_stride
+    return B, C, H, Hkv, Dh, T, int(bt), kv_addr
+
+
+def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
+            name: str = "packed_decode_attention") -> torch.Tensor:
+    """Launch the split kernel with ``plan``, or the single kernel when it
+    is None, on CUDA operands that passed :func:`_plan_args`; counts
+    nothing (the wrapper counts)."""
+    B, C, H, Dh = q.shape
+    T, Hkv = int(k_p.shape[1]), int(k_p.shape[2])
+    kv_stride, s_stride = int(k_p.stride(0)), int(k_s.stride(0))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).contiguous()
     out = torch.empty((B, C, H, Dh), dtype=q.dtype, device=q.device)
-    err = _lib()(qf.data_ptr(), k_p.data_ptr(), v_p.data_ptr(),
-                 k_s.data_ptr(), v_s.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), int(q.dtype == torch.bfloat16), B, C, H,
-                 Hkv, Dh, T, int(bt), kv_stride, s_stride,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    out_bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cache = (k_p.data_ptr(), v_p.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
+             lens.data_ptr())
+    if plan is None:
+        qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).contiguous()
+        err = _lib("single")(qf.data_ptr(), *cache, out.data_ptr(), out_bf16,
+                             B, C, H, Hkv, Dh, T, bt, kv_stride, s_stride,
+                             stream)
+    else:
+        # the kernel reads q in its dtype and scales it in f32 itself
+        qc = q.contiguous()
+        ws = torch.empty(B * Hkv * plan.n_splits * C * (H // Hkv) * (Dh + 2),
+                         dtype=torch.float32, device=q.device)
+        err = _lib("split")(qc.data_ptr(), out_bf16, 1.0 / math.sqrt(Dh),
+                            *cache, ws.data_ptr(), out.data_ptr(), B, C, H,
+                            Hkv, Dh, T, bt, plan.tiles_per_split,
+                            plan.n_splits, kv_stride, s_stride, stream)
     build.check(err, name)
-    launches += 1
     return out
 
 

@@ -9,15 +9,20 @@ present (bk, bn) blocks exist, enumerated by a static schedule.  The kernel
 :func:`block_sparse_conv` is the fused conv over the same block format
 (``csrc/block_sparse_conv.cu``, plain version ``block_sparse_conv_ref``).
 
+:func:`bsm_plan` picks the matmul's route from the shapes: the thin-M
+kernel (each column's blocks split across CTAs, a deterministic second
+pass) for decode rows of 1-byte containers, or the tiled kernel.
+
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors, and only then.  ``launches`` counts launches of the
-matmul kernel, ``conv_launches`` those of the conv kernel.
+matmul kernels (``launches_thin`` and ``launches_tiled`` those of each
+route), ``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,13 +30,21 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["ACTIVATIONS", "POOL_MODES", "Schedule", "apply_activation",
-           "block_sparse_conv", "block_sparse_matmul", "conv_launches",
-           "im2col_valid", "launches", "make_schedule", "pool_nhwc"]
+__all__ = ["ACTIVATIONS", "BsmPlan", "POOL_MODES", "Schedule",
+           "apply_activation", "block_sparse_conv", "block_sparse_matmul",
+           "bsm_plan", "conv_launches", "im2col_valid", "launches",
+           "launches_thin", "launches_tiled", "make_schedule", "pool_nhwc"]
 
-# kernel launches since the counter was last set to 0
-launches = 0         # block_sparse_matmul
+# kernel launches since the counters were last set to 0
+launches = 0         # block_sparse_matmul, both routes
+launches_thin = 0    # block_sparse_matmul, thin-M route
+launches_tiled = 0   # block_sparse_matmul, tiled route
 conv_launches = 0    # block_sparse_conv
+
+THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
+THIN_COLS = 128      # output columns per CTA of the thin-M kernel
+THIN_XCAP = 16384    # floats of x one thin-M CTA stages (its blocks' rows)
+THIN_CTA_CAP = 8 * 132  # CTAs of a thin-M grid, at most: eight per H100 SM
 
 # Fused epilogue nonlinearities, applied in f32.  gelu is the tanh form,
 # which is jax.nn.gelu's default (torch's own default is the erf form).
@@ -159,6 +172,8 @@ class Schedule:
     block_cols: np.ndarray
     n_row_blocks: int
     n_col_blocks: int
+    col_counts: np.ndarray  # (n_col_blocks,) present blocks per column, host
+    max_blocks_per_col: int
 
 
 def make_schedule(block_rows, block_cols, n_row_blocks: int,
@@ -168,14 +183,56 @@ def make_schedule(block_rows, block_cols, n_row_blocks: int,
     block_cols = np.asarray(block_cols)
     order = np.lexsort((block_rows, block_cols))
     cols = block_cols[order].astype(np.int64)
+    counts = np.bincount(cols, minlength=n_col_blocks).astype(np.int64)
     col_ptr = np.zeros(n_col_blocks + 1, np.int32)
-    col_ptr[1:] = np.cumsum(np.bincount(cols, minlength=n_col_blocks))
+    col_ptr[1:] = np.cumsum(counts)
     as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                        device=device)
     return Schedule(col_ptr=as_dev(col_ptr), rows=as_dev(block_rows[order]),
                     pidx=as_dev(order), block_rows=block_rows,
                     block_cols=block_cols, n_row_blocks=int(n_row_blocks),
-                    n_col_blocks=int(n_col_blocks))
+                    n_col_blocks=int(n_col_blocks), col_counts=counts,
+                    max_blocks_per_col=int(counts.max(initial=0)))
+
+
+class BsmPlan(NamedTuple):
+    """The thin-M kernel's grid: each output column block's schedule
+    entries cut into consecutive ranges of ``blocks_per_range`` blocks (the
+    last may be shorter), ``ranges_per_col`` of them for the fullest
+    column, times ``col_slices`` 128-column slices of a block."""
+    blocks_per_range: int
+    ranges_per_col: int
+    col_slices: int
+
+
+def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
+             max_blocks_per_col: int, w_ptr: int = 0,
+             elem_bytes: int = 1) -> Optional[BsmPlan]:
+    """The route of a block-sparse matmul, as a shape rule: the thin-M plan
+    when ``M <= THIN_M_MAX``, the container has 1-byte elements (int8,
+    int4x2, int2x4: ``elem_bytes`` 1; f32 and bf16 blocks keep the tiled
+    kernel), ``bn % 4 == 0`` and the container's address ``w_ptr`` is 4-byte
+    aligned (each lane loads 4 bytes of a byte row), ``bk`` is a multiple
+    of 8 (x rows staged in 16-byte loads) and one block's x rows fit the
+    stage; ``None`` — the tiled kernel — otherwise.
+
+    The plan cuts each column's blocks into ranges of whole blocks: one
+    block per range, so the grid of column slices times the fullest
+    column's ranges has the most CTAs, unless that grid would exceed
+    :data:`THIN_CTA_CAP` CTAs (each range writes an f32 partial), and at
+    most as many blocks as :data:`THIN_XCAP` staged x floats allow."""
+    if M > THIN_M_MAX or elem_bytes != 1 or bn % 4 or w_ptr % 4 or bk % 8 \
+            or bk % ratio:
+        return None
+    cap = THIN_XCAP // (bk * rows_per_cta(M))
+    if cap < 1:
+        return None
+    slices = -(-bn // THIN_COLS)
+    if max_blocks_per_col == 0:
+        return BsmPlan(1, 0, slices)
+    per = -(-max_blocks_per_col * n_col_blocks * slices // THIN_CTA_CAP)
+    per = max(1, min(per, cap))
+    return BsmPlan(per, -(-max_blocks_per_col // per), slices)
 
 
 # ------------------------------------------------------------------ wrapper
@@ -188,6 +245,16 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, I, I, P, I, I, I, P, P, P, P, P, I, P, I, I,
                        ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _thin_lib():
+    fn = build.library("block_sparse_matmul").bsm_thin_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, P, I, I, I, P, P, P, P, P, I, I, I, P, P,
+                       I, I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -213,7 +280,7 @@ def block_sparse_matmul(
     thin decode batches (the TPU kernel's separate decode entry) need no
     padding.  ``name`` labels errors (the dispatch passes the leaf name).
     """
-    global launches
+    global launches, launches_thin, launches_tiled
     ratio = packed_ratio(packed)
     P, bkp, bn = (int(d) for d in blocks.shape)
     bk = bkp * ratio
@@ -235,8 +302,8 @@ def block_sparse_matmul(
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
     if M < 1:
         raise ValueError(f"{name}: needs at least one row, got M={M}")
-    code, tau = act_args(activation)
-    kind = w_kind(blocks, ratio, name)
+    act_args(activation)
+    w_kind(blocks, ratio, name)
     dev = x.device
     check_cuda_operand(x, dev, "x", name)
     check_cuda_operand(blocks, dev, "blocks", name)
@@ -245,17 +312,52 @@ def block_sparse_matmul(
         raise ValueError(
             f"{name}: {P} blocks but the schedule lists "
             f"{int(schedule.rows.numel())}")
+    plan = bsm_plan(M, bk, bn, ratio, schedule.n_col_blocks,
+                    schedule.max_blocks_per_col, blocks.data_ptr(),
+                    blocks.element_size())
+    out = _launch(x, blocks, schedule, scales, bias, activation, ratio, plan,
+                  name)
+    launches += 1
+    if plan is None:
+        launches_tiled += 1
+    else:
+        launches_thin += 1
+    return out
+
+
+def _launch(x, blocks, schedule: Schedule, scales, bias, activation,
+            ratio: int, plan: Optional[BsmPlan],
+            name: str = "block_sparse_matmul") -> torch.Tensor:
+    """Launch the thin-M kernel with ``plan``, or the tiled kernel when it
+    is None, on CUDA operands that passed the wrapper's checks; counts
+    nothing (the wrapper counts)."""
+    M, K = x.shape
+    bn = int(blocks.shape[2])
+    bk = int(blocks.shape[1]) * ratio
+    code, tau = act_args(activation)
+    kind = w_kind(blocks, ratio, name)
+    dev = x.device
     N = schedule.n_col_blocks * bn
     s = vec_f32(scales, N, dev, "scales", name)
     b = vec_f32(bias, N, dev, "bias", name)
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    err = _lib()(ptr(x), int(x.dtype == torch.bfloat16), M, K, ptr(blocks),
-                 kind, bk, bn, ptr(s), ptr(b), ptr(schedule.col_ptr),
-                 ptr(schedule.rows), ptr(schedule.pidx),
-                 schedule.n_col_blocks, ptr(out), rows_per_cta(M), code, tau,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if plan is None:
+        err = _lib()(ptr(x), x_bf16, M, K, ptr(blocks), kind, bk, bn, ptr(s),
+                     ptr(b), ptr(schedule.col_ptr), ptr(schedule.rows),
+                     ptr(schedule.pidx), schedule.n_col_blocks, ptr(out),
+                     rows_per_cta(M), code, tau, stream)
+    else:
+        ws = torch.empty((max(plan.ranges_per_col, 1), M, N),
+                         dtype=torch.float32, device=dev)
+        err = _thin_lib()(ptr(x), x_bf16, M, K, ptr(blocks), kind, bk, bn,
+                          ptr(s), ptr(b), ptr(schedule.col_ptr),
+                          ptr(schedule.rows), ptr(schedule.pidx),
+                          schedule.n_col_blocks, plan.ranges_per_col,
+                          plan.blocks_per_range, ptr(ws), ptr(out),
+                          rows_per_cta(M), code, tau, stream)
     build.check(err, name)
-    launches += 1
     return out
 
 
