@@ -10,8 +10,9 @@ Phases, each fatal on failure:
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile every CUDA kernel from ``src/repro_torch/csrc``;
 3. kernels — hold each kernel against its plain PyTorch version over every
-   container, row count and activation, on both routes of
-   ``block_sparse_matmul`` and ``quant_matmul`` (thin-M, M <= 16, and
+   container, row count and activation, on every route of
+   ``block_sparse_matmul`` and ``quant_matmul`` (thin-M, M <= 16;
+   tensor-core, bf16 x past 16 rows, bitwise equal across two calls; and
    tiled), of ``packed_decode_attention`` (split across the cache, and the
    single kernel: C in {1, 16}, G in {1, 4}, Dh in {64, 128}, dead, ragged
    and full slots, bitwise equal across extents and calls) and of the flash
@@ -30,8 +31,10 @@ Phases, each fatal on failure:
    decode step's 64 ``quant_matmul`` and 48 ``block_sparse_matmul`` calls
    on their thin-M routes and 16 attention reads on the split route; then
    run the compiled model's full-sequence forward (B = 1, T = 512) through
-   ``block_sparse_matmul`` and ``quant_matmul`` (tiled routes) and the
-   flash kernel (tensor-core route), held against the twin path;
+   ``block_sparse_matmul`` and ``quant_matmul`` (all 112 linears on their
+   tensor-core routes) and the flash kernel (tensor-core route), held
+   against the twin path, with its wall time, device busy time and idle
+   share;
 5. lenet   — compile LeNet-5 at its published widths (random weights from a
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
@@ -163,14 +166,34 @@ def tol_for(dtype, ref) -> float:
     return (2 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
 
 
-def sparse_case(rng, dev, container, bk, nR, empty=False):
-    """A random (nR x 3)-block pattern of (bk, 128) blocks with an absent
+# Relative width about trelu's tau, of the largest |pre-activation|, inside
+# which the tensor-core routes may put an output on the other side: their
+# f32 sums run in another order than the plain version's (wgmma chains,
+# the scale at emit), which moves a pre-activation by a few f32 steps of
+# the sum, far less than this.
+TC_FLIP_BAND = 1e-5
+
+
+def act_err(y, ref, act, pre=None):
+    """Largest |y - ref|.  trelu(tau) is discontinuous at tau: given the plain
+    version's f32 pre-activation ``pre`` (tensor-core routes only), an
+    output whose pre-activation lies within TC_FLIP_BAND * max|pre| of tau
+    may instead be 0 or the pre-activation itself."""
+    d = (y.float() - ref.float()).abs()
+    if isinstance(act, tuple) and pre is not None:
+        near = (pre - act[1]).abs() <= TC_FLIP_BAND * float(pre.abs().max())
+        either = torch.minimum(y.float().abs(), (y.float() - pre).abs())
+        d = torch.where(near, either, d)
+    return float(d.max())
+
+
+def sparse_case(rng, dev, container, bk, nR, empty=False, nC=3, bn=128):
+    """A random (nR x nC)-block pattern of (bk, bn) blocks with an absent
     column block, in one container; returns the kernel's and the plain
     version's arguments."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.sparse_matmul import kernel as K_
 
-    bn, nC = 128, 3
     bitmap = rng.random((nR, nC)) < 0.6
     bitmap[:, 1] = False            # an absent output column block
     bitmap[0, 0] = True
@@ -197,60 +220,97 @@ def sparse_case(rng, dev, container, bk, nR, empty=False):
 
 
 def sweep_sparse(rng, dev):
-    """block_sparse_matmul against its plain version on both routes: the
+    """block_sparse_matmul against its plain version on every route: the
     first design's cases (every container, M in {1, 8, 16, 128}, empty
-    patterns, many blocks per column, blocks taller than a staging round)
-    and the thin-M cases (M in {1, 3, 8, 16}, the three byte containers, K
-    up to 8192 with up to 64 blocks per column, an absent column block,
-    bias or not, over the activations); each call must take the route
-    ``bsm_plan`` names."""
+    patterns, many blocks per column, blocks taller than a staging round),
+    the thin-M cases (M in {1, 3, 8, 16}, the three byte containers, K up
+    to 8192 with up to 64 blocks per column, an absent column block, bias
+    or not, over the activations) and the tensor-core cases (bf16 x, M in
+    {17, 40, 128, 512}, the three byte containers, K up to 8192, N in {512,
+    2048, 8192}, an absent column block, empty patterns, 64-row and
+    256-column blocks, bias or not, over the activations; each bitwise
+    equal on a second call); each call must take the route the rule
+    names."""
     from repro_torch.kernels.sparse_matmul import kernel as K_
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
 
-    routes = {"thin_m": "launches_thin", "tiled": "launches_tiled"}
+    routes = {"thin_m": "launches_thin", "tensor_core": "launches_tc",
+              "tiled": "launches_tiled"}
+    # (container, M, bk, nR, empty, activation index, nC, bn, x dtype)
     cases = []
     for ci, container in enumerate(("f32", "bf16", "int8", "int4x2", "int2x4")):
         for mi, M in enumerate((1, 8, 16, 128)):
             for empty in (False, True):
-                cases.append((container, M, 128, 4, empty, ci + mi))
+                cases.append((container, M, 128, 4, empty, ci + mi, 3, 128,
+                              None))
     # more blocks per column than one staging round holds, and blocks taller
     # than a round, at the row tiles whose rounds are smallest
     for M in (8, 16):
         for container in ("int8", "int4x2"):
-            cases += [(container, M, 128, 12, False, M),
-                      (container, M, 1024, 2, False, M + 1)]
+            cases += [(container, M, 128, 12, False, M, 3, 128, None),
+                      (container, M, 1024, 2, False, M + 1, 3, 128, None)]
     # thin-M: K = 8192 (64 row blocks), K = 1536, K = 256
     for mi, M in enumerate((1, 3, 8, 16)):
         for ci, container in enumerate(("int8", "int4x2", "int2x4")):
             for ki, nR in enumerate((64, 12, 2)):
-                cases.append((container, M, 128, nR, False, mi + ci + ki))
-    for container, M, bk, nR, empty, ai in cases:
+                cases.append((container, M, 128, nR, False, mi + ci + ki, 3,
+                              128, None))
+    # tensor cores: (K, N) = (8192, 512), (2048, 2048), (2048, 8192) and a
+    # 2-block K, then 64-row blocks, 256-column blocks and empty patterns
+    bf16 = torch.bfloat16
+    for mi, M in enumerate((17, 40, 128, 512)):
+        for ci, container in enumerate(("int8", "int4x2", "int2x4")):
+            for ki, (nR, nC) in enumerate(((64, 4), (16, 16), (16, 64),
+                                           (2, 4))):
+                cases.append((container, M, 128, nR, False, mi + ci + ki, nC,
+                              128, bf16))
+            cases += [(container, M, 64, 24, False, mi + ci, 8, 128, bf16),
+                      (container, M, 128, 8, False, mi + ci + 1, 4, 256,
+                       bf16),
+                      (container, M, 128, 4, True, mi + ci + 2, 4, 128,
+                       bf16)]
+    for container, M, bk, nR, empty, ai, nC, bn, xdt in cases:
         act = ACTS[ai % len(ACTS)]
-        xdt = torch.float32 if container == "f32" or ai % 2 else torch.bfloat16
+        if xdt is None:
+            xdt = torch.float32 if container == "f32" or ai % 2 \
+                else torch.bfloat16
         blocks, vals, scales, packed, sched, rows, cols, nC = sparse_case(
-            rng, dev, container, bk, nR, empty)
+            rng, dev, container, bk, nR, empty, nC, bn)
         x = torch.randn((M, nR * bk), device=dev).to(xdt)
-        bias = torch.randn((nC * 128,), device=dev) if (ai + M) % 3 else None
+        bias = torch.randn((nC * bn,), device=dev) if (ai + M) % 3 else None
         ratio = K_.packed_ratio(packed)
-        route = "tiled" if K_.bsm_plan(
-            M, bk, 128, ratio, nC, sched.max_blocks_per_col,
-            blocks.data_ptr(), blocks.element_size()) is None else "thin_m"
-        want = "thin_m" if M <= 16 and blocks.element_size() == 1 \
-            and bk * K_.rows_per_cta(M) <= K_.THIN_XCAP else "tiled"
-        require(route == want, f"bsm_plan sent {container} M={M} bk={bk} to "
-                               f"the {route} route, not {want}")
-        y = took_route(K_, routes, route, lambda: K_.block_sparse_matmul(
-            x, blocks, sched, scales=scales, bias=bias, activation=act,
-            packed=packed))
-        ref = block_sparse_matmul_ref(
+        route, _ = K_.bsm_route(
+            M, bk, bn, ratio, nC, sched.max_blocks_per_col, xdt == bf16,
+            blocks.data_ptr(), blocks.element_size(), x.data_ptr())
+        byte = blocks.element_size() == 1
+        want = "thin_m" if M <= 16 and byte \
+            and bk * K_.rows_per_cta(M) <= K_.THIN_XCAP else \
+            "tensor_core" if M > 16 and byte and xdt == bf16 \
+            and bk % 64 == 0 and bn % 128 == 0 else "tiled"
+        require(route == want, f"bsm_route sent {container} M={M} bk={bk} "
+                               f"bn={bn} {xdt} to the {route} route, not "
+                               f"{want}")
+
+        def call():
+            return K_.block_sparse_matmul(x, blocks, sched, scales=scales,
+                                          bias=bias, activation=act,
+                                          packed=packed)
+
+        y = took_route(K_, routes, route, call)
+        ref, pre = (block_sparse_matmul_ref(
             x, vals, rows, cols, n_row_blocks=nR, n_col_blocks=nC,
-            scales=scales, bias=bias, activation=act, out_dtype=xdt)
+            scales=scales, bias=bias, activation=a, out_dtype=dt)
+            for a, dt in ((act, xdt), (None, torch.float32)))
         torch.cuda.synchronize()
-        err = float((y.float() - ref.float()).abs().max())
-        require(err <= tol_for(xdt, ref.float()),
-                f"block_sparse_matmul {route} {container} M={M} bk={bk} "
-                f"nR={nR} empty={empty} act={act} bias={bias is not None}: "
-                f"max abs err {err}")
+        tol = tol_for(xdt, ref.float())
+        err = act_err(y, ref, act, pre if route == "tensor_core" else None)
+        label = (f"block_sparse_matmul {route} {container} M={M} bk={bk} "
+                 f"bn={bn} nR={nR} nC={nC} empty={empty} act={act} "
+                 f"bias={bias is not None}")
+        require(err <= tol, f"{label}: max abs err {err}")
+        if route == "tensor_core":
+            require(torch.equal(y, call()), f"{label}: a second call gave "
+                                            f"other bits")
     return len(cases)
 
 
@@ -266,26 +326,34 @@ def took_route(mod, routes, want, fn):
 
 
 def sweep_quant(rng, dev):
-    """quant_matmul against its plain version on both routes: the first
+    """quant_matmul against its plain version on every route: the first
     design's shapes (M in {1, 8, 16, 128}, an odd N that keeps M = 8 on the
-    tiled kernel) and the thin-M cases (M in {1, 3, 8, 16}, K in {2048,
-    8192}, N in {96, 512, 2048}), every container, with and without bias,
-    over the activations; each call must take the route ``qmm_plan``
-    names."""
+    tiled kernel), the thin-M cases (M in {1, 3, 8, 16}, K in {2048, 8192},
+    N in {96, 512, 2048}) and the tensor-core cases (bf16 x, M in {17, 40,
+    128, 512}, K in {2048, 8192}, N in {512, 2048, 8192}, each bitwise
+    equal on a second call), every container, with and without bias, over
+    the activations; each call must take the route ``qmm_route`` names."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
-    routes = {"thin_m": "launches_thin", "tiled": "launches_tiled"}
-    shapes = [(512, 320, M) for M in (1, 8, 16, 128)] + [
-        (2560, 96, 8), (2560, 96, 16), (512, 90, 8)]
-    shapes += [(K, N, M) for M in (1, 3, 8, 16) for K in (2048, 8192)
+    routes = {"thin_m": "launches_thin", "tensor_core": "launches_tc",
+              "tiled": "launches_tiled"}
+    bf16 = torch.bfloat16
+    # (K, N, M, x dtype: None alternates f32 and bf16)
+    shapes = [(512, 320, M, None) for M in (1, 8, 16, 128)] + [
+        (2560, 96, 8, None), (2560, 96, 16, None), (512, 90, 8, None)]
+    shapes += [(K, N, M, None) for M in (1, 3, 8, 16) for K in (2048, 8192)
                for N in (96, 512, 2048)]
+    shapes += [(K, N, M, bf16) for M in (17, 40, 128, 512)
+               for K, N in ((2048, 512), (2048, 2048), (8192, 2048),
+                            (2048, 8192))]
     cases = 0
     for ci, container in enumerate(("int8", "int4x2", "int2x4")):
-        for mi, (K, N, M) in enumerate(shapes):
+        for mi, (K, N, M, xdt) in enumerate(shapes):
             act = ACTS[(ci + mi) % len(ACTS)]
-            xdt = torch.bfloat16 if mi % 2 else torch.float32
+            if xdt is None:
+                xdt = bf16 if mi % 2 else torch.float32
             qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
             codes = torch.randint(-qm, qm + 1, (K, N), device=dev).to(torch.int8)
             scales = torch.rand((N,), device=dev) / (qm * 16)
@@ -297,19 +365,92 @@ def sweep_quant(rng, dev):
             x = torch.randn((M, K), device=dev).to(xdt)
             bias = torch.randn((N,), device=dev) if (mi + ci) % 2 == 0 \
                 else None
-            route = "tiled" if qk.qmm_plan(M, K, N, ratio, w.data_ptr()) \
-                is None else "thin_m"
-            y = took_route(qk, routes, route, lambda: qk.quant_matmul(
-                x, w, scales, bias, activation=act, packed=packed))
-            ref = quant_matmul_ref(x, codes, scales, bias=bias,
-                                   activation=act, out_dtype=xdt)
+            route, _ = qk.qmm_route(M, K, N, ratio, xdt == bf16,
+                                    w.data_ptr(), x.data_ptr())
+            want = "thin_m" if M <= 16 and N % 4 == 0 else \
+                "tensor_core" if M > 16 and xdt == bf16 and K % 64 == 0 \
+                and N % 128 == 0 else "tiled"
+            require(route == want, f"qmm_route sent {container} M={M} K={K} "
+                                   f"N={N} {xdt} to the {route} route, not "
+                                   f"{want}")
+
+            def call():
+                return qk.quant_matmul(x, w, scales, bias, activation=act,
+                                       packed=packed)
+
+            y = took_route(qk, routes, route, call)
+            ref, pre = (quant_matmul_ref(x, codes, scales, bias=bias,
+                                         activation=a, out_dtype=dt)
+                        for a, dt in ((act, xdt), (None, torch.float32)))
             torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
-            require(err <= tol_for(xdt, ref.float()),
-                    f"quant_matmul {route} {container} M={M} K={K} N={N} "
-                    f"act={act} bias={bias is not None}: max abs err {err}")
+            tol = tol_for(xdt, ref.float())
+            err = act_err(y, ref, act,
+                          pre if route == "tensor_core" else None)
+            label = (f"quant_matmul {route} {container} M={M} K={K} N={N} "
+                     f"act={act} bias={bias is not None}")
+            require(err <= tol, f"{label}: max abs err {err}")
+            if route == "tensor_core":
+                require(torch.equal(y, call()),
+                        f"{label}: a second call gave other bits")
             cases += 1
     return cases
+
+
+def tc_sum_error(dev):
+    """The tensor-core routes' f32 sums against the plain version's f32
+    pre-activation, as a share of its largest magnitude: both kernels, the
+    three containers, K = 8192 and M = 512, read from the f32 partials of a
+    plan cut in two (K splits; ranges of each column's blocks), added as the
+    reduce pass adds them.  Must stay within half of TC_FLIP_BAND."""
+    from repro_torch.core.quant import pack_codes
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.kernels.sparse_matmul import kernel as K_
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
+
+    M, K, N = 512, 8192, 2048
+    worst = {}
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(16)
+        rng = np.random.default_rng(16)
+        for container, qm, ratio in (("int8", 127, 1), ("int4x2", 7, 2),
+                                     ("int2x4", 1, 4)):
+            x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+            codes = torch.randint(-qm, qm + 1, (K, N), device=dev).to(
+                torch.int8)
+            s = torch.rand((N,), device=dev) / (qm * 16)
+            w = codes if ratio == 1 else pack_codes(codes, axis=0,
+                                                    bits=8 // ratio)
+            ws = torch.zeros((2, M, N), device=dev)
+            qk._launch(x, w, s, None, None, ratio, "tensor_core",
+                       qk.QmmTcPlan(64, 128, 2, K // 128), ws=ws)
+            pre = quant_matmul_ref(x, codes, s)
+            got = (ws[0] + ws[1]) * s
+            worst[f"quant_matmul {container}"] = float(
+                (got - pre).abs().max()) / float(pre.abs().max())
+
+            blocks, vals, scales, packed, sched, rows, cols, nC = \
+                sparse_case(rng, dev, container, 128, K // 128, nC=16)
+            per = -(-sched.max_blocks_per_col // 2)
+            ranges = -(-sched.max_blocks_per_col // per)
+            ws = torch.zeros((ranges, M, nC * 128), device=dev)
+            K_._launch(x, blocks, sched, scales, None, None, ratio,
+                       "tensor_core", K_.BsmTcPlan(64, 128, per, ranges),
+                       ws=ws)
+            pre = block_sparse_matmul_ref(
+                x, vals, rows, cols, n_row_blocks=K // 128, n_col_blocks=nC,
+                scales=scales)
+            got = ws[0]
+            for r in range(1, ranges):
+                got = got + ws[r]
+            worst[f"block_sparse_matmul {container}"] = float(
+                (got - pre).abs().max()) / float(pre.abs().max())
+    torch.cuda.synchronize()
+    for what, err in worst.items():
+        require(err <= TC_FLIP_BAND / 2,
+                f"{what}: tensor-core f32 sums {err} of max|pre| from the "
+                f"plain version")
+    return worst
 
 
 def random_cache(B, T, Hkv, Dh, dev):
@@ -671,9 +812,17 @@ def measure_kernels(cm, cfg, dev, counts):
                                             scales=ws)).to(torch.bfloat16)
         wps, valss, denses = (copies(t, n) for t, n in zip(
             (wp, vals, dense), n_copies))
-        plan = sk.bsm_plan(Ms, bk, bn, 2, nC, sched.max_blocks_per_col,
-                           wp.data_ptr())
-        route = "tiled" if plan is None else "thin_m"
+        route, plan = sk.bsm_route(
+            Ms, bk, bn, 2, nC, sched.max_blocks_per_col,
+            xs.dtype == torch.bfloat16, wp.data_ptr(), 1, xs.data_ptr())
+        detail = ""
+        if route == "thin_m":
+            detail = (f" ({plan.blocks_per_range} blocks per range, "
+                      f"{nC * plan.ranges_per_col} CTAs)")
+        elif route == "tensor_core":
+            ctas = -(-Ms // plan.m_tile) * nC * plan.ranges_per_col
+            detail = (f" ({plan.m_tile}-row tiles, {plan.blocks_per_range} "
+                      f"blocks per range, {ctas} CTAs)")
         y = block_sparse_matmul(xs, wp, sched, scales=ws, packed="int4x2")
         ref = block_sparse_matmul_ref(xs, vals, rows, cols, n_row_blocks=nR,
                                       n_col_blocks=nC, scales=ws,
@@ -684,33 +833,42 @@ def measure_kernels(cm, cfg, dev, counts):
             2.0 * Ms * pat.n_blocks_present * bk * bn,
             f"{leaf_name}: M={Ms} K={Kl} N={nC * bn} int4x2 blocks "
             f"{pat.n_blocks_present}/{pat.n_blocks_total} of {pat.block}, "
-            f"{route} route" + ("" if plan is None else
-                                f" ({plan.blocks_per_range} blocks per "
-                                f"range, {nC * plan.ranges_per_col} CTAs)"),
+            f"{route} route{detail}",
             lambda i: lambda: block_sparse_matmul(xs, wps[i], sched,
                                                   scales=ws, packed="int4x2"),
             lambda i: lambda: block_sparse_matmul_ref(
                 xs, valss[i], rows, cols, n_row_blocks=nR, n_col_blocks=nC,
                 scales=ws, out_dtype=xs.dtype),
             lambda i: lambda: xs @ denses[i], n_copies)
-        if plan is not None:
+        if route != "tiled":
             # the first design (tiled kernel) at the same shape, this run
             t["first_version_ms"] = device_ms(lambda i: lambda: sk._launch(
-                xs, wps[i], sched, ws, None, None, 2, None), n_copies[0])
+                xs, wps[i], sched, ws, None, None, 2, "tiled"), n_copies[0])
+        if route == "tensor_core":
+            # the plan with the other m tile, the rule's alternative
+            alt = sk.bsm_tc_plan(Ms, bk, bn, nC, sched.max_blocks_per_col,
+                                 m_tile=192 - plan.m_tile)
+            t["other_m_tile"] = {"plan": list(alt), "ms": device_ms(
+                lambda i: lambda: sk._launch(xs, wps[i], sched, ws, None,
+                                             None, 2, "tensor_core", alt),
+                n_copies[0])}
         return t
 
+    def bf16_rows(m, k):
+        return torch.randn((m, k), device=dev).to(torch.bfloat16)
+
     wg_t = bsm_case("wg", x, (16, 8, 2))
-    wg_t["also"] = [
-        bsm_case("wd", torch.randn((M, F_), device=dev).to(torch.bfloat16),
-                    (32, 8, 2)),
-        bsm_case("wg", torch.randn((512, D), device=dev).to(torch.bfloat16),
-                    (4, 2, 2))]
+    # then the compiled forward's M = 512 (tensor-core route) and M = 128
+    wg_t["also"] = [bsm_case("wd", bf16_rows(M, F_), (32, 8, 2)),
+                    bsm_case("wg", bf16_rows(512, D), (4, 2, 2)),
+                    bsm_case("wd", bf16_rows(512, F_), (4, 2, 2)),
+                    bsm_case("wg", bf16_rows(128, D), (8, 2, 4))]
     out.append({"name": "block_sparse_matmul", "route": "cuda",
                 "source": "src/repro_torch/csrc/block_sparse_matmul.cu",
                 "replaces": "src/repro/kernels/sparse_matmul/kernel.py:313",
                 "launches": counts["block_sparse_matmul"],
-                "launches_by_route": {BSM_THIN: counts[BSM_THIN],
-                                      BSM_TILED: counts[BSM_TILED]},
+                "launches_by_route": {k: counts[k]
+                                      for k in (BSM_THIN, BSM_TC, BSM_TILED)},
                 **wg_t})
 
     # quant: attn/wq of layer 0, int4x2 along K (thin-M route); then attn/wk
@@ -723,31 +881,46 @@ def measure_kernels(cm, cfg, dev, counts):
         dense = (codes.float() * sq[None, :]).to(torch.bfloat16)
         wqs, codess, denses = (copies(t, n) for t, n in zip(
             (wq, codes, dense), n_copies))
-        route = "thin_m" if qk.qmm_plan(Mq, D, N, 2, wq.data_ptr()) \
-            else "tiled"
+        route, plan = qk.qmm_route(Mq, D, N, 2, xq.dtype == torch.bfloat16,
+                                   wq.data_ptr(), xq.data_ptr())
         y = quant_matmul(xq, wq, sq, packed="int4x2")
         ref = quant_matmul_ref(xq, codes, sq, out_dtype=xq.dtype)
         t = timing(
             "quant_matmul", y, ref, nbytes(xq, wq, sq, y), 2.0 * Mq * D * N,
-            f"{leaf_name}: M={Mq} K={D} N={N} int4x2, {route} route",
+            f"{leaf_name}: M={Mq} K={D} N={N} int4x2, {route} route"
+            + (f" ({plan.k_splits} K splits)" if route == "thin_m" else
+               f" ({plan.m_tile}-row tiles, {plan.k_splits} K splits)"
+               if plan else ""),
             lambda i: lambda: quant_matmul(xq, wqs[i], sq, packed="int4x2"),
             lambda i: lambda: quant_matmul_ref(xq, codess[i], sq,
                                                out_dtype=xq.dtype),
             lambda i: lambda: xq @ denses[i], n_copies)
-        return t, xq, wqs, sq
+        if route != "tiled":
+            # the first design (tiled kernel) at the same shape, this run
+            t["first_version_ms"] = device_ms(lambda i: lambda: qk._launch(
+                xq, wqs[i], sq, None, None, 2, "tiled"), n_copies[0])
+        if route == "tensor_core":
+            # the plan with the other m tile, the rule's alternative
+            alt = qk.qmm_tc_plan(Mq, D, N, m_tile=192 - plan.m_tile)
+            t["other_m_tile"] = {"plan": list(alt), "ms": device_ms(
+                lambda i: lambda: qk._launch(xq, wqs[i], sq, None, None, 2,
+                                             "tensor_core", alt),
+                n_copies[0])}
+        return t
 
-    wq_t, xq, wqs, sq = quant_case("wq", x, (32, 16, 8))
-    # the first design (tiled kernel) at the same shape, in the same run
-    wq_t["first_version_ms"] = device_ms(lambda i: lambda: qk._launch(
-        xq, wqs[i], sq, None, None, 2, None, "quant_matmul"), 32)
-    wq_t["also"] = [
-        quant_case("wk", x, (32, 16, 8))[0],
-        quant_case("wq", torch.randn((512, D), device=dev).to(torch.bfloat16),
-                   (4, 2, 4))[0]]
+    wq_t = quant_case("wq", x, (32, 16, 8))
+    # then the compiled forward's M = 512 (tensor-core route) and M = 128
+    wq_t["also"] = [quant_case("wk", x, (32, 16, 8)),
+                    quant_case("wq", bf16_rows(512, D), (4, 2, 4)),
+                    quant_case("wk", bf16_rows(512, D), (8, 4, 8)),
+                    quant_case("wq", bf16_rows(128, D), (8, 4, 8))]
     out.append({"name": "quant_matmul", "route": "cuda",
                 "source": "src/repro_torch/csrc/quant_matmul.cu",
                 "replaces": "src/repro/kernels/quant_matmul/kernel.py:125",
-                "launches": counts["quant_matmul"], **wq_t})
+                "launches": counts["quant_matmul"],
+                "launches_by_route": {k: counts[k]
+                                      for k in (QMM_THIN, QMM_TC, QMM_TILED)},
+                **wq_t})
 
     # attention: a decode read over 8 slots of a 512-row cache, then the
     # decode profile's shape (200 live rows of each slot, a 256-row extent
@@ -823,8 +996,12 @@ def copies(t, n):
 
 SERVE_KERNELS = ("block_sparse_matmul", "quant_matmul",
                  "packed_decode_attention")
-QMM_THIN, QMM_TILED = "quant_matmul/thin_m", "quant_matmul/tiled"
-BSM_THIN, BSM_TILED = "block_sparse_matmul/thin_m", "block_sparse_matmul/tiled"
+QMM_THIN, QMM_TC, QMM_TILED = ("quant_matmul/thin_m",
+                               "quant_matmul/tensor_core",
+                               "quant_matmul/tiled")
+BSM_THIN, BSM_TC, BSM_TILED = ("block_sparse_matmul/thin_m",
+                               "block_sparse_matmul/tensor_core",
+                               "block_sparse_matmul/tiled")
 PDA_SPLIT, PDA_SINGLE = ("packed_decode_attention/split",
                          "packed_decode_attention/single")
 FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
@@ -846,8 +1023,10 @@ def counters():
             "flash_attention": (fk, "launches"),
             # the launches of each route, beside the totals above
             QMM_THIN: (qk, "launches_thin"),
+            QMM_TC: (qk, "launches_tc"),
             QMM_TILED: (qk, "launches_tiled"),
             BSM_THIN: (sk, "launches_thin"),
+            BSM_TC: (sk, "launches_tc"),
             BSM_TILED: (sk, "launches_tiled"),
             PDA_SPLIT: (decode_packed, "launches_split"),
             PDA_SINGLE: (decode_packed, "launches_single"),
@@ -942,9 +1121,10 @@ def serve(dev, report):
 
 def compiled_forward(cm, cfg, dev):
     """The full-sequence forward of the compiled model (B = 1, T = 512):
-    its linears reach block_sparse_matmul and quant_matmul at M = 512, its
-    attention the flash kernel; logits held against ``dispatch="twin"``
-    within the serving path's float tolerance."""
+    its linears reach block_sparse_matmul and quant_matmul at M = 512 on
+    their tensor-core routes, its attention the flash kernel; logits held
+    against ``dispatch="twin"`` within the serving path's float tolerance;
+    then its wall time, device busy time and idle share."""
     from repro_torch.models.model import forward
 
     toks = torch.as_tensor(np.random.default_rng(2).integers(
@@ -960,8 +1140,8 @@ def compiled_forward(cm, cfg, dev):
                      dispatch="twin")
     want = {"block_sparse_matmul": 3 * cfg.n_layers,
             "quant_matmul": 4 * cfg.n_layers, "flash_attention": cfg.n_layers,
-            QMM_TILED: 4 * cfg.n_layers, QMM_THIN: 0,
-            BSM_TILED: 3 * cfg.n_layers, BSM_THIN: 0,
+            QMM_TC: 4 * cfg.n_layers, QMM_THIN: 0, QMM_TILED: 0,
+            BSM_TC: 3 * cfg.n_layers, BSM_THIN: 0, BSM_TILED: 0,
             FLASH_TC: cfg.n_layers, FLASH_CC: 0}
     require(all(counts[k] == n for k, n in want.items()),
             f"compiled forward launched {counts}, expected {want}")
@@ -973,8 +1153,17 @@ def compiled_forward(cm, cfg, dev):
     tol = TWIN_TOL["float"]
     require(rel <= tol, f"compiled forward: kernel vs twin logits max rel "
                         f"err {rel} > {tol}")
+
+    def fwd():
+        with torch.no_grad():
+            forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns)
+
+    prof = profile_forward(fwd)
+    top_us = sorted(prof.pop("device_us_per_forward").items(),
+                    key=lambda kv: -kv[1])[:8]
     return {"launches": {k: counts[k] for k in want}, "max_rel_err": rel,
-            "tol": tol, "largest_logit": top}
+            "tol": tol, "largest_logit": top, **prof,
+            "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
 
 
 def profile_decode(cm, cfg, dev, steps: int = 5):
@@ -1062,8 +1251,8 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
         if i == 0:
             per_step = read_counts()
             L = cfg.n_layers
-            want = {QMM_THIN: 4 * L, QMM_TILED: 0, BSM_THIN: 3 * L,
-                    BSM_TILED: 0}
+            want = {QMM_THIN: 4 * L, QMM_TC: 0, QMM_TILED: 0,
+                    BSM_THIN: 3 * L, BSM_TC: 0, BSM_TILED: 0}
             if kv_cache == "int4x2":
                 want.update({PDA_SPLIT: L, PDA_SINGLE: 0})
             got = {k: per_step[k] for k in want}
@@ -1621,6 +1810,9 @@ def main() -> int:
         }
         print(f"kernels vs plain versions: {report['sweep_cases']} cases pass",
               flush=True)
+        report["tc_f32_sum_err"] = tc_sum_error(dev)
+        print("tensor-core f32 sums vs plain, share of max|pre|: "
+              + json.dumps(report["tc_f32_sum_err"]), flush=True)
 
         cm, cfg, counts = serve(dev, report)
         print(f"serve: {json.dumps(report['serve'])}", flush=True)

@@ -1,9 +1,12 @@
 // Engine-free static block-sparse matmul: y = act(x @ W + b) over a
-// block-compacted W.  Two kernels, one per route of `bsm_plan` in
+// block-compacted W.  Three kernels, one per route of `bsm_route` in
 // kernels/sparse_matmul/kernel.py: the thin-M kernel for decode rows
-// (M <= 16, 1-byte containers: int8, int4x2, int2x4) and the tiled kernel,
-// the first design, for everything else (prefill chunks, the compiled
-// full-sequence forward, f32 / bf16 blocks).
+// (M <= 16, 1-byte containers: int8, int4x2, int2x4); the tensor-core kernel
+// for bf16 x past 16 rows (the compiled full-sequence forward, wide prefill
+// chunks) over 1-byte containers with bk % 64 == 0, bn % 128 == 0 and
+// 16-byte aligned operands; and the tiled kernel, the first design on the
+// CUDA cores, for everything else (f32 x, f32 / bf16 blocks, LeNet's small
+// blocks).
 //
 // Replaces the Pallas kernel repro/kernels/sparse_matmul/kernel.py
 // (`_call` / `_kernel` / `_kernel_packed_db`, reached through
@@ -15,12 +18,16 @@
 //     and packed-block index of every present block).  It is uploaded once
 //     per pattern by the wrapper, the analogue of scalar prefetch;
 //   * each block is decoded (int4x2 nibbles / int2x4 crumbs along bk), then
-//     multiplied by its output column's dequant scale, BEFORE the dot;
+//     multiplied by its output column's dequant scale, BEFORE the dot (the
+//     CUDA-core routes keep that order; the tensor-core route applies the
+//     scale at emit instead: it is constant along K, so x . (codes * s) =
+//     (x . codes) * s, and the two differ only in f32 rounding);
 //   * the emit applies act(acc + b) in f32; a column with no present block
 //     emits act(b) from the same launch.
 //
-// What bounds it on the H100: bytes.  At decode shapes (M = live slots,
-// a handful of rows) every weight byte is used for M FMAs, far below the
+// What bounds it on the H100: bytes at decode shapes, operations at the
+// full-sequence forward's M = 512.  At decode shapes (M = live slots, a
+// handful of rows) every weight byte is used for M FMAs, far below the
 // ~295 operations per byte the card needs before compute is the limit, so
 // the time floor is the packed weight stream over HBM bandwidth.  Blocks
 // travel in their packed form and are decoded in registers, never expanded
@@ -44,6 +51,15 @@
 // run, then applies bias and activation once, and emits act(b) for columns
 // with no block.
 //
+// The tensor-core kernel (`bsm_tc_kernel`) runs tc_matmul.cuh's pipeline
+// over each column's present blocks: 64 or 128 rows by 128 columns of an
+// output column block per CTA, each block bk / 64 steps whose x tile is the
+// rectangle at (m0, row block * bk), the codes decoded to exact bf16 in
+// registers as wgmma's A operand of the transposed product, f32
+// accumulators.  When the tiles alone are far from one wave of the card
+// (one CTA per SM), each column's blocks are cut into ranges, whose scaled
+// f32 partials `tcm::reduce_kernel` adds in range order.
+//
 // The tiled kernel (`bsm_kernel`) owns one (m-tile, 32-column slice of an
 // output column block) per CTA; its eight warps split the rows of every
 // block, one byte per lane per load, and the partial sums are reduced once
@@ -51,6 +67,7 @@
 // staged in shared memory per round (32 KB).  Its FMAs run on the CUDA
 // cores, with no wgmma, TMA or software pipeline yet.
 #include "common.cuh"
+#include "tc_matmul.cuh"
 
 namespace {
 
@@ -427,6 +444,18 @@ __global__ void __launch_bounds__(256)
   out[i] = rt::from_f32<XT>(rt::apply_act(a, act, tau));
 }
 
+// The reduce pass over each column's range partials; with `pdl` a
+// programmatic dependent of the kernel launched just before it.
+template <typename XT>
+cudaError_t reduce(const float* ws, int M, int N, int bn, const int* col_ptr,
+                   int per_range, const float* bias, void* out, int act,
+                   float tau, cudaStream_t stream, bool pdl) {
+  return rt::launch_dependent(bsm_reduce_kernel<XT>, dim3((M * N + 255) / 256),
+                              dim3(256), stream, pdl, ws, M, N, bn, col_ptr,
+                              per_range, bias, static_cast<XT*>(out), act,
+                              tau);
+}
+
 template <typename XT, int WK, int TM>
 cudaError_t thin_t(const void* x, int M, int K, const void* blocks, int bk,
                    int bn, const float* scales, const float* bias,
@@ -439,15 +468,14 @@ cudaError_t thin_t(const void* x, int M, int K, const void* blocks, int bk,
   if (bn % 4 != 0 || bk % R != 0 || per_range < 1 || stage > TN_XCAP ||
       M > TM)
     return cudaErrorInvalidValue;
-  cudaError_t err;
   if (ranges > 0) {
     const int n_sub = (bn + TN_COLS - 1) / TN_COLS;
     const size_t red = (size_t)TN_WARPS * TM * TN_COLS;
     const int bytes = (int)(sizeof(float) * (meta_floats(per_range) +
                                              (stage > red ? stage : red)));
     auto kern = bsm_thin_kernel<XT, WK, TM>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     constexpr int V = 16 / sizeof(XT);
     const int xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % V == 0 &&
@@ -458,19 +486,8 @@ cudaError_t thin_t(const void* x, int M, int K, const void* blocks, int bk,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M * N + 255) / 256);
-  cfg.blockDim = dim3(256);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = ranges > 0 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, bsm_reduce_kernel<XT>,
-                           static_cast<const float*>(ws), M, N, bn, col_ptr,
-                           per_range, bias, static_cast<XT*>(out), act, tau);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return reduce<XT>(ws, M, N, bn, col_ptr, per_range, bias, out, act, tau,
+                    stream, ranges > 0);
 }
 
 template <typename XT, int WK>
@@ -519,6 +536,124 @@ cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
 #undef RT_W
 }
 
+// ------------------------------------------------------- tensor-core route
+
+// One CTA per (128-column slice of an output column block, m_tile-row tile,
+// range of per_range of the column's blocks): each block is bk / 64 steps
+// through tc_matmul.cuh's pipeline, its x tile at its row block.  The
+// range's block metadata is staged in shared memory first, so no copy waits
+// on an index load.  Scale at emit: with one range per column the CTA emits
+// act(acc * s + b) in bf16 (acc = 0 for a column with no block: act(b));
+// with several, each live range writes acc * s in f32 and the reduce pass
+// adds them in range order, then bias and activation.  tmx / tmb: the
+// tensor maps of x and of the block stack as (P * bk / R, bn) bytes.
+template <int BM, int WK>
+__global__ void __launch_bounds__(tcm::NT)
+    bsm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                  const __grid_constant__ CUtensorMap tmb, int M, int K,
+                  int bk, int bn, const float* __restrict__ scales,
+                  const float* __restrict__ bias,
+                  const int* __restrict__ col_ptr,
+                  const int* __restrict__ rows, const int* __restrict__ pidx,
+                  const int* __restrict__ col_order, int n_sub, int per_range,
+                  float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
+                  int N, int act, float tau) {
+  constexpr int R = rt::WTraits<WK>::R;
+  extern __shared__ uint8_t smem_raw[];
+  // the reduce kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  uint32_t sbase;
+  uint8_t* smem = tcm::aligned_smem(smem_raw, sbase);
+  // blockIdx.x walks the m tiles, blockIdx.y the columns fullest first
+  const int c = col_order[blockIdx.y / n_sub];
+  const int jbase = (blockIdx.y % n_sub) * tcm::BN;
+  const int m0 = blockIdx.x * BM, range = blockIdx.z;
+  const int q0 = col_ptr[c] + range * per_range;
+  const int q1 = min(q0 + per_range, col_ptr[c + 1]);
+  if (ws != nullptr && q0 >= q1) return;  // past this column's blocks
+  const int nb = max(q1 - q0, 0);
+  // meta: each block's first x column, then its first code byte row
+  int* meta = reinterpret_cast<int*>(smem + tcm::tile_bytes<BM, WK>());
+  for (int b = threadIdx.x; b < nb; b += tcm::NT) {
+    meta[b] = rows[q0 + b] * bk;
+    meta[per_range + b] = pidx[q0 + b] * (bk / R);
+  }
+  tcm::init_stages<BM, WK>(sbase);  // also publishes meta
+  const int spb = bk / tcm::BK;  // steps per block
+  if (threadIdx.x >= tcm::NTC) {
+    tcm::produce<BM, WK>(sbase, &tmx, &tmb, m0, jbase, nb * spb,
+                         [&](int s, int& kx, int& crow) {
+                           const int b = s / spb;
+                           const int kk = (s - b * spb) * tcm::BK;
+                           kx = meta[b] + kk;
+                           crow = meta[per_range + b] + kk / R;
+                         });
+    return;
+  }
+  float acc[BM / 2];
+  tcm::consume<BM, WK>(smem, sbase, nb * spb, acc);
+  const int n0 = c * bn + jbase;
+  if (ws != nullptr)
+    tcm::emit<BM>(acc, m0, M, n0, N, scales, nullptr,
+                  ws + (size_t)range * M * N, nullptr, act, tau);
+  else
+    tcm::emit<BM>(acc, m0, M, n0, N, scales, bias, nullptr, out, act, tau);
+}
+
+template <int BM, int WK>
+cudaError_t tc_t(const void* x, int M, int K, const void* blocks,
+                 int n_blocks, int bk, int bn, const float* scales,
+                 const float* bias, const int* col_ptr, const int* rows,
+                 const int* pidx, const int* col_order, int n_col_blocks,
+                 int ranges, int per_range, float* ws, void* out, int act,
+                 float tau, cudaStream_t stream) {
+  const int N = n_col_blocks * bn;
+  if (bk % tcm::BK != 0 || bn % tcm::BN != 0 || ranges < 1 ||
+      per_range < 1 || (ranges > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmb;
+  if (!tcm::tile_maps<BM, WK>(&tmx, &tmb, x, M, K, blocks,
+                              (uint64_t)n_blocks * (bk / rt::WTraits<WK>::R),
+                              bn))
+    return cudaErrorInvalidValue;
+  const int bytes = tcm::smem_bytes<BM, WK>(8 * per_range);
+  auto kern = bsm_tc_kernel<BM, WK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_sub = bn / tcm::BN;
+  const dim3 grid((M + BM - 1) / BM, n_col_blocks * n_sub, ranges);
+  kern<<<grid, tcm::NT, bytes, stream>>>(
+      tmx, tmb, M, K, bk, bn, scales, bias, col_ptr, rows, pidx, col_order,
+      n_sub, per_range, ranges > 1 ? ws : nullptr,
+      static_cast<__nv_bfloat16*>(out), N, act, tau);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ranges == 1) return err;
+  return tcm::reduce(ws, M, N, 0, col_ptr, bn, per_range, nullptr, bias, out,
+                     act, tau, stream);
+}
+
+template <int WK>
+cudaError_t tc_m(int m_tile, const void* x, int M, int K, const void* blocks,
+                 int n_blocks, int bk, int bn, const float* scales,
+                 const float* bias, const int* col_ptr, const int* rows,
+                 const int* pidx, const int* col_order, int n_col_blocks,
+                 int ranges, int per_range, float* ws, void* out, int act,
+                 float tau, cudaStream_t s) {
+  switch (m_tile) {
+    case 64:
+      return tc_t<64, WK>(x, M, K, blocks, n_blocks, bk, bn, scales, bias,
+                          col_ptr, rows, pidx, col_order, n_col_blocks,
+                          ranges, per_range, ws, out, act, tau, s);
+    case 128:
+      return tc_t<128, WK>(x, M, K, blocks, n_blocks, bk, bn, scales, bias,
+                           col_ptr, rows, pidx, col_order, n_col_blocks,
+                           ranges, per_range, ws, out, act, tau, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), row-major; out: (M, N)
@@ -565,4 +700,38 @@ extern "C" int bsm_thin_launch(const void* x, int x_bf16, int M, int K,
   return (int)thin_w<float>(wkind, tm, x, M, K, blocks, bk, bn, scales, bias,
                             col_ptr, rows, pidx, n_col_blocks, ranges,
                             per_range, ws, out, act, tau, s);
+}
+
+// The tensor-core route: bf16 x (M, K) at a 16-byte aligned address, a
+// 1-byte container (int8, int4x2, int2x4) of n_blocks blocks at a 16-byte
+// aligned address, bk % 64 == 0, bn % 128 == 0.  m_tile: rows per CTA (64
+// or 128).  Column block c's schedule entries are cut into ranges of
+// per_range blocks, `ranges` of them for the fullest column (at least 1);
+// with ranges > 1, ws: (ranges, M, N) f32 scratch and a reduce pass.  out:
+// (M, N) bf16.  col_order: (n_col_blocks,) int32, the order in which the
+// column blocks are started.  Other arguments as bsm_launch.  Returns the
+// launches' cudaError_t.
+extern "C" int bsm_tc_launch(const void* x, int M, int K, const void* blocks,
+                             int wkind, int n_blocks, int bk, int bn,
+                             const float* scales, const float* bias,
+                             const int* col_ptr, const int* rows,
+                             const int* pidx, const int* col_order,
+                             int n_col_blocks, int ranges, int per_range,
+                             float* ws, void* out, int m_tile, int act,
+                             float tau, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RT_W(KIND)                                                            \
+  case KIND:                                                                  \
+    return (int)tc_m<KIND>(m_tile, x, M, K, blocks, n_blocks, bk, bn, scales, \
+                           bias, col_ptr, rows, pidx, col_order,              \
+                           n_col_blocks, ranges, per_range, ws, out, act,     \
+                           tau, s);
+  switch (wkind) {
+    RT_W(rt::W_I8)
+    RT_W(rt::W_U4)
+    RT_W(rt::W_U2)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RT_W
 }

@@ -1,6 +1,6 @@
-// Shared device helpers of the port's hand-written Hopper kernels: the
-// fused-epilogue activations, the float conversions and the sub-byte code
-// decoders.  Every formula here matches the plain PyTorch versions beside
+// Shared helpers of the port's hand-written Hopper kernels: the
+// fused-epilogue activations, the float conversions, the sub-byte code
+// decoders and the launch of a programmatic dependent (a reduce pass).  Every formula here matches the plain PyTorch versions beside
 // the kernels (repro_torch.kernels.sparse_matmul.kernel.apply_activation and
 // repro_torch.core.quant.unpack_codes).
 #pragma once
@@ -86,5 +86,25 @@ struct WTraits<W_U2> {  // int2x4: four crumbs, low field first
     return (float)((int)(((v >> (2 * t)) & 0x3) ^ 2) - 2);
   }
 };
+
+// Launches `kern` on `stream`; with `pdl` as a programmatic dependent of the
+// kernel before it (its CTAs may start while that grid runs and wait for
+// its end at `griddepcontrol.wait`).  Returns the launch's cudaError_t.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_dependent(void (*kern)(KArgs...), dim3 grid, dim3 block,
+                             cudaStream_t stream, bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kern, static_cast<KArgs>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 }  // namespace rt

@@ -1,8 +1,10 @@
 // Quantised dense matmul: y = act((x @ Wq) * s + b) with int8 codes or
-// bit-packed int4x2 / int2x4 codes along K.  Two kernels, one per route of
-// `qmm_plan` in kernels/quant_matmul/kernel.py: the thin-M kernel for M <= 16
-// (decode) with N % 4 == 0, and the tiled kernel for everything else
-// (prefill chunks and full-sequence forwards, M > 16).
+// bit-packed int4x2 / int2x4 codes along K.  Three kernels, one per route of
+// `qmm_route` in kernels/quant_matmul/kernel.py: the thin-M kernel for M <=
+// 16 (decode) with N % 4 == 0; the tensor-core kernel for bf16 x past 16
+// rows (full-sequence forwards, wide prefill chunks) with K % 64 == 0,
+// N % 128 == 0 and 16-byte aligned operands; and the tiled kernel, the
+// first design on the CUDA cores, for everything else (f32 x, odd widths).
 //
 // Replaces the Pallas kernel repro/kernels/quant_matmul/kernel.py:125
 // (`quant_matmul`; bodies `_kernel` :42 and `_kernel_packed_db` :68).
@@ -10,17 +12,29 @@
 // What it computes, as the TPU kernel does: codes are decoded in registers
 // and accumulated against x in f32 WITHOUT their scale; the per-output-
 // channel scale is applied once to the full K sum at emit, followed by the
-// bias and the activation.  (The block-sparse kernel applies its scale
-// before the dot; the two orders are kept as they are in the reference.)
-// Rows >= M are masked.
+// bias and the activation.  (The block-sparse kernels' CUDA-core routes
+// apply their scale before the dot, as the reference does there; their
+// tensor-core route applies it at emit too.)  Rows >= M are masked.
 //
-// What bounds it on the H100: bytes.  At decode shapes every weight byte
-// feeds only M FMAs, so the floor is the code stream over HBM bandwidth, and
-// the packed containers halve or quarter it.  Both kernels read the
-// container once, in its packed form, decoding in registers.
+// What bounds it on the H100: bytes at decode shapes, operations past a
+// few hundred rows.  At decode shapes every weight byte feeds only M FMAs,
+// so the floor is the code stream over HBM bandwidth, and the packed
+// containers halve or quarter it.  Every kernel reads the container once
+// per tile, in its packed form.  At M = 512 each weight byte feeds 1024
+// (int8) to 4096 (int2x4) operations, above the ~295 per byte where the
+// tensor cores, not the memory, are the limit.
+//
+// The tensor-core kernel (`qmm_tc_kernel`) runs tc_matmul.cuh's pipeline:
+// 64 or 128 rows by 128 columns per CTA, 64-code K steps of x and packed
+// codes copied ahead by TMA from a producer warp, the codes decoded to
+// exact bf16 in registers as wgmma's A operand of the transposed product,
+// x read from shared memory, f32 accumulators.  A grid whose tiles alone
+// are far from one wave of the card (one CTA per SM) is cut along K into
+// splits whose f32 partials `tcm::reduce_kernel` adds in split order,
+// then scales, biases and activates.
 //
 // The thin-M kernel (`qmm_thin_kernel`) is built to keep enough bytes in
-// flight to approach that floor.  Each lane loads 4 bytes (4 columns) of a
+// flight to approach the byte floor.  Each lane loads 4 bytes (4 columns) of a
 // byte row, so a warp reads a whole 128-byte line; each CTA owns 128
 // columns and one of `k_splits` ranges of whole byte rows, chosen so that
 // even a 512-column leaf launches at least 2 x 132 CTAs; its 4 warps take
@@ -39,9 +53,9 @@
 // 32-column slice) of the output per CTA and loops over all of K; its eight
 // warps take interleaved byte rows, one byte per lane per load, and their
 // partial sums are reduced once in shared memory.  x is staged in rounds of
-// up to 32 KB.  Its FMAs run on the CUDA cores with no software pipeline; at
-// M > 16 a tensor-core design is the step that approaches the bound.
+// up to 32 KB.  Its FMAs run on the CUDA cores with no software pipeline.
 #include "common.cuh"
+#include "tc_matmul.cuh"
 
 namespace {
 
@@ -344,6 +358,18 @@ __global__ void __launch_bounds__(32 * RD_WARPS)
   out[i] = rt::from_f32<XT>(rt::apply_act(v, act, tau));
 }
 
+// The reduce pass over `splits` partials, a programmatic dependent of the
+// kernel launched just before it.
+template <typename XT>
+cudaError_t reduce(const float* ws, int splits, int M, int N,
+                   const float* scales, const float* bias, void* out, int act,
+                   float tau, cudaStream_t stream) {
+  return rt::launch_dependent(qmm_reduce_kernel<XT>, dim3((M * N + 31) / 32),
+                              dim3(32 * RD_WARPS), stream, true, ws, splits,
+                              M, N, scales, bias, static_cast<XT*>(out), act,
+                              tau);
+}
+
 template <typename XT, int WK, int TM>
 cudaError_t thin_t(const void* x, int M, int K, const void* w, int N,
                    int k_splits, int rows_per_split, const float* scales,
@@ -358,21 +384,9 @@ cudaError_t thin_t(const void* x, int M, int K, const void* w, int N,
       static_cast<const XT*>(x), M, K, static_cast<const uint8_t*>(w), N,
       rows_per_split, scales, bias, k_splits > 1 ? ws : nullptr,
       static_cast<XT*>(out), act, tau);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || k_splits == 1) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M * N + 31) / 32);
-  cfg.blockDim = dim3(32 * RD_WARPS);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qmm_reduce_kernel<XT>,
-                           static_cast<const float*>(ws), k_splits, M, N,
-                           scales, bias, static_cast<XT*>(out), act, tau);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return reduce<XT>(ws, k_splits, M, N, scales, bias, out, act, tau, stream);
 }
 
 template <typename XT, int WK>
@@ -416,6 +430,95 @@ cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
 }
 
 
+// ------------------------------------------------------- tensor-core route
+
+// One CTA per (128-column tile, m_tile-row tile, K split): the split's steps
+// of 64 codes through tc_matmul.cuh's pipeline, then either the emit
+// act(acc * s + b) in bf16 (one split) or the raw f32 partial, which the
+// reduce pass scales, biases and activates.  tmx / tmc: the tensor maps of
+// x and of the codes (tcm::tile_maps).
+template <int BM, int WK>
+__global__ void __launch_bounds__(tcm::NT)
+    qmm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                  const __grid_constant__ CUtensorMap tmc, int M, int K,
+                  int N, int steps_per_split, const float* __restrict__ scales,
+                  const float* __restrict__ bias, float* __restrict__ ws,
+                  __nv_bfloat16* __restrict__ out, int act, float tau) {
+  constexpr int R = rt::WTraits<WK>::R;
+  extern __shared__ uint8_t smem_raw[];
+  // the reduce kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  uint32_t sbase;
+  uint8_t* smem = tcm::aligned_smem(smem_raw, sbase);
+  const int n0 = blockIdx.x * tcm::BN, m0 = blockIdx.y * BM;
+  const int split = blockIdx.z;
+  const int s0 = split * steps_per_split;
+  const int nsteps = min(steps_per_split, K / tcm::BK - s0);
+  tcm::init_stages<BM, WK>(sbase);
+  if (threadIdx.x >= tcm::NTC) {
+    tcm::produce<BM, WK>(sbase, &tmx, &tmc, m0, n0, nsteps,
+                         [&](int s, int& kx, int& crow) {
+                           kx = (s0 + s) * tcm::BK;
+                           crow = kx / R;
+                         });
+    return;
+  }
+  float acc[BM / 2];
+  tcm::consume<BM, WK>(smem, sbase, nsteps, acc);
+  if (ws != nullptr)
+    tcm::emit<BM>(acc, m0, M, n0, N, nullptr, nullptr,
+                  ws + (size_t)split * M * N, nullptr, act, tau);
+  else
+    tcm::emit<BM>(acc, m0, M, n0, N, scales, bias, nullptr, out, act, tau);
+}
+
+template <int BM, int WK>
+cudaError_t tc_t(const void* x, int M, int K, const void* w, int N,
+                 int k_splits, int steps_per_split, const float* scales,
+                 const float* bias, float* ws, void* out, int act, float tau,
+                 cudaStream_t stream) {
+  const int steps = K / tcm::BK;
+  if (K % tcm::BK != 0 || N % tcm::BN != 0 || k_splits < 1 ||
+      steps_per_split < 1 || (k_splits - 1) * steps_per_split >= steps ||
+      k_splits * steps_per_split < steps || (k_splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmc;
+  if (!tcm::tile_maps<BM, WK>(&tmx, &tmc, x, M, K, w,
+                              K / rt::WTraits<WK>::R, N))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = tcm::smem_bytes<BM, WK>(0);
+  auto kern = qmm_tc_kernel<BM, WK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N / tcm::BN, (M + BM - 1) / BM, k_splits);
+  kern<<<grid, tcm::NT, bytes, stream>>>(
+      tmx, tmc, M, K, N, steps_per_split, scales, bias,
+      k_splits > 1 ? ws : nullptr, static_cast<__nv_bfloat16*>(out), act,
+      tau);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || k_splits == 1) return err;
+  return tcm::reduce(ws, M, N, k_splits, nullptr, 0, 1, scales, bias, out,
+                     act, tau, stream);
+}
+
+template <int WK>
+cudaError_t tc_m(int m_tile, const void* x, int M, int K, const void* w,
+                 int N, int k_splits, int steps_per_split,
+                 const float* scales, const float* bias, float* ws, void* out,
+                 int act, float tau, cudaStream_t s) {
+  switch (m_tile) {
+    case 64:
+      return tc_t<64, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
+                         bias, ws, out, act, tau, s);
+    case 128:
+      return tc_t<128, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
+                         bias, ws, out, act, tau, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), row-major; out: (M, N)
@@ -451,4 +554,34 @@ extern "C" int qmm_thin_launch(const void* x, int x_bf16, int M, int K,
                                       act, tau, s);
   return (int)thin_w<float>(wkind, tm, x, M, K, w, N, k_splits, rows_per_split,
                             scales, bias, ws, out, act, tau, s);
+}
+
+// The tensor-core route: bf16 x (M, K) at a 16-byte aligned address, K % 64
+// == 0, N % 128 == 0, w 16-byte aligned.  m_tile: rows per CTA (64 or 128).
+// The K / 64 steps are cut into k_splits ranges of steps_per_split (the
+// last may be shorter); ws: (k_splits, M, N) f32 scratch, unused when
+// k_splits == 1.  out: (M, N) bf16.  Other arguments as qmm_launch.
+// Returns the launches' cudaError_t.
+extern "C" int qmm_tc_launch(const void* x, int M, int K, const void* w,
+                             int wkind, int N, int m_tile, int k_splits,
+                             int steps_per_split, const float* scales,
+                             const float* bias, float* ws, void* out, int act,
+                             float tau, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (wkind) {
+    case rt::W_I8:
+      return (int)tc_m<rt::W_I8>(m_tile, x, M, K, w, N, k_splits,
+                                 steps_per_split, scales, bias, ws, out, act,
+                                 tau, s);
+    case rt::W_U4:
+      return (int)tc_m<rt::W_U4>(m_tile, x, M, K, w, N, k_splits,
+                                 steps_per_split, scales, bias, ws, out, act,
+                                 tau, s);
+    case rt::W_U2:
+      return (int)tc_m<rt::W_U2>(m_tile, x, M, K, w, N, k_splits,
+                                 steps_per_split, scales, bias, ws, out, act,
+                                 tau, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

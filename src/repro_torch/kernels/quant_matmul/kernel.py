@@ -5,15 +5,18 @@ codes along K; the scale multiplies the f32 accumulator at emit.  The
 kernels of ``csrc/quant_matmul.cu`` replace the Pallas ``quant_matmul`` of
 ``repro.kernels.quant_matmul.kernel``; their plain PyTorch version is
 :func:`repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`.
-:func:`qmm_plan` picks the route from the shapes: the thin-M kernel (K split
-across CTAs, a deterministic second pass) for decode rows, M <= 16, or the
-tiled kernel for the rest.  :func:`quant_conv` is the fused conv over the
+:func:`qmm_route` picks the route from the shapes: the thin-M kernel
+(:func:`qmm_plan`: K split across CTAs, a deterministic second pass) for
+decode rows, M <= 16; the tensor-core kernel (:func:`qmm_tc_plan`: wgmma
+tiles, K split when the tiles alone are far from one wave of the card) for
+bf16 rows past 16 at aligned widths; the tiled kernel, the first design on
+the CUDA cores, for the rest.  :func:`quant_conv` is the fused conv over the
 same codes (``csrc/quant_conv.cu``, plain version ``quant_conv_ref``).
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors, and only then.  ``launches`` counts calls of the matmul
-kernels (``launches_thin`` and ``launches_tiled`` those of each route),
-``conv_launches`` those of the conv kernel.
+kernels (``launches_thin``, ``launches_tc`` and ``launches_tiled`` those of
+each route), ``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ import torch
 
 from .. import build
 from ..sparse_matmul.kernel import (
+    TC_COLS,
+    TC_K_STEP,
+    TC_MIN_STEPS,
     X_DTYPES,
     _check_activation,
     act_args,
@@ -33,16 +39,20 @@ from ..sparse_matmul.kernel import (
     packed_ratio,
     ptr,
     rows_per_cta,
+    tc_cuts,
+    tc_m_tile,
     vec_f32,
     w_kind,
 )
 
-__all__ = ["QmmPlan", "conv_launches", "launches", "launches_thin",
-           "launches_tiled", "qmm_plan", "quant_conv", "quant_matmul"]
+__all__ = ["QmmPlan", "QmmTcPlan", "conv_launches", "launches",
+           "launches_tc", "launches_thin", "launches_tiled", "qmm_plan",
+           "qmm_route", "qmm_tc_plan", "quant_conv", "quant_matmul"]
 
 # kernel launches since the counters were last set to 0
-launches = 0         # quant_matmul, both routes
+launches = 0         # quant_matmul, every route
 launches_thin = 0    # quant_matmul, thin-M route
+launches_tc = 0      # quant_matmul, tensor-core route
 launches_tiled = 0   # quant_matmul, tiled route
 conv_launches = 0    # quant_conv
 
@@ -82,6 +92,57 @@ def qmm_plan(M: int, K: int, N: int, ratio: int,
     return QmmPlan(THIN_COLS, -(-rows // per), per)
 
 
+class QmmTcPlan(NamedTuple):
+    """The tensor-core kernel's grid: ``m_tile`` rows (64 or 128) by
+    ``n_tile`` columns per CTA, by ``k_splits`` ranges of ``steps_per_split``
+    steps of :data:`TC_K_STEP` codes (the last range may be shorter)."""
+    m_tile: int
+    n_tile: int
+    k_splits: int
+    steps_per_split: int
+
+
+def qmm_tc_plan(M: int, K: int, N: int,
+                m_tile: Optional[int] = None) -> QmmTcPlan:
+    """The tensor-core kernel's tiles and K splits: the K / :data:`TC_K_STEP`
+    steps cut into :func:`tc_cuts` even splits (none when the ``ceil(M /
+    m_tile) * N / TC_COLS`` tiles alone reach about one wave of the card),
+    each of at least :data:`TC_MIN_STEPS` steps when K has that many;
+    ``m_tile`` (64 or 128) by :func:`tc_m_tile` unless given."""
+    steps = K // TC_K_STEP
+    n_tiles = N // TC_COLS
+
+    def plan(m):
+        splits = min(tc_cuts(-(-M // m) * n_tiles),
+                     max(steps // TC_MIN_STEPS, 1))
+        per = -(-steps // splits)
+        return QmmTcPlan(m, TC_COLS, -(-steps // per), per)
+
+    if m_tile is None:
+        m_tile = tc_m_tile(M, n_tiles, plan(128).steps_per_split)
+    return plan(m_tile)
+
+
+def qmm_route(M: int, K: int, N: int, ratio: int, x_bf16: bool,
+              w_ptr: int = 0, x_ptr: int = 0):
+    """``(route, plan)`` of a quant matmul, as a shape rule.
+
+    ``("thin_m", QmmPlan)`` when :func:`qmm_plan` gives a plan (M <= 16);
+    else ``("tensor_core", QmmTcPlan)`` when x is bf16, ``K`` is a multiple
+    of :data:`TC_K_STEP` (whole steps, and x rows in 16-byte copies), ``N``
+    a multiple of :data:`TC_COLS` (whole column tiles) and both ``x_ptr``
+    and ``w_ptr`` are 16-byte aligned; else ``("tiled", None)``, the
+    CUDA-core kernel (f32 x, odd widths).  Every container is 1-byte
+    (int8, int4x2, int2x4), which the tensor-core kernel takes."""
+    plan = qmm_plan(M, K, N, ratio, w_ptr)
+    if plan is not None:
+        return "thin_m", plan
+    if x_bf16 and M > THIN_M_MAX and K % TC_K_STEP == 0 \
+            and N % TC_COLS == 0 and w_ptr % 16 == 0 and x_ptr % 16 == 0:
+        return "tensor_core", qmm_tc_plan(M, K, N)
+    return "tiled", None
+
+
 def _lib():
     fn = build.library("quant_matmul").qmm_launch
     if fn.argtypes is None:
@@ -96,6 +157,16 @@ def _thin_lib():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, I, I, P, I, I, I, I, P, P, P, P, I, I,
+                       ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _tc_lib():
+    fn = build.library("quant_matmul").qmm_tc_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, I, I, I, I, I, P, P, P, P, I,
                        ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
@@ -117,7 +188,7 @@ def quant_matmul(
     uint8 container ``(K / ratio, N)`` packed along K (K divisible by the
     ratio).  ``name`` labels errors (the dispatch passes the leaf name).
     """
-    global launches, launches_thin, launches_tiled
+    global launches, launches_thin, launches_tc, launches_tiled
     ratio = packed_ratio(packed)
     M, K = x.shape
     N = int(w_q.shape[1])
@@ -140,20 +211,26 @@ def quant_matmul(
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
     if M < 1:
         raise ValueError(f"{name}: needs at least one row, got M={M}")
-    plan = qmm_plan(M, K, N, ratio, w_q.data_ptr())
-    out = _launch(x, w_q, scales, bias, activation, ratio, plan, name)
+    route, plan = qmm_route(M, K, N, ratio, x.dtype == torch.bfloat16,
+                            w_q.data_ptr(), x.data_ptr())
+    out = _launch(x, w_q, scales, bias, activation, ratio, route, plan, name)
     launches += 1
-    if plan is None:
-        launches_tiled += 1
-    else:
+    if route == "thin_m":
         launches_thin += 1
+    elif route == "tensor_core":
+        launches_tc += 1
+    else:
+        launches_tiled += 1
     return out
 
 
-def _launch(x, w_q, scales, bias, activation, ratio: int,
-            plan: Optional[QmmPlan], name: str) -> torch.Tensor:
-    """Launch the thin-M kernel with ``plan``, or the tiled kernel when it is
-    None, on CUDA operands; counts nothing (the wrapper counts)."""
+def _launch(x, w_q, scales, bias, activation, ratio: int, route: str,
+            plan=None, name: str = "quant_matmul", ws=None) -> torch.Tensor:
+    """Launch ``route``'s kernel ("thin_m" or "tensor_core" with its
+    ``plan``, or "tiled") on CUDA operands; counts nothing (the wrapper
+    counts).  Any route may be asked for, to time one beside another.
+    ``ws``: the (k_splits, M, N) f32 workspace of a split plan, kept by the
+    caller to read the partials (else one is allocated)."""
     M, K = x.shape
     N = int(w_q.shape[1])
     code, tau = act_args(activation)
@@ -170,16 +247,24 @@ def _launch(x, w_q, scales, bias, activation, ratio: int,
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     x_bf16 = int(x.dtype == torch.bfloat16)
-    if plan is None:
+    if route == "tiled":
         err = _lib()(ptr(x), x_bf16, M, K, ptr(w_q), kind, N, ptr(s), ptr(b),
                      ptr(out), rows_per_cta(M), code, tau, stream)
+    elif route in ("thin_m", "tensor_core"):
+        if ws is None and plan.k_splits > 1:
+            ws = torch.empty((plan.k_splits, M, N), dtype=torch.float32,
+                             device=dev)
+        if route == "thin_m":
+            err = _thin_lib()(ptr(x), x_bf16, M, K, ptr(w_q), kind, N,
+                              plan.k_splits, plan.rows_per_split, ptr(s),
+                              ptr(b), ptr(ws), ptr(out), rows_per_cta(M),
+                              code, tau, stream)
+        else:
+            err = _tc_lib()(ptr(x), M, K, ptr(w_q), kind, N, plan.m_tile,
+                            plan.k_splits, plan.steps_per_split, ptr(s),
+                            ptr(b), ptr(ws), ptr(out), code, tau, stream)
     else:
-        ws = torch.empty((plan.k_splits, M, N), dtype=torch.float32,
-                         device=dev) if plan.k_splits > 1 else None
-        err = _thin_lib()(ptr(x), x_bf16, M, K, ptr(w_q), kind, N,
-                          plan.k_splits, plan.rows_per_split, ptr(s), ptr(b),
-                          ptr(ws), ptr(out), rows_per_cta(M), code, tau,
-                          stream)
+        raise ValueError(f"{name}: unknown route {route!r}")
     build.check(err, name)
     return out
 

@@ -9,14 +9,19 @@ present (bk, bn) blocks exist, enumerated by a static schedule.  The kernel
 :func:`block_sparse_conv` is the fused conv over the same block format
 (``csrc/block_sparse_conv.cu``, plain version ``block_sparse_conv_ref``).
 
-:func:`bsm_plan` picks the matmul's route from the shapes: the thin-M
-kernel (each column's blocks split across CTAs, a deterministic second
-pass) for decode rows of 1-byte containers, or the tiled kernel.
+:func:`bsm_route` picks the matmul's route from the shapes: the thin-M
+kernel (:func:`bsm_plan`: each column's blocks split across CTAs, a
+deterministic second pass) for decode rows of 1-byte containers; the
+tensor-core kernel (:func:`bsm_tc_plan`: wgmma tiles over each column's
+present blocks, columns cut into ranges when the tiles alone are far from
+one wave of the card) for bf16 rows past 16 over 1-byte containers at
+aligned block shapes; the tiled kernel, the first design on the CUDA cores,
+for the rest.
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors, and only then.  ``launches`` counts launches of the
-matmul kernels (``launches_thin`` and ``launches_tiled`` those of each
-route), ``conv_launches`` those of the conv kernel.
+matmul kernels (``launches_thin``, ``launches_tc`` and ``launches_tiled``
+those of each route), ``conv_launches`` those of the conv kernel.
 """
 from __future__ import annotations
 
@@ -30,14 +35,16 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["ACTIVATIONS", "BsmPlan", "POOL_MODES", "Schedule",
+__all__ = ["ACTIVATIONS", "BsmPlan", "BsmTcPlan", "POOL_MODES", "Schedule",
            "apply_activation", "block_sparse_conv", "block_sparse_matmul",
-           "bsm_plan", "conv_launches", "im2col_valid", "launches",
-           "launches_thin", "launches_tiled", "make_schedule", "pool_nhwc"]
+           "bsm_plan", "bsm_route", "bsm_tc_plan", "conv_launches",
+           "im2col_valid", "launches", "launches_tc", "launches_thin",
+           "launches_tiled", "make_schedule", "pool_nhwc"]
 
 # kernel launches since the counters were last set to 0
-launches = 0         # block_sparse_matmul, both routes
+launches = 0         # block_sparse_matmul, every route
 launches_thin = 0    # block_sparse_matmul, thin-M route
+launches_tc = 0      # block_sparse_matmul, tensor-core route
 launches_tiled = 0   # block_sparse_matmul, tiled route
 conv_launches = 0    # block_sparse_conv
 
@@ -45,6 +52,11 @@ THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
 THIN_COLS = 128      # output columns per CTA of the thin-M kernel
 THIN_XCAP = 16384    # floats of x one thin-M CTA stages (its blocks' rows)
 THIN_CTA_CAP = 8 * 132  # CTAs of a thin-M grid, at most: eight per H100 SM
+TC_COLS = 128        # output columns per CTA of the tensor-core kernel
+TC_K_STEP = 64       # codes of K per pipeline step of the tensor-core kernel
+TC_SMS = 132         # SMs of an H100: a tensor-core grid aims at one CTA each
+TC_MIN_STEPS = 4     # K steps per CTA, at least, of a grid cut along K
+TC_LONG_STEPS = 12   # K steps a 128-row CTA needs to beat two 64-row CTAs
 
 # Fused epilogue nonlinearities, applied in f32.  gelu is the tanh form,
 # which is jax.nn.gelu's default (torch's own default is the erf form).
@@ -163,6 +175,8 @@ class Schedule:
     input row block ``rows[i]`` and its index ``pidx[i]`` into the compacted
     block stack.  ``block_rows`` / ``block_cols`` keep the pattern's own
     (row-major) coordinates on the host for the plain version.
+    ``col_order`` lists the column blocks by falling block count (the
+    tensor-core kernel starts the longest columns first).
     """
 
     col_ptr: torch.Tensor   # (n_col_blocks + 1,) int32
@@ -174,6 +188,7 @@ class Schedule:
     n_col_blocks: int
     col_counts: np.ndarray  # (n_col_blocks,) present blocks per column, host
     max_blocks_per_col: int
+    col_order: torch.Tensor  # (n_col_blocks,) int32, the fullest column first
 
 
 def make_schedule(block_rows, block_cols, n_row_blocks: int,
@@ -192,7 +207,8 @@ def make_schedule(block_rows, block_cols, n_row_blocks: int,
                     pidx=as_dev(order), block_rows=block_rows,
                     block_cols=block_cols, n_row_blocks=int(n_row_blocks),
                     n_col_blocks=int(n_col_blocks), col_counts=counts,
-                    max_blocks_per_col=int(counts.max(initial=0)))
+                    max_blocks_per_col=int(counts.max(initial=0)),
+                    col_order=as_dev(np.argsort(-counts, kind="stable")))
 
 
 class BsmPlan(NamedTuple):
@@ -235,6 +251,85 @@ def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
     return BsmPlan(per, -(-max_blocks_per_col // per), slices)
 
 
+def tc_cuts(tiles: int) -> int:
+    """Cuts along K (K splits or ranges of a column's blocks) that bring a
+    grid of ``tiles`` tiles nearest to one CTA per SM: ``TC_SMS / tiles``
+    rounded, at least 1.  On the H100 one wave of about 132 CTAs measured
+    faster than the next larger grid (two waves of shorter chains)."""
+    return max(1, (2 * TC_SMS + tiles) // (2 * tiles))
+
+
+def tc_m_tile(M: int, n_tiles: int, chain128: int) -> int:
+    """Rows per CTA of the tensor-core kernels over ``n_tiles`` column
+    tiles, given the K steps a 128-row CTA of the plan would walk
+    (``chain128``): 64 when M fits one 64-row tile, or when 64-row tiles
+    alone make about two waves (two 64-row CTAs share an SM and overlap
+    each other's decode); else 128 when a 128-row CTA keeps at least
+    :data:`TC_LONG_STEPS` steps (twice the rows per decoded code tile);
+    else 64."""
+    if M <= 64 or 2 * -(-M // 64) * n_tiles >= 3 * TC_SMS:
+        return 64
+    return 128 if chain128 >= TC_LONG_STEPS else 64
+
+
+class BsmTcPlan(NamedTuple):
+    """The tensor-core kernel's grid: ``m_tile`` rows (64 or 128) by
+    ``n_tile`` columns of an output column block per CTA, by each column's
+    schedule entries cut into ranges of ``blocks_per_range`` blocks,
+    ``ranges_per_col`` of them for the fullest column."""
+    m_tile: int
+    n_tile: int
+    blocks_per_range: int
+    ranges_per_col: int
+
+
+def bsm_tc_plan(M: int, bk: int, bn: int, n_col_blocks: int,
+                max_blocks_per_col: int,
+                m_tile: Optional[int] = None) -> BsmTcPlan:
+    """The tensor-core kernel's tiles and ranges: the fullest column's
+    blocks cut into :func:`tc_cuts` ranges of whole blocks (one range, a
+    whole column per CTA emitted in place, when the ``ceil(M / m_tile) *
+    n_col_blocks * bn / TC_COLS`` tiles alone reach about one wave), each of
+    at least :data:`TC_MIN_STEPS` steps, their partials added by a reduce
+    pass; ``m_tile`` (64 or 128) by :func:`tc_m_tile` unless given."""
+    n_tiles = n_col_blocks * (bn // TC_COLS)
+    spb = bk // TC_K_STEP    # steps per block
+
+    def plan(m):
+        per = -(-max_blocks_per_col // tc_cuts(-(-M // m) * n_tiles))
+        per = max(per, -(-TC_MIN_STEPS // spb))
+        return BsmTcPlan(m, TC_COLS, per,
+                         max(-(-max_blocks_per_col // per), 1))
+
+    if m_tile is None:
+        m_tile = tc_m_tile(M, n_tiles, plan(128).blocks_per_range * spb)
+    return plan(m_tile)
+
+
+def bsm_route(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
+              max_blocks_per_col: int, x_bf16: bool, w_ptr: int = 0,
+              elem_bytes: int = 1, x_ptr: int = 0):
+    """``(route, plan)`` of a block-sparse matmul, as a shape rule.
+
+    ``("thin_m", BsmPlan)`` when :func:`bsm_plan` gives a plan (M <= 16);
+    else ``("tensor_core", BsmTcPlan)`` when x is bf16, the container has
+    1-byte elements (int8, int4x2, int2x4), ``bk`` is a multiple of
+    :data:`TC_K_STEP` (whole steps; x rows in 16-byte copies), ``bn`` a
+    multiple of :data:`TC_COLS` (whole column tiles) and both ``x_ptr`` and
+    ``w_ptr`` are 16-byte aligned; else ``("tiled", None)``, the CUDA-core
+    kernel (f32 x, f32 / bf16 blocks, small blocks such as LeNet's)."""
+    plan = bsm_plan(M, bk, bn, ratio, n_col_blocks, max_blocks_per_col,
+                    w_ptr, elem_bytes)
+    if plan is not None:
+        return "thin_m", plan
+    if x_bf16 and M > THIN_M_MAX and elem_bytes == 1 and bk % TC_K_STEP == 0 \
+            and bk % ratio == 0 and bn % TC_COLS == 0 and w_ptr % 16 == 0 \
+            and x_ptr % 16 == 0:
+        return "tensor_core", bsm_tc_plan(M, bk, bn, n_col_blocks,
+                                          max_blocks_per_col)
+    return "tiled", None
+
+
 # ------------------------------------------------------------------ wrapper
 
 
@@ -255,6 +350,16 @@ def _thin_lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, I, I, P, I, I, I, P, P, P, P, P, I, I, I, P, P,
                        I, I, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _tc_lib():
+    fn = build.library("block_sparse_matmul").bsm_tc_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, I, I, I, I, P, P, P, P, P, P, I, I, I, P,
+                       P, I, I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -280,7 +385,7 @@ def block_sparse_matmul(
     thin decode batches (the TPU kernel's separate decode entry) need no
     padding.  ``name`` labels errors (the dispatch passes the leaf name).
     """
-    global launches, launches_thin, launches_tiled
+    global launches, launches_thin, launches_tc, launches_tiled
     ratio = packed_ratio(packed)
     P, bkp, bn = (int(d) for d in blocks.shape)
     bk = bkp * ratio
@@ -312,25 +417,31 @@ def block_sparse_matmul(
         raise ValueError(
             f"{name}: {P} blocks but the schedule lists "
             f"{int(schedule.rows.numel())}")
-    plan = bsm_plan(M, bk, bn, ratio, schedule.n_col_blocks,
-                    schedule.max_blocks_per_col, blocks.data_ptr(),
-                    blocks.element_size())
-    out = _launch(x, blocks, schedule, scales, bias, activation, ratio, plan,
-                  name)
+    route, plan = bsm_route(M, bk, bn, ratio, schedule.n_col_blocks,
+                            schedule.max_blocks_per_col,
+                            x.dtype == torch.bfloat16, blocks.data_ptr(),
+                            blocks.element_size(), x.data_ptr())
+    out = _launch(x, blocks, schedule, scales, bias, activation, ratio, route,
+                  plan, name)
     launches += 1
-    if plan is None:
-        launches_tiled += 1
-    else:
+    if route == "thin_m":
         launches_thin += 1
+    elif route == "tensor_core":
+        launches_tc += 1
+    else:
+        launches_tiled += 1
     return out
 
 
 def _launch(x, blocks, schedule: Schedule, scales, bias, activation,
-            ratio: int, plan: Optional[BsmPlan],
-            name: str = "block_sparse_matmul") -> torch.Tensor:
-    """Launch the thin-M kernel with ``plan``, or the tiled kernel when it
-    is None, on CUDA operands that passed the wrapper's checks; counts
-    nothing (the wrapper counts)."""
+            ratio: int, route: str, plan=None,
+            name: str = "block_sparse_matmul", ws=None) -> torch.Tensor:
+    """Launch ``route``'s kernel ("thin_m" or "tensor_core" with its
+    ``plan``, or "tiled") on CUDA operands that passed the wrapper's
+    checks; counts nothing (the wrapper counts).  Any route may be asked
+    for, to time one beside another.  ``ws``: the tensor-core route's
+    (ranges_per_col, M, N) f32 workspace, kept by the caller to read the
+    partials (else one is allocated)."""
     M, K = x.shape
     bn = int(blocks.shape[2])
     bk = int(blocks.shape[1]) * ratio
@@ -343,12 +454,23 @@ def _launch(x, blocks, schedule: Schedule, scales, bias, activation,
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     x_bf16 = int(x.dtype == torch.bfloat16)
-    if plan is None:
+    if route == "tiled":
         err = _lib()(ptr(x), x_bf16, M, K, ptr(blocks), kind, bk, bn, ptr(s),
                      ptr(b), ptr(schedule.col_ptr), ptr(schedule.rows),
                      ptr(schedule.pidx), schedule.n_col_blocks, ptr(out),
                      rows_per_cta(M), code, tau, stream)
-    else:
+    elif route == "tensor_core":
+        if ws is None and plan.ranges_per_col > 1:
+            ws = torch.empty((plan.ranges_per_col, M, N),
+                             dtype=torch.float32, device=dev)
+        err = _tc_lib()(ptr(x), M, K, ptr(blocks), kind, int(blocks.shape[0]),
+                        bk, bn, ptr(s), ptr(b), ptr(schedule.col_ptr),
+                        ptr(schedule.rows), ptr(schedule.pidx),
+                        ptr(schedule.col_order), schedule.n_col_blocks,
+                        plan.ranges_per_col,
+                        plan.blocks_per_range, ptr(ws), ptr(out), plan.m_tile,
+                        code, tau, stream)
+    elif route == "thin_m":
         ws = torch.empty((max(plan.ranges_per_col, 1), M, N),
                          dtype=torch.float32, device=dev)
         err = _thin_lib()(ptr(x), x_bf16, M, K, ptr(blocks), kind, bk, bn,
@@ -357,6 +479,8 @@ def _launch(x, blocks, schedule: Schedule, scales, bias, activation,
                           schedule.n_col_blocks, plan.ranges_per_col,
                           plan.blocks_per_range, ptr(ws), ptr(out),
                           rows_per_cta(M), code, tau, stream)
+    else:
+        raise ValueError(f"{name}: unknown route {route!r}")
     build.check(err, name)
     return out
 
