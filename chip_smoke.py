@@ -18,7 +18,10 @@ Phases, each fatal on failure:
    and full slots, bitwise equal across extents and calls) and of the flash
    kernel (tensor cores for bf16 Dh 64/128, CUDA cores for the rest: causal
    or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
-   gradient), requiring each call to take the route its shape rule names;
+   gradient) and of the fused convs (register-tiled at LeNet's shapes,
+   strided and unpooled, f32 and bf16 x; band for the 3 x 3 pool, and for
+   every register-tiled case again), requiring each call to take the route
+   its shape rule names;
    then time kernel, plain version and a one-call PyTorch yardstick at the
    shapes the main paths give it, beside the least time the card could take
    (``bound_ms``) and the first version of each redesigned kernel;
@@ -39,8 +42,9 @@ Phases, each fatal on failure:
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
    ``fc_stack_matmul`` x1 per forward (``quant_conv`` x2 with the convs
-   under "quant"), hold the logits against ``dispatch="twin"``, and time
-   images/s beside the masked-dense forward;
+   under "quant"), every conv on the register-tiled route, hold the logits
+   against ``dispatch="twin"``, and time images/s beside the masked-dense
+   forward;
 6. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
@@ -635,13 +639,47 @@ def f32_check(name, y, ref):
     return err
 
 
+def conv_check(name, y, ref):
+    """f32 outputs within ``F32_TOL`` of max|ref|; bf16 outputs (bf16 x,
+    f32 inside, one rounding at the store) within one bf16 step."""
+    if y.dtype != torch.bfloat16:
+        return f32_check(name, y, ref)
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    require(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    require(err <= tol_for(y.dtype, ref.float()),
+            f"{name}: max abs err {err} > one bf16 step of max|ref|")
+    return err
+
+
+CONV_ROUTES = {"reg_tile": "conv_launches_reg", "band": "conv_launches_band"}
+# the sweeps' (batch, x dtype) cases: f32 at three batches, then bf16
+CONV_BATCHES = [(1, torch.float32), (7, torch.float32),
+                (256, torch.float32), (7, torch.bfloat16)]
+
+
+def conv_sweep_call(mod, route, fn, band):
+    """Run a conv wrapper call ``fn`` and require it to take ``route`` (one
+    launch on that route's counter, none on the other's); then launch the
+    band route through ``band`` (the wrapper's ``_conv_launch`` with
+    route "band", uncounted).  Returns both outputs, the band one None when
+    the rule already chose band."""
+    y = took_route(mod, CONV_ROUTES, route, fn)
+    return y, (band() if route == "reg_tile" else None)
+
+
 def sweep_sparse_conv(rng, dev):
+    """block_sparse_conv against its plain version over CONV_GEOMS (LeNet's
+    conv1 and conv2, strides, dilation), every container, B in {1, 7, 256}
+    in f32 and B = 7 in bf16: each call must take the route ``conv_route``
+    names, and each call on the register-tiled route is repeated on the
+    band route (the first design), so both stay held at LeNet's shapes."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.sparse_matmul import kernel as K_
     from repro_torch.kernels.sparse_matmul.kernel import valid_out_hw
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_conv_ref
 
-    cases = 0
+    cases = {"reg_tile": 0, "band": 0}
     for gi, (gname, (H, W, C), khw, st, dl, (bk, bn), N) in \
             enumerate(CONV_GEOMS):
         K = C * khw[0] * khw[1]
@@ -651,7 +689,7 @@ def sweep_sparse_conv(rng, dev):
                       if c in ("f32", "int8") or bk % (2 if c == "int4x2"
                                                        else 4) == 0]
         for ci, container in enumerate(containers):
-            for bi, B in enumerate((1, 7, 256)):
+            for bi, (B, xdt) in enumerate(CONV_BATCHES):
                 empty = gi == 1 and ci == 1 and bi == 0
                 bitmap = rng.random((nR, nC)) < 0.5
                 bitmap[:, nC // 2] = False      # an absent column block
@@ -675,37 +713,61 @@ def sweep_sparse_conv(rng, dev):
                         blocks = pack_codes(vals, axis=1, bits=4 if
                                             container == "int4x2" else 2)
                 sched = K_.make_schedule(rows, cols, nR, nC, dev)
-                x = torch.randn((B, H, W, C), device=dev)
+                x = torch.randn((B, H, W, C), device=dev).to(xdt)
                 bias = torch.randn((N,), device=dev) if (ci + bi) % 2 \
                     else None
+                act = "relu" if bi % 2 == 0 else None
+                pool = conv_pool(POOLS[(ci + bi) % 3], Ho, Wo)
                 kw = dict(kernel_hw=khw, strides=st, dilation=dl,
-                          activation="relu" if bi % 2 == 0 else None,
-                          pool=conv_pool(POOLS[(ci + bi) % 3], Ho, Wo))
-                y = K_.block_sparse_conv(x, blocks, sched, scales=scales,
-                                         bias=bias, packed=packed, **kw)
+                          activation=act, pool=pool)
                 ref = block_sparse_conv_ref(
                     x, vals, rows, cols, n_row_blocks=nR, n_col_blocks=nC,
-                    scales=scales, bias=bias, **kw)
-                f32_check(f"block_sparse_conv {gname} {container} B={B} "
-                          f"pool={kw['pool']} empty={empty}", y, ref)
-                cases += 1
+                    scales=scales, bias=bias, out_dtype=xdt, **kw)
+                label = (f"block_sparse_conv {gname} {container} B={B} "
+                         f"{xdt} pool={pool} empty={empty}")
+                if empty:   # nothing to launch: act(b) everywhere
+                    y = K_.block_sparse_conv(x, blocks, sched, scales=scales,
+                                             bias=bias, packed=packed, **kw)
+                    conv_check(label, y, ref)
+                    continue
+                route, _ = K_.conv_route(
+                    B, H, W, C, khw, st, dl, pool, N, xdt, block=(bk, bn),
+                    max_blocks_per_col=sched.max_blocks_per_col)
+                y, yb = conv_sweep_call(
+                    K_, route,
+                    lambda: K_.block_sparse_conv(
+                        x, blocks, sched, scales=scales, bias=bias,
+                        packed=packed, **kw),
+                    lambda: K_._conv_launch(
+                        x, blocks, sched, khw, scales, bias, act, st, dl,
+                        pool, K_.packed_ratio(packed), "band"))
+                conv_check(f"{label} {route}", y, ref)
+                cases[route] += 1
+                if yb is not None:
+                    conv_check(f"{label} band", yb, ref)
+                    cases["band"] += 1
     return cases
 
 
 def sweep_quant_conv(rng, dev):
+    """quant_conv against its plain version over CONV_GEOMS, every
+    container, the batches of CONV_BATCHES; routes as in
+    :func:`sweep_sparse_conv`."""
     from repro_torch.core.quant import pack_codes
-    from repro_torch.kernels.quant_matmul.kernel import quant_conv
+    from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
-    from repro_torch.kernels.sparse_matmul.kernel import valid_out_hw
+    from repro_torch.kernels.sparse_matmul.kernel import (conv_route,
+                                                          packed_ratio,
+                                                          valid_out_hw)
 
-    cases = 0
+    cases = {"reg_tile": 0, "band": 0}
     for gname, (H, W, C), khw, st, dl, _, N in CONV_GEOMS:
         K = C * khw[0] * khw[1]
         Ho, Wo = valid_out_hw(H, W, khw, st, dl)
         containers = [c for c in ("int8", "int4x2", "int2x4")
                       if c == "int8" or K % (2 if c == "int4x2" else 4) == 0]
         for ci, container in enumerate(containers):
-            for bi, B in enumerate((1, 7, 256)):
+            for bi, (B, xdt) in enumerate(CONV_BATCHES):
                 qm = {"int8": 127, "int4x2": 7, "int2x4": 1}[container]
                 codes = torch.randint(-qm, qm + 1, (K, N),
                                       device=dev).to(torch.int8)
@@ -715,17 +777,30 @@ def sweep_quant_conv(rng, dev):
                     packed = container
                     w = pack_codes(codes, axis=0,
                                    bits=4 if container == "int4x2" else 2)
-                x = torch.randn((B, H, W, C), device=dev)
+                x = torch.randn((B, H, W, C), device=dev).to(xdt)
                 bias = torch.randn((N,), device=dev) if (ci + bi) % 2 \
                     else None
+                act = "relu" if bi % 2 == 0 else None
+                pool = conv_pool(POOLS[(ci + bi) % 3], Ho, Wo)
                 kw = dict(kernel_hw=khw, strides=st, dilation=dl,
-                          activation="relu" if bi % 2 == 0 else None,
-                          pool=conv_pool(POOLS[(ci + bi) % 3], Ho, Wo))
-                y = quant_conv(x, w, scales, bias, packed=packed, **kw)
-                ref = quant_conv_ref(x, codes, scales, bias, **kw)
-                f32_check(f"quant_conv {gname} {container} B={B} "
-                          f"pool={kw['pool']}", y, ref)
-                cases += 1
+                          activation=act, pool=pool)
+                route, _ = conv_route(B, H, W, C, khw, st, dl, pool, N, xdt)
+                y, yb = conv_sweep_call(
+                    qk, route,
+                    lambda: qk.quant_conv(x, w, scales, bias, packed=packed,
+                                          **kw),
+                    lambda: qk._conv_launch(
+                        x, w, scales, bias, khw, act, st, dl, pool,
+                        packed_ratio(packed), "band"))
+                ref = quant_conv_ref(x, codes, scales, bias, out_dtype=xdt,
+                                     **kw)
+                label = f"quant_conv {gname} {container} B={B} {xdt} " \
+                        f"pool={pool}"
+                conv_check(f"{label} {route}", y, ref)
+                cases[route] += 1
+                if yb is not None:
+                    conv_check(f"{label} band", yb, ref)
+                    cases["band"] += 1
     return cases
 
 
@@ -1005,6 +1080,8 @@ BSM_THIN, BSM_TC, BSM_TILED = ("block_sparse_matmul/thin_m",
 PDA_SPLIT, PDA_SINGLE = ("packed_decode_attention/split",
                          "packed_decode_attention/single")
 FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
+BSC_REG, BSC_BAND = "block_sparse_conv/reg_tile", "block_sparse_conv/band"
+QCONV_REG, QCONV_BAND = "quant_conv/reg_tile", "quant_conv/band"
 
 
 def counters():
@@ -1031,7 +1108,11 @@ def counters():
             PDA_SPLIT: (decode_packed, "launches_split"),
             PDA_SINGLE: (decode_packed, "launches_single"),
             FLASH_TC: (fk, "launches_tc"),
-            FLASH_CC: (fk, "launches_cc")}
+            FLASH_CC: (fk, "launches_cc"),
+            BSC_REG: (sk, "conv_launches_reg"),
+            BSC_BAND: (sk, "conv_launches_band"),
+            QCONV_REG: (qk, "conv_launches_reg"),
+            QCONV_BAND: (qk, "conv_launches_band")}
 
 
 def reset_counts():
@@ -1273,13 +1354,14 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
 
 
 LENET_NAMES = ("conv1", "conv2", "fc1", "fc2", "fc3")
-# policies of each configuration, and the launches one fused forward needs
+# policies of each configuration, and the launches one fused forward needs:
+# both convs on the register-tiled route, none on the band route
 LENET_CONFIGS = {
     "table1": ({n: "sparse" for n in LENET_NAMES},
-               {"block_sparse_conv": 2, "fc_stack_matmul": 1}),
+               {"block_sparse_conv": 2, BSC_REG: 2, "fc_stack_matmul": 1}),
     "quant_conv": ({**{n: "sparse" for n in LENET_NAMES}, "conv1": "quant",
                     "conv2": "quant"},
-                   {"quant_conv": 2, "fc_stack_matmul": 1}),
+                   {"quant_conv": 2, QCONV_REG: 2, "fc_stack_matmul": 1}),
 }
 
 
@@ -1440,9 +1522,12 @@ def measure_lenet_kernels(params, x, cms, dev):
     from repro_torch.core.dispatch import _payload_dense_f32, conv_dispatch
     from repro_torch.kernels.fc_stack import (fc_stack_matmul,
                                               fc_stack_matmul_ref)
+    from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.kernel import quant_conv
     from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
-    from repro_torch.kernels.sparse_matmul.kernel import block_sparse_conv
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+    from repro_torch.kernels.sparse_matmul.kernel import (
+        block_sparse_conv, conv_route, packed_ratio)
     from repro_torch.kernels.sparse_matmul.ops import schedule_for
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_conv_ref
 
@@ -1463,12 +1548,14 @@ def measure_lenet_kernels(params, x, cms, dev):
         xn = xin.permute(0, 3, 1, 2).contiguous()
         return lambda i: lambda: F.conv2d(xn, w4)
 
-    def add(name, source, replaces, counts, rows, shape, library_note):
+    def add(name, source, replaces, counts, rows, shape, library_note,
+            routes=()):
         """One kernels-line entry: times summed over the kernel's launches
         in one forward; the bound of their total bytes and operations."""
         tot = {k: sum(r[k] for r in rows) for k in
-               ("ms", "plain_ms", "library_ms", "bytes", "ops")
-               if all(r[k] is not None for r in rows)}
+               ("ms", "plain_ms", "library_ms", "bytes", "ops",
+                "first_version_ms")
+               if all(r.get(k) is not None for r in rows)}
         bms, by = bound(tot["bytes"], tot["ops"], "f32")
         for r in rows:
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], "f32")
@@ -1480,7 +1567,16 @@ def measure_lenet_kernels(params, x, cms, dev):
             "bound_ms": bms, "bound_by": by,
             "library_ms": tot.get("library_ms"), "shape": shape,
             "library": library_note, "l2": "warm"})
+        if "first_version_ms" in tot:
+            entries[-1]["first_version_ms"] = tot["first_version_ms"]
+            entries[-1]["launches_by_route"] = {k: counts[k] for k in routes}
         details[name] = rows
+
+    def plan_note(route, plan):
+        return route if plan is None else (
+            f"{route}: {plan.ct} columns x 4 positions a thread, "
+            f"{plan.img} images x {plan.ks} K parts a CTA, "
+            f"{plan.grid[0] * plan.grid[1]} CTAs of {plan.threads}")
 
     # block_sparse_conv: the Table-I configuration's conv1 and conv2
     cm, counts = cms["table1"]
@@ -1497,6 +1593,10 @@ def measure_lenet_kernels(params, x, cms, dev):
         cls = torch.as_tensor(pat.block_cols, device=dev)
         b = params[lname + "_b"]
         kw = dict(kernel_hw=cp.kernel[:2], activation="relu", pool=pool)
+        B, H, W, C = (int(d) for d in xin.shape)
+        route, plan = conv_route(B, H, W, C, cp.kernel[:2], (1, 1), (1, 1),
+                                 pool, cp.N, xin.dtype, block=(bk, bn),
+                                 max_blocks_per_col=sched.max_blocks_per_col)
         y = block_sparse_conv(xin, blocks, sched, scales=pl.scales, bias=b,
                               packed=packed, **kw)
         ref = block_sparse_conv_ref(xin, vals, rws, cls, n_row_blocks=nR,
@@ -1504,7 +1604,6 @@ def measure_lenet_kernels(params, x, cms, dev):
                                     bias=b, **kw)
         err = f32_check(f"block_sparse_conv {lname} at B={LENET_BATCH}", y,
                         ref)
-        B, H, W, C = xin.shape
         Ho, Wo = H - cp.kernel[0] + 1, W - cp.kernel[1] + 1
         P = pat.n_blocks_present
         rows.append({
@@ -1518,14 +1617,22 @@ def measure_lenet_kernels(params, x, cms, dev):
             "plain_ms": device_ms(lambda i: lambda: block_sparse_conv_ref(
                 xin, vals, rws, cls, n_row_blocks=nR, n_col_blocks=nC,
                 scales=pl.scales, bias=b, **kw), N_CALLS),
+            # the first design (band route) at the same shape, this run
+            "first_version_ms": device_ms(
+                lambda i: lambda: sk._conv_launch(
+                    xin, blocks, sched, cp.kernel[:2], pl.scales, b, "relu",
+                    (1, 1), (1, 1), pool, packed_ratio(packed), "band"),
+                N_CALLS),
             "library_ms": device_ms(library(cp, xin), N_CALLS),
             "shape": f"x {tuple(xin.shape)} K={cp.K} N={cp.N} blocks {P}/"
                      f"{pat.n_blocks_total} of {pat.block} "
-                     f"{packed or str(blocks.dtype).split('.')[-1]}"})
+                     f"{packed or str(blocks.dtype).split('.')[-1]}, "
+                     f"{plan_note(route, plan)}"})
     add("block_sparse_conv", "src/repro_torch/csrc/block_sparse_conv.cu",
         "src/repro/kernels/sparse_matmul/kernel.py:537", counts, rows,
         "; ".join(r["shape"] for r in rows),
-        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)")
+        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)",
+        (BSC_REG, BSC_BAND))
 
     # quant_conv: the quant-conv configuration's conv1 and conv2
     cm, counts = cms["quant_conv"]
@@ -1535,10 +1642,12 @@ def measure_lenet_kernels(params, x, cms, dev):
         sc = cp.payload.scales.reshape(-1)
         b = params[lname + "_b"]
         kw = dict(kernel_hw=cp.kernel[:2], activation="relu", pool=pool)
+        B, H, W, C = (int(d) for d in xin.shape)
+        route, plan = conv_route(B, H, W, C, cp.kernel[:2], (1, 1), (1, 1),
+                                 pool, cp.N, xin.dtype)
         y = quant_conv(xin, w_q, sc, b, packed=packed, **kw)
         ref = quant_conv_ref(xin, codes, sc, b, **kw)
         err = f32_check(f"quant_conv {lname} at B={LENET_BATCH}", y, ref)
-        B, H, W, C = xin.shape
         Ho, Wo = H - cp.kernel[0] + 1, W - cp.kernel[1] + 1
         rows.append({
             "bytes": nbytes(xin, w_q, sc, b, y),
@@ -1548,13 +1657,18 @@ def measure_lenet_kernels(params, x, cms, dev):
                 xin, w_q, sc, b, packed=packed, **kw), N_CALLS),
             "plain_ms": device_ms(lambda i: lambda: quant_conv_ref(
                 xin, codes, sc, b, **kw), N_CALLS),
+            # the first design (band route) at the same shape, this run
+            "first_version_ms": device_ms(lambda i: lambda: qk._conv_launch(
+                xin, w_q, sc, b, cp.kernel[:2], "relu", (1, 1), (1, 1), pool,
+                packed_ratio(packed), "band"), N_CALLS),
             "library_ms": device_ms(library(cp, xin), N_CALLS),
             "shape": f"x {tuple(xin.shape)} K={cp.K} N={cp.N} "
-                     f"{packed or 'int8'}"})
+                     f"{packed or 'int8'}, {plan_note(route, plan)}"})
     add("quant_conv", "src/repro_torch/csrc/quant_conv.cu",
         "src/repro/kernels/quant_matmul/kernel.py:242", counts, rows,
         "; ".join(r["shape"] for r in rows),
-        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)")
+        "F.conv2d on the densified weight, conv alone (no bias, relu, pool)",
+        (QCONV_REG, QCONV_BAND))
 
     # fc_stack_matmul: the Table-I configuration's fc1 -> fc2 -> fc3
     cm, counts = cms["table1"]

@@ -11,12 +11,15 @@ decode rows, M <= 16; the tensor-core kernel (:func:`qmm_tc_plan`: wgmma
 tiles, K split when the tiles alone are far from one wave of the card) for
 bf16 rows past 16 at aligned widths; the tiled kernel, the first design on
 the CUDA cores, for the rest.  :func:`quant_conv` is the fused conv over the
-same codes (``csrc/quant_conv.cu``, plain version ``quant_conv_ref``).
+same codes (``csrc/quant_conv.cu``, plain version ``quant_conv_ref``); the
+shape rule ``conv_route`` of the block-sparse module picks its route, the
+register-tiled kernel or the band kernel (the first design).
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors, and only then.  ``launches`` counts calls of the matmul
 kernels (``launches_thin``, ``launches_tc`` and ``launches_tiled`` those of
-each route), ``conv_launches`` those of the conv kernel.
+each route), ``conv_launches`` those of the conv kernels
+(``conv_launches_reg`` and ``conv_launches_band`` those of each route).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..sparse_matmul.kernel import (
     check_conv_input,
     check_cuda_operand,
     conv_geom,
+    conv_route,
     packed_ratio,
     ptr,
     rows_per_cta,
@@ -45,16 +49,19 @@ from ..sparse_matmul.kernel import (
     w_kind,
 )
 
-__all__ = ["QmmPlan", "QmmTcPlan", "conv_launches", "launches",
-           "launches_tc", "launches_thin", "launches_tiled", "qmm_plan",
-           "qmm_route", "qmm_tc_plan", "quant_conv", "quant_matmul"]
+__all__ = ["QmmPlan", "QmmTcPlan", "conv_launches", "conv_launches_band",
+           "conv_launches_reg", "launches", "launches_tc", "launches_thin",
+           "launches_tiled", "qmm_plan", "qmm_route", "qmm_tc_plan",
+           "quant_conv", "quant_matmul"]
 
 # kernel launches since the counters were last set to 0
 launches = 0         # quant_matmul, every route
 launches_thin = 0    # quant_matmul, thin-M route
 launches_tc = 0      # quant_matmul, tensor-core route
 launches_tiled = 0   # quant_matmul, tiled route
-conv_launches = 0    # quant_conv
+conv_launches = 0    # quant_conv, every route
+conv_launches_reg = 0   # quant_conv, register-tiled route
+conv_launches_band = 0  # quant_conv, band route
 
 THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
 THIN_COLS = 128      # output columns per CTA of the thin-M kernel
@@ -279,6 +286,16 @@ def _conv_lib():
     return fn
 
 
+def _conv_reg_lib():
+    fn = build.library("quant_conv").qconv_reg_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, I, P, P, P, I, I, I, P, P, P, I,
+                       ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def quant_conv(
     x: torch.Tensor,
     w_q: torch.Tensor,
@@ -301,7 +318,7 @@ def quant_conv(
     packed along K.  The scale multiplies the f32 accumulator at emit.
     ``pool=(mode, z)`` pools non-overlapping windows at emit.
     """
-    global conv_launches
+    global conv_launches, conv_launches_reg, conv_launches_band
     _check_activation(activation)
     strides = (int(strides[0]), int(strides[1]))
     dilation = (int(dilation[0]), int(dilation[1]))
@@ -329,24 +346,54 @@ def quant_conv(
                               dilation=dilation, pool=pool, out_dtype=x.dtype)
     if x.dtype not in X_DTYPES:
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
-    code, tau = act_args(activation)
-    kind = w_kind(w_q, ratio, name)
-    if kind not in (2, 3, 4):
+    if w_kind(w_q, ratio, name) not in (2, 3, 4):
         raise ValueError(
             f"{name}: the quant kernel takes int8 or packed uint8 codes, got "
             f"{w_q.dtype}")
     dev = x.device
     check_cuda_operand(x, dev, "x", name)
     check_cuda_operand(w_q, dev, "w_q", name)
-    geom, Hp, Wp = conv_geom(x, (kh, kw), strides, dilation, pool,
-                             min(N, 32), name)
+    route, plan = conv_route(B, H, W, C, (kh, kw), strides, dilation, pool,
+                             N, x.dtype)
+    out = _conv_launch(x, w_q, scales, bias, (kh, kw), activation, strides,
+                       dilation, pool, ratio, route, plan, name)
+    conv_launches += 1
+    if route == "reg_tile":
+        conv_launches_reg += 1
+    else:
+        conv_launches_band += 1
+    return out
+
+
+def _conv_launch(x, w_q, scales, bias, kernel_hw, activation, strides,
+                 dilation, pool, ratio: int, route: str, plan=None,
+                 name: str = "quant_conv") -> torch.Tensor:
+    """Launch ``route``'s conv kernel ("reg_tile" with its ``plan``, or
+    "band", the first design) on CUDA operands that passed
+    :func:`quant_conv`'s checks; counts nothing (the wrapper counts).
+    Either route may be asked for, to time one beside the other."""
+    B, H, W, C = (int(d) for d in x.shape)
+    K = C * int(kernel_hw[0]) * int(kernel_hw[1])
+    N = int(w_q.shape[1])
+    code, tau = act_args(activation)
+    kind = w_kind(w_q, ratio, name)
+    dev = x.device
+    reg = route == "reg_tile"
+    if not reg and route != "band":
+        raise ValueError(f"{name}: unknown conv route {route!r}")
+    geom, Hp, Wp = conv_geom(x, kernel_hw, strides, dilation, pool,
+                             0 if reg else min(N, 32), name)
     s = vec_f32(scales, N, dev, "scales", name)
     b = vec_f32(bias, N, dev, "bias", name)
     out = torch.empty((B, Hp, Wp, N), dtype=x.dtype, device=dev)
     g = (ctypes.c_int * 12)(*geom)
-    err = _conv_lib()(ptr(x), int(x.dtype == torch.bfloat16), B, H, W, C, g,
-                      ptr(w_q), kind, K, N, ptr(s), ptr(b), ptr(out), code,
-                      tau, torch.cuda.current_stream(dev).cuda_stream)
+    args = (ptr(w_q), kind, K, N, ptr(s), ptr(b), ptr(out), code, tau,
+            torch.cuda.current_stream(dev).cuda_stream)
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if reg:
+        pl = (ctypes.c_int * 9)(*plan.ints())
+        err = _conv_reg_lib()(ptr(x), x_bf16, B, H, W, C, g, pl, *args)
+    else:
+        err = _conv_lib()(ptr(x), x_bf16, B, H, W, C, g, *args)
     build.check(err, name)
-    conv_launches += 1
     return out

@@ -16,12 +16,17 @@ tensor-core kernel (:func:`bsm_tc_plan`: wgmma tiles over each column's
 present blocks, columns cut into ranges when the tiles alone are far from
 one wave of the card) for bf16 rows past 16 over 1-byte containers at
 aligned block shapes; the tiled kernel, the first design on the CUDA cores,
-for the rest.
+for the rest.  :func:`conv_route` picks the conv's route, for this kernel
+and ``quant_conv`` alike: the register-tiled kernel (:class:`ConvPlan`:
+accumulators, pool and epilogue in registers, K split across the warps of
+a CTA to fill the card) where its plan fits, else the band kernel, the
+first design.
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 for CPU tensors, and only then.  ``launches`` counts launches of the
 matmul kernels (``launches_thin``, ``launches_tc`` and ``launches_tiled``
-those of each route), ``conv_launches`` those of the conv kernel.
+those of each route), ``conv_launches`` those of the conv kernels
+(``conv_launches_reg`` and ``conv_launches_band`` those of each route).
 """
 from __future__ import annotations
 
@@ -35,18 +40,21 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["ACTIVATIONS", "BsmPlan", "BsmTcPlan", "POOL_MODES", "Schedule",
-           "apply_activation", "block_sparse_conv", "block_sparse_matmul",
-           "bsm_plan", "bsm_route", "bsm_tc_plan", "conv_launches",
-           "im2col_valid", "launches", "launches_tc", "launches_thin",
-           "launches_tiled", "make_schedule", "pool_nhwc"]
+__all__ = ["ACTIVATIONS", "BsmPlan", "BsmTcPlan", "ConvPlan", "POOL_MODES",
+           "Schedule", "apply_activation", "block_sparse_conv",
+           "block_sparse_matmul", "bsm_plan", "bsm_route", "bsm_tc_plan",
+           "conv_launches", "conv_launches_band", "conv_launches_reg",
+           "conv_route", "im2col_valid", "launches", "launches_tc",
+           "launches_thin", "launches_tiled", "make_schedule", "pool_nhwc"]
 
 # kernel launches since the counters were last set to 0
 launches = 0         # block_sparse_matmul, every route
 launches_thin = 0    # block_sparse_matmul, thin-M route
 launches_tc = 0      # block_sparse_matmul, tensor-core route
 launches_tiled = 0   # block_sparse_matmul, tiled route
-conv_launches = 0    # block_sparse_conv
+conv_launches = 0    # block_sparse_conv, every route
+conv_launches_reg = 0   # block_sparse_conv, register-tiled route
+conv_launches_band = 0  # block_sparse_conv, band route
 
 THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
 THIN_COLS = 128      # output columns per CTA of the thin-M kernel
@@ -566,7 +574,9 @@ def conv_geom(x: torch.Tensor, kernel_hw, strides, dilation, pool, bns: int,
     Wo, z, pool_max, band, bns) and the output's (Hp, Wp).
 
     ``band`` is the most conv output rows (a multiple of the pool window)
-    whose image rows and accumulators fit one CTA's shared memory."""
+    whose image rows and accumulators fit one CTA's shared memory, for the
+    band route's ``bns`` columns per CTA; ``bns=0`` (the register-tiled
+    route, which stages whole images) leaves it at Ho."""
     B, H, W, C = (int(d) for d in x.shape)
     kh, kw = kernel_hw
     sh, sw = strides
@@ -579,15 +589,144 @@ def conv_geom(x: torch.Tensor, kernel_hw, strides, dilation, pool, bns: int,
         return _conv_smem(band, W, C, kh, dh, sh, Wo, bns)
 
     band = Ho
-    while band > z and smem(band) > _CONV_SMEM_SOFT:
-        band -= z
-    if smem(band) > _CONV_SMEM_MAX:
-        raise ValueError(
-            f"{name}: one band of {band} output rows of a {H}x{W}x{C} image "
-            f"needs {smem(band)} bytes of shared memory, more than a CTA's "
-            f"{_CONV_SMEM_MAX}")
+    if bns:
+        while band > z and smem(band) > _CONV_SMEM_SOFT:
+            band -= z
+        if smem(band) > _CONV_SMEM_MAX:
+            raise ValueError(
+                f"{name}: one band of {band} output rows of a {H}x{W}x{C} "
+                f"image needs {smem(band)} bytes of shared memory, more "
+                f"than a CTA's {_CONV_SMEM_MAX}")
     geom = (kh, kw, sh, sw, dh, dw, Ho, Wo, z, pool_max, band, bns)
     return geom, Ho // z, Wo // z
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """The register-tiled conv kernel's split of one launch
+    (``csrc/conv_reg.cuh``).
+
+    A thread owns one *unit* of one image: a z x z pooled window (z = 2)
+    or :data:`REG_STRIP` consecutive conv positions of a row (z = 1, the
+    last unit of a row masked past Wo), times ``ct`` output columns, over
+    one of ``ks`` parts of the K walk: :data:`REG_POS` x ``ct`` f32
+    accumulators in registers.  CTA ``(bx, by)`` covers images ``bx * img``
+    onward and column tile ``by`` (block-sparse: column block
+    ``by // (bn // ct)``, its ``by % (bn // ct)``-th slice of ``ct``
+    columns; quant: columns ``by * ct`` onward, the last tile masked past
+    N).  Thread ``t`` is K part ``t // part``, slot ``u = t % part``:
+    image ``u // units``, unit ``u % units`` (row ``// upr``, column
+    ``% upr``); slots past ``img * units`` idle.  Part ``kp`` walks steps
+    ``[kp * per * unit, (kp + 1) * per * unit)`` of the CTA's walk (quant:
+    k rows, ``unit`` 1; block-sparse: the column block's present blocks in
+    row order, ``unit`` = bk rows each), and part 0 adds the other parts'
+    accumulators in part order, then emits."""
+    z: int          # pool window (1: no pool)
+    ct: int         # columns per thread (a kernel template value)
+    n_ct: int       # column tiles: grid.y
+    upr: int        # units per row of units
+    units: int      # units per image
+    img: int        # images per CTA
+    part: int       # threads per K part: img * units rounded up to a warp
+    ks: int         # K parts
+    per: int        # k rows (quant) or blocks (block-sparse) per part
+    steps: int      # walk steps a CTA stages, at most (K, or blocks * bk)
+    grid: tuple     # (ceil(B / img), n_ct)
+    threads: int    # ks * part
+    smem: int       # dynamic shared-memory bytes
+
+    def ints(self):
+        """The plan as the kernels' int array (``rt::RegPlan``)."""
+        return (self.ct, self.n_ct, self.upr, self.units, self.img,
+                self.part, self.ks, self.per, self.steps)
+
+
+# Columns per thread of the register-tiled kernels.  On the H100 a tile of
+# 4 beat 8 at LeNet's quant convs (twice the CTAs, more warps an SM to hide
+# shared-memory latency), and sixteen warps an SM beat eight at conv2
+# (PERF.md).
+REG_TILES = (2, 4)
+REG_POS = 4                # conv positions per thread (csrc/conv_reg.cuh)
+REG_STRIP = 4              # unpooled positions per unit, along a row
+REG_SMS = 132              # SMs of an H100
+REG_TARGET = 132 * 16 * 32  # threads a grid aims for: sixteen warps an SM
+REG_MIN_STEPS = 16         # k rows per K part, at least
+REG_MAX_THREADS = 512      # threads per CTA, at most (__launch_bounds__)
+REG_SMEM_MAX = 48 * 1024   # dynamic shared memory of a CTA, at most
+
+
+def _reg_smem(img: int, hwc: int, steps: int, ct: int, ks: int,
+              part: int) -> int:
+    """Shared-memory bytes of one register-tiled CTA: its images (f32,
+    channel-major, an odd number of floats apart when there are several,
+    padded to whole 16-byte rows), the walk's decoded weight rows and
+    patch offsets, the tile's emit scales and biases, and the K parts'
+    accumulators for part 0 to add."""
+    stride = hwc + 1 if img > 1 and hwc % 2 == 0 else hwc
+    img_f = -(-img * stride // 4) * 4
+    return 4 * (img_f + steps * ct + 2 * ct
+                + (ks - 1) * REG_POS * ct * part + steps)
+
+
+def conv_route(B: int, H: int, W: int, C: int, kernel_hw, strides, dilation,
+               pool, N: int, x_dtype, block=None,
+               max_blocks_per_col: int = 0):
+    """``(route, plan)`` of a fused conv, as a shape rule.
+
+    ``("reg_tile", ConvPlan)`` when x is f32 or bf16, the pool window z is
+    1 or 2 (no pool, or 2 x 2), the column tile fits — quant (``block``
+    None): ``ct`` the smallest of :data:`REG_TILES` that holds N, else the
+    largest; block-sparse (``block=(bk, bn)``): the largest that divides
+    bn, so a thread's columns lie in one column block, whose walk is
+    uniform across the CTA — and one image's units and a CTA's shared
+    memory fit; ``("band", None)``, the first design, otherwise (odd bn,
+    3 x 3 and larger pools, large images).
+
+    The plan fills a warp with whole images (``img``: the smallest power
+    of two with ``img * units >= 32``, halved while the grid has fewer
+    CTAs than :data:`REG_SMS`), then splits K into the fewest parts that
+    bring the grid's threads to :data:`REG_TARGET`, each of at least
+    :data:`REG_MIN_STEPS` k rows (block-sparse: whole blocks) and at most
+    :data:`REG_MAX_THREADS` threads a CTA."""
+    kh, kw = (int(k) for k in kernel_hw)
+    Ho, Wo = valid_out_hw(H, W, (kh, kw), strides, dilation)
+    z = 1 if pool is None else int(pool[1])
+    if x_dtype not in X_DTYPES or z not in (1, 2):
+        return "band", None
+    K = C * kh * kw
+    if block is None:
+        ct = next((t for t in REG_TILES if t >= N), REG_TILES[-1])
+        n_ct, unit, walk = -(-N // ct), 1, K
+    else:
+        bk, bn = (int(d) for d in block)
+        ct = next((t for t in reversed(REG_TILES) if bn % t == 0), None)
+        if ct is None:
+            return "band", None
+        n_ct, unit, walk = N // ct, bk, max(int(max_blocks_per_col), 1)
+    if z == 2:
+        upr, units = Wo // 2, (Ho // 2) * (Wo // 2)
+    else:
+        upr = -(-Wo // REG_STRIP)
+        units = Ho * upr
+    img = 1
+    while img * units < 32 and img < B:
+        img *= 2
+    while img > 1 and -(-B // img) * n_ct < REG_SMS:
+        img //= 2
+    part = -(-img * units // 32) * 32
+    if part > REG_MAX_THREADS:
+        return "band", None
+    base = -(-B // img) * n_ct * part
+    ks_max = max(1, walk // -(-REG_MIN_STEPS // unit))
+    ks = max(1, min(-(-REG_TARGET // base), ks_max, REG_MAX_THREADS // part))
+    per = -(-walk // ks)
+    ks = -(-walk // per)
+    steps = walk * unit
+    smem = _reg_smem(img, H * W * C, steps, ct, ks, part)
+    if smem > REG_SMEM_MAX:
+        return "band", None
+    return "reg_tile", ConvPlan(z, ct, n_ct, upr, units, img, part, ks, per,
+                                steps, (-(-B // img), n_ct), ks * part, smem)
 
 
 def check_conv_input(x: torch.Tensor, kernel_hw, strides, dilation, pool,
@@ -624,6 +763,16 @@ def _conv_lib():
     return fn
 
 
+def _conv_reg_lib():
+    fn = build.library("block_sparse_conv").bsc_reg_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, I, P, P, P, I, I, I, P, P, P, P, P, I,
+                       P, I, ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def block_sparse_conv(
     x: torch.Tensor,
     blocks: torch.Tensor,
@@ -651,7 +800,7 @@ def block_sparse_conv(
     output is then ``(B, Ho / z, Wo / z, N)``.  A column block with no
     present block emits ``act(b)``; a fully empty pattern launches nothing.
     """
-    global conv_launches
+    global conv_launches, conv_launches_reg, conv_launches_band
     _check_activation(activation)
     strides = (int(strides[0]), int(strides[1]))
     dilation = (int(dilation[0]), int(dilation[1]))
@@ -685,8 +834,7 @@ def block_sparse_conv(
             pool=pool, out_dtype=x.dtype)
     if x.dtype not in X_DTYPES:
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
-    code, tau = act_args(activation)
-    kind = w_kind(blocks, ratio, name)
+    w_kind(blocks, ratio, name)
     dev = x.device
     check_cuda_operand(x, dev, "x", name)
     check_cuda_operand(blocks, dev, "blocks", name)
@@ -695,17 +843,53 @@ def block_sparse_conv(
         raise ValueError(
             f"{name}: {P} blocks but the schedule lists "
             f"{int(schedule.rows.numel())}")
-    geom, Hp, Wp = conv_geom(x, (kh, kw), strides, dilation, pool,
-                             min(bn, 32), name)
+    route, plan = conv_route(B, H, W, C, (kh, kw), strides, dilation, pool,
+                             N, x.dtype, block=(bk, bn),
+                             max_blocks_per_col=schedule.max_blocks_per_col)
+    out = _conv_launch(x, blocks, schedule, (kh, kw), scales, bias,
+                       activation, strides, dilation, pool, ratio, route,
+                       plan, name)
+    conv_launches += 1
+    if route == "reg_tile":
+        conv_launches_reg += 1
+    else:
+        conv_launches_band += 1
+    return out
+
+
+def _conv_launch(x, blocks, schedule: Schedule, kernel_hw, scales, bias,
+                 activation, strides, dilation, pool, ratio: int, route: str,
+                 plan: Optional[ConvPlan] = None,
+                 name: str = "block_sparse_conv") -> torch.Tensor:
+    """Launch ``route``'s conv kernel ("reg_tile" with its ``plan``, or
+    "band", the first design) on CUDA operands that passed
+    :func:`block_sparse_conv`'s checks; counts nothing (the wrapper
+    counts).  Either route may be asked for, to time one beside the
+    other."""
+    B, H, W, C = (int(d) for d in x.shape)
+    bn = int(blocks.shape[2])
+    bk = int(blocks.shape[1]) * ratio
+    N = schedule.n_col_blocks * bn
+    code, tau = act_args(activation)
+    kind = w_kind(blocks, ratio, name)
+    dev = x.device
+    reg = route == "reg_tile"
+    if not reg and route != "band":
+        raise ValueError(f"{name}: unknown conv route {route!r}")
+    geom, Hp, Wp = conv_geom(x, kernel_hw, strides, dilation, pool,
+                             0 if reg else min(bn, 32), name)
     s = vec_f32(scales, N, dev, "scales", name)
     b = vec_f32(bias, N, dev, "bias", name)
     out = torch.empty((B, Hp, Wp, N), dtype=x.dtype, device=dev)
     g = (ctypes.c_int * 12)(*geom)
-    err = _conv_lib()(ptr(x), int(x.dtype == torch.bfloat16), B, H, W, C, g,
-                      ptr(blocks), kind, bk, bn, ptr(s), ptr(b),
-                      ptr(schedule.col_ptr), ptr(schedule.rows),
-                      ptr(schedule.pidx), schedule.n_col_blocks, ptr(out),
-                      code, tau, torch.cuda.current_stream(dev).cuda_stream)
+    args = (ptr(blocks), kind, bk, bn, ptr(s), ptr(b), ptr(schedule.col_ptr),
+            ptr(schedule.rows), ptr(schedule.pidx), schedule.n_col_blocks,
+            ptr(out), code, tau, torch.cuda.current_stream(dev).cuda_stream)
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if reg:
+        pl = (ctypes.c_int * 9)(*plan.ints())
+        err = _conv_reg_lib()(ptr(x), x_bf16, B, H, W, C, g, pl, *args)
+    else:
+        err = _conv_lib()(ptr(x), x_bf16, B, H, W, C, g, *args)
     build.check(err, name)
-    conv_launches += 1
     return out

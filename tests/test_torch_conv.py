@@ -365,39 +365,75 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _both_routes(mod, call, launch, ref):
+    """The wrapper ``call()`` takes the register-tiled route (its counter
+    moves by one, the band one not); ``launch(route)`` runs each route
+    uncounted; all three agree with the plain version ``ref``."""
+    before = (mod.conv_launches_reg, mod.conv_launches_band)
+    outs = [call()]
+    assert (mod.conv_launches_reg - before[0],
+            mod.conv_launches_band - before[1]) == (1, 0)
+    outs += [launch("reg_tile"), launch("band")]
+    for y in outs:
+        np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_cuda_conv_and_fc_stack_kernels_match_plain_versions(cuda_device):
+    """Each conv case on the route ``conv_route`` names (the register
+    tile) and, uncounted, on both routes: first at the test's own
+    geometry, then at LeNet conv2's (12 x 12 x 6, 5 x 5, blocks of
+    (10, 4)) with B = 256."""
     dev = cuda_device
-    for container, pool in (("int8", ("avg", 2)), ("int4x2", ("max", 2)),
-                            ("f32", None)):
-        x, vals, scales, bias, rows, cols, nR, nC = _bsc_case(container, 1,
-                                                              False)
+    for container, pool, lenet in (("int8", ("avg", 2), False),
+                                   ("int4x2", ("max", 2), False),
+                                   ("f32", None, False),
+                                   ("int4x2", ("avg", 2), True)):
+        shape = dict(bk=10, bn=4, cin=6, khw=(5, 5), hw=(12, 12), B=256) \
+            if lenet else {}
+        x, vals, scales, bias, rows, cols, nR, nC = _bsc_case(
+            container, 1, False, **shape)
+        khw = (5, 5) if lenet else (2, 2)
         blocks, packed = _t(vals), False
         if container == "int4x2":
             packed, blocks = container, pack_codes(blocks, axis=1, bits=4)
         s = None if scales is None else _t(scales)
-        kw = dict(kernel_hw=(2, 2), activation="relu", pool=pool)
-        y = tsk.block_sparse_conv(
-            _t(x).to(dev), blocks.to(dev),
-            tsk.make_schedule(rows, cols, nR, nC, dev),
-            scales=None if s is None else s.to(dev), bias=_t(bias).to(dev),
-            packed=packed, **kw)
+        kw = dict(kernel_hw=khw, activation="relu", pool=pool)
+        sched = tsk.make_schedule(rows, cols, nR, nC, dev)
+        xd, bd = _t(x).to(dev), blocks.to(dev)
+        sd, bid = None if s is None else s.to(dev), _t(bias).to(dev)
+        bk, bn = blocks.shape[1] * tsk.packed_ratio(packed), blocks.shape[2]
+        route, plan = tsk.conv_route(
+            *x.shape, khw, (1, 1), (1, 1), pool, nC * bn, torch.float32,
+            block=(bk, bn), max_blocks_per_col=sched.max_blocks_per_col)
+        assert route == "reg_tile"
         ref = block_sparse_conv_ref(_t(x), _t(vals), rows, cols,
                                     n_row_blocks=nR, n_col_blocks=nC,
                                     scales=s, bias=_t(bias), **kw)
-        np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(), rtol=1e-5,
-                                   atol=1e-5)
+        _both_routes(
+            tsk, lambda: tsk.block_sparse_conv(
+                xd, bd, sched, scales=sd, bias=bid, packed=packed, **kw),
+            lambda r: tsk._conv_launch(
+                xd, bd, sched, khw, sd, bid, "relu", (1, 1), (1, 1), pool,
+                tsk.packed_ratio(packed), r, plan), ref)
     rng = np.random.default_rng(3)
-    codes = rng.integers(-7, 8, size=(16, 5)).astype(np.int8)
-    sc = (rng.random(5) / 28).astype(np.float32)
-    x = rng.normal(size=(3, 9, 9, 4)).astype(np.float32)
-    kw = dict(kernel_hw=(2, 2), activation="relu", pool=("avg", 2))
-    y = tqk.quant_conv(_t(x).to(dev), pack_codes(_t(codes), axis=0,
-                                                  bits=4).to(dev),
-                       _t(sc).to(dev), packed="int4x2", **kw)
-    ref = quant_conv_ref(_t(x), _t(codes), _t(sc), **kw)
-    np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    for B, hw, cin, khw, K, N in ((3, 9, 4, (2, 2), 16, 5),
+                                  (256, 12, 6, (5, 5), 150, 16)):
+        codes = rng.integers(-7, 8, size=(K, N)).astype(np.int8)
+        sc = (rng.random(N) / 28).astype(np.float32)
+        x = rng.normal(size=(B, hw, hw, cin)).astype(np.float32)
+        kw = dict(kernel_hw=khw, activation="relu", pool=("avg", 2))
+        xd, sd = _t(x).to(dev), _t(sc).to(dev)
+        wd = pack_codes(_t(codes), axis=0, bits=4).to(dev)
+        route, plan = tsk.conv_route(B, hw, hw, cin, khw, (1, 1), (1, 1),
+                                     ("avg", 2), N, torch.float32)
+        assert route == "reg_tile"
+        ref = quant_conv_ref(_t(x), _t(codes), _t(sc), **kw)
+        _both_routes(
+            tqk, lambda: tqk.quant_conv(xd, wd, sd, packed="int4x2", **kw),
+            lambda r: tqk._conv_launch(xd, wd, sd, None, khw, "relu", (1, 1),
+                                       (1, 1), ("avg", 2), 2, r, plan), ref)
     ws = [_t(rng.normal(size=(k, n)).astype(np.float32) / 8)
           for k, n in ((256, 120), (120, 84), (84, 10))]
     xf = _t(rng.normal(size=(7, 256)).astype(np.float32))
