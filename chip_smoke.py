@@ -20,8 +20,10 @@ Phases, each fatal on failure:
    or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
    gradient) and of the fused convs (register-tiled at LeNet's shapes,
    strided and unpooled, f32 and bf16 x; band for the 3 x 3 pool, and for
-   every register-tiled case again), requiring each call to take the route
-   its shape rule names;
+   every register-tiled case again) and of the FC stack (staged, f32 and
+   bf16 x, at the edge of shared memory; stream for every staged case
+   again and past that edge), requiring each call
+   to take the route its shape rule names;
    then time kernel, plain version and a one-call PyTorch yardstick at the
    shapes the main paths give it, beside the least time the card could take
    (``bound_ms``) and the first version of each redesigned kernel;
@@ -42,7 +44,8 @@ Phases, each fatal on failure:
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
    ``fc_stack_matmul`` x1 per forward (``quant_conv`` x2 with the convs
-   under "quant"), every conv on the register-tiled route, hold the logits
+   under "quant"), every conv on the register-tiled route and the FC stack
+   on the staged route, hold the logits
    against ``dispatch="twin"``, and time images/s beside the masked-dense
    forward;
 6. train   — llama3.2-1b at full width (random weights from a seed),
@@ -804,25 +807,49 @@ def sweep_quant_conv(rng, dev):
     return cases
 
 
-def sweep_fc_stack(rng, dev):
-    from repro_torch.kernels.fc_stack import (fc_stack_matmul,
-                                              fc_stack_matmul_ref)
-
-    cases = 0
-    stacks = [((256, 120, 84, 10), ["relu", "relu", None]),
+FCS_ROUTES = {"staged": "launches_staged", "stream": "launches_stream"}
+# the fc-stack sweep's stacks: LeNet's, three activations with K and N off
+# multiples of 4, one wide layer, a 6-column last layer (a part group), a
+# stack whose staged plan needs every byte of a CTA's 227 KB of shared
+# memory, and one too wide for it (stream)
+FCS_STACKS = [((256, 120, 84, 10), ["relu", "relu", None]),
               ((300, 64, 33, 7), ["silu", ("trelu", 0.1), "gelu"]),
-              ((40, 500), [None])]
-    for si, (dims, acts) in enumerate(stacks):
+              ((40, 500), [None]),
+              ((64, 36, 6), ["gelu", None]),
+              ((116, 432), ["relu"]),
+              ((384, 384), ["relu"])]
+# (batch, x dtype): 7 and 250 rows are not multiples of a row tile
+FCS_BATCHES = [(1, torch.float32), (7, torch.float32), (64, torch.float32),
+               (250, torch.float32), (256, torch.float32),
+               (7, torch.bfloat16), (256, torch.bfloat16)]
+
+
+def sweep_fc_stack(rng, dev):
+    """fc_stack_matmul against its plain version over FCS_STACKS and
+    FCS_BATCHES: each call must take the route ``fcs_route`` names, and
+    each call on the staged route is repeated on the stream route (the
+    first design), uncounted."""
+    from repro_torch.kernels import fc_stack as fk
+
+    cases = {"staged": 0, "stream": 0}
+    for si, (dims, acts) in enumerate(FCS_STACKS):
         ws = [torch.randn((k, n), device=dev) / math.sqrt(k)
               for k, n in zip(dims, dims[1:])]
-        for bi, B in enumerate((1, 7, 256)):
+        for bi, (B, xdt) in enumerate(FCS_BATCHES):
             bs = [torch.randn((n,), device=dev) if (si + bi + i) % 2 else None
                   for i, n in enumerate(dims[1:])]
-            x = torch.randn((B, dims[0]), device=dev)
-            y = fc_stack_matmul(x, ws, bs, acts)
-            ref = fc_stack_matmul_ref(x, ws, bs, acts)
-            f32_check(f"fc_stack_matmul dims={dims} B={B}", y, ref)
-            cases += 1
+            x = torch.randn((B, dims[0]), device=dev).to(xdt)
+            route, _ = fk.fcs_route(B, dims, xdt)
+            y = took_route(fk, FCS_ROUTES, route,
+                           lambda: fk.fc_stack_matmul(x, ws, bs, acts))
+            ref = fk.fc_stack_matmul_ref(x, ws, bs, acts)
+            label = f"fc_stack_matmul dims={dims} B={B} {xdt}"
+            conv_check(f"{label} {route}", y, ref)
+            cases[route] += 1
+            if route == "staged":
+                conv_check(f"{label} stream",
+                           fk._launch(x, ws, bs, acts, "stream"), ref)
+                cases["stream"] += 1
     return cases
 
 
@@ -1082,6 +1109,7 @@ PDA_SPLIT, PDA_SINGLE = ("packed_decode_attention/split",
 FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
 BSC_REG, BSC_BAND = "block_sparse_conv/reg_tile", "block_sparse_conv/band"
 QCONV_REG, QCONV_BAND = "quant_conv/reg_tile", "quant_conv/band"
+FCS_STAGED, FCS_STREAM = "fc_stack_matmul/staged", "fc_stack_matmul/stream"
 
 
 def counters():
@@ -1112,7 +1140,9 @@ def counters():
             BSC_REG: (sk, "conv_launches_reg"),
             BSC_BAND: (sk, "conv_launches_band"),
             QCONV_REG: (qk, "conv_launches_reg"),
-            QCONV_BAND: (qk, "conv_launches_band")}
+            QCONV_BAND: (qk, "conv_launches_band"),
+            FCS_STAGED: (fc_stack, "launches_staged"),
+            FCS_STREAM: (fc_stack, "launches_stream")}
 
 
 def reset_counts():
@@ -1355,13 +1385,16 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
 
 LENET_NAMES = ("conv1", "conv2", "fc1", "fc2", "fc3")
 # policies of each configuration, and the launches one fused forward needs:
-# both convs on the register-tiled route, none on the band route
+# both convs on the register-tiled route, none on the band route; the FC
+# stack on the staged route, none on the stream route
 LENET_CONFIGS = {
     "table1": ({n: "sparse" for n in LENET_NAMES},
-               {"block_sparse_conv": 2, BSC_REG: 2, "fc_stack_matmul": 1}),
+               {"block_sparse_conv": 2, BSC_REG: 2, "fc_stack_matmul": 1,
+                FCS_STAGED: 1}),
     "quant_conv": ({**{n: "sparse" for n in LENET_NAMES}, "conv1": "quant",
                     "conv2": "quant"},
-                   {"quant_conv": 2, QCONV_REG: 2, "fc_stack_matmul": 1}),
+                   {"quant_conv": 2, QCONV_REG: 2, "fc_stack_matmul": 1,
+                    FCS_STAGED: 1}),
 }
 
 
@@ -1520,8 +1553,9 @@ def measure_lenet_kernels(params, x, cms, dev):
 
     from repro_torch.core.compile_sparse import conv_weight_unmatrix
     from repro_torch.core.dispatch import _payload_dense_f32, conv_dispatch
+    from repro_torch.kernels import fc_stack as fk
     from repro_torch.kernels.fc_stack import (fc_stack_matmul,
-                                              fc_stack_matmul_ref)
+                                              fc_stack_matmul_ref, fcs_route)
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.kernel import quant_conv
     from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
@@ -1681,9 +1715,20 @@ def measure_lenet_kernels(params, x, cms, dev):
     ws = [_payload_dense_f32(cm.layers[n], dev) for n in names]
     bs = [params[n + "_b"] for n in names]
     acts = ["relu", "relu", None]
+    route, plan = fcs_route(h.shape[0], [h.shape[1]] +
+                            [w.shape[1] for w in ws], h.dtype)
     y = fc_stack_matmul(h, ws, bs, acts)
     ref = fc_stack_matmul_ref(h, ws, bs, acts)
     err = f32_check(f"fc_stack_matmul at B={LENET_BATCH}", y, ref)
+    wts = [w.t() for w in ws]
+
+    def chain():
+        """fc1 -> fc2 -> fc3 as three F.linear calls with torch.relu (f32,
+        allow_tf32 False): a chain of three calls, not one."""
+        a = torch.relu(F.linear(h, wts[0], bs[0]))
+        return F.linear(torch.relu(F.linear(a, wts[1], bs[1])), wts[2],
+                        bs[2])
+
     rows = [{"layer": "fc1+fc2+fc3", "max_abs_err": err,
              "bytes": nbytes(h, *ws, *bs, y),
              "ops": 2.0 * h.shape[0] * sum(w.numel() for w in ws),
@@ -1691,12 +1736,26 @@ def measure_lenet_kernels(params, x, cms, dev):
                  h, ws, bs, acts), N_CALLS),
              "plain_ms": device_ms(lambda i: lambda: fc_stack_matmul_ref(
                  h, ws, bs, acts), N_CALLS),
+             # the first design (stream route) at the same shape, this run
+             "first_version_ms": device_ms(lambda i: lambda: fk._launch(
+                 h, ws, bs, acts, "stream"), N_CALLS),
              "library_ms": None,
-             "shape": f"x {tuple(h.shape)} W 256x120, 120x84, 84x10 f32"}]
+             "chain_ms": device_ms(lambda i: chain, N_CALLS),
+             "shape": f"x {tuple(h.shape)} W 256x120, 120x84, 84x10 f32, "
+                      + (route if plan is None else
+                         f"{route}: {plan.tm} rows a CTA, {plan.grid} CTAs "
+                         f"of {plan.threads}, {plan.smem} B of shared "
+                         f"memory, K parts "
+                         f"{plan.ks}")}]
     add("fc_stack_matmul", "src/repro_torch/csrc/fc_stack.cu",
         "src/repro/kernels/fc_stack.py:60", counts, rows, rows[0]["shape"],
         "none: no one PyTorch call chains three linears with their "
-        "epilogues")
+        "epilogues", (FCS_STAGED, FCS_STREAM))
+    entries[-1]["plan"] = None if plan is None else vars(plan)
+    entries[-1]["chain_ms"] = rows[0]["chain_ms"]
+    entries[-1]["chain"] = ("three F.linear calls with torch.relu, f32, "
+                            "allow_tf32 False: a chain of three calls, not "
+                            "one")
     return entries, details
 
 

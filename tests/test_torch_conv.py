@@ -384,7 +384,8 @@ def test_cuda_conv_and_fc_stack_kernels_match_plain_versions(cuda_device):
     """Each conv case on the route ``conv_route`` names (the register
     tile) and, uncounted, on both routes: first at the test's own
     geometry, then at LeNet conv2's (12 x 12 x 6, 5 x 5, blocks of
-    (10, 4)) with B = 256."""
+    (10, 4)) with B = 256.  Then LeNet's FC stack at 7 and 256 rows on
+    the route ``fcs_route`` names (staged) and, uncounted, on both."""
     dev = cuda_device
     for container, pool, lenet in (("int8", ("avg", 2), False),
                                    ("int4x2", ("max", 2), False),
@@ -436,10 +437,20 @@ def test_cuda_conv_and_fc_stack_kernels_match_plain_versions(cuda_device):
                                        (1, 1), ("avg", 2), 2, r, plan), ref)
     ws = [_t(rng.normal(size=(k, n)).astype(np.float32) / 8)
           for k, n in ((256, 120), (120, 84), (84, 10))]
-    xf = _t(rng.normal(size=(7, 256)).astype(np.float32))
     acts = ["relu", "relu", None]
-    y = tfk.fc_stack_matmul(xf.to(dev), [w.to(dev) for w in ws],
-                            [None] * 3, acts)
-    ref = tfk.fc_stack_matmul_ref(xf, ws, [None] * 3, acts)
-    np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    wd = [w.to(dev) for w in ws]
+    for B in (7, 256):   # 4 and 128 CTAs of 2 rows (fcs_route)
+        xf = _t(rng.normal(size=(B, 256)).astype(np.float32))
+        xd = xf.to(dev)
+        route, plan = tfk.fcs_route(B, [256, 120, 84, 10], torch.float32)
+        assert route == "staged"
+        before = (tfk.launches_staged, tfk.launches_stream)
+        outs = [tfk.fc_stack_matmul(xd, wd, [None] * 3, acts)]
+        assert (tfk.launches_staged - before[0],
+                tfk.launches_stream - before[1]) == (1, 0)
+        outs += [tfk._launch(xd, wd, [None] * 3, acts, r, plan)
+                 for r in ("staged", "stream")]
+        ref = tfk.fc_stack_matmul_ref(xf, ws, [None] * 3, acts)
+        for y in outs:
+            np.testing.assert_allclose(y.cpu().numpy(), ref.numpy(),
+                                       rtol=1e-5, atol=1e-5)
