@@ -28,14 +28,23 @@ Phases, each fatal on failure:
    shapes the main paths give it, beside the least time the card could take
    (``bound_ms``) and the first version of each redesigned kernel;
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
-   to int4x2 quant/block-sparse leaves, serve 16 requests through
-   ``ServeEngine`` with the int4x2 KV cache, require every kernel to have
-   launched and every packed attention read (decode rows and 16-row
-   prefill chunks) on the split route, and hold a prefill chunk plus 4
-   decode steps against the plain versions (``dispatch="twin"``), each
-   decode step's 64 ``quant_matmul`` and 48 ``block_sparse_matmul`` calls
-   on their thin-M routes and 16 attention reads on the split route; then
-   run the compiled model's full-sequence forward (B = 1, T = 512) through
+   to int4x2 quant/block-sparse leaves; serve 16 requests through
+   ``ServeEngine`` with the int4x2 KV cache, each step a CUDA graph per
+   phase and bucket (after warm-up requests that reach every bucket),
+   require every kernel to have launched and every packed attention read
+   (decode rows and 16-row prefill chunks) on the split route; replay one
+   captured decode step and one captured prefill chunk from a saved cache
+   state against the same steps run eagerly (logits and cache bit for bit,
+   the same launches); serve the same requests eagerly (identical tokens),
+   with the int4 cache (identical tokens) and with the "unpack" read (the
+   same tokens, or a tie at the first difference); hold a prefill chunk
+   plus 4 decode steps against the plain versions (``dispatch="twin"``)
+   for each container, each decode step's 64 ``quant_matmul`` and 48
+   ``block_sparse_matmul`` calls on their thin-M routes and 16 attention
+   reads on the split route; profile a decode step and a prefill chunk,
+   captured and eager (wall, device busy, idle share); count the
+   programmatic edges of a captured decode step; then run the compiled
+   model's full-sequence forward (B = 1, T = 512) through
    ``block_sparse_matmul`` and ``quant_matmul`` (all 112 linears on their
    tensor-core routes) and the flash kernel (tensor-core route), held
    against the twin path, with its wall time, device busy time and idle
@@ -100,9 +109,10 @@ F32_TOL = 1e-5
 # kernel path vs plain versions through all 16 bf16 layers, relative to the
 # largest logit.  The kernels round like the plain versions but sum in
 # another order, so single bf16 steps differ and grow through the layers.
-# With the int4x2 cache a one-step difference in a K/V value can also flip
-# its int4 code, moving that element by amax/7, so that bound is looser.
-TWIN_TOL = {"float": 2e-2, "int4x2": 1e-1}
+# With the int4 / int4x2 caches (the same codes, one or two a byte) a
+# one-step difference in a K/V value can also flip its int4 code, moving that
+# element by amax/7, so that bound is looser.
+TWIN_TOL = {"float": 2e-2, "int4": 1e-1, "int4x2": 1e-1}
 
 
 class SmokeError(RuntimeError):
@@ -461,6 +471,8 @@ def tc_sum_error(dev):
 
 
 def random_cache(B, T, Hkv, Dh, dev):
+    """int4x2 codes and scales of a random cache, then the same codes as
+    int8 (the int4 container)."""
     from repro_torch.core.quant import pack_int4
     codes_k = torch.randint(-7, 8, (B, T, Hkv, Dh), device=dev).to(torch.int8)
     codes_v = torch.randint(-7, 8, (B, T, Hkv, Dh), device=dev).to(torch.int8)
@@ -478,6 +490,8 @@ def sweep_attention(rng, dev):
     plan's cap, on the single kernel; f32 and bf16 q.  Each call must take
     the route ``pda_plan`` names, give the same bits on a second call, and
     the same bits at the full extent and at a bounded one (lengths <= 128).
+    Every case runs again over the same codes as int8 (the int4 container,
+    ``packed=False``): the same route, and the same bits as the int4x2 call.
     Tolerance: ``flash_tol`` (one bf16 step, or 1e-5 of the largest value in
     f32; the split route reorders the online softmax's rescaling)."""
     from repro_torch.kernels.flash_attention import decode_packed as dp
@@ -491,7 +505,7 @@ def sweep_attention(rng, dev):
     cases = 0
     for C, G, Dh, bt in shapes:
         H = Hkv * G
-        k_p, v_p, k_s, v_s, _, _ = random_cache(B, T, Hkv, Dh, dev)
+        k_p, v_p, k_s, v_s, k_q, v_q = random_cache(B, T, Hkv, Dh, dev)
         base = np.array([0, 0, 69, T - C])
         lens = base[:, None] + np.arange(1, C + 1)[None, :]
         lens[0] = 0                       # a slot with every tile dead
@@ -502,6 +516,11 @@ def sweep_attention(rng, dev):
         want = "single" if C * G > dp.SPLIT_MAX_QROWS else "split"
         require(route == want, f"pda_plan sent C={C} G={G} Dh={Dh} bt={bt} "
                                f"to the {route} route, not {want}")
+        plan8 = dp.pda_plan(B, C, H, Hkv, Dh, T, bt, k_q.data_ptr()
+                            | v_q.data_ptr() | int(k_q.stride(0)),
+                            packed=False)
+        require(plan8 == plan, f"pda_plan gave int8 codes {plan8}, int4x2 "
+                               f"codes {plan}, at C={C} G={G} Dh={Dh} bt={bt}")
         for qdt in (torch.float32, torch.bfloat16):
             q = torch.randn((B, C, H, Dh), device=dev).to(qdt)
 
@@ -533,7 +552,19 @@ def sweep_attention(rng, dev):
             err = float((yb.float() - ref.float()).abs().max())
             require(err <= flash_tol(qdt, ref),
                     f"{tag} extent 128: max abs err {err}")
-            cases += 1
+            y8 = took_route(dp, routes, route,
+                            lambda: dp.packed_decode_attention(
+                                q, k_q, v_q, k_s, v_s, lengths, bt=bt,
+                                packed=False))
+            ref8 = dp.tiled_packed_attention(q, k_q, v_q, k_s, v_s, lengths,
+                                             bt=bt, packed=False)
+            torch.cuda.synchronize()
+            err = float((y8.float() - ref8.float()).abs().max())
+            require(err <= flash_tol(qdt, ref8),
+                    f"{tag} int8 codes: max abs err {err}")
+            require(torch.equal(y8, y),
+                    f"{tag}: int8 and int4x2 codes gave different bits")
+            cases += 2
     return cases
 
 
@@ -1072,6 +1103,22 @@ def measure_kernels(cm, cfg, dev, counts):
             # the first design (single kernel) at the same shape, this run
             t["first_version_ms"] = device_ms(lambda i: lambda: dp._launch(
                 q, *ext[i], lengths, bt, None), 32)
+        # the int4 container: the same codes as int8, on the same route
+        ext8 = [[c[4][:, :tb], c[5][:, :tb], c[2][:, :tb], c[3][:, :tb]]
+                for c in caches]
+        y8 = packed_decode_attention(q, *ext8[0], lengths, bt=bt,
+                                     packed=False)
+        torch.cuda.synchronize()
+        require(torch.equal(y8, y), "packed_decode_attention: int8 and "
+                                    "int4x2 codes gave different bits")
+        b8, f8 = bound(nbytes(q, y, lengths) + live * Hkv * (2 * Dh + 8),
+                       4.0 * H * Dh * live, "bf16")
+        t["int4_codes"] = {
+            "ms": device_ms(lambda i: lambda: packed_decode_attention(
+                q, *ext8[i], lengths, bt=bt, packed=False), 32),
+            "plain_ms": device_ms(lambda i: lambda: tiled_packed_attention(
+                q, *ext8[i], lengths, bt=bt, packed=False), 8),
+            "bound_ms": b8, "bound_by": f8}
         return t
 
     attn_t = attention_case(
@@ -1160,10 +1207,12 @@ def pct(v, p):
 
 
 def serve(dev, report):
+    """Compile llama3.2-1b, then serve the same 16 requests through
+    ``ServeEngine`` captured (one CUDA graph per phase and bucket), eagerly,
+    and captured again with the int4 cache and with the "unpack" read."""
     from repro_torch.configs import get_config
     from repro_torch.core.compile_sparse import CompileRules, compile_model
     from repro_torch.models.model import init_params
-    from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = get_config("llama3.2-1b")
     t0 = time.perf_counter()
@@ -1177,57 +1226,300 @@ def serve(dev, report):
     t2 = time.perf_counter()
     report["serve_setup_s"] = {"init_params": t1 - t0, "compile_model": t2 - t1}
 
-    def engine():
-        return ServeEngine(cm, cfg, batch_slots=8, max_len=512,
-                           prefill_chunk=16, kv_cache="int4x2", device=dev)
-
     rng = np.random.default_rng(0)
-    warm = engine()
-    warm.submit(Request(uid=-1, prompt=rng.integers(0, cfg.vocab, 24)
-                        .astype(np.int32), max_new_tokens=2))
-    warm.run()
-
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in rng.integers(64, 257, size=16)]
-    eng = engine()
-    reset_counts()
-    t0 = time.perf_counter()
-    for i, p in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    runs = {}
+    # the measured configuration first, counted: int4x2, fused, captured
+    eng, runs["captured"], counts = serve_run(cm, cfg, dev, prompts,
+                                              count=True)
     for name in SERVE_KERNELS + (QMM_THIN, BSM_THIN, PDA_SPLIT):
         require(counts[name] > 0, f"serving ran without launching {name}")
     require(counts[PDA_SINGLE] == 0,
             f"serving sent {counts[PDA_SINGLE]} packed_decode_attention "
             f"launches to the single kernel: every decode row and 16-row "
             f"prefill chunk takes the split route")
-    require(len(done) == 16 and all(len(r.out) == 32 for r in done),
+    require(runs["captured"]["graphs"] > 0,
+            f"the captured engine captured no step: {runs['captured']}")
+    report["capture_check"] = capture_check(eng, cfg)
+    del eng
+    _, runs["eager"], _ = serve_run(cm, cfg, dev, prompts, capture=False)
+    require(runs["eager"]["tokens"] == runs["captured"]["tokens"],
+            "captured and eager serving gave different tokens")
+    _, runs["int4"], _ = serve_run(cm, cfg, dev, prompts, kv_cache="int4")
+    require(runs["int4"]["tokens"] == runs["captured"]["tokens"],
+            "int4 and int4x2 caches served different tokens")
+    _, runs["unpack"], _ = serve_run(cm, cfg, dev, prompts,
+                                     packed_read="unpack")
+    runs["unpack"]["divergences"] = read_divergences(
+        cm, cfg, dev, prompts, runs["captured"]["tokens"],
+        runs["unpack"]["tokens"])
+    tokens = runs["captured"].pop("tokens")
+    for r in runs.values():
+        r.pop("tokens", None)
+    require(all(len(t) == 32 for t in tokens),
             "not every request got its 32 tokens")
-    require(all(0 <= t < cfg.vocab for r in done for t in r.out),
+    require(all(0 <= t < cfg.vocab for out in tokens for t in out),
             "a generated token is outside the vocabulary")
-    st = eng.stats()
-    ttft = [(r.t_first - r.t_submit) * 1e3 for r in done]
     report["serve"] = {
         "requests": 16, "prompt_tokens": int(sum(len(p) for p in prompts)),
-        "new_tokens_per_request": 32, "wall_s": wall,
-        "tokens_per_s": eng.tokens_processed() / wall,
-        "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
-        "decode_step_ms_p50": pct(st["decode_ms"], 50),
-        "prefill_step_ms_p50": pct(st["prefill_ms"], 50),
-        "decode_steps": st["decode_steps"], "prefill_steps": st["prefill_steps"],
-        "cache_bytes": eng.cache_bytes(),
+        "new_tokens_per_request": 32, **runs["captured"],
         "container_storage_bytes": cm.container_storage_bytes,
         "byte_compression": cm.byte_compression, "launches": counts,
-    }
+        "eager": runs["eager"], "int4": runs["int4"],
+        "unpack": runs["unpack"]}
 
     report["twin_check"] = {
         kv: twin_check(cm, cfg, dev, prompts[0][:16], kv) for kv in TWIN_TOL}
-    report["decode_profile"] = profile_decode(cm, cfg, dev)
+    report["step_profile"] = {
+        f"{phase}_{mode}": profile_step(cm, cfg, dev, phase, mode == "captured")
+        for phase in ("decode", "prefill") for mode in ("captured", "eager")}
+    report["pdl_edges"] = pdl_edges(cm, cfg, dev)
     report["compiled_forward"] = compiled_forward(cm, cfg, dev)
     return cm, cfg, counts
+
+
+# warm-up requests that reach every bucket the measured requests use:
+# prefill chunks up to 512 rows, decode rows from 61 to 260
+WARM = ((300, 2), (60, 200))
+
+
+def serve_engine(cm, cfg, dev, **kw):
+    from repro_torch.serve.engine import ServeEngine
+    kw = {"kv_cache": "int4x2", **kw}
+    return ServeEngine(cm, cfg, batch_slots=8, max_len=512, prefill_chunk=16,
+                       device=dev, **kw)
+
+
+def serve_run(cm, cfg, dev, prompts, count=False, **kw):
+    """Serve ``prompts`` (32 new tokens each) on a new engine, after warm-up
+    requests that reach every bucket; the counts are set to 0 just before
+    the measured requests and read just after.  Returns the engine, its
+    numbers and tokens, and the counts (None unless ``count``)."""
+    from repro_torch.serve.engine import Request
+
+    eng = serve_engine(cm, cfg, dev, **kw)
+    rng = np.random.default_rng(1)
+    for i, (n, new) in enumerate(WARM):
+        eng.submit(Request(uid=-1 - i, prompt=rng.integers(
+            0, cfg.vocab, n).astype(np.int32), max_new_tokens=new))
+    eng.run()
+    torch.cuda.synchronize()
+    st0, tok0 = eng.stats(), eng.tokens_processed()
+    if count:
+        reset_counts()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts() if count else None
+    st = eng.stats()
+    dec = st["decode_ms"][len(st0["decode_ms"]):]
+    pre = st["prefill_ms"][len(st0["prefill_ms"]):]
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in done]
+    return eng, {
+        "capture": eng.capture, "kv_cache": eng.kv_cache,
+        "packed_read": eng.packed_read, "wall_s": wall,
+        "tokens_per_s": (eng.tokens_processed() - tok0) / wall,
+        "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+        "decode_step_ms_p50": pct(dec, 50),
+        "prefill_step_ms_p50": pct(pre, 50),
+        "decode_steps": len(dec), "prefill_steps": len(pre),
+        "graphs": st["graphs"], "capture_s": st["capture_s"],
+        "graph_pool_bytes": st["graph_pool_bytes"],
+        "captures_after_warmup": st["graphs"] - st0["graphs"],
+        "cache_bytes": eng.cache_bytes(),
+        "tokens": [r.out for r in done]}, counts
+
+
+def capture_check(eng, cfg):
+    """One captured decode step and one captured prefill chunk, replayed
+    from a saved cache state, against the same step run eagerly from that
+    state: logits and cache bit for bit, and the same launches."""
+    out = {}
+    cases = {"decode": max(tb for ph, tb in eng._graphs if ph == "decode"),
+             "prefill": max(tb for ph, tb in eng._graphs if ph == "prefill")}
+    rng = np.random.default_rng(3)
+    eng._fill("tok", rng.integers(0, cfg.vocab, (eng.slots, 1)))
+    eng._fill("act", np.ones(eng.slots, np.int32))
+    eng._fill("ptok", rng.integers(0, cfg.vocab, (1, eng.prefill_chunk)))
+    eng._fill("nv", eng.prefill_chunk)
+    eng._fill("slot", 3)
+    eng.cache["length"].fill_(cases["decode"] // 2)
+    saved = {k: v.clone() for k, v in eng.cache.items()}
+    for phase, tb in cases.items():
+        fn = eng._decode_fn if phase == "decode" else eng._prefill_fn
+        torch.cuda.synchronize()
+        reset_counts()
+        eager = fn(tb).clone()
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+        eager_cache = {k: v.clone() for k, v in eng.cache.items()}
+        for k, v in eng.cache.items():
+            v.copy_(saved[k])
+        reset_counts()
+        replay = eng._step_logits(phase, tb).clone()
+        torch.cuda.synchronize()
+        replay_counts = read_counts()
+        same_cache = all(torch.equal(v, eager_cache[k])
+                         for k, v in eng.cache.items())
+        diff = float((replay.float() - eager.float()).abs().max())
+        require(torch.equal(replay, eager) and same_cache,
+                f"captured {phase} step (bucket {tb}) differs from the eager "
+                f"step: logits max abs diff {diff}, cache equal {same_cache}")
+        require(replay_counts == eager_counts,
+                f"captured {phase} step launched {replay_counts}, the eager "
+                f"step {eager_counts}")
+        for k, v in eng.cache.items():
+            v.copy_(saved[k])
+        out[phase] = {"bucket": tb, "bitwise_equal": True,
+                      "launches": {k: n for k, n in replay_counts.items()
+                                   if n}}
+    return out
+
+
+def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens):
+    """Requests whose "unpack"-read tokens differ from the fused read's:
+    at the first differing token, both reads are replayed teacher-forced
+    on one slot (the fused tokens before it) and must score the two
+    candidates within ``TWIN_TOL["int4x2"]`` of the largest logit — a tie.
+    Returns one entry per differing request."""
+    from repro_torch.models.model import decode_step, init_cache, prefill_step
+
+    tol = TWIN_TOL["int4x2"]
+    out = []
+    for uid, (a, b) in enumerate(zip(ref_tokens, tokens)):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        prompt = prompts[uid]
+        last = {}
+        for read in ("fused", "unpack"):
+            cache = init_cache(cfg, 1, 512, kv_cache="int4x2", device=dev)
+            for pos in range(0, len(prompt), 16):
+                chunk = np.zeros((1, 16), np.int32)
+                n = min(16, len(prompt) - pos)
+                chunk[0, :n] = prompt[pos:pos + n]
+                logits = prefill_step(
+                    cm.params, cfg, cache, torch.as_tensor(chunk, device=dev),
+                    patterns=cm.patterns, n_valid=torch.tensor(
+                        [n], dtype=torch.int32, device=dev), bt=64,
+                    packed_read=read)[0][0, n - 1]
+            for tok in a[:i]:
+                logits = decode_step(
+                    cm.params, cfg, cache, torch.tensor([[tok]], device=dev),
+                    patterns=cm.patterns, bt=64, packed_read=read)[0][0, 0]
+            last[read] = logits.float()
+        top = float(last["fused"].abs().max())
+        gaps = [abs(float(v[a[i]] - v[b[i]])) / top for v in last.values()]
+        entry = {"uid": uid, "step": i, "tokens": [a[i], b[i]],
+                 "gaps": gaps}
+        require(max(gaps) <= tol, f"unpack read: request {uid} step {i} "
+                                  f"is not a tie: {entry}")
+        out.append(entry)
+    return out
+
+
+def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5):
+    """Where a serving step's time goes: the engine's step at 8 slots of
+    200 cached rows (int4x2 cache, bucket 256; a prefill chunk of 16 rows
+    into slot 0), each ending as the engine's does with its logits' argmax
+    on the host: wall-clock per step beside the device time of the kernels
+    it launches, from torch.profiler (CUPTI); captured or eager."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serve_engine(cm, cfg, dev, capture=capture)
+    eng._fill("tok", np.zeros((8, 1), np.int32))
+    eng._fill("act", np.ones(8, np.int32))
+    eng._fill("ptok", np.arange(16, dtype=np.int32)[None])
+    eng._fill("nv", 16)
+    eng._fill("slot", 0)
+    length = eng.cache["length"]
+
+    def step():
+        logits = eng._step_logits(phase, 256)
+        last = logits[:, 0] if phase == "decode" else logits[0]
+        torch.argmax(last, dim=-1).cpu()
+        length.fill_(200)
+
+    length.fill_(200)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    dev_us = {}  # device kernels only: CPU-side ops would count them twice
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[e.key] = e.self_device_time_total / steps
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    return {"captured": eng.capture, "graphs": eng.stats()["graphs"],
+            "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms if dev_us else None,
+            "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
+            "top_device_us_per_step": {k[:80]: v for k, v in top}}
+
+
+def pdl_edges(cm, cfg, dev):
+    """Whether capture keeps the programmatic dependent launches (the
+    thin-M reduce passes, the split attention's combine pass) as
+    programmatic graph edges: one decode step captured with its graph kept,
+    its edges counted by type through libcuda's cuGraphGetEdges_v2.
+    None where this torch or CUDA version cannot show the graph."""
+    import ctypes
+
+    eng = serve_engine(cm, cfg, dev)
+    eng.cache["length"].fill_(200)
+    eng._fill("act", np.ones(8, np.int32))
+    s = eng._stream              # the engine's capture stream
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        eng._decode_fn(256)      # libraries and handles, before capture
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        return {"edges": None, "why": f"torch {torch.__version__}: {e}"}
+    before = read_counts()
+    with torch.cuda.graph(graph, stream=s):
+        eng._decode_fn(256)
+    after = read_counts()
+    pdl_launches = sum(after[k] - before[k]
+                       for k in (QMM_THIN, BSM_THIN, PDA_SPLIT))
+    reset_counts()
+    try:
+        fn = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    except (OSError, AttributeError) as e:
+        return {"edges": None, "why": str(e)}
+    fn.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = fn(raw, None, None, None, ctypes.byref(n))
+    require(err == 0, f"cuGraphGetEdges_v2: error {err}")
+    nodes = (ctypes.c_void_p * n.value)()
+    nodes_to = (ctypes.c_void_p * n.value)()
+    data = (ctypes.c_uint8 * (8 * n.value))()
+    err = fn(raw, nodes, nodes_to, data, ctypes.byref(n))
+    require(err == 0, f"cuGraphGetEdges_v2: error {err}")
+    by_type = {}
+    for i in range(n.value):   # CUgraphEdgeData: from_port, to_port, type
+        kind = {0: "default", 1: "programmatic"}.get(data[8 * i + 2],
+                                                      str(data[8 * i + 2]))
+        key = f"{kind}/from_port{data[8 * i]}"
+        by_type[key] = by_type.get(key, 0) + 1
+    return {"edges": n.value, "by_type": by_type,
+            "pdl_launch_pairs": pdl_launches}
 
 
 def compiled_forward(cm, cfg, dev):
@@ -1277,48 +1569,6 @@ def compiled_forward(cm, cfg, dev):
             "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
 
 
-def profile_decode(cm, cfg, dev, steps: int = 5):
-    """Where a decode step's time goes: host wall-clock per step (8 slots at
-    200 cached rows, int4x2 cache) beside the device time of the kernels it
-    launches, from torch.profiler (CUPTI)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models.model import decode_step, init_cache
-
-    cache = init_cache(cfg, 8, 512, kv_cache="int4x2", device=dev)
-    cache["length"].fill_(200)
-    tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
-
-    def step():
-        decode_step(cm.params, cfg, cache, tok, patterns=cm.patterns,
-                    t_bound=256, bt=64)
-        cache["length"].fill_(200)
-
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    dev_us = {}  # device kernels only: CPU-side ops would count them twice
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[e.key] = e.self_device_time_total / steps
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": busy_ms if dev_us else None,
-            "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
-            "top_device_us_per_step": dict(top)}
-
-
 def twin_check(cm, cfg, dev, prompt, kv_cache):
     """Kernel path vs plain versions on the card: one prefill chunk and 4
     greedy decode steps, teacher-forced with the kernel path's tokens.
@@ -1364,7 +1614,7 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
             L = cfg.n_layers
             want = {QMM_THIN: 4 * L, QMM_TC: 0, QMM_TILED: 0,
                     BSM_THIN: 3 * L, BSM_TC: 0, BSM_TILED: 0}
-            if kv_cache == "int4x2":
+            if kv_cache != "float":
                 want.update({PDA_SPLIT: L, PDA_SINGLE: 0})
             got = {k: per_step[k] for k in want}
             require(got == want, f"{kv_cache} cache: a decode step launched "
@@ -1990,7 +2240,11 @@ def main() -> int:
         cm, cfg, counts = serve(dev, report)
         print(f"serve: {json.dumps(report['serve'])}", flush=True)
         print(f"twin check: {json.dumps(report['twin_check'])}", flush=True)
-        print(f"decode profile: {json.dumps(report['decode_profile'])}",
+        print(f"capture check: {json.dumps(report['capture_check'])}",
+              flush=True)
+        print(f"step profile: {json.dumps(report['step_profile'])}",
+              flush=True)
+        print(f"programmatic edges: {json.dumps(report['pdl_edges'])}",
               flush=True)
         print(f"compiled forward: {json.dumps(report['compiled_forward'])}",
               flush=True)

@@ -142,10 +142,11 @@ def use_kernel(cfg: DispatchConfig, x: torch.Tensor,
     return True
 
 
-def attn_packed_eligible(Dh: int, bt: int) -> bool:
+def attn_packed_eligible(Dh: int, bt: int, packed: bool = True) -> bool:
     """Can the packed attention kernel read this cache?  Nibble pairs stay
-    inside one byte only for an even head dim; any positive tile works."""
-    return Dh % 2 == 0 and bt > 0
+    inside one byte only for an even head dim (the int8 codes of the
+    unpacked container take any); any positive tile works."""
+    return (Dh % 2 == 0 or not packed) and bt > 0
 
 
 def _epilogue(y: torch.Tensor, bias, activation, out_dtype) -> torch.Tensor:
@@ -222,32 +223,37 @@ def payload_dispatch(
 
 def attn_packed_dispatch(
     q: torch.Tensor,        # (B, C, H, Dh) — decode C=1, prefill chunk C>1
-    k_c: torch.Tensor,      # packed uint8 (B, T, Hkv, ceil(Dh/2))
-    v_c: torch.Tensor,
+    k_c: torch.Tensor,      # packed uint8 (B, T, Hkv, ceil(Dh/2)) or int8
+    v_c: torch.Tensor,      #   codes (B, T, Hkv, Dh) when packed=False
     k_s: torch.Tensor,      # (B, T, Hkv) f32 per-row scales
     v_s: torch.Tensor,
     lengths: torch.Tensor,  # (B, C) live length per query row
     *,
+    packed: bool,
     dispatch: Union[None, str, DispatchConfig] = None,
     bt: Optional[int] = None,
     leaf: Optional[str] = None,
 ) -> torch.Tensor:
-    """The int4x2 KV-cache attention read: codes -> attention output,
-    without a dequantised copy of the cache.  Decode rows and prefill
-    chunks both take the kernel (``packed_decode_attention``); ``twin``
-    takes :func:`tiled_packed_attention`.  ``bt`` defaults to
+    """The quantised KV-cache attention read: codes -> attention output,
+    without a dequantised copy of the cache.  ``packed`` names the
+    container: int4x2 (two codes a byte) or int4 (int8 codes).  Decode
+    rows and prefill chunks of both containers take the kernel
+    (``packed_decode_attention``); ``twin`` takes
+    :func:`tiled_packed_attention`.  ``bt`` defaults to
     :data:`ATTN_BT_DEFAULT`."""
     cfg = resolve(dispatch)
     bt = ATTN_BT_DEFAULT if bt is None else int(bt)
     name = leaf or "attn.kv"
     if not use_kernel(cfg, q, name):
-        return tiled_packed_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt)
-    if not attn_packed_eligible(q.shape[-1], bt):
+        return tiled_packed_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
+                                      packed=packed)
+    if not attn_packed_eligible(q.shape[-1], bt, packed):
         raise ValueError(
-            f"{name}: the packed attention kernel needs an even head dim and "
-            f"a positive tile, got Dh={q.shape[-1]}, bt={bt}")
+            f"{name}: the packed attention kernel needs a positive tile and, "
+            f"for int4x2 codes, an even head dim; got Dh={q.shape[-1]}, "
+            f"bt={bt}")
     return packed_decode_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
-                                   name=name)
+                                   packed=packed, name=name)
 
 
 def attn_full_dispatch(

@@ -1,5 +1,6 @@
-// Attention read over the bit-packed int4x2 KV cache, for decode (C = 1)
-// and prefill chunks (C > 1) alike.  Two routes, picked by `pda_plan` in
+// Attention read over the quantised KV cache, for decode (C = 1) and
+// prefill chunks (C > 1) alike, over either container: int4x2 (two codes a
+// byte) and int4 (one int8 code a byte).  Two routes, picked by `pda_plan` in
 // kernels/flash_attention/decode_packed.py: the split kernel (`pda_split_*`,
 // the cache cut into fixed runs of whole tiles across CTAs, then a combine
 // pass) and the single kernel (`pda_kernel`, the first design, one CTA walks
@@ -11,7 +12,12 @@
 //
 // What it computes, as the TPU kernel does: K/V rows are stored as int4
 // codes packed two per byte along Dh (even d = low nibble), with one f32
-// scale per (slot, position, kv head).  q arrives pre-scaled by 1/sqrt(Dh) in
+// scale per (slot, position, kv head).  The int4 container holds the same
+// codes one per signed byte; the reference reads it in its jnp twin
+// (`tiled_packed_attention(packed=False)`).  Here the code format is a
+// template parameter of the tile decode alone: everything after it (scale,
+// online softmax, sum order, combine) is shared, so the two containers give
+// the same bits for the same codes and scales.  q arrives pre-scaled by 1/sqrt(Dh) in
 // f32.  The cache is walked in bt-row tiles with an online softmax (running
 // max m, running sum l, accumulator acc); masked scores are -1e30; a tile
 // whose first row is at or past the row's live length is never touched, so
@@ -20,7 +26,7 @@
 // share every decoded tile.
 //
 // What bounds it on the H100: bytes.  Each live cache row costs Dh bytes of
-// codes plus two scales and feeds 4·G·Dh operations per query row, far below
+// int4x2 codes (2·Dh as int8) plus two scales and feeds 4·G·Dh operations per query row, far below
 // the card's ridge point, so the floor is the live cache over HBM bandwidth
 // -- about 0.3 us at decode -- and what stands between a kernel and it is
 // latency: how many bytes are in flight at once, and how long the chains of
@@ -78,7 +84,17 @@ __host__ __device__ inline size_t smem_floats(int bt, int Dh, int G) {
          2 * (size_t)G * Dh + 2 * (size_t)G;
 }
 
-template <typename OT>
+// code j of a cache row as float: a nibble of byte j / 2 (int4x2, even j =
+// low nibble, as csrc/common.cuh's W_U4) or the signed byte j (int4)
+template <bool PACKED>
+__device__ __forceinline__ float row_code(const uint8_t* row, int j) {
+  if constexpr (PACKED)
+    return rt::WTraits<rt::W_U4>::get(row[j >> 1], j & 1);
+  else
+    return (float)(int8_t)row[j];
+}
+
+template <typename OT, bool PACKED>
 __global__ void __launch_bounds__(32 * NW)
     pda_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
                const uint8_t* __restrict__ vp, const float* __restrict__ ks,
@@ -88,7 +104,7 @@ __global__ void __launch_bounds__(32 * NW)
   extern __shared__ float sm[];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv;
-  const int Dhp = Dh / 2;
+  const int Dhp = PACKED ? Dh / 2 : Dh;  // code bytes of a row
   const int ldk = Dh + 1;
   float* kf = sm;
   float* vf = kf + (size_t)bt * ldk;
@@ -117,24 +133,17 @@ __global__ void __launch_bounds__(32 * NW)
 
   for (int t0 = 0; t0 < length; t0 += bt) {
     __syncthreads();  // previous tile fully consumed (and init visible)
-    for (int e = tid; e < bt * Dhp; e += 32 * NW) {
-      const int t = e / Dhp, jb = e - t * Dhp;
+    for (int e = tid; e < bt * Dh; e += 32 * NW) {
+      const int t = e / Dh, j = e - t * Dh;
       const int row = t0 + t;
-      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+      float kv = 0.f, vv = 0.f;
       if (row < T) {
-        const size_t off = ((size_t)row * Hkv + h) * Dhp + jb;
-        const uint8_t kb = kpb[off], vb = vpb[off];
-        const float sk = ksb[(size_t)row * Hkv + h];
-        const float sv = vsb[(size_t)row * Hkv + h];
-        k0 = rt::WTraits<rt::W_U4>::get(kb, 0) * sk;
-        k1 = rt::WTraits<rt::W_U4>::get(kb, 1) * sk;
-        v0 = rt::WTraits<rt::W_U4>::get(vb, 0) * sv;
-        v1 = rt::WTraits<rt::W_U4>::get(vb, 1) * sv;
+        const size_t off = ((size_t)row * Hkv + h) * Dhp;
+        kv = row_code<PACKED>(kpb + off, j) * ksb[(size_t)row * Hkv + h];
+        vv = row_code<PACKED>(vpb + off, j) * vsb[(size_t)row * Hkv + h];
       }
-      kf[(size_t)t * ldk + 2 * jb] = k0;
-      kf[(size_t)t * ldk + 2 * jb + 1] = k1;
-      vf[(size_t)t * Dh + 2 * jb] = v0;
-      vf[(size_t)t * Dh + 2 * jb + 1] = v1;
+      kf[(size_t)t * ldk + j] = kv;
+      vf[(size_t)t * Dh + j] = vv;
     }
     __syncthreads();
 
@@ -184,7 +193,7 @@ __global__ void __launch_bounds__(32 * NW)
   }
 }
 
-template <typename OT>
+template <typename OT, bool PACKED>
 cudaError_t launch_t(const float* q, const uint8_t* kp, const uint8_t* vp,
                      const float* ks, const float* vs, const int* lengths,
                      void* out, int B, int C, int H, int Hkv, int Dh, int T,
@@ -193,11 +202,12 @@ cudaError_t launch_t(const float* q, const uint8_t* kp, const uint8_t* vp,
   const size_t bytes = smem_floats(bt, Dh, H / Hkv) * sizeof(float);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        pda_kernel<OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        pda_kernel<OT, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(C, Hkv, B);
-  pda_kernel<OT><<<grid, 32 * NW, bytes, stream>>>(
+  pda_kernel<OT, PACKED><<<grid, 32 * NW, bytes, stream>>>(
       q, kp, vp, ks, vs, lengths, static_cast<OT*>(out), C, H, Hkv, Dh, T, bt,
       kv_bstride, s_bstride);
   return cudaGetLastError();
@@ -206,21 +216,28 @@ cudaError_t launch_t(const float* q, const uint8_t* kp, const uint8_t* vp,
 }  // namespace
 
 // q: (B, C, H, Dh) f32, pre-scaled, contiguous.  kp / vp: (B, T, Hkv, Dh/2)
-// uint8 whose slot stride is kv_bstride bytes (the rest contiguous); ks / vs:
-// (B, T, Hkv) f32 with slot stride s_bstride.  lengths: (B, C) int32.
-// out: (B, C, H, Dh), f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).
-// Returns the launch's cudaError_t (0 on success).
+// uint8 (packed = 1) or (B, T, Hkv, Dh) int8 codes (packed = 0) whose slot
+// stride is kv_bstride bytes (the rest contiguous); ks / vs: (B, T, Hkv) f32
+// with slot stride s_bstride.  lengths: (B, C) int32.  out: (B, C, H, Dh),
+// f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int pda_launch(const float* q, const uint8_t* kp, const uint8_t* vp,
                           const float* ks, const float* vs, const int* lengths,
-                          void* out, int out_bf16, int B, int C, int H, int Hkv,
-                          int Dh, int T, int bt, long long kv_bstride,
-                          long long s_bstride, void* stream) {
+                          void* out, int out_bf16, int packed, int B, int C,
+                          int H, int Hkv, int Dh, int T, int bt,
+                          long long kv_bstride, long long s_bstride,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    return (int)launch_t<__nv_bfloat16>(q, kp, vp, ks, vs, lengths, out, B, C, H,
-                                        Hkv, Dh, T, bt, kv_bstride, s_bstride, s);
-  return (int)launch_t<float>(q, kp, vp, ks, vs, lengths, out, B, C, H, Hkv, Dh,
-                              T, bt, kv_bstride, s_bstride, s);
+#define RT_SINGLE(OT, P)                                                       \
+  return (int)launch_t<OT, P>(q, kp, vp, ks, vs, lengths, out, B, C, H, Hkv,   \
+                              Dh, T, bt, kv_bstride, s_bstride, s);
+  if (out_bf16) {
+    if (packed) RT_SINGLE(__nv_bfloat16, true)
+    RT_SINGLE(__nv_bfloat16, false)
+  }
+  if (packed) RT_SINGLE(float, true)
+  RT_SINGLE(float, false)
+#undef RT_SINGLE
 }
 
 // ------------------------------------------------------------ split route
@@ -242,12 +259,14 @@ template <int DH>
 __host__ __device__ constexpr int v_ld() { return DH + 16; }
 
 // Shared memory of a split CTA, in bytes from the base: two ring stages of
-// [k codes (BT, DH/2)][v codes][k scales (BT)][v scales], then the f32 V
-// tile (BT, DH + 16), q rows and acc (R, DH), scores (R, BT), m / l / corr
-// (R), and the rows' lengths (R ints).
-template <int DH, int BT>
+// [k codes (BT, CB)][v codes][k scales (BT)][v scales], CB the code bytes
+// of a row (DH / 2 int4x2, DH int8), then the f32 V tile (BT, DH + 16), q
+// rows and acc (R, DH), scores (R, BT), m / l / corr (R), and the rows'
+// lengths (R ints).
+template <int DH, int BT, int CB>
 struct SplitSmem {
-  static constexpr size_t stage = align16((size_t)BT * DH) + align16((size_t)8 * BT);
+  static constexpr size_t codes = align16((size_t)2 * BT * CB);
+  static constexpr size_t stage = codes + align16((size_t)8 * BT);
   static constexpr size_t vf = 2 * stage;
   static constexpr size_t qs = vf + (size_t)4 * BT * v_ld<DH>();
   size_t acc, ps, m, l, corr, lens, total;
@@ -282,16 +301,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// code i (0..7) of a 4-byte word of int4x2 codes, as float: even d = low
-// nibble, as csrc/common.cuh's W_U4
-__device__ __forceinline__ float nib(uint32_t word, int i) {
-  return (float)((int)(((word >> (4 * i)) & 0xFu) ^ 8u) - 8);
-}
+// The code formats of a 4-byte word: PER codes, code i as float.  int4x2:
+// 8 nibbles, even d = low nibble, as csrc/common.cuh's W_U4; int4: 4 signed
+// bytes.  Both give the same float for the same code.
+template <bool PACKED>
+struct Codes;
+template <>
+struct Codes<true> {
+  static constexpr int PER = 8;
+  __device__ __forceinline__ static float get(uint32_t word, int i) {
+    return (float)((int)(((word >> (4 * i)) & 0xFu) ^ 8u) - 8);
+  }
+};
+template <>
+struct Codes<false> {
+  static constexpr int PER = 4;
+  __device__ __forceinline__ static float get(uint32_t word, int i) {
+    return (float)(int8_t)((word >> (8 * i)) & 0xFFu);
+  }
+};
 
-// 8 codes of `word` times `scl` into out[0..7]
-__device__ __forceinline__ void dequant8(uint32_t word, float scl, float* out) {
+// the codes of `word` times `scl` into out[0..PER)
+template <bool PACKED>
+__device__ __forceinline__ void dequant_word(uint32_t word, float scl, float* out) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = nib(word, i) * scl;
+  for (int i = 0; i < Codes<PACKED>::PER; ++i) out[i] = Codes<PACKED>::get(word, i) * scl;
 }
 
 // W 4-byte words from shared memory at `src` (4W-byte aligned), in the
@@ -320,7 +354,7 @@ __device__ __forceinline__ void load_words(const uint8_t* src, uint32_t* w) {
   }
 }
 
-template <int DH, int BT>
+template <int DH, int BT, bool PACKED>
 __global__ void __launch_bounds__(SP_NT, 1)
     pda_split_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
                      const uint8_t* __restrict__ kp,
@@ -329,12 +363,14 @@ __global__ void __launch_bounds__(SP_NT, 1)
                      const int* __restrict__ lengths, float* __restrict__ ws,
                      int C, int H, int Hkv, int T, int tiles_per_split,
                      int n_split, long long kv_bstride, long long s_bstride) {
-  constexpr int DHP = DH / 2;              // code bytes of a row
+  constexpr int PER = Codes<PACKED>::PER;  // codes of a 4-byte word
+  constexpr int DHP = DH * 4 / PER;        // code bytes of a row
   constexpr int DP = SP_NT / BT;           // lanes that sum one score
   constexpr int SL = DH / DP;              // d values per lane
   constexpr int VLD = v_ld<DH>();
   static_assert(SP_NT % BT == 0 && SL % 8 == 0, "one lane holds whole words");
-  using Smem = SplitSmem<DH, BT>;
+  static_assert(DHP % 16 == 0, "rows copy in whole 16-byte chunks");
+  using Smem = SplitSmem<DH, BT, DHP>;
   // the combine pass may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(16) uint8_t smem[];
@@ -372,7 +408,7 @@ __global__ void __launch_bounds__(SP_NT, 1)
   uint8_t* const ring = smem;
   auto issue = [&](int tile, int st) {
     uint8_t* base = ring + st * Smem::stage;
-    float* sc = reinterpret_cast<float*>(base + align16((size_t)BT * DH));
+    float* sc = reinterpret_cast<float*>(base + Smem::codes);
     const int t0 = tile * BT;
     const int live = min(BT, row_end - t0);
 #pragma unroll
@@ -429,29 +465,30 @@ __global__ void __launch_bounds__(SP_NT, 1)
     __syncthreads();  // this tile landed; the last tile's P·V is done
     const int t0 = (tile_lo + i) * BT;
     const uint8_t* base = smem + (i & 1) * Smem::stage;
-    const float* sc = reinterpret_cast<const float*>(base + align16((size_t)BT * DH));
+    const float* sc = reinterpret_cast<const float*>(base + Smem::codes);
 
-    // V: one 4-byte word (8 codes) of a row per step, times its scale
+    // V: one 4-byte word (PER codes) of a row per step, times its scale
 #pragma unroll
     for (int e = tid; e < BT * (DHP / 4); e += SP_NT) {
       const int t = e / (DHP / 4), w = e % (DHP / 4);
       const uint32_t word = *reinterpret_cast<const uint32_t*>(
           base + (BT + t) * DHP + 4 * w);
-      float v[8];
-      dequant8(word, sc[BT + t], v);
-      float4* dst = reinterpret_cast<float4*>(vf + t * VLD + 8 * w);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      float v[PER];
+      dequant_word<PACKED>(word, sc[BT + t], v);
+      float4* dst = reinterpret_cast<float4*>(vf + t * VLD + PER * w);
+#pragma unroll
+      for (int i = 0; i < PER / 4; ++i)
+        dst[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
     }
 
     // K: this lane's slice of row kt, dequantised in registers
     float kr[SL];
     {
-      uint32_t words[SL / 8];
-      load_words<SL / 8>(base + kt * DHP + part * (SL / 2), words);
+      uint32_t words[SL / PER];
+      load_words<SL / PER>(base + kt * DHP + part * (SL * 4 / PER), words);
       const float scl = sc[kt];
 #pragma unroll
-      for (int w = 0; w < SL / 8; ++w) dequant8(words[w], scl, kr + 8 * w);
+      for (int w = 0; w < SL / PER; ++w) dequant_word<PACKED>(words[w], scl, kr + PER * w);
     }
     // scores of every query row against key kt: SL products per lane in
     // four independent sums, then the DP lanes of the key by shuffles
@@ -594,7 +631,7 @@ __global__ void __launch_bounds__(256)
   out[i] = rt::from_f32<OT>(a / fmaxf(l, 1e-30f));
 }
 
-template <int DH, int BT, typename OT>
+template <int DH, int BT, bool PACKED, typename OT>
 cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
                     const uint8_t* vp, const float* ks, const float* vs,
                     const int* lengths, float* ws, void* out, int B, int C,
@@ -602,11 +639,11 @@ cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
                     long long kv_bstride, long long s_bstride,
                     cudaStream_t stream) {
   const int R = C * (H / Hkv);
-  const SplitSmem<DH, BT> L(R);
+  const SplitSmem<DH, BT, PACKED ? DH / 2 : DH> L(R);
   if (R > SP_MAX_ROWS || L.total > SP_SMEM_MAX || tiles_per_split < 1 ||
       n_split != ((T + BT - 1) / BT + tiles_per_split - 1) / tiles_per_split)
     return cudaErrorInvalidValue;
-  auto kern = pda_split_kernel<DH, BT>;
+  auto kern = pda_split_kernel<DH, BT, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
@@ -632,7 +669,7 @@ cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename OT>
+template <typename OT, bool PACKED>
 cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
                         float q_scale, const uint8_t* kp, const uint8_t* vp,
                         const float* ks, const float* vs, const int* lengths,
@@ -642,7 +679,7 @@ cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
                         cudaStream_t s) {
 #define RT_SPLIT(DH, BT)                                                      \
   if (Dh == DH && bt == BT)                                                   \
-    return split_t<DH, BT, OT>(q, q_bf16, q_scale, kp, vp, ks, vs, lengths,   \
+    return split_t<DH, BT, PACKED, OT>(q, q_bf16, q_scale, kp, vp, ks, vs, lengths,   \
                                ws, out, B, C, H, Hkv, T, tiles_per_split,     \
                                n_split, kv_bstride, s_bstride, s);
   RT_SPLIT(64, 16)
@@ -659,8 +696,9 @@ cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
 }  // namespace
 
 // The split route: (Dh, bt) in {64} x {16, 32, 64, 128} or {128} x {16, 32,
-// 64}, C·(H / Hkv) <= 64 query rows per CTA, k_p / v_p and their slot
-// stride 16-byte aligned.  q: (B, C, H, Dh) f32 (q_bf16 = 0) or bf16,
+// 64}, C·(H / Hkv) <= 64 query rows per CTA, kp / vp and their slot
+// stride 16-byte aligned; kp / vp hold int4x2 (packed = 1) or int8 codes
+// (packed = 0) as pda_launch's.  q: (B, C, H, Dh) f32 (q_bf16 = 0) or bf16,
 // contiguous, not yet scaled; the kernel multiplies it by q_scale in f32.
 // The cache is cut into n_split = ceil(ceil(T / bt) / tiles_per_split)
 // splits of tiles_per_split bt-row tiles from row 0.  ws: f32 scratch of
@@ -671,17 +709,21 @@ extern "C" int pda_split_launch(const void* q, int q_bf16, float q_scale,
                                 const uint8_t* kp, const uint8_t* vp,
                                 const float* ks, const float* vs,
                                 const int* lengths, float* ws, void* out,
-                                int B, int C, int H, int Hkv, int Dh, int T,
-                                int bt, int tiles_per_split, int n_split,
-                                long long kv_bstride, long long s_bstride,
-                                void* stream) {
+                                int packed, int B, int C, int H, int Hkv,
+                                int Dh, int T, int bt, int tiles_per_split,
+                                int n_split, long long kv_bstride,
+                                long long s_bstride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16)
-    return (int)split_shape<__nv_bfloat16>(
-        Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs, lengths, ws, out, B, C, H,
-        Hkv, T, tiles_per_split, n_split, kv_bstride, s_bstride, s);
-  return (int)split_shape<float>(Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs,
-                                 lengths, ws, out, B, C, H, Hkv, T,
-                                 tiles_per_split, n_split, kv_bstride,
+#define RT_SPLIT_T(OT, P)                                                      \
+  return (int)split_shape<OT, P>(Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs,  \
+                                 lengths, ws, out, B, C, H, Hkv, T,           \
+                                 tiles_per_split, n_split, kv_bstride,        \
                                  s_bstride, s);
+  if (q_bf16) {
+    if (packed) RT_SPLIT_T(__nv_bfloat16, true)
+    RT_SPLIT_T(__nv_bfloat16, false)
+  }
+  if (packed) RT_SPLIT_T(float, true)
+  RT_SPLIT_T(float, false)
+#undef RT_SPLIT_T
 }

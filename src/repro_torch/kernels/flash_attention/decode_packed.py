@@ -1,8 +1,9 @@
-"""Attention read over the bit-packed int4x2 KV cache — kernel wrapper and
-plain version.
+"""Attention read over the quantised KV cache — kernel wrapper and plain
+version.
 
-The serving cache stores K/V as int4 codes packed two per uint8 byte along
-Dh, with one f32 scale per (slot, position, kv head).  The read attends
+The serving cache stores K/V as int4 codes, packed two per uint8 byte
+along Dh (the int4x2 container) or one per int8 byte (the int4 container),
+with one f32 scale per (slot, position, kv head).  The read attends
 straight from codes x scales with an online softmax over ``bt``-row tiles,
 skipping tiles at or past each query row's live length, so the result does
 not depend on the cache extent at a fixed ``bt``.
@@ -10,10 +11,10 @@ not depend on the cache extent at a fixed ``bt``.
 * :func:`packed_decode_attention` — the wrapper of ``csrc/
   packed_decode_attention.cu`` (replacing the Pallas kernel of
   ``repro.kernels.flash_attention.decode_packed``), for decode (C = 1) and
-  prefill chunks (C > 1).  :func:`pda_plan` picks the route from the
-  shapes: the split kernel (the cache cut into fixed runs of whole tiles
-  across CTAs, then a combine pass) or the single kernel (the first
-  design).  CPU tensors take the plain version.
+  prefill chunks (C > 1), over either container.  :func:`pda_plan` picks
+  the route from the shapes: the split kernel (the cache cut into fixed
+  runs of whole tiles across CTAs, then a combine pass) or the single
+  kernel (the first design).  CPU tensors take the plain version.
 * :func:`tiled_packed_attention` — the plain PyTorch version, the same tile
   walk, masking and final ``acc / max(l, 1e-30)`` division.
 """
@@ -42,7 +43,7 @@ launches_single = 0
 SPLIT_ROWS = 64          # cache rows per split, rounded to whole bt tiles
 SPLIT_MAX_QROWS = 64     # query rows C·G one split CTA serves, at most
 # (Dh, bt) the split kernel is built for: a lane holds whole 4-byte words
-# of one K row, 128 lanes per tile
+# of one K row (of either container), 128 lanes per tile
 SPLIT_SHAPES = {(64, 16), (64, 32), (64, 64), (64, 128), (128, 16),
                 (128, 32), (128, 64)}
 SMEM_MAX = 232448        # shared memory a CTA may take on the H100
@@ -60,23 +61,27 @@ def _align16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
-def split_smem_bytes(bt: int, Dh: int, rows: int) -> int:
+def split_smem_bytes(bt: int, Dh: int, rows: int, packed: bool = True) -> int:
     """Shared memory of one split CTA (``SplitSmem`` in the source): two
-    ring stages of codes and scales, the f32 V tile (rows of Dh + 16), q
-    rows, acc, scores, m / l / corr and lengths."""
-    stage = _align16(bt * Dh) + _align16(8 * bt)
+    ring stages of K and V codes (a row: Dh / 2 bytes int4x2, Dh int8)
+    and scales, the f32 V tile (rows of Dh + 16), q rows, acc, scores,
+    m / l / corr and lengths."""
+    row = Dh // 2 if packed else Dh
+    stage = _align16(2 * bt * row) + _align16(8 * bt)
     return (2 * stage + 4 * bt * (Dh + 16) + 8 * rows * Dh
             + _align16(4 * rows * bt) + 4 * _align16(4 * rows))
 
 
 def pda_plan(B: int, C: int, H: int, Hkv: int, Dh: int, T: int, bt: int,
-             kv_addr: int = 0) -> Optional[PdaPlan]:
+             kv_addr: int = 0, packed: bool = True) -> Optional[PdaPlan]:
     """The route of a packed attention read, as a shape rule: the split
     plan when ``(Dh, bt)`` is one of :data:`SPLIT_SHAPES`, the ``C·H/Hkv``
     query rows of a (slot, kv head) number at most
     :data:`SPLIT_MAX_QROWS`, a CTA's shared memory fits, and ``kv_addr``
     (the code leaves' addresses and slot stride in bytes, OR-ed) is 16-byte
-    aligned; ``None`` — the single kernel — otherwise.
+    aligned; ``None`` — the single kernel — otherwise.  ``packed`` names
+    the container (int4x2, else int8 codes), which sets the bytes a row's
+    codes take in shared memory.
 
     A split is ``max(1, SPLIT_ROWS // bt)`` tiles: it depends on ``bt``
     alone, never on the extent ``T``, which only sets how many splits the
@@ -86,7 +91,7 @@ def pda_plan(B: int, C: int, H: int, Hkv: int, Dh: int, T: int, bt: int,
     if (Dh, bt) not in SPLIT_SHAPES or rows > SPLIT_MAX_QROWS \
             or kv_addr % 16:
         return None
-    if split_smem_bytes(bt, Dh, rows) > SMEM_MAX:
+    if split_smem_bytes(bt, Dh, rows, packed) > SMEM_MAX:
         return None
     per = max(1, SPLIT_ROWS // bt)
     n_t = max(1, -(-T // bt))
@@ -100,13 +105,14 @@ def _lib(route: str):
         if fn.argtypes is None:
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn.argtypes = [P, I, ctypes.c_float, P, P, P, P, P, P, P, I, I,
-                           I, I, I, I, I, I, I, L, L, P]
+                           I, I, I, I, I, I, I, I, L, L, P]
             fn.restype = ctypes.c_int
         return fn
     fn = lib.pda_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, L, L, P]
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, L, L,
+                       P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,22 +128,25 @@ def _slot_stride(t: torch.Tensor, inner, what: str, name: str) -> int:
 
 def packed_decode_attention(
     q: torch.Tensor,        # (B, C, H, Dh)
-    k_p: torch.Tensor,      # (B, T, Hkv, Dh/2) uint8
-    v_p: torch.Tensor,
+    k_p: torch.Tensor,      # (B, T, Hkv, Dh/2) uint8, or (B, T, Hkv, Dh)
+    v_p: torch.Tensor,      #   int8 codes when packed=False
     k_s: torch.Tensor,      # (B, T, Hkv) f32
     v_s: torch.Tensor,
     lengths: torch.Tensor,  # (B, C) live length per query row
     *,
     bt: int = 64,
+    packed: bool = True,
     name: str = "packed_decode_attention",
 ) -> torch.Tensor:
-    """Attention of C query rows per slot over the packed cache, in q's
+    """Attention of C query rows per slot over the quantised cache, in q's
     dtype.  Cache leaves may be views whose slot stride exceeds T rows
     (a bounded extent of a longer cache)."""
     global launches, launches_split, launches_single
     if not q.is_cuda:
-        return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt)
-    plan = pda_plan(*_plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, name))
+        return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt,
+                                      packed=packed)
+    plan = pda_plan(*_plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, packed,
+                                name))
     out = _launch(q, k_p, v_p, k_s, v_s, lengths, bt, plan, name)
     launches += 1
     if plan is None:
@@ -147,23 +156,29 @@ def packed_decode_attention(
     return out
 
 
-def _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt: int, name: str):
+def _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt: int, packed: bool,
+               name: str):
     """Check CUDA operands; the arguments of :func:`pda_plan` for them."""
     B, C, H, Dh = q.shape
     T, Hkv, Dhp = (int(d) for d in k_p.shape[1:])
-    if Dh % 2 or Dhp != Dh // 2:
+    if packed and (Dh % 2 or Dhp != Dh // 2):
         raise ValueError(
             f"{name}: the kernel needs an even head dim packed two codes per "
             f"byte, got Dh={Dh} with {Dhp} bytes per row")
+    if not packed and Dhp != Dh:
+        raise ValueError(
+            f"{name}: int8 codes need Dh={Dh} bytes per row, got {Dhp}")
     if H % Hkv:
         raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
     if bt < 1:
         raise ValueError(f"{name}: bt must be positive, got {bt}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: q must be f32 or bf16, got {q.dtype}")
-    for t, what in ((k_p, "k_p"), (v_p, "v_p")):
-        if t.dtype != torch.uint8 or t.device != q.device:
-            raise ValueError(f"{name}: {what} must be uint8 on {q.device}")
+    code_dtype = torch.uint8 if packed else torch.int8
+    for t, what in ((k_p, "k codes"), (v_p, "v codes")):
+        if t.dtype != code_dtype or t.device != q.device:
+            raise ValueError(
+                f"{name}: {what} must be {code_dtype} on {q.device}")
     for t, what in ((k_s, "k_s"), (v_s, "v_s")):
         if t.dtype != torch.float32 or t.device != q.device \
                 or tuple(t.shape[1:]) != (T, Hkv):
@@ -178,36 +193,38 @@ def _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt: int, name: str):
     if tuple(lengths.shape) != (B, C):
         raise ValueError(f"{name}: lengths must be (B, C) = {(B, C)}")
     kv_addr = k_p.data_ptr() | v_p.data_ptr() | kv_stride
-    return B, C, H, Hkv, Dh, T, int(bt), kv_addr
+    return B, C, H, Hkv, Dh, T, int(bt), kv_addr, packed
 
 
 def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
             name: str = "packed_decode_attention") -> torch.Tensor:
     """Launch the split kernel with ``plan``, or the single kernel when it
-    is None, on CUDA operands that passed :func:`_plan_args`; counts
-    nothing (the wrapper counts)."""
+    is None, on CUDA operands that passed :func:`_plan_args` (uint8 codes
+    are the int4x2 container, int8 the int4 one); counts nothing (the
+    wrapper counts)."""
     B, C, H, Dh = q.shape
     T, Hkv = int(k_p.shape[1]), int(k_p.shape[2])
     kv_stride, s_stride = int(k_p.stride(0)), int(k_s.stride(0))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, C, H, Dh), dtype=q.dtype, device=q.device)
     out_bf16 = int(q.dtype == torch.bfloat16)
+    packed = int(k_p.dtype == torch.uint8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     cache = (k_p.data_ptr(), v_p.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
              lens.data_ptr())
     if plan is None:
         qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).contiguous()
         err = _lib("single")(qf.data_ptr(), *cache, out.data_ptr(), out_bf16,
-                             B, C, H, Hkv, Dh, T, bt, kv_stride, s_stride,
-                             stream)
+                             packed, B, C, H, Hkv, Dh, T, bt, kv_stride,
+                             s_stride, stream)
     else:
         # the kernel reads q in its dtype and scales it in f32 itself
         qc = q.contiguous()
         ws = torch.empty(B * Hkv * plan.n_splits * C * (H // Hkv) * (Dh + 2),
                          dtype=torch.float32, device=q.device)
         err = _lib("split")(qc.data_ptr(), out_bf16, 1.0 / math.sqrt(Dh),
-                            *cache, ws.data_ptr(), out.data_ptr(), B, C, H,
-                            Hkv, Dh, T, bt, plan.tiles_per_split,
+                            *cache, ws.data_ptr(), out.data_ptr(), packed,
+                            B, C, H, Hkv, Dh, T, bt, plan.tiles_per_split,
                             plan.n_splits, kv_stride, s_stride, stream)
     build.check(err, name)
     return out
@@ -215,16 +232,18 @@ def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
 
 def tiled_packed_attention(
     q: torch.Tensor,        # (B, C, H, Dh)
-    k_c: torch.Tensor,      # packed uint8 (B, T, Hkv, ceil(Dh/2))
-    v_c: torch.Tensor,
+    k_c: torch.Tensor,      # packed uint8 (B, T, Hkv, ceil(Dh/2)), or int8
+    v_c: torch.Tensor,      #   codes (B, T, Hkv, Dh) when packed=False
     k_s: torch.Tensor,      # (B, T, Hkv) f32
     v_s: torch.Tensor,
     lengths: torch.Tensor,  # (B, C)
     *,
     bt: int = 64,
+    packed: bool = True,
 ) -> torch.Tensor:
     """Plain version: tile-by-tile online softmax; a tile that is dead for
-    a (b, c) row leaves that row's (m, l, acc) untouched."""
+    a (b, c) row leaves that row's (m, l, acc) untouched.  Both containers
+    decode to the same codes, so they give the same bits."""
     B, C, H, Dh = q.shape
     T, Hkv = k_c.shape[1], k_c.shape[2]
     G = H // Hkv
@@ -238,8 +257,11 @@ def tiled_packed_attention(
     acc = torch.zeros((B, C, Hkv, G, Dh), dtype=torch.float32, device=dev)
     for it in range(n_t):
         lo, hi = it * bt, min((it + 1) * bt, T)
-        codes_k = unpack_int4(k_c[:, lo:hi], Dh, axis=-1)
-        codes_v = unpack_int4(v_c[:, lo:hi], Dh, axis=-1)
+        if packed:
+            codes_k = unpack_int4(k_c[:, lo:hi], Dh, axis=-1)
+            codes_v = unpack_int4(v_c[:, lo:hi], Dh, axis=-1)
+        else:
+            codes_k, codes_v = k_c[:, lo:hi], v_c[:, lo:hi]
         kf = codes_k.to(torch.float32) * k_s[:, lo:hi, :, None]
         vf = codes_v.to(torch.float32) * v_s[:, lo:hi, :, None]
         s = torch.einsum("bcHgd,btHd->bcHgt", qf, kf)

@@ -1,5 +1,5 @@
-"""Transformer blocks of the dense family: GQA attention over a float or
-bit-packed int4x2 KV cache, and the MLP — every linear through the
+"""Transformer blocks of the dense family: GQA attention over a float,
+int4 or bit-packed int4x2 KV cache, and the MLP — every linear through the
 compressed-linear dispatch."""
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from ..core import payload_registry
 from ..core.dispatch import attn_full_dispatch, attn_packed_dispatch
 from ..core.families._util import he_init
-from ..core.quant import pack_int4
+from ..core.quant import pack_int4, unpack_int4
 from .config import ArchConfig
 from .layers import (
     Params,
@@ -25,9 +25,11 @@ from .layers import (
 
 # KV-cache containers of the port (attn_cache_init kv_cache=):
 #   "float"  — (B, T, Hkv, Dh) activations at cfg.param_dtype
-#   "int4x2" — int4 codes packed two per byte along Dh + per-(slot, pos,
-#              head) f32 scales
-KV_CACHE_MODES = ("float", "int4x2")
+#   "int4"   — int4 codes, one per int8 byte + per-(slot, pos, head) f32
+#              scales
+#   "int4x2" — the same codes packed two per byte along Dh + the scales
+KV_CACHE_MODES = ("float", "int4", "int4x2")
+PACKED_READS = ("fused", "unpack")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -139,6 +141,7 @@ def attn_apply(
     n_valid: Optional[torch.Tensor] = None,  # (B,) valid rows of the T axis
     t_bound: Optional[int] = None,   # cache-read extent (axis 1)
     bt: Optional[int] = None,        # packed-read kv tile rows
+    packed_read: str = "fused",      # quantised read: "fused" | "unpack"
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention over the full sequence (``cache=None``) or a cache.
 
@@ -153,6 +156,13 @@ def attn_apply(
     ``length``) and returned.  ``n_valid`` marks how many of the T rows are
     real; the rest write garbage rows past the new length, masked on every
     later read or overwritten by the next real write.
+
+    The container is read off the cache's keys: ``k``/``v`` (float),
+    ``k_q``/``v_q`` (int4, int8 codes) or ``k_p``/``v_p`` (int4x2).  The
+    quantised containers hold the same codes and scales.  ``packed_read``
+    picks their read: ``"fused"`` attends straight from codes x scales
+    (:func:`attn_packed_dispatch`), ``"unpack"`` decodes the whole
+    container to the compute dtype and runs the plain float read.
     """
     B, T, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -169,6 +179,11 @@ def attn_apply(
                                leaf="attn.full")
         return lin_apply(cfg, p["wo"], o.reshape(B, T, H * Dh), H * Dh, D,
                          patterns, dispatch, "attn/wo"), None
+    if packed_read not in PACKED_READS:
+        raise ValueError(
+            f"unknown packed_read {packed_read!r} — 'fused' (tiled "
+            "nibble-decode read) or 'unpack' (full-container decode "
+            "baseline)")
     idx = cache["length"]
     nv = torch.full((B,), T, dtype=torch.int32, device=x.device) \
         if n_valid is None else n_valid.to(torch.int32)
@@ -190,12 +205,33 @@ def attn_apply(
         vq, vs = _kv_quant(v)
         _kv_insert(cache["k_s"], ks, idx)
         _kv_insert(cache["v_s"], vs, idx)
-        _kv_insert(cache["k_p"], pack_int4(kq, axis=-1), idx)
-        _kv_insert(cache["v_p"], pack_int4(vq, axis=-1), idx)
-        o = attn_packed_dispatch(
-            q, _extent(cache["k_p"], t_bound), _extent(cache["v_p"], t_bound),
-            _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
-            lengths, dispatch=dispatch, bt=bt, leaf="attn.kv")
+        packed = "k_p" in cache
+        if packed:   # int4x2: two codes per byte along Dh
+            k_st, v_st = cache["k_p"], cache["v_p"]
+            _kv_insert(k_st, pack_int4(kq, axis=-1), idx)
+            _kv_insert(v_st, pack_int4(vq, axis=-1), idx)
+        else:        # int4: int8 container, the same codes
+            k_st, v_st = cache["k_q"], cache["v_q"]
+            _kv_insert(k_st, kq, idx)
+            _kv_insert(v_st, vq, idx)
+        if packed_read == "unpack":
+            # the whole container decoded to the compute dtype, then the
+            # plain float read (the reference's bench baseline)
+            k_codes = unpack_int4(k_st, Dh, axis=-1) if packed else k_st
+            v_codes = unpack_int4(v_st, Dh, axis=-1) if packed else v_st
+            dt = _dtype(cfg)
+            kx = (k_codes.to(torch.float32) * cache["k_s"][..., None]).to(dt)
+            vx = (v_codes.to(torch.float32) * cache["v_s"][..., None]).to(dt)
+            if T == 1:
+                o = decode_attention(q, kx, vx, lengths[:, 0])
+            else:
+                o = prefill_attention(q, kx, vx, lengths)
+        else:
+            o = attn_packed_dispatch(
+                q, _extent(k_st, t_bound), _extent(v_st, t_bound),
+                _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
+                lengths, packed=packed, dispatch=dispatch, bt=bt,
+                leaf="attn.kv")
     idx += nv
     o = o.reshape(B, T, H * Dh)
     return lin_apply(cfg, p["wo"], o, H * Dh, D, patterns, dispatch,
@@ -216,21 +252,20 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
         return {"k": z(batch, max_len, Hkv, Dh, dtype=_dtype(cfg)),
                 "v": z(batch, max_len, Hkv, Dh, dtype=_dtype(cfg)),
                 "length": length}
-    if kv_cache == "int4":
-        raise NotImplementedError(
-            "kv_cache='int4' (int8 codes) is not ported yet; 'int4x2' holds "
-            "the same codes bit-packed")
     if kv_cache not in KV_CACHE_MODES:
         raise ValueError(
             f"unknown kv_cache container {kv_cache!r} — valid: "
             f"{KV_CACHE_MODES}")
-    return {
+    scales = {"k_s": z(batch, max_len, Hkv, dtype=torch.float32),
+              "v_s": z(batch, max_len, Hkv, dtype=torch.float32)}
+    if kv_cache == "int4":
+        return {"k_q": z(batch, max_len, Hkv, Dh, dtype=torch.int8),
+                "v_q": z(batch, max_len, Hkv, Dh, dtype=torch.int8),
+                **scales, "length": length}
+    return {  # int4x2: two codes per uint8 byte along Dh
         "k_p": z(batch, max_len, Hkv, (Dh + 1) // 2, dtype=torch.uint8),
         "v_p": z(batch, max_len, Hkv, (Dh + 1) // 2, dtype=torch.uint8),
-        "k_s": z(batch, max_len, Hkv, dtype=torch.float32),
-        "v_s": z(batch, max_len, Hkv, dtype=torch.float32),
-        "length": length,
-    }
+        **scales, "length": length}
 
 
 # ----------------------------------------------------------------------- mlp

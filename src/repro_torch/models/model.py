@@ -63,7 +63,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                kv_cache: str = "float", *, device=None) -> Dict:
     """Stacked decode cache (leading axis = layer): ``"float"`` stores
-    activations, ``"int4x2"`` packed int4 codes + per-row scales."""
+    activations, ``"int4"`` int8 codes + per-row scales, ``"int4x2"`` the
+    same codes packed two per byte + the scales."""
     _check_family(cfg)
     return attn_cache_init(cfg, batch, max_len, kv_cache=kv_cache,
                            layers=cfg.n_layers, device=resolve_device(device))
@@ -91,10 +92,10 @@ def _layers(params: Params, cache: Dict, cfg: ArchConfig):
 
 
 def _dense_block(p, cfg, h, positions, cache, patterns, dispatch, n_valid,
-                 t_bound, bt):
+                 t_bound, bt, packed_read):
     a, _ = attn_apply(p["attn"], cfg, norm_apply(cfg, p["ln1"], h), positions,
                       cache, patterns, dispatch, n_valid=n_valid,
-                      t_bound=t_bound, bt=bt)
+                      t_bound=t_bound, bt=bt, packed_read=packed_read)
     h = h + a
     return h + mlp_apply(p["mlp"], cfg, norm_apply(cfg, p["ln2"], h),
                          patterns=patterns, dispatch=dispatch)
@@ -170,11 +171,11 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
 
 
 def _run(params, cfg, cache, tokens, positions, patterns, dispatch, n_valid,
-         t_bound, bt):
+         t_bound, bt, packed_read):
     h = params["embed"]["w"][tokens.to(torch.int64)]
     for p_layer, c_layer in _layers(params, cache, cfg):
         h = _dense_block(p_layer, cfg, h, positions, c_layer, patterns,
-                         dispatch, n_valid, t_bound, bt)
+                         dispatch, n_valid, t_bound, bt, packed_read)
     return _head(params, cfg, h, patterns, dispatch), cache
 
 
@@ -182,33 +183,38 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict,
                 tokens: torch.Tensor, *, patterns=None, dispatch=None,
                 active: Optional[torch.Tensor] = None,
                 t_bound: Optional[int] = None,
-                bt: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+                bt: Optional[int] = None,
+                packed_read: str = "fused") -> Tuple[torch.Tensor, Any]:
     """One token per sequence: tokens (B, 1) -> logits (B, 1, V).
 
     The cache is updated IN PLACE and returned.  ``active`` is an optional
     (B,) 0/1 mask: an inactive slot writes a garbage row past its
     (unadvanced) length.  ``t_bound`` bounds the cache-read extent, ``bt``
-    pins the packed read's kv tile rows; ``patterns`` is the compile pass's
-    side-table and ``dispatch`` the kernel mode.
+    pins the packed read's kv tile rows and ``packed_read`` picks the
+    quantised caches' read ("fused" or "unpack", see
+    :func:`repro_torch.models.blocks.attn_apply`); ``patterns`` is the
+    compile pass's side-table and ``dispatch`` the kernel mode.
     """
     _check_family(cfg)
     positions = cache["length"][0][:, None].clone()
     nv = None if active is None else active.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
-                t_bound, bt)
+                t_bound, bt, packed_read)
 
 
 def prefill_step(params: Params, cfg: ArchConfig, cache: Dict,
                  tokens: torch.Tensor, *, patterns=None, dispatch=None,
                  n_valid: Optional[torch.Tensor] = None,
                  t_bound: Optional[int] = None,
-                 bt: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+                 bt: Optional[int] = None,
+                 packed_read: str = "fused") -> Tuple[torch.Tensor, Any]:
     """One prompt chunk per sequence: tokens (B, C) -> logits (B, C, V).
 
     Each layer quantise-packs the chunk's K/V and writes it at the slot's
     length, IN PLACE; row ``c`` attends to ``length + c + 1`` positions.
     ``n_valid`` (B,) counts the real rows of a ragged final chunk; the
-    final real row's logits give the first generated token.
+    final real row's logits give the first generated token.  Other
+    arguments as :func:`decode_step`.
     """
     _check_family(cfg)
     C = tokens.shape[1]
@@ -216,4 +222,4 @@ def prefill_step(params: Params, cfg: ArchConfig, cache: Dict,
         + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
     nv = None if n_valid is None else n_valid.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
-                t_bound, bt)
+                t_bound, bt, packed_read)

@@ -9,22 +9,33 @@ the decoding slots.  The first generated token comes from the final
 chunk's logits.  A prompt whose chunk schedule cannot fit the cache
 (``ceil(P/C)·C > max_len``) falls back to a token drip for that request.
 
-Prefill works on a batch-of-one view of the slot's cache, so a chunk write
-cannot touch a neighbouring slot.  Cache reads are bounded to a
-power-of-two extent (``_bucket_t``) with the kv tile size pinned at
-startup — the packed read skips dead tiles, so the bound changes the work,
-never the result.  PyTorch runs eagerly: the bucket is only the read
-extent, nothing is compiled per bucket.
+Prefill gathers the slot's batch-of-one cache, runs the chunk on it and
+scatters it back, so a chunk write cannot touch a neighbouring slot.
+Cache reads are bounded to a power-of-two extent (``_bucket_t``) with the
+kv tile size pinned at startup — the packed read skips dead tiles, so the
+bound changes the work, never the result.
+
+On a CUDA device each step is captured once per bucket, as the reference
+compiles one step per bucket: the first decode step (and the first
+prefill chunk) at a new bucket runs eagerly, as the real step, and is then
+captured into a ``torch.cuda.CUDAGraph``; every later step at that bucket
+replays the graph.  The step's inputs (tokens, ``active``, ``n_valid``,
+the prefill slot) live in static device buffers filled by ``copy_`` before
+each step; the cache is updated in place, so its addresses never move.
+All graphs share one memory pool, so each step's logits are read (argmax
+to the host) before the next step runs.  The CPU path runs eagerly.
 
 ``stats()`` reports per-phase step counts, token counts and per-step
-wall-clock; each :class:`Request` carries ``t_submit`` / ``t_first`` /
-``t_done`` stamps (TTFT = t_first - t_submit).
+wall-clock, and the graphs: their count, capture seconds and pool bytes;
+each :class:`Request` carries ``t_submit`` / ``t_first`` / ``t_done``
+stamps (TTFT = t_first - t_submit).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +43,7 @@ import torch
 from ..core.compile_sparse import CompressedModel
 from ..core.dispatch import ATTN_BT_DEFAULT, resolve
 from ..device import resolve_device
+from ..kernels import add_launch_counts, launch_counts
 from ..models.config import ArchConfig
 from ..models.model import cache_batch_axes, decode_step, init_cache, prefill_step
 
@@ -47,6 +59,40 @@ class Request:
     t_done: Optional[float] = None
 
 
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every engine on ``device`` warms up and captures on.
+    One for the process: each stream that runs a cuBLAS call keeps its own
+    workspace for as long as the process lives."""
+    return torch.cuda.Stream(device)
+
+
+class CapturedStep:
+    """One step captured into a CUDA graph on ``stream``, its memory from
+    ``pool``; ``replay()`` runs it and returns its static output.
+
+    The launch counters tick in Python, where a wrapper launches, so a
+    capture would count its kernels once and a replay never: the capture's
+    counts are taken back and added again on every replay instead.  A
+    failed capture raises."""
+
+    def __init__(self, fn: Callable[[], torch.Tensor], pool, stream):
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = fn()
+        finally:
+            after = launch_counts()
+            self.launches = {k: after[k] - before[k] for k in after}
+            add_launch_counts({k: -n for k, n in self.launches.items()})
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        return self.out
+
+
 class ServeEngine:
     """``params`` may be a raw parameter tree or a
     :class:`repro_torch.core.compile_sparse.CompressedModel`, served
@@ -55,15 +101,22 @@ class ServeEngine:
 
     ``dispatch`` picks kernel or plain version for the compiled leaves
     ("auto" | "kernel" | "twin", None = ``REPRO_TORCH_DISPATCH``).
-    ``kv_cache`` is ``"float"`` or ``"int4x2"`` (bit-packed int4 codes +
-    per-row scales, read by the packed attention kernel at a kv tile of
-    :data:`ATTN_BT_DEFAULT` rows, pinned for the engine's lifetime).
+    ``kv_cache`` is ``"float"``, ``"int4"`` (int8 codes + per-row scales)
+    or ``"int4x2"`` (the same codes bit-packed two per byte); the quantised
+    containers are read at a kv tile of :data:`ATTN_BT_DEFAULT` rows,
+    pinned for the engine's lifetime, and give the same tokens.
+    ``packed_read`` is their read: ``"fused"`` (codes -> attention in the
+    packed attention kernel) or ``"unpack"`` (the whole container decoded,
+    then the plain read).  ``capture`` runs the steps as CUDA graphs, one
+    per bucket: None captures on CUDA and runs eagerly on the CPU, False
+    runs eagerly, True on the CPU raises.
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch_slots: int = 4,
                  max_len: int = 256, patterns=None, dispatch=None,
                  kv_cache: str = "float", prefill_chunk: int = 16,
-                 device=None):
+                 packed_read: str = "fused", device=None,
+                 capture: Optional[bool] = None):
         if isinstance(params, CompressedModel):
             patterns = params.patterns if patterns is None else patterns
             params = params.params
@@ -72,6 +125,12 @@ class ServeEngine:
             raise ValueError(
                 f"params live on {params['embed']['w'].device}, the engine "
                 f"runs on {self.device}")
+        is_cuda = self.device.type == "cuda"
+        if capture and not is_cuda:
+            raise ValueError(
+                f"capture=True needs a CUDA device; the engine runs on "
+                f"{self.device}, where steps run eagerly")
+        self.capture = is_cuda if capture is None else bool(capture)
         self.params = params
         self.patterns = patterns
         self.dispatch = resolve(dispatch)
@@ -79,11 +138,29 @@ class ServeEngine:
         self.slots = batch_slots
         self.max_len = max_len
         self.kv_cache = kv_cache
+        self.packed_read = packed_read
         self.prefill_chunk = max(1, int(prefill_chunk))
-        self._bt = ATTN_BT_DEFAULT if kv_cache == "int4x2" else None
+        self._bt = ATTN_BT_DEFAULT if kv_cache in ("int4", "int4x2") else None
         self.cache = init_cache(cfg, batch_slots, max_len, kv_cache=kv_cache,
                                 device=self.device)
         self._batch_axes = cache_batch_axes(cfg, kv_cache=kv_cache)
+        # the steps' inputs: static device buffers (a graph reads them at
+        # fixed addresses), filled from pinned host copies on CUDA
+        self._inputs = {
+            "tok": torch.zeros((batch_slots, 1), dtype=torch.int32),
+            "act": torch.zeros((batch_slots,), dtype=torch.int32),
+            "ptok": torch.zeros((1, self.prefill_chunk), dtype=torch.int32),
+            "nv": torch.zeros((1,), dtype=torch.int32),
+            "slot": torch.zeros((1,), dtype=torch.int64),
+        }
+        self._staging = {k: v.pin_memory() for k, v in self._inputs.items()} \
+            if is_cuda else {}
+        self._inputs = {k: v.to(self.device) for k, v in self._inputs.items()}
+        self._graphs: Dict[Tuple[str, int], CapturedStep] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self._stream = _capture_stream(self.device) if self.capture else None
+        self._capture_s = 0.0
+        self._graph_bytes = 0
         self.active: Dict[int, Request] = {}
         self.prompt_pos: Dict[int, int] = {}
         self.remaining: Dict[int, int] = {}
@@ -118,10 +195,15 @@ class ServeEngine:
                    for t in self.cache.values())
 
     def stats(self) -> Dict:
-        """Per-phase counters: step counts, token counts, per-step ms."""
+        """Per-phase counters: step counts, token counts, per-step ms; and
+        the captured steps: ``graphs`` (one per phase and bucket),
+        ``capture_s`` (seconds spent capturing) and ``graph_pool_bytes``
+        (device memory the captures reserved)."""
         out = dict(self._stats)
         out["prefill_ms"] = list(self._stats["prefill_ms"])
         out["decode_ms"] = list(self._stats["decode_ms"])
+        out.update(graphs=len(self._graphs), capture_s=self._capture_s,
+                   graph_pool_bytes=self._graph_bytes)
         return out
 
     def tokens_processed(self) -> int:
@@ -174,8 +256,68 @@ class ServeEngine:
         self._phase.pop(slot, None)
         return True
 
-    def _as_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _fill(self, name: str, values) -> None:
+        """Copy host values into the static step input ``name``."""
+        dst = self._inputs[name]
+        src = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(values).reshape(tuple(dst.shape))))
+        stage = self._staging.get(name)
+        if stage is not None:
+            # every step ends reading its logits on the host, after this
+            # copy, so the pinned buffer is free again by the next step
+            src = stage.copy_(src)
+        dst.copy_(src, non_blocking=stage is not None)
+
+    def _decode_fn(self, tb: int) -> torch.Tensor:
+        inp = self._inputs
+        logits, _ = decode_step(
+            self.params, self.cfg, self.cache, inp["tok"],
+            patterns=self.patterns, dispatch=self.dispatch, active=inp["act"],
+            t_bound=tb, bt=self._bt, packed_read=self.packed_read)
+        return logits
+
+    def _prefill_fn(self, tb: int) -> torch.Tensor:
+        """The one-slot chunk: gather the slot's batch-of-one cache, run
+        the chunk, scatter it back (the slot is a device index, so one
+        graph serves every slot)."""
+        inp, axes = self._inputs, self._batch_axes
+        sub = {k: leaf.index_select(axes[k], inp["slot"])
+               for k, leaf in self.cache.items()}
+        logits, _ = prefill_step(
+            self.params, self.cfg, sub, inp["ptok"], patterns=self.patterns,
+            dispatch=self.dispatch, n_valid=inp["nv"], t_bound=tb, bt=self._bt,
+            packed_read=self.packed_read)
+        for k, leaf in self.cache.items():
+            leaf.index_copy_(axes[k], inp["slot"], sub[k])
+        return logits
+
+    def _step_logits(self, phase: str, tb: int) -> torch.Tensor:
+        """Logits of one ``phase`` step ("decode" | "prefill") at bucket
+        ``tb`` over the static inputs: eager, or the bucket's graph.  The
+        first step at a bucket runs eagerly on the capture stream (which
+        builds the kernel libraries and sets up every library handle for
+        it), then is captured: capture records without running, so the
+        cache advances once."""
+        fn = functools.partial(
+            self._decode_fn if phase == "decode" else self._prefill_fn, tb)
+        if not self.capture:
+            return fn()
+        g = self._graphs.get((phase, tb))
+        if g is not None:
+            return g.replay()
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = fn()
+        cur.wait_stream(self._stream)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        self._graphs[(phase, tb)] = CapturedStep(fn, self._pool, self._stream)
+        self._capture_s += time.perf_counter() - t0
+        self._graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        return out
 
     def _step_prefill(self):
         """Advance the oldest prefilling slot by one chunk."""
@@ -187,14 +329,11 @@ class ServeEngine:
         toks = np.zeros((1, C), np.int32)
         toks[0, :nv] = req.prompt[pos:pos + nv]
         tb = self._bucket_t(int(self._len[slot]) + C)
-        sub = {k: leaf.narrow(self._batch_axes[k], slot, 1)
-               for k, leaf in self.cache.items()}
         t0 = time.perf_counter()
-        logits, _ = prefill_step(
-            self.params, self.cfg, sub, self._as_device(toks),
-            patterns=self.patterns, dispatch=self.dispatch,
-            n_valid=self._as_device(np.array([nv], np.int32)), t_bound=tb,
-            bt=self._bt)
+        self._fill("ptok", toks)
+        self._fill("nv", nv)
+        self._fill("slot", slot)
+        logits = self._step_logits("prefill", tb)
         nxt = int(torch.argmax(logits[0, nv - 1]).item())  # syncs
         now = time.perf_counter()
         self._stats["prefill_steps"] += 1
@@ -219,10 +358,9 @@ class ServeEngine:
         act[dec_slots] = 1
         tb = self._bucket_t(max(int(self._len[s]) for s in dec_slots) + 1)
         t0 = time.perf_counter()
-        logits, _ = decode_step(
-            self.params, self.cfg, self.cache, self._as_device(self.last_tok),
-            patterns=self.patterns, dispatch=self.dispatch,
-            active=self._as_device(act), t_bound=tb, bt=self._bt)
+        self._fill("tok", self.last_tok)
+        self._fill("act", act)
+        logits = self._step_logits("decode", tb)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
         now = time.perf_counter()
         self._stats["decode_steps"] += 1

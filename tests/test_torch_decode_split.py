@@ -238,10 +238,17 @@ def test_pda_route_rule(C, H, Hkv, Dh, T, bt, kv_addr, route):
     assert ("single" if plan is None else "split") == route
 
 
-def test_pda_split_shapes_fit_a_cta_at_the_most_query_rows():
+@pytest.mark.parametrize("packed", [True, False])
+def test_pda_split_shapes_fit_a_cta_at_the_most_query_rows(packed):
+    """Every built (Dh, bt) fits a CTA at the most query rows, with int4x2
+    codes (Dh / 2 bytes a row) and with int8 codes (Dh bytes)."""
     for Dh, bt in tdp.SPLIT_SHAPES:
-        assert tdp.split_smem_bytes(bt, Dh, tdp.SPLIT_MAX_QROWS) \
+        assert tdp.split_smem_bytes(bt, Dh, tdp.SPLIT_MAX_QROWS, packed) \
             <= tdp.SMEM_MAX
+        assert tdp.pda_plan(8, 1, 32, 8, Dh, 512, bt, packed=packed) \
+            == tdp.pda_plan(8, 1, 32, 8, Dh, 512, bt)
+    assert tdp.split_smem_bytes(64, 128, 64, False) \
+        - tdp.split_smem_bytes(64, 128, 64, True) == 2 * 2 * 64 * 64
 
 
 def _attn_case(B, C, T, H, Hkv, Dh, seed):
@@ -259,8 +266,14 @@ def _attn_case(B, C, T, H, Hkv, Dh, seed):
 def _split_states(q, k_p, v_p, k_s, v_s, lengths, bt, plan):
     """Each split's (m, l, acc) as the split kernel leaves them: the online
     softmax over its own tiles from (-1e30, 0, 0), a tile dead for a query
-    row leaving that row's state untouched."""
+    row leaving that row's state untouched.  int8 codes (the int4
+    container) are read as they are, uint8 ones unpacked."""
     from repro_torch.core.quant import unpack_int4
+
+    def codes(c, lo, hi):
+        return c[:, lo:hi] if c.dtype == torch.int8 \
+            else unpack_int4(c[:, lo:hi], Dh, axis=-1)
+
     B, C, H, Dh = q.shape
     T, Hkv = k_p.shape[1], k_p.shape[2]
     G = H // Hkv
@@ -274,10 +287,8 @@ def _split_states(q, k_p, v_p, k_s, v_s, lengths, bt, plan):
         lo_t = s * plan.tiles_per_split
         for it in range(lo_t, min(lo_t + plan.tiles_per_split, n_t)):
             lo, hi = it * bt, min((it + 1) * bt, T)
-            kf = unpack_int4(k_p[:, lo:hi], Dh, axis=-1).float() \
-                * k_s[:, lo:hi, :, None]
-            vf = unpack_int4(v_p[:, lo:hi], Dh, axis=-1).float() \
-                * v_s[:, lo:hi, :, None]
+            kf = codes(k_p, lo, hi).float() * k_s[:, lo:hi, :, None]
+            vf = codes(v_p, lo, hi).float() * v_s[:, lo:hi, :, None]
             sc = torch.einsum("bcHgd,btHd->bcHgt", qf, kf)
             kpos = torch.arange(lo, hi)
             valid = kpos[None, None, :] < lengths[:, :, None]
@@ -339,10 +350,18 @@ def test_split_combine_matches_the_reference_kernel_at_decode(bt, lengths):
     np.testing.assert_allclose(y.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("bt", [16, 64])
-def test_split_combine_matches_the_reference_twin_for_a_prefill_chunk(bt):
+def test_split_combine_matches_the_reference_twin_for_a_prefill_chunk(
+        bt, packed):
+    """Both containers: int4x2 codes, and the same codes as int8 (the int4
+    container, which the reference reads with its twin's packed=False)."""
+    from repro_torch.core.quant import unpack_int4
     B, C, T, H, Hkv, Dh = 3, 16, 160, 8, 2, 64
     q, k_p, v_p, k_s, v_s = _attn_case(B, C, T, H, Hkv, Dh, seed=7 + bt)
+    if not packed:
+        k_p, v_p = (unpack_int4(_t(a), Dh, axis=-1).numpy()
+                    for a in (k_p, v_p))
     # slot 0 starts empty (dead tiles for most rows), slot 1 ragged, slot 2
     # ends at the extent
     base = np.array([0, 69, T - C])
@@ -352,7 +371,7 @@ def test_split_combine_matches_the_reference_twin_for_a_prefill_chunk(bt):
     assert plan.n_splits > 1
     ref = jdp.tiled_packed_attention(
         *(jnp.asarray(a) for a in (q, k_p, v_p, k_s, v_s)),
-        jnp.asarray(lengths), bt=bt)
+        jnp.asarray(lengths), bt=bt, packed=packed)
     np.testing.assert_allclose(y.numpy(), np.asarray(ref), **TOL)
 
 
@@ -424,3 +443,28 @@ def test_split_routes_on_the_card(cuda_device):
     # f32: the split combine reorders the online softmax's rescaling
     err = float((y.cpu() - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_int8_codes_give_the_packed_bits_on_both_routes(cuda_device):
+    """The int4 container (int8 codes) on the card: on the split and the
+    single route, the same bits as the int4x2 container holding the same
+    codes, within one bf16 step of the plain version."""
+    from repro_torch.core.quant import unpack_int4
+    dev = cuda_device
+    for C, H in ((1, 8), (16, 16)):      # split, then C·G = 128: single
+        q, k_p, v_p, k_s, v_s = _attn_case(2, C, 200, H, 2, 64, seed=13)
+        lengths = _t((np.array([[30], [120]]) + np.arange(C))
+                     .astype(np.int32)).to(dev)
+        q = _t(q).to(dev).to(torch.bfloat16)
+        k_p, v_p, k_s, v_s = (_t(a).to(dev) for a in (k_p, v_p, k_s, v_s))
+        k_q, v_q = (unpack_int4(a, 64, axis=-1) for a in (k_p, v_p))
+        y8 = tdp.packed_decode_attention(q, k_q, v_q, k_s, v_s, lengths,
+                                         bt=64, packed=False)
+        y4 = tdp.packed_decode_attention(q, k_p, v_p, k_s, v_s, lengths,
+                                         bt=64)
+        assert torch.equal(y8, y4)
+        ref = tdp.tiled_packed_attention(q, k_q, v_q, k_s, v_s, lengths,
+                                         bt=64, packed=False).float()
+        err = float((y8.float() - ref).abs().max())
+        assert err <= 2 ** -7 * float(ref.abs().max())

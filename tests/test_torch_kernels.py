@@ -180,6 +180,37 @@ def test_packed_attention_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(y2.numpy(), y.numpy())
 
 
+@pytest.mark.parametrize("C,bt", [(1, 16), (4, 8), (4, 32)])
+def test_int8_code_read_matches_reference_twin(C, bt):
+    """The int4 container's read (``packed=False``: int8 codes, one a
+    byte) against the reference's twin on the same codes; the same bits as
+    the packed read of those codes; and the CPU wrapper and dispatch take
+    the plain version for it."""
+    from repro_torch.core.quant import unpack_int4
+    B, T, Dh = 2, 40, 8
+    q, k_p, v_p, k_s, v_s = _attn_case(B, C, T, 4, 2, Dh, seed=20 + bt)
+    k_q, v_q = (unpack_int4(_t(a), Dh, axis=-1).numpy() for a in (k_p, v_p))
+    lengths = (np.array([[1], [37]]) + np.arange(C)).astype(np.int32)
+    ref = jdp.tiled_packed_attention(
+        *(jnp.asarray(a) for a in (q, k_q, v_q, k_s, v_s)),
+        jnp.asarray(lengths), bt=bt, packed=False)
+    y = tdp.tiled_packed_attention(*(_t(a) for a in (q, k_q, v_q, k_s, v_s)),
+                                   _t(lengths), bt=bt, packed=False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), **TOL)
+    packed = tdp.tiled_packed_attention(
+        *(_t(a) for a in (q, k_p, v_p, k_s, v_s)), _t(lengths), bt=bt)
+    np.testing.assert_array_equal(y.numpy(), packed.numpy())
+    before = tdp.launches
+    y2 = tdp.packed_decode_attention(
+        *(_t(a) for a in (q, k_q, v_q, k_s, v_s)), _t(lengths), bt=bt,
+        packed=False)
+    y3 = td.attn_packed_dispatch(*(_t(a) for a in (q, k_q, v_q, k_s, v_s)),
+                                 _t(lengths), packed=False, bt=bt)
+    assert tdp.launches == before
+    np.testing.assert_array_equal(y2.numpy(), y.numpy())
+    np.testing.assert_array_equal(y3.numpy(), y.numpy())
+
+
 @pytest.mark.parametrize("bt", [8, 32])
 def test_packed_attention_chunk_matches_reference_twin(bt):
     B, C, T = 2, 4, 24
@@ -239,9 +270,9 @@ def test_cpu_calls_launch_nothing_and_kernel_mode_raises():
     args = [_t(a) for a in (q, k_p, v_p, k_s, v_s)] + [torch.ones(1, 1,
                                                                   dtype=torch.int32)]
     with pytest.raises(ValueError, match="kernel"):
-        td.attn_packed_dispatch(*args, dispatch="kernel")
-    twin = td.attn_packed_dispatch(*args, dispatch="twin")
-    auto = td.attn_packed_dispatch(*args, dispatch="auto")
+        td.attn_packed_dispatch(*args, packed=True, dispatch="kernel")
+    twin = td.attn_packed_dispatch(*args, packed=True, dispatch="twin")
+    auto = td.attn_packed_dispatch(*args, packed=True, dispatch="auto")
     np.testing.assert_array_equal(twin.numpy(), auto.numpy())
 
 

@@ -76,9 +76,15 @@ def _check_caches(jcache, tcache):
             np.testing.assert_array_equal(t[k], j[k], err_msg=k)
 
 
+KV_READS = [("float", "fused"), ("int4", "fused"), ("int4", "unpack"),
+            ("int4x2", "fused"), ("int4x2", "unpack"), ("float", "unpack")]
+
+
 @pytest.mark.parametrize("compiled", [False, True])
-@pytest.mark.parametrize("kv", ["float", "int4x2"])
-def test_prefill_and_decode_steps_match_reference(tiny, kv, compiled):
+@pytest.mark.parametrize("kv,read", KV_READS)
+def test_prefill_and_decode_steps_match_reference(tiny, kv, read, compiled):
+    """Every container under both reads (the float cache ignores the read)
+    against the reference: codes exact, scales and logits within TOL."""
     jcfg, tcfg, jp, tp, jcm, tcm = tiny
     jparams, tparams = (jcm.params, tcm.params) if compiled else (jp, tp)
     jpat, tpat = (jcm.patterns, tcm.patterns) if compiled else (None, None)
@@ -90,10 +96,11 @@ def test_prefill_and_decode_steps_match_reference(tiny, kv, compiled):
     nv = np.array([8, 5, 0], np.int32)
     jl, jcache = jm.prefill_step(jparams, jcfg, jcache, jnp.asarray(toks),
                                  patterns=jpat, dispatch="jnp",
-                                 n_valid=jnp.asarray(nv), t_bound=16, bt=8)
+                                 n_valid=jnp.asarray(nv), t_bound=16, bt=8,
+                                 packed_read=read)
     tl, tcache = tm.prefill_step(tparams, tcfg, tcache, torch.from_numpy(toks),
                                  patterns=tpat, n_valid=torch.from_numpy(nv),
-                                 t_bound=16, bt=8)
+                                 t_bound=16, bt=8, packed_read=read)
     for b in range(B):
         np.testing.assert_allclose(tl[b, :nv[b]].numpy(),
                                    np.asarray(jl)[b, :nv[b]], **TOL)
@@ -103,16 +110,17 @@ def test_prefill_and_decode_steps_match_reference(tiny, kv, compiled):
         act = np.array([1, 1, step % 2], np.int32)
         jl, jcache = jm.decode_step(jparams, jcfg, jcache, jnp.asarray(tok),
                                     patterns=jpat, dispatch="jnp",
-                                    active=jnp.asarray(act), t_bound=16, bt=8)
+                                    active=jnp.asarray(act), t_bound=16, bt=8,
+                                    packed_read=read)
         tl, tcache = tm.decode_step(tparams, tcfg, tcache,
                                     torch.from_numpy(tok), patterns=tpat,
                                     active=torch.from_numpy(act), t_bound=16,
-                                    bt=8)
+                                    bt=8, packed_read=read)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         _check_caches(jcache, tcache)
 
 
-@pytest.mark.parametrize("kv", ["float", "int4x2"])
+@pytest.mark.parametrize("kv", ["float", "int4", "int4x2"])
 def test_kv_insert_clamps_a_full_slot_like_the_reference(tiny, kv):
     """A slot whose length equals max_len writes its (inactive) garbage row
     at max_len - 1, as ``dynamic_update_slice`` clamps the start."""
@@ -190,15 +198,15 @@ def test_init_shapes_and_cache_axes_match_reference():
         flat(v, p + (k,)) if isinstance(v, dict) else [(p + (k,), v)])]
     shapes = lambda t: sorted((p, tuple(v.shape)) for p, v in flat(t))
     assert shapes(ours) == shapes(jax.tree_util.tree_map(np.asarray, jp))
-    for kv in ("float", "int4x2"):
+    for kv in ("float", "int4", "int4x2"):
         jc_ = jax.tree_util.tree_map(np.asarray, jm.init_cache(jcfg, 2, 8, kv))
         tc_ = tm.init_cache(tcfg, 2, 8, kv, device="cpu")
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jc_.items()} == \
             {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
              for k, v in tc_.items()}
         assert tm.cache_batch_axes(tcfg, kv) == jm.cache_batch_axes(jcfg, kv)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tm.init_cache(tcfg, 2, 8, "int4", device="cpu")
+    with pytest.raises(ValueError, match="unknown kv_cache container"):
+        tm.init_cache(tcfg, 2, 8, "int8", device="cpu")
     with pytest.raises(NotImplementedError, match="dense family"):
         tm.init_params(dataclasses.replace(tcfg, family="ssm"), device="cpu")
     if not torch.cuda.is_available():
@@ -219,21 +227,27 @@ def _serve(engine_cls, req_cls, params, cfg, prompts, **kw):
     return eng, [r.out for r in sorted(done, key=lambda r: r.uid)]
 
 
-@pytest.mark.parametrize("compiled", [False, True])
-def test_serve_engine_tokens_match_reference(compiled):
+@pytest.fixture(scope="module")
+def serve_pair():
     jcfg, tcfg, jp, tp = _pair(d_model=256, n_heads=4, n_kv_heads=2,
                                head_dim=64, d_ff=512, vocab=512)
-    if compiled:
-        jparams, tparams = _compile(jcfg, tcfg, jp, tp, (128, 128))
-        kv = "int4x2"
-    else:
-        jparams, tparams, kv = jp, tp, "float"
+    return (jcfg, tcfg, jp, tp), _compile(jcfg, tcfg, jp, tp, (128, 128))
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+@pytest.mark.parametrize("kv,read", KV_READS[:5])
+def test_serve_engine_tokens_match_reference(serve_pair, compiled, kv, read):
+    """The engine's tokens, step counts and cache bytes against the
+    reference engine, for every container under both reads."""
+    (jcfg, tcfg, jp, tp), (jcm, tcm) = serve_pair
+    jparams, tparams = (jcm, tcm) if compiled else (jp, tp)
     rng = np.random.default_rng(1)
     # the 50-token prompt's 16-row chunk schedule (64 rows) overruns the
     # 60-row cache, so it is dripped token by token
     prompts = [rng.integers(0, 512, size=int(n)).astype(np.int32)
                for n in (3, 17, 40, 9, 50, 33)]
-    kw = dict(batch_slots=3, max_len=60, prefill_chunk=16, kv_cache=kv)
+    kw = dict(batch_slots=3, max_len=60, prefill_chunk=16, kv_cache=kv,
+              packed_read=read)
     jeng, jout = _serve(JEng, JReq, jparams, jcfg, prompts, dispatch="jnp",
                         **kw)
     for mod in (tsk, tqk, tdp):
@@ -272,3 +286,102 @@ def test_serve_engine_lifecycle():
     assert len(st["prefill_ms"]) == st["prefill_steps"] > 0
     with pytest.raises(ValueError, match="engine runs on"):
         TEng(tp, tcfg, device="meta")
+    with pytest.raises(ValueError, match="capture=True needs a CUDA device"):
+        TEng(tp, tcfg, device="cpu", capture=True)
+    assert not TEng(tp, tcfg, device="cpu").capture
+    assert not TEng(tp, tcfg, device="cpu", capture=False).capture
+    assert st["graphs"] == 0 and st["capture_s"] == 0.0
+
+
+def test_int4_and_int4x2_caches_give_the_same_bits(tiny):
+    """The port's counterpart of the reference's container contract: the
+    int4 (int8 codes) and int4x2 (packed) caches hold the same codes and
+    scales, and their reads give bitwise equal logits, prefill and decode,
+    under both reads."""
+    from repro_torch.core.quant import unpack_int4
+    jcfg, tcfg, jp, tp, jcm, tcm = tiny
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 96, size=(2, 8)).astype(np.int32))
+    nv = torch.tensor([8, 3], dtype=torch.int32)
+    for read in ("fused", "unpack"):
+        logits, caches = {}, {}
+        for kv in ("int4", "int4x2"):
+            cache = tm.init_cache(tcfg, 2, 32, kv, device="cpu")
+            out = [tm.prefill_step(tcm.params, tcfg, cache, toks,
+                                   patterns=tcm.patterns, n_valid=nv,
+                                   t_bound=16, bt=8, packed_read=read)[0]]
+            for step in range(4):
+                tok = torch.tensor([[3 + step], [7]], dtype=torch.int32)
+                out.append(tm.decode_step(tcm.params, tcfg, cache, tok,
+                                          patterns=tcm.patterns, t_bound=32,
+                                          bt=8, packed_read=read)[0])
+            logits[kv], caches[kv] = out, cache
+        for a, b in zip(logits["int4"], logits["int4x2"]):
+            assert torch.equal(a, b)
+        c4, c42 = caches["int4"], caches["int4x2"]
+        for q, p_ in (("k_q", "k_p"), ("v_q", "v_p")):
+            assert torch.equal(c4[q], unpack_int4(c42[p_], tcfg.head_dim,
+                                                  axis=-1))
+        for k in ("k_s", "v_s", "length"):
+            assert torch.equal(c4[k], c42[k])
+
+
+def test_attn_apply_rejects_an_unknown_read(tiny):
+    jcfg, tcfg, jp, tp, jcm, tcm = tiny
+    cache = tm.init_cache(tcfg, 1, 8, "int4", device="cpu")
+    with pytest.raises(ValueError, match="unknown packed_read"):
+        tm.decode_step(tp, tcfg, cache, torch.zeros((1, 1), dtype=torch.int32),
+                       packed_read="dense")
+
+
+def test_launch_counts_round_trip():
+    """The counters the engine adds on each replay of a captured step."""
+    from repro_torch import kernels
+    counts = kernels.launch_counts()
+    assert counts["flash_attention.decode_packed:launches_split"] \
+        == tdp.launches_split
+    assert len(counts) == sum(len(v) for v in kernels.LAUNCH_COUNTERS.values())
+    kernels.add_launch_counts({"quant_matmul.kernel:launches_thin": 3,
+                               "sparse_matmul.kernel:conv_launches": 2})
+    after = kernels.launch_counts()
+    kernels.add_launch_counts({"quant_matmul.kernel:launches_thin": -3,
+                               "sparse_matmul.kernel:conv_launches": -2})
+    assert after["quant_matmul.kernel:launches_thin"] \
+        == counts["quant_matmul.kernel:launches_thin"] + 3
+    assert after["sparse_matmul.kernel:conv_launches"] == tsk.conv_launches + 2
+    assert kernels.launch_counts() == counts
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: captured steps run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_captured_engine_matches_eager_on_the_card(cuda_device):
+    """Captured and eager engines serve the same tokens and launch the same
+    kernels; one graph per phase and bucket."""
+    jcfg, tcfg, jp, tp = _pair(d_model=256, n_heads=4, n_kv_heads=2,
+                               head_dim=64, d_ff=512, vocab=512,
+                               param_dtype="bfloat16")
+    tcm = tc.compile_model(interop.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp), cuda_device), tcfg,
+        rules=tc.CompileRules(block=(128, 128), block_density=0.5,
+                              in_block_density=0.5, min_weight_elems=0,
+                              quant_bits=4, policies=POLICIES),
+        device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, size=int(n)).astype(np.int32)
+               for n in (3, 17, 40, 9, 33)]
+    outs, launches = {}, {}
+    for capture in (True, False):
+        before = tdp.launches
+        eng, outs[capture] = _serve(
+            TEng, TReq, tcm, tcfg, prompts, device=cuda_device,
+            batch_slots=3, max_len=64, kv_cache="int4x2", capture=capture)
+        launches[capture] = tdp.launches - before
+        assert (eng.stats()["graphs"] > 0) == capture
+    assert outs[True] == outs[False]
+    assert launches[True] == launches[False] > 0
