@@ -57,7 +57,23 @@ Phases, each fatal on failure:
    on the staged route, hold the logits
    against ``dispatch="twin"``, and time images/s beside the masked-dense
    forward;
-6. train   — llama3.2-1b at full width (random weights from a seed),
+6. families — the newer payload families on the ported kernels:
+   perchannel (8 and 4 bits), bfp8, int2 (quant at 2 bits), sparse at 2
+   bits (int2x4 blocks) and actsparse (tau 0.05, under a ReLU: the fused
+   ("trelu", tau) epilogue) at llama3.2-1b's full-width leaf shapes,
+   through ``payload_dispatch`` against ``dispatch="twin"`` at bf16 M = 8
+   and 512 and f32 M = 8 and 64, each call on the route its rule names,
+   timed at M = 8 and 512 beside the int4x2 leaf of its kernel; then
+   llama3.2-1b at full width compiled three times — no policies (the cost
+   model's pick under TPU_V5E), a family map at 8 bits, and 2 bits — each
+   held against the twin path (a prefill chunk and 4 decode steps) and
+   serving 4 requests captured and eager with identical tokens, every
+   matmul launch on the route its rule names (the H100_SXM picks printed
+   as an estimate); then LeNet-5 with no policies and with 2-bit quant
+   convs, the fused forward against the twin with its launches, and
+   ``run_dse`` / ``balanced_folding_baseline`` at the Table-I budget on
+   both HWSpecs (estimates);
+7. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
    through ``TrainRunner`` (global batch 4 x 2048, 2 micro-batches,
@@ -72,6 +88,7 @@ Prints the kernels line, the card line and, last, the result line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -1569,13 +1586,15 @@ def compiled_forward(cm, cfg, dev):
             "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
 
 
-def twin_check(cm, cfg, dev, prompt, kv_cache):
+def twin_check(cm, cfg, dev, prompt, kv_cache, want=None):
     """Kernel path vs plain versions on the card: one prefill chunk and 4
     greedy decode steps, teacher-forced with the kernel path's tokens.
 
     Logits must agree within ``TWIN_TOL[kv_cache]`` (relative to the
     largest logit) and the greedy tokens must be equal, unless both paths
-    score the two candidates within that tolerance of each other.
+    score the two candidates within that tolerance of each other.  ``want``
+    is the launches by route a decode step must make (default: the serve
+    phase's compile, every matmul on its thin-M route).
     """
     from repro_torch.models.model import decode_step, init_cache, prefill_step
 
@@ -1612,8 +1631,8 @@ def twin_check(cm, cfg, dev, prompt, kv_cache):
         if i == 0:
             per_step = read_counts()
             L = cfg.n_layers
-            want = {QMM_THIN: 4 * L, QMM_TC: 0, QMM_TILED: 0,
-                    BSM_THIN: 3 * L, BSM_TC: 0, BSM_TILED: 0}
+            want = dict(want or {QMM_THIN: 4 * L, QMM_TC: 0, QMM_TILED: 0,
+                                 BSM_THIN: 3 * L, BSM_TC: 0, BSM_TILED: 0})
             if kv_cache != "float":
                 want.update({PDA_SPLIT: L, PDA_SINGLE: 0})
             got = {k: per_step[k] for k in want}
@@ -2199,6 +2218,556 @@ def measure_flash(dev, counts):
                    "enable_gqa=True), (B, H, T, Dh) views"}
 
 
+# ----------------------------------------------------------- families
+
+
+# llama3.2-1b's full-width leaf shapes (K, N)
+FAMILY_SHAPES = {"attn/wq": (2048, 2048), "attn/wk": (2048, 512),
+                 "mlp/wg": (2048, 8192), "mlp/wd": (8192, 2048)}
+# label -> (policy, bits): the families this slice adds, and sparse at 2
+# bits (int2x4 blocks); "quant4" / "sparse4" are the int4x2 leaves they
+# are timed beside
+FAMILY_LEAVES = {"perchannel8": ("perchannel", 8),
+                 "perchannel4": ("perchannel", 4), "bfp8": ("bfp8", 8),
+                 "int2": ("quant", 2), "sparse2": ("sparse", 2),
+                 "actsparse": ("actsparse", 8)}
+FAMILY_TAU = 0.05
+FAMILY_RULES = dict(block=(128, 128), block_density=0.25,
+                    in_block_density=0.5, min_weight_elems=0,
+                    act_threshold=FAMILY_TAU)
+# (M, x dtype): thin-M rows, tensor-core rows, and f32 rows on either side
+# of the thin-M limit; each call must take the route its rule names
+FAMILY_CALLS = ((8, torch.bfloat16), (512, torch.bfloat16),
+                (8, torch.float32), (64, torch.float32))
+FAMILY_TIMED = ((8, torch.bfloat16), (512, torch.bfloat16))
+# llama3.2-1b at full width, three compiles: the cost model's pick
+# (no policies, TPU_V5E), a family map at 8 bits, and 2 bits
+FAMILY_MODELS = {
+    "auto_int4": dict(quant_bits=4),
+    "family_map": dict(quant_bits=8, act_threshold=FAMILY_TAU, policies={
+        "wq": "perchannel", "wo": "perchannel", "wk": "bfp8", "wv": "bfp8",
+        "wg": "actsparse", "wu": "actsparse", "wd": "actsparse"}),
+    "int2": dict(quant_bits=2, policies={
+        "wq": "quant", "wk": "quant", "wv": "quant", "wo": "quant",
+        "wg": "sparse", "wu": "sparse", "wd": "sparse"}),
+}
+FAMILY_MODEL_RULES = dict(block=(128, 128), block_density=0.25,
+                          in_block_density=0.5, min_weight_elems=0)
+# the Table-I whole-model rules (benchmarks/table1_lenet.py:105-106), no
+# policies: the cost model picks; then the convs as quant at 2 bits
+LENET_WHOLE_MODEL = dict(block=(8, 4), min_weight_elems=0, quant_bits=4)
+LENET_FAMILY_CONFIGS = {
+    "auto": (LENET_WHOLE_MODEL, None,
+             {"block_sparse_conv": 2, BSC_REG: 2, "fc_stack_matmul": 1,
+              FCS_STAGED: 1}),
+    "int2_conv": (dict(LENET_WHOLE_MODEL, quant_bits=2),
+                  {**{n: "sparse" for n in LENET_NAMES}, "conv1": "quant",
+                   "conv2": "quant"},
+                  {"quant_conv": 2, QCONV_REG: 2, "fc_stack_matmul": 1,
+                   FCS_STAGED: 1}),
+}
+DSE_BUDGET = 8e6   # benchmarks/table1_lenet.py:83
+QMM_ROUTES = {"thin_m": "launches_thin", "tensor_core": "launches_tc",
+              "tiled": "launches_tiled"}
+
+
+def n_copies(nbytes_, cap=64):
+    """Copies of an operand that together exceed the 50 MB L2 well."""
+    return int(min(cap, max(2, math.ceil(128e6 / max(nbytes_, 1)))))
+
+
+def family_operands(payload, x):
+    """What the family's dispatch hands its kernel for ``payload`` and the
+    activation ``x``: ("quant", x', codes, scales, packed) or ("sparse", x,
+    blocks, scales, packed, pattern)."""
+    from repro_torch.core.dispatch import perchannel_fold, unit_scales
+    from repro_torch.core.families.actsparse import ActSparsePayload
+    from repro_torch.core.families.bfp8 import BFP8Tensor
+    from repro_torch.core.families.perchannel import PerChannelQuant
+    from repro_torch.core.quant import PackedTensor, QuantizedTensor
+    if isinstance(payload, PerChannelQuant):
+        N = payload.values.shape[1]
+        return ("quant", perchannel_fold(x, payload.scales, x.dtype),
+                payload.values, unit_scales(N, x.device), False)
+    if isinstance(payload, BFP8Tensor):
+        return ("quant", x, payload.mantissas,
+                torch.exp2(payload.exponents.float()), False)
+    if isinstance(payload, PackedTensor):
+        return "quant", x, payload.data, payload.scales, payload.container
+    if isinstance(payload, QuantizedTensor):
+        return "quant", x, payload.values, payload.scales, False
+    cl = payload.cl if isinstance(payload, ActSparsePayload) else payload
+    if cl.packed:
+        return ("sparse", x, cl.blocks.data, cl.scales, cl.blocks.container,
+                cl.pattern)
+    return "sparse", x, cl.blocks, cl.scales, False, cl.pattern
+
+
+def family_route(ops, M, x):
+    """The route the shape rule names for these operands."""
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+    from repro_torch.kernels.sparse_matmul.kernel import packed_ratio
+    from repro_torch.kernels.sparse_matmul.ops import schedule_for
+    bf16 = x.dtype == torch.bfloat16
+    if ops[0] == "quant":
+        _, xq, w, _, packed = ops
+        K, N = int(xq.shape[1]), int(w.shape[1])
+        return qk.qmm_route(M, K, N, packed_ratio(packed), bf16,
+                            w.data_ptr(), xq.data_ptr())
+    _, xs, blocks, _, packed, pat = ops
+    sched = schedule_for(pat, x.device)
+    bk, bn = pat.block
+    return sk.bsm_route(M, bk, bn, packed_ratio(packed), pat.bitmap.shape[1],
+                        sched.max_blocks_per_col, bf16, blocks.data_ptr(),
+                        blocks.element_size(), xs.data_ptr())
+
+
+def family_kernel_call(ops, w, act=None):
+    """The kernel wrapper call on the operands, with the weight ``w`` (one
+    of its copies)."""
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+    from repro_torch.kernels.sparse_matmul.kernel import block_sparse_matmul
+    from repro_torch.kernels.sparse_matmul.ops import schedule_for
+    if ops[0] == "quant":
+        _, xq, _, s, packed = ops
+        return lambda: quant_matmul(xq, w, s, activation=act, packed=packed)
+    _, xs, _, s, packed, pat = ops
+    sched = schedule_for(pat, xs.device)
+    return lambda: block_sparse_matmul(xs, w, sched, scales=s,
+                                       activation=act, packed=packed)
+
+
+def family_plain_call(ops, dense_codes, act=None):
+    """The plain version on the operands' unpacked codes."""
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
+    if ops[0] == "quant":
+        _, xq, _, s, _ = ops
+        return lambda: quant_matmul_ref(xq, dense_codes, s, activation=act,
+                                        out_dtype=xq.dtype)
+    _, xs, _, s, _, pat = ops
+    nR, nC = pat.bitmap.shape
+    # the coordinates on the card: a capture cannot copy from the host
+    rows, cols = (torch.as_tensor(a, device=xs.device)
+                  for a in (pat.block_rows, pat.block_cols))
+    return lambda: block_sparse_matmul_ref(
+        xs, dense_codes, rows, cols, n_row_blocks=nR, n_col_blocks=nC,
+        scales=s, activation=act, out_dtype=xs.dtype)
+
+
+def unpacked(ops):
+    from repro_torch.core.quant import unpack_codes
+    from repro_torch.kernels.sparse_matmul.kernel import packed_ratio
+    w, packed = ops[2], ops[4]
+    ratio = packed_ratio(packed)
+    if ratio == 1:
+        return w
+    if ops[0] == "quant":
+        return unpack_codes(w, int(ops[1].shape[1]), axis=0, bits=8 // ratio)
+    return unpack_codes(w, ops[5].block[0], axis=1, bits=8 // ratio)
+
+
+def time_family(ops, payload, dense_bf16, M, act):
+    """Kernel, plain and one-call library times of one family leaf at M rows
+    (bf16), its inputs outside L2, beside its bound."""
+    from repro_torch.core.sparsity import CompressedLinear
+    w = ops[2]
+    y = family_kernel_call(ops, w, act)()
+    ref = family_plain_call(ops, unpacked(ops), act)()
+    x = ops[1]
+    n = n_copies(nbytes(w))
+    ws = copies(w, n)
+    codes = unpacked(ops)
+    n_plain = min(8, n_copies(nbytes(codes)))
+    cs = copies(codes, n_plain)
+    ds = copies(dense_bf16, n_copies(nbytes(dense_bf16), 16))
+    K = int(x.shape[1])
+    if ops[0] == "quant":
+        N = int(w.shape[1])
+        moved = nbytes(x, w, ops[3]) + M * N * x.element_size()
+        ops_n = 2.0 * M * K * N
+    else:
+        pat = ops[5]
+        N = pat.shape[1]
+        moved = nbytes(x, w) + M * N * x.element_size() + (
+            0 if ops[3] is None else nbytes(ops[3])) + 12 * pat.n_blocks_present
+        ops_n = 2.0 * M * pat.n_blocks_present * pat.block[0] * pat.block[1]
+    b, by = bound(moved, ops_n, "bf16")
+    return {"max_abs_err": float((y.float() - ref.float()).abs().max()),
+            "ms": device_ms(lambda i: family_kernel_call(ops, ws[i], act), n),
+            "plain_ms": device_ms(
+                lambda i: family_plain_call(ops, cs[i], act), n_plain),
+            "library_ms": device_ms(lambda i: lambda: x @ ds[i], len(ds)),
+            "bound_ms": b, "bound_by": by}
+
+
+def families_leaves(dev):
+    """Step 1: each new family at llama3.2-1b's full-width leaf shapes
+    through ``payload_dispatch`` against ``dispatch="twin"`` on every row
+    count of FAMILY_CALLS, each call on the route its rule names, then
+    timed beside the int4x2 leaf of its kernel at the same shape."""
+    from repro_torch.core import payload_registry
+    from repro_torch.core.compile_sparse import CompileRules, compile_conv
+    from repro_torch.core.dispatch import payload_dispatch
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+
+    rows = {"quant_matmul": [], "block_sparse_matmul": []}
+    checked = 0
+    rng = np.random.default_rng(20)
+    for leaf, (K, N) in FAMILY_SHAPES.items():
+        w = (rng.standard_normal((K, N), dtype=np.float32) / math.sqrt(K))
+        leaves = dict(FAMILY_LEAVES, quant4=("quant", 4), sparse4=("sparse", 4))
+        payloads = {}
+        for label, (policy, bits) in leaves.items():
+            rules = CompileRules(**FAMILY_RULES, quant_bits=bits)
+            payloads[label] = compile_conv(
+                w.reshape(1, 1, K, N), policy=policy, rules=rules,
+                name=f"{leaf} {label}", device=dev)[0].payload
+        int4 = {}
+        for label in list(FAMILY_LEAVES) + ["quant4", "sparse4"]:
+            p = payloads[label]
+            fam = payload_registry.family_of_payload(p).name
+            act = "relu" if label == "actsparse" else None
+            dense_bf16 = payload_registry.family_of_payload(p).payload_dense(
+                p).to(torch.bfloat16)
+            for M, dt in FAMILY_CALLS:
+                x = torch.randn((M, K), device=dev).to(dt)
+                ops = family_operands(p, x)
+                kernel = "quant_matmul" if ops[0] == "quant" \
+                    else "block_sparse_matmul"
+                mod = qk if ops[0] == "quant" else sk
+                route, plan = family_route(ops, M, x)
+                y = took_route(mod, QMM_ROUTES, route, lambda: payload_dispatch(
+                    p, x, activation=act, leaf=f"{leaf} {label}"))
+                ref = payload_dispatch(p, x, activation=act, dispatch="twin")
+                pre = None
+                if act is not None:  # trelu: either side within the band
+                    pre = payload_dispatch(p, x, dispatch="twin",
+                                           compute_dtype=torch.float32)
+                torch.cuda.synchronize()
+                err = act_err(y, ref, ("trelu", FAMILY_TAU) if act else None,
+                              pre)
+                tol = tol_for(dt, ref.float())
+                require(bool(torch.isfinite(y).all()) and err <= tol,
+                        f"families: {leaf} {label} ({fam}) M={M} {dt}: "
+                        f"kernel vs twin max abs err {err} > {tol}")
+                checked += 1
+                if (M, dt) not in FAMILY_TIMED:
+                    continue
+                t = time_family(ops, p, dense_bf16, M,
+                                ("trelu", FAMILY_TAU) if act else None)
+                row = {"family": fam, "leaf": leaf, "label": label,
+                       "shape": f"M={M} K={K} N={N}", "route": route,
+                       "container": ops[4] or str(ops[2].dtype).split(
+                           ".")[-1],
+                       "twin_err": err, "tol": tol, **t}
+                if label in ("quant4", "sparse4"):
+                    int4[(kernel, M)] = t["ms"]
+                    continue
+                rows[kernel].append(row)
+            del dense_bf16
+        for kernel, rs in rows.items():
+            for r in rs:
+                if r["leaf"] == leaf and "int4x2_ms" not in r:
+                    r["int4x2_ms"] = int4[(kernel, int(
+                        r["shape"].split()[0][2:]))]
+        del payloads
+        torch.cuda.empty_cache()
+    return rows, checked
+
+
+def decode_want(cm, cfg, dev):
+    """The launches per route one decode step (M = 1) needs, from each
+    layer-0 leaf's operands through its kernel's shape rule."""
+    from repro_torch.core import payload_registry
+    from repro_torch.core.compile_sparse import _iter_linears
+    want = {QMM_THIN: 0, QMM_TC: 0, QMM_TILED: 0, BSM_THIN: 0, BSM_TC: 0,
+            BSM_TILED: 0}
+    names = {("quant", "thin_m"): QMM_THIN, ("quant", "tensor_core"): QMM_TC,
+             ("quant", "tiled"): QMM_TILED, ("sparse", "thin_m"): BSM_THIN,
+             ("sparse", "tensor_core"): BSM_TC, ("sparse", "tiled"): BSM_TILED}
+    shape_of = {r.name: r.shape for r in cm.report}
+    x = torch.zeros((1, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    for path, parent, key in _iter_linears(cm.params["blocks"], "blocks"):
+        leaf = {k: v[0] for k, v in parent[key].items()}
+        fam = payload_registry.family_for_leaves(leaf)
+        K, N = shape_of[path]
+        xk = torch.zeros((1, K), device=dev, dtype=torch.bfloat16)
+        if fam.name in ("sparse", "sparse_packed", "actsparse"):
+            pat = cm.patterns[(K, N)]
+            blocks = leaf[fam.key_leaf]
+            packed = "int2x4" if fam.name == "sparse_packed" and \
+                blocks.shape[1] * 4 == pat.block[0] else (
+                    "int4x2" if fam.name == "sparse_packed" else False)
+            ops = ("sparse", xk, blocks, None, packed, pat)
+        else:
+            codes = leaf[fam.key_leaf]
+            packed = {"int2": "int2x4", "quant_packed": "int4x2"}.get(
+                fam.name, False)
+            ops = ("quant", xk, codes, None, packed)
+        route, _ = family_route(ops, 1, x)
+        want[names[(ops[0], route)]] += cfg.n_layers
+    return want
+
+
+def family_serve(cm, cfg, dev, prompts):
+    """The same requests through a captured and an eager engine: tokens,
+    and the launches by route of the captured run."""
+    from repro_torch.serve.engine import Request
+    out = {}
+    for capture in (True, False):
+        eng = serve_engine(cm, cfg, dev, capture=capture)
+        reset_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        done = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        out["captured" if capture else "eager"] = {
+            "tokens": [r.out for r in done], "counts": read_counts(),
+            "graphs": eng.stats()["graphs"]}
+        del eng
+    return out
+
+
+def families_models(dev):
+    """Step 2: llama3.2-1b at full width under FAMILY_MODELS: per-leaf
+    policies and bytes, the H100_SXM picks (an estimate), the twin check
+    and the same 4 requests served captured and eager."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_sparse import (CompileRules, _fit_block,
+                                                 choose_policy, compile_model)
+    from repro_torch.core.cost_model import H100_SXM
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("llama3.2-1b")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in (24, 40, 56, 64)]
+    out = {}
+    for name, over in FAMILY_MODELS.items():
+        params = init_params(cfg, seed=0, device=dev)
+        rules = CompileRules(**FAMILY_MODEL_RULES, **over)
+        t0 = time.perf_counter()
+        cm = compile_model(params, cfg, rules=rules, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        del params
+        h100 = dataclasses.replace(rules, hw=H100_SXM, policies=None)
+        bd = rules.block_density
+        ed = rules.block_density * rules.in_block_density
+        picks = {r.name: r.policy for r in cm.report}
+        estimate = {r.name: choose_policy(
+            *r.shape, rules=h100, block_density=bd, element_density=ed,
+            sparse_eligible=_fit_block(*r.shape, rules.block) is not None)
+            for r in cm.report}
+        print(f"families {name}: policies {json.dumps(picks)}, "
+              f"container_storage_bytes {cm.container_storage_bytes}; "
+              f"H100_SXM cost-model picks (an estimate, not run): "
+              f"{json.dumps(estimate)}", flush=True)
+        want = decode_want(cm, cfg, dev)
+        tw = twin_check(cm, cfg, dev, prompts[0][:16], "int4x2", want=want)
+        served = family_serve(cm, cfg, dev, prompts)
+        cap, eag = served["captured"], served["eager"]
+        require(cap["tokens"] == eag["tokens"],
+                f"families {name}: captured and eager serving gave "
+                f"different tokens")
+        require(all(len(t) == 8 and all(0 <= v < cfg.vocab for v in t)
+                    for t in cap["tokens"]),
+                f"families {name}: a request got a bad answer")
+        counts = cap["counts"]
+        for kernel, routes in (("quant_matmul", (QMM_THIN, QMM_TC,
+                                                 QMM_TILED)),
+                               ("block_sparse_matmul", (BSM_THIN, BSM_TC,
+                                                        BSM_TILED))):
+            named = [r for r in routes if want[r]]
+            require(counts[kernel] == sum(counts[r] for r in named) and
+                    (counts[kernel] > 0) == bool(named),
+                    f"families {name}: served {kernel} launches "
+                    f"{ {r: counts[r] for r in routes} }, every one due on "
+                    f"{named}")
+        out[name] = {
+            "compile_s": compile_s, "policies": picks,
+            "h100_sxm_estimate": estimate,
+            "container_storage_bytes": cm.container_storage_bytes,
+            "byte_compression": cm.byte_compression,
+            "decode_launches_by_route": want,
+            "twin_check": {k: tw[k] for k in ("max_rel_err", "tol")},
+            "served_launches": {k: v for k, v in counts.items() if v},
+            "graphs": cap["graphs"]}
+        del cm
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_lenet(dev):
+    """Step 3: LeNet-5 at its published widths with no policies (the cost
+    model's pick) and with the convs as quant at 2 bits; the fused forward
+    on 256 digits against the twin, with its launches; each compile's
+    convs timed on its own operands (inputs warm in L2); run_dse and
+    balanced_folding_baseline at the Table-I budget (estimates)."""
+    from repro_torch.core.compile_sparse import (CompileRules, compile_lenet,
+                                                 realised_densities)
+    from repro_torch.core.cost_model import H100_SXM, TPU_V5E, network_estimate
+    from repro_torch.core.dse import (apply_realised_densities,
+                                      balanced_folding_baseline, run_dse)
+    from repro_torch.data.synthetic import synthetic_digits
+    from repro_torch.kernels.quant_matmul.kernel import quant_conv
+    from repro_torch.kernels.quant_matmul.ref import quant_conv_ref
+    from repro_torch.kernels.sparse_matmul.kernel import block_sparse_conv
+    from repro_torch.kernels.sparse_matmul.ops import schedule_for
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_conv_ref
+    from repro_torch.models.lenet import (init_lenet, lenet_forward,
+                                          lenet_layer_specs)
+
+    params = init_lenet(seed=0, device=dev)
+    images, _ = synthetic_digits(0, noise=1.1).batch(0, LENET_BATCH)
+    x = torch.from_numpy(images).to(dev)
+    out, conv_rows, sparse_conv_rows = {}, [], []
+    for cname, (rules_kw, policies, expect) in LENET_FAMILY_CONFIGS.items():
+        cm = compile_lenet(params, rules=CompileRules(**rules_kw,
+                                                      policies=policies),
+                           blocks=LENET_BLOCKS, device=dev)
+        picks = {r.name: r.policy for r in cm.report}
+        if policies is None:
+            require(set(picks.values()) == {"sparse"},
+                    f"lenet {cname}: the cost model picked {picks}, the "
+                    "reference picks sparse for all five layers")
+        lenet_forward(params, x, compressed=cm.layers, fusion=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = lenet_forward(params, x, compressed=cm.layers, fusion=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: expect.get(k, 0) for k in counts}
+        require(counts == want, f"lenet {cname}: one fused forward launched "
+                                f"{counts}, expected {want}")
+        yt = lenet_forward(params, x, compressed=cm.layers, fusion=True,
+                           dispatch="twin")
+        top = float(yt.abs().max())
+        err = float((y - yt).abs().max())
+        require(tuple(y.shape) == (LENET_BATCH, 10)
+                and bool(torch.isfinite(y).all()), f"lenet {cname}: bad logits")
+        require(err <= LENET_TOL * top, f"lenet {cname}: kernel vs twin "
+                                        f"logits max abs err {err} > "
+                                        f"{LENET_TOL} x {top}")
+        specs = apply_realised_densities(lenet_layer_specs(),
+                                         realised_densities(cm))
+        dse = {}
+        for hw in (TPU_V5E, H100_SXM):
+            res = run_dse(specs, hw=hw, resource_budget=DSE_BUDGET)
+            base = network_estimate(
+                specs, balanced_folding_baseline(specs, hw, DSE_BUDGET), hw)
+            dse[hw.name] = {
+                "sparse_layers": res.sparse_layers, "moves": len(res.trace) - 1,
+                "ii_s": res.estimate.ii, "latency_s": res.estimate.latency,
+                "resource": res.estimate.resource,
+                "baseline_ii_s": base.ii, "baseline_resource": base.resource,
+                "folding": [(c.unroll, c.parallelism) for c in res.configs]}
+        out[cname] = {"policies": picks, "launches_per_forward": counts,
+                      "max_abs_err_vs_twin": err, "tol": LENET_TOL * top,
+                      "container_storage_bytes": cm.container_storage_bytes,
+                      "dse_estimate": dse}
+        if cname == "auto":  # the cost model's picks on block_sparse_conv
+            h = x
+            for name in ("conv1", "conv2"):
+                cp = cm.layers[name]
+                pl, pat = cp.payload, cp.payload.pattern
+                nR, nC = pat.bitmap.shape
+                blocks, packed = sparse_conv_operands(cp)
+                vals = pl.block_values()
+                sched = schedule_for(pat, dev)
+                rws, cls = (torch.as_tensor(a, device=dev)
+                            for a in (pat.block_rows, pat.block_cols))
+                b = params[name + "_b"]
+                kw = dict(kernel_hw=cp.kernel[:2], activation="relu",
+                          pool=("avg", 2))
+                yk = block_sparse_conv(h, blocks, sched, scales=pl.scales,
+                                       bias=b, packed=packed, **kw)
+                yr = block_sparse_conv_ref(h, vals, rws, cls, n_row_blocks=nR,
+                                           n_col_blocks=nC, scales=pl.scales,
+                                           bias=b, **kw)
+                err = f32_check(f"block_sparse_conv auto {name}", yk, yr)
+                B_, H_, W_, C_ = h.shape
+                Ho, Wo = H_ - cp.kernel[0] + 1, W_ - cp.kernel[1] + 1
+                bk, bn = pat.block
+                b_ms, b_by = bound(
+                    nbytes(h, blocks, pl.scales, b, yk, sched.col_ptr,
+                           sched.rows, sched.pidx),
+                    2.0 * B_ * Ho * Wo * pat.n_blocks_present * bk * bn, "f32")
+                sparse_conv_rows.append({
+                    "family": "sparse (cost-model pick)", "leaf": name,
+                    "container": packed or str(blocks.dtype).split(".")[-1],
+                    "blocks": f"{pat.n_blocks_present}/{pat.n_blocks_total} "
+                              f"of {pat.block}",
+                    "shape": f"B={B_} {H_}x{W_}x{C_} K={cp.K} N={cp.N}",
+                    "max_abs_err": err,
+                    "ms": device_ms(lambda i: lambda: block_sparse_conv(
+                        h, blocks, sched, scales=pl.scales, bias=b,
+                        packed=packed, **kw), 16),
+                    "plain_ms": device_ms(
+                        lambda i: lambda: block_sparse_conv_ref(
+                            h, vals, rws, cls, n_row_blocks=nR,
+                            n_col_blocks=nC, scales=pl.scales, bias=b, **kw),
+                        4),
+                    "bound_ms": b_ms, "bound_by": b_by})
+                h = yk
+        if cname == "int2_conv":
+            h = x
+            for name in ("conv1", "conv2"):
+                cp = cm.layers[name]
+                w_q, packed, codes = quant_conv_operands(cp)
+                s = cp.payload.scales.reshape(cp.N)
+                b = params[name + "_b"]
+                kw = dict(kernel_hw=cp.kernel[:2], activation="relu",
+                          pool=("avg", 2))
+                yk = quant_conv(h, w_q, s, b, packed=packed, **kw)
+                yr = quant_conv_ref(h, codes, s, b, out_dtype=h.dtype, **kw)
+                torch.cuda.synchronize()
+                B_, H_, W_, C_ = h.shape
+                Ho, Wo = H_ - cp.kernel[0] + 1, W_ - cp.kernel[1] + 1
+                b_ms, b_by = bound(nbytes(h, w_q, s, b, yk),
+                                   2.0 * B_ * Ho * Wo * cp.K * cp.N, "f32")
+                conv_rows.append({
+                    "family": "int2", "leaf": name,
+                    "container": "int2x4 along "
+                    + ("K" if cp.payload.axis == 0 else "N"),
+                    "kernel_codes": packed or "int8 (unpacked once)",
+                    "shape": f"B={B_} {H_}x{W_}x{C_} K={cp.K} N={cp.N}",
+                    "max_abs_err": float((yk - yr).abs().max()),
+                    "ms": device_ms(lambda i: lambda: quant_conv(
+                        h, w_q, s, b, packed=packed, **kw), 16),
+                    "plain_ms": device_ms(lambda i: lambda: quant_conv_ref(
+                        h, codes, s, b, out_dtype=h.dtype, **kw), 4),
+                    "bound_ms": b_ms, "bound_by": b_by})
+                f32_check(f"quant_conv int2 {name}", yk, yr)
+                h = yk
+        del cm
+    return out, conv_rows, sparse_conv_rows
+
+
+def families(dev, report, kernels):
+    """The families phase: steps 1-3; the kernels line's quant_matmul,
+    block_sparse_matmul, block_sparse_conv and quant_conv entries gain a
+    ``families`` list."""
+    t0 = time.perf_counter()
+    rows, checked = families_leaves(dev)
+    t1 = time.perf_counter()
+    models = families_models(dev)
+    t2 = time.perf_counter()
+    lenet_out, rows["quant_conv"], rows["block_sparse_conv"] = \
+        families_lenet(dev)
+    t3 = time.perf_counter()
+    for k in kernels:
+        if k["name"] in rows:
+            k["families"] = rows[k["name"]]
+    report["families"] = {"leaf_calls_checked": checked, "models": models,
+                          "lenet": lenet_out, "rows": rows,
+                          "seconds": {"leaves": t1 - t0, "models": t2 - t1,
+                                      "lenet": t3 - t2}}
+
+
 def main() -> int:
     from repro_torch.kernels import build
 
@@ -2259,6 +2828,18 @@ def main() -> int:
             params, x, cms, dev)
         kernels += lenet_kernels
         del params, x, cms
+        families(dev, report, kernels)
+        fam = report["families"]
+        print("families: " + json.dumps(
+            {k: v for k, v in fam.items() if k not in ("rows", "lenet")}),
+            flush=True)
+        print("families lenet: " + json.dumps({
+            c: {k: v for k, v in r.items() if k != "dse_estimate"}
+            for c, r in fam["lenet"].items()}), flush=True)
+        print("families DSE at the Table-I budget (cost-model estimates, "
+              "not measured): " + json.dumps({
+                  c: r["dse_estimate"] for c, r in fam["lenet"].items()}),
+              flush=True)
         train_counts = train(dev, report)
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)

@@ -23,10 +23,11 @@ per-name layers — convolutions included — onto payload objects: a conv's
 matrix (:func:`conv_weight_matrix`), compiled like a linear and wrapped in
 a :class:`repro_torch.core.dispatch.ConvPayload` with its geometry.
 
-The reference picks a policy per leaf from a TPU cost model; that model
-(and an H100 ``HWSpec`` for it) is a later slice of the port, so here a
-leaf needs an explicit ``policies`` entry unless it is below
-``min_weight_elems`` (kept dense, as the reference does).
+A leaf without a ``policies`` entry takes :func:`choose_policy`'s pick: a
+roofline over :mod:`repro_torch.core.cost_model` (decode-shaped by default;
+a conv leaf's MACs scale by its output H·W).  ``CompileRules.hw`` defaults
+to the reference's ``TPU_V5E``, so the same weights give the reference's
+policies; ``H100_SXM`` is opt-in.
 """
 from __future__ import annotations
 
@@ -38,12 +39,13 @@ import torch
 
 from ..device import resolve_device
 from . import payload_registry
+from .cost_model import HWSpec, LayerSpec, TPU_V5E, decode_linear_spec, \
+    layer_latency
 from .dispatch import ConvPayload, conv_out_hw
 from .families._util import to_numpy_f32
-from .quant import PackedTensor, QuantizedTensor
+from .folding import FoldingConfig
 from .sparsity import (
     BlockSparsePattern,
-    CompressedLinear,
     pattern_from_bitmap,
     pattern_from_mask,
 )
@@ -52,6 +54,7 @@ __all__ = [
     "CompileRules",
     "CompressedModel",
     "LayerReport",
+    "choose_policy",
     "compile_conv",
     "compile_lenet",
     "compile_model",
@@ -65,9 +68,9 @@ __all__ = [
 _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 _LINEAR_SUBTREES = ("attn", "mlp", "shared")
 
-_COST_MODEL_SLICE = (
-    "the per-leaf cost model (and its H100 HWSpec) is not ported yet "
-    "(ROADMAP Queue A item 8)")
+# accepted as an override value beside compile_policies(): the reference
+# defers the pick and the bit-width to its autotuner, not ported yet
+AUTOTUNE_POLICY = "autotune"
 
 
 def compile_policies() -> Tuple[str, ...]:
@@ -84,10 +87,15 @@ class CompileRules:
     quant_bits: int = 8
     block_density: float = 0.25           # target when deriving masks
     in_block_density: float = 1.0         # unstructured level inside blocks
+    batch_tokens: int = 1                 # cost-model shape (decode default)
+    hw: HWSpec = TPU_V5E                  # cost-model machine
     min_weight_elems: int = 4096          # below this: always dense
     quantize_sparse: bool = True          # sparse blocks stored as int codes
     dtype: Any = torch.float32            # float storage dtype (non-quant)
     policies: Optional[Dict[str, str]] = None  # per-leaf-name override
+    # threshold captured into the "actsparse" family: a following ReLU is
+    # sharpened to trelu(y, tau) so small positives become exact zeros
+    act_threshold: float = 0.0
 
 
 @dataclasses.dataclass
@@ -222,33 +230,77 @@ def _mask_bitmap(mask: np.ndarray, block: Tuple[int, int]) -> np.ndarray:
     return pattern_from_mask(mask, block).bitmap
 
 
+def choose_policy(
+    K: int,
+    N: int,
+    *,
+    rules: CompileRules,
+    block_density: float,
+    element_density: float,
+    sparse_eligible: bool,
+    spec: Optional[LayerSpec] = None,
+) -> str:
+    """Roofline-based per-layer policy pick (cost-model heuristic).
+
+    Builds a decode-shaped LayerSpec and compares the three datapaths'
+    latencies under ``rules.hw``; below ``rules.min_weight_elems`` a leaf
+    stays dense.  ``spec`` overrides the default linear-shaped LayerSpec —
+    conv leaves pass their own (MACs scaled by output H·W, real activation
+    traffic).
+    """
+    if K * N < rules.min_weight_elems:
+        return "dense"
+    if spec is None:
+        spec = decode_linear_spec(K, N, rules.batch_tokens)
+    hw = rules.hw
+    lat = {
+        "dense": layer_latency(
+            spec, FoldingConfig(parallelism=hw.lanes, unroll="factor",
+                                quant_bits=16), hw)["total"],
+        "quant": layer_latency(
+            spec, FoldingConfig(parallelism=hw.lanes, unroll="factor",
+                                quant_bits=rules.quant_bits), hw)["total"],
+    }
+    if sparse_eligible:
+        lat["sparse"] = layer_latency(
+            spec, FoldingConfig(parallelism=hw.lanes, unroll="sparse",
+                                block_density=block_density,
+                                element_density=element_density,
+                                quant_bits=rules.quant_bits), hw)["total"]
+    return min(lat, key=lat.get)
+
+
 def _decide_policy(name: str, override: Optional[str], K: int, N: int,
                    rules: CompileRules, *,
-                   block: Optional[Tuple[int, int]]) -> Tuple[str, int]:
-    """Per-layer (policy, quant_bits): the explicit override, else dense
-    below ``min_weight_elems``; a cost-model pick raises until that slice
-    is ported."""
+                   block: Optional[Tuple[int, int]], block_density: float,
+                   element_density: float,
+                   spec: Optional[LayerSpec] = None) -> Tuple[str, int]:
+    """Per-layer (policy, quant_bits): the explicit override, else the
+    cost model's pick; a cost-model "sparse" falls back to "quant" when
+    the rule block cannot tile the shape.  ``spec`` carries a conv leaf's
+    cost inputs (see :func:`choose_policy`)."""
     valid = compile_policies()
-    if override == "autotune":
+    if override == AUTOTUNE_POLICY:
         raise NotImplementedError(
             f"{name}: policy 'autotune' needs the autotuner, which is not "
-            "ported yet (ROADMAP Queue A item 8)")
+            "ported yet (ROADMAP Queue A item 7)")
     if override is not None and override not in valid:
         raise ValueError(
-            f"{name}: unknown policy {override!r} — valid: {valid}")
+            f"{name}: unknown policy {override!r} — valid: "
+            f"{valid + (AUTOTUNE_POLICY,)}")
     if override is not None and block is None and \
             payload_registry.policy_eliminates_blocks(override):
         raise ValueError(
             f"{name}: policy {override!r} was explicitly requested but "
             f"block {rules.block} cannot tile shape {(K, N)} — pick a "
             "dividing block or drop the override")
-    if override is None:
-        if K * N < rules.min_weight_elems:
-            return "dense", rules.quant_bits
-        raise NotImplementedError(
-            f"{name}: no explicit policy for this {(K, N)} leaf, and "
-            f"{_COST_MODEL_SLICE} — give CompileRules.policies an entry")
-    return override, rules.quant_bits
+    policy = override or choose_policy(
+        K, N, rules=rules, block_density=block_density,
+        element_density=element_density, sparse_eligible=block is not None,
+        spec=spec)
+    if policy == "sparse" and block is None:  # cost-model fallback only
+        policy = "quant"
+    return policy, rules.quant_bits
 
 
 @dataclasses.dataclass
@@ -367,7 +419,7 @@ def compile_model(
             ed = rules.block_density * rules.in_block_density
         policy, bits = _decide_policy(
             path, _lookup(rules.policies, path, key, consumed_policy_keys),
-            K, N, rules, block=block)
+            K, N, rules, block=block, block_density=bd, element_density=ed)
         if payload_registry.policy_eliminates_blocks(policy) and bitmap is None:
             bitmap = _shared_bitmap(stack, block, rules.block_density)
             bd = bitmap.sum() / bitmap.size
@@ -449,21 +501,16 @@ def compile_model(
 
 
 def _payload_to(payload: Any, dev: torch.device) -> Any:
-    """A compiled payload object with every tensor moved to ``dev``."""
+    """A compiled payload object with every tensor moved to ``dev`` (the
+    payload dataclasses of every family; patterns stay host metadata)."""
     if isinstance(payload, torch.Tensor):
         return payload.to(dev)
-    if isinstance(payload, PackedTensor):
-        return dataclasses.replace(
-            payload, data=payload.data.to(dev),
-            scales=None if payload.scales is None else payload.scales.to(dev))
-    if isinstance(payload, QuantizedTensor):
-        return dataclasses.replace(payload, values=payload.values.to(dev),
-                                   scales=payload.scales.to(dev))
-    if isinstance(payload, CompressedLinear):
-        return dataclasses.replace(
-            payload, blocks=_payload_to(payload.blocks, dev),
-            scales=None if payload.scales is None else payload.scales.to(dev))
-    raise TypeError(f"no device move for payload {type(payload).__name__}")
+    if not dataclasses.is_dataclass(payload) \
+            or isinstance(payload, BlockSparsePattern):
+        return payload
+    return dataclasses.replace(payload, **{
+        f.name: _payload_to(getattr(payload, f.name), dev)
+        for f in dataclasses.fields(payload) if f.init})
 
 
 def _conv_mask(name: str, mask, kernel, K: int, N: int,
@@ -490,10 +537,12 @@ def _conv_mask(name: str, mask, kernel, K: int, N: int,
 
 def _compile_one(name: str, w: np.ndarray, mask: Optional[np.ndarray],
                  override: Optional[str], rules: "CompileRules",
-                 block_rule: Tuple[int, int], dev: torch.device):
+                 block_rule: Tuple[int, int], dev: torch.device,
+                 spec: Optional[LayerSpec] = None):
     """analyse -> decide -> pack for one (K, N) weight, as the reference's
-    ``compile_lenet`` / ``compile_conv`` loop body.  Returns (payload or
-    None, pattern or None, policy, bd, ed, code_bytes, container_bytes)."""
+    ``compile_lenet`` / ``compile_conv`` loop body (``spec``: a conv leaf's
+    cost-model inputs).  Returns (payload or None, pattern or None, policy,
+    bd, ed, code_bytes, container_bytes)."""
     K, N = w.shape
     block = _fit_block(K, N, block_rule)
     if mask is not None and block is not None:
@@ -502,7 +551,9 @@ def _compile_one(name: str, w: np.ndarray, mask: Optional[np.ndarray],
     else:
         bd = rules.block_density
         ed = rules.block_density * rules.in_block_density
-    policy, bits = _decide_policy(name, override, K, N, rules, block=block)
+    policy, bits = _decide_policy(name, override, K, N, rules, block=block,
+                                  block_density=bd, element_density=ed,
+                                  spec=spec)
     dense_bytes = K * N * 4
     eliminates = payload_registry.policy_eliminates_blocks(policy)
     if not eliminates:
@@ -549,7 +600,8 @@ def compile_lenet(
     ``masks`` / ``policies`` / ``blocks`` key naming no layer raises.
     The payloads land on ``device`` (CUDA unless ``device="cpu"``).
     """
-    from ..models.lenet import CONV_OUT_HW, LAYERS, lenet_fusion_plan
+    from ..models.lenet import (CONV_OUT_HW, LAYERS, lenet_fusion_plan,
+                                lenet_layer_specs)
 
     dev = resolve_device(device)
     names = [n for n, _, _ in LAYERS]
@@ -561,6 +613,7 @@ def compile_lenet(
                 f"{label} keys matched no LeNet layer: {sorted(unknown)} — "
                 f"compile_lenet lowers every layer of {names} (convs "
                 "included); a typo here would silently drop the override")
+    specs = {s.name: s for s in lenet_layer_specs(batch=rules.batch_tokens)}
     patterns: Dict[Tuple[int, int], BlockSparsePattern] = {}
     report: List[LayerReport] = []
     layers: Dict[str, Any] = {}
@@ -570,14 +623,16 @@ def compile_lenet(
             K, N = shape[0] * shape[1] * shape[2], shape[3]
             w = conv_weight_matrix(w)
             m_scale = int(np.prod(CONV_OUT_HW[name]))
+            spec = specs[name]
         else:
             K, N = shape
             m_scale = 1
+            spec = None  # linear leaves keep the default decode-shaped spec
         mask = _conv_mask(name, None if not masks else masks.get(name),
                           shape, K, N, kind)
         payload, pat, policy, bd, ed, comp_bytes, cont_bytes = _compile_one(
             name, w, mask, (rules.policies or {}).get(name), rules,
-            (blocks or {}).get(name, rules.block), dev)
+            (blocks or {}).get(name, rules.block), dev, spec)
         if pat is not None:
             patterns[(K, N)] = pat
         if payload is not None:

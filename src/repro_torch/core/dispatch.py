@@ -10,9 +10,16 @@ resolves the compiled leaves to their registered
   dense      {"w"}               —  (torch.matmul)        torch.matmul
   quant      {"w_q", "w_s"}      quant_matmul             quant_matmul_ref
   quant_packed {"w_qp", "w_s"}   quant_matmul (int4x2)    quant_matmul_ref
+  int2       {"w_q2", "w_s"}     quant_matmul (int2x4)    quant_matmul_ref
+  perchannel {"w_pc", "w_pcs"}   quant_matmul, x*s first  quant_matmul_ref
+  bfp8       {"w_bfp", "w_bfpe"} quant_matmul, s = 2^e    quant_matmul_ref
   sparse     {"w_blk"[, "w_s"]}  block_sparse_matmul      block_sparse_matmul_ref
   sparse_packed {"w_blkp", "w_s"} block_sparse_matmul     block_sparse_matmul_ref
              (int4x2 / int2x4)
+  actsparse  {"w_ablk", "w_atau"} block_sparse_matmul,    block_sparse_matmul_ref
+                                 relu -> ("trelu", tau)
+  gsparse    {"w_grp"[, "w_s"]}  —  (s batched products, as the reference
+                                 computes it outside any kernel)
 
 Full-sequence attention (:func:`attn_full_dispatch`, the training and
 prefill forward) takes the ``flash_attention`` op — the CUDA kernel forward
@@ -85,9 +92,12 @@ __all__ = [
     "conv_pre_pad",
     "derived",
     "fc_stack_dispatch",
+    "gsparse_apply",
     "linear_dispatch",
     "payload_dispatch",
+    "perchannel_fold",
     "resolve",
+    "unit_scales",
     "use_kernel",
 ]
 
@@ -278,6 +288,51 @@ def attn_full_dispatch(
     if use_kernel(cfg, q, leaf or "attn.full") and q.is_cuda:
         return flash_attention(q, k, v, causal)
     return chunked_attention(q, k, v, causal=causal)
+
+
+# ------------------------------------------------ family-specific pieces
+
+
+def perchannel_fold(x: torch.Tensor, s: torch.Tensor,
+                    compute_dtype) -> torch.Tensor:
+    """Fold a per-input-channel scale into the activation, ``x * s`` in the
+    compute dtype (one rounding, in that dtype, as the reference does it):
+    the product then sees plain codes with unit output scales."""
+    return x.to(compute_dtype) * s.to(compute_dtype)
+
+
+# (N, device) -> ones(N) f32: the unit output scales of a product whose
+# scale was folded into the activation, made once (never inside a capture)
+_UNIT_SCALES: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def unit_scales(N: int, device) -> torch.Tensor:
+    key = (int(N), str(torch.device(device)))
+    t = _UNIT_SCALES.get(key)
+    if t is None:
+        t = _UNIT_SCALES[key] = torch.ones((int(N),), dtype=torch.float32,
+                                           device=device)
+    return t
+
+
+def gsparse_apply(w: torch.Tensor, scales: Optional[torch.Tensor],
+                  x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Group-diagonal static sparsity as s dense products: output column
+    group c reads input row group ``(s - c) % s``.  ``w`` is the (s, Kg, Ng)
+    group stack, ``scales`` the optional (N,) dequant vector; feature
+    f = (q, g) of x and column j = (r, c) of y, as the reference lays them
+    out.  Plain torch, as the reference computes it outside any kernel."""
+    s, Kg, Ng = (int(d) for d in w.shape)
+    N = s * Ng
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, Kg, s).to(compute_dtype)
+    wf = w.to(compute_dtype)
+    if scales is not None:
+        wf = wf * scales.reshape(s, 1, Ng).to(compute_dtype)
+    order = [(s - c) % s for c in range(s)]
+    xg = xm[:, :, order].permute(2, 0, 1)             # (s, M, Kg)
+    yg = torch.bmm(xg, wf)                            # (s, M, Ng)
+    return yg.permute(1, 2, 0).reshape(*lead, N)      # j = (r, c)
 
 
 # --------------------------------------------------- values derived once

@@ -18,17 +18,15 @@ import torch
 from .. import dispatch as _d
 from .. import payload_registry as _reg
 from ..quant import (
+    PACKED_CONTAINER,
     PackedTensor,
     QuantizedTensor,
+    pack_codes,
     pack_int4,
     pack_quantized,
     quantize,
     unpack_int4,
 )
-
-_INT2_SLICE = (
-    "quant policy at <=2 bits emits the int2x4 family (w_q2), which the port "
-    "does not have yet (ROADMAP Queue A, remaining families)")
 
 
 def _apply_quant(p, x, *, pattern, cfg, bias, activation, compute_dtype,
@@ -64,6 +62,8 @@ def _apply_quant_packed(p, x, *, pattern, cfg, bias, activation,
 
 
 def _matches_packed(payload):
+    # int4x2 only: four-per-byte (int2x4) K-axis containers belong to the
+    # int2 family, which registers ahead of this module
     return isinstance(payload, PackedTensor) and payload.per_byte == 2 \
         and payload.axis % len(payload.shape) == 0
 
@@ -172,14 +172,18 @@ def _quantize_stack(stack: np.ndarray, bits: int):
 
 def _compile_stack(stack, masks, *, pattern, bits, rules):
     """Quantise an (L, K, N) stack: 8-bit ``{"w_q", "w_s"}``; 3/4-bit codes
-    bit-packed two per byte along K into ``{"w_qp", "w_s"}``.  Returns
-    (leaves, code_bytes, container_bytes, None)."""
+    bit-packed two per byte along K into ``{"w_qp", "w_s"}``; <=2-bit codes
+    four per byte into the int2 family's ``{"w_q2", "w_s"}`` when K divides
+    by 4 (else the int4x2 container, exact either way).  Returns (leaves,
+    code_bytes, container_bytes, None)."""
     del pattern, rules
-    if bits <= 2 and stack.shape[1] % 4 == 0:
-        raise NotImplementedError(_INT2_SLICE)
     masked = stack if masks is None else stack * masks
     w_q, w_s = _quantize_stack(masked, bits)
     code_bytes = int(w_q.numel() + w_s.numel() * 4)
+    if bits <= 2 and stack.shape[1] % 4 == 0:
+        w_q2 = pack_codes(w_q, axis=1, bits=2)
+        return {"w_q2": w_q2, "w_s": w_s}, code_bytes, \
+            int(w_q2.numel() + w_s.numel() * 4), None
     if bits <= 4:
         w_qp = pack_int4(w_q, axis=1)
         leaves = {"w_qp": w_qp, "w_s": w_s}
@@ -189,18 +193,17 @@ def _compile_stack(stack, masks, *, pattern, bits, rules):
 
 def _compile_payload(w, mask, *, bits, rules, block):
     """One (K, N) weight to a :class:`QuantizedTensor` payload, or at
-    3-4 bits its int4x2 :class:`PackedTensor`.  Returns (payload, None,
-    code_bytes, container_bytes, None, None)."""
+    <= 4 bits its bit-packed :class:`PackedTensor` (int4x2, or int2x4 at
+    <= 2 bits).  Returns (payload, None, code_bytes, container_bytes, None,
+    None)."""
     del rules, block
-    if bits <= 2:
-        raise NotImplementedError(_INT2_SLICE)
     K, N = w.shape
     qt = quantize(torch.from_numpy(w if mask is None else w * mask), bits,
                   axis=1)
     qt = QuantizedTensor(values=qt.values, scales=qt.scales.reshape(N),
                          axis=1, bits=bits)
     comp_bytes = cont_bytes = K * N + N * 4
-    if bits <= 4:  # bit-packed int4 container: two codes per byte
+    if bits <= 4:  # bit-packed container: two (int4x2) or four codes a byte
         payload = pack_quantized(qt)
         cont_bytes = payload.container_bytes
     else:
@@ -248,6 +251,8 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_qp",
     leaf_names=("w_qp", "w_s"),
     apply=_apply_quant_packed,
+    kind="quant",
+    container=PACKED_CONTAINER,
     matches=_matches_packed,
     from_payload=_from_payload_packed,
     conv_fused=_conv_fused,
@@ -265,6 +270,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_q",
     leaf_names=("w_q", "w_s"),
     apply=_apply_quant,
+    kind="quant",
     matches=_matches,
     from_payload=_from_payload,
     conv_fused=_conv_fused,

@@ -19,6 +19,7 @@ import torch
 from .. import dispatch as _d
 from .. import payload_registry as _reg
 from ..quant import (
+    PACKED_CONTAINER,
     PackedTensor,
     pack_codes,
     pack_int4,
@@ -299,6 +300,8 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_blkp",
     leaf_names=("w_blkp", "w_s"),
     apply=_apply_sparse_packed,
+    kind="sparse",
+    container=PACKED_CONTAINER,
     needs_pattern=True,
     matches=_matches_packed,
     from_payload=_from_payload_packed,
@@ -317,6 +320,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     key_leaf="w_blk",
     leaf_names=("w_blk", "w_s"),
     apply=_apply_sparse,
+    kind="sparse",
     needs_pattern=True,
     matches=_matches,
     from_payload=_from_payload,

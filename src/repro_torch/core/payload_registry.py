@@ -22,7 +22,9 @@ __all__ = [
     "PayloadFamily",
     "PolicyCompiler",
     "all_families",
+    "container_leaf_names",
     "ensure_registered",
+    "family_for_leaf_name",
     "family_for_leaves",
     "family_of_payload",
     "pattern_leaf",
@@ -62,13 +64,20 @@ class PayloadFamily:
       prefixed with the family name.
     * ``container_leaves`` — leaf names whose buffers are bit-exact storage
       containers, which the checkpointer must never widen.
+    * ``kind`` — the datapath family of the reference's tune keys
+      ("sparse" / "quant"; None: not tuned); ``container`` — the storage
+      container tag ("int4x2", "int2x4"; None: unpacked); ``code_leaf`` —
+      the leaf holding the quantised codes (defaults to ``key_leaf``).
     """
 
     name: str
     key_leaf: str
     leaf_names: Tuple[str, ...]
     apply: Optional[Callable] = None
+    kind: Optional[str] = None
+    container: Optional[str] = None
     needs_pattern: bool = False
+    code_leaf: Optional[str] = None
     matches: Optional[Callable] = None
     from_payload: Optional[Callable] = None
     conv_fused: Optional[Callable] = None
@@ -87,6 +96,8 @@ class PayloadFamily:
             raise ValueError(
                 f"family {self.name!r}: key_leaf {self.key_leaf!r} must be "
                 f"one of its leaf_names {self.leaf_names}")
+        if self.code_leaf is None:
+            object.__setattr__(self, "code_leaf", self.key_leaf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,10 +249,23 @@ def validate_leaves(p: Mapping[str, Any],
     return fam
 
 
+def family_for_leaf_name(name: str) -> Optional[PayloadFamily]:
+    """The family that emits leaf ``name`` (key leaves match first, so a
+    shared scales leaf resolves to the first family declaring it)."""
+    for fam in all_families():
+        if name == fam.key_leaf:
+            return fam
+    for fam in all_families():
+        if name in fam.leaf_names:
+            return fam
+    return None
+
+
 def unwrap_payload(payload: Any):
     """``(family, leaves, pattern)`` for a payload object
-    (CompressedLinear, PackedTensor, QuantizedTensor, plain tensor), or
-    ``(None, None, None)`` when no family claims it."""
+    (CompressedLinear, PackedTensor, QuantizedTensor, PerChannelQuant,
+    BFP8Tensor, ActSparsePayload, plain tensor), or ``(None, None, None)``
+    when no family claims it.  Registration order is match priority."""
     for fam in all_families():
         if fam.from_payload is None:
             continue

@@ -8,7 +8,7 @@ Runs the reduced config (2 layers, d_model 64, f32) unless ``--full``
 gives the published widths.  Parameters are random from seed 0 and tokens
 come from ``token_batch``.  The reference launcher's device mesh,
 ``param_specs`` shardings and ``jax.distributed`` start-up are dropped: the
-port trains on one card (sharding is ROADMAP Queue A item 12).  CUDA unless
+port trains on one card (sharding is ROADMAP Queue A item 9).  CUDA unless
 ``--device cpu``.
 """
 from __future__ import annotations

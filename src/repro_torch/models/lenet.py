@@ -11,12 +11,13 @@ dense layer (``F.conv2d`` on NCHW views of the NHWC tensors, ``@``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.cost_model import LayerSpec
 from ..core.dispatch import (
     ConvPayload,
     conv_dispatch,
@@ -31,7 +32,7 @@ from ..kernels.sparse_matmul.kernel import pool_nhwc
 
 __all__ = ["ACT_IN_ELEMS", "ACT_OUT_ELEMS", "CONV_OUT_HW", "LAYERS",
            "LENET_CONV_IN_HW", "init_lenet", "lenet_forward",
-           "lenet_fusion_plan", "lenet_loss"]
+           "lenet_fusion_plan", "lenet_layer_specs", "lenet_loss"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -169,3 +170,30 @@ def lenet_loss(params: Params, images: torch.Tensor, labels: torch.Tensor,
     logits = lenet_forward(params, images, masks=masks, qat_bits=qat_bits)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels.to(torch.int64)[:, None]).mean()
+
+
+def lenet_layer_specs(
+    batch: int = 1,
+    densities: Optional[Dict[str, Tuple[float, float]]] = None,
+) -> List[LayerSpec]:
+    """Layer IR for the DSE and the compile pass's policy pick
+    (per-invocation numbers, as ``repro.models.lenet.lenet_layer_specs``).
+
+    densities: {layer: (max_block_density, max_element_density)} from the
+    reference global-magnitude pruning pass.
+    """
+    densities = densities or {}
+    specs = []
+    for name, kind, shape in LAYERS:
+        wel = int(np.prod(shape))
+        if kind == "conv":
+            flops = 2.0 * wel * int(np.prod(CONV_OUT_HW[name])) * batch
+        else:
+            flops = 2.0 * wel * batch
+        bd, ed = densities.get(name, (1.0, 1.0))
+        specs.append(LayerSpec(
+            name=name, kind=kind, flops=flops, weight_elems=wel,
+            act_bytes=4.0 * batch * (ACT_IN_ELEMS[name] + ACT_OUT_ELEMS[name]),
+            max_block_density=bd, max_element_density=ed,
+        ))
+    return specs

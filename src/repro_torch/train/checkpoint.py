@@ -16,10 +16,11 @@ Layout (one directory per step)::
   calling thread and hands them to one worker thread; the training loop
   blocks only on the previous save.
 * **Dtypes** — bf16 has no numpy dtype, so it is stored widened to f32 and
-  cast back to the template leaf's dtype on restore.  Bit-packed container
-  leaves (``w_qp`` / ``w_blkp`` uint8, named by the payload registry) are
-  saved verbatim; a container leaf that would need widening is a
-  ``TypeError``, never a silent cast.
+  cast back to the template leaf's dtype on restore.  Container leaves,
+  named by the payload registry (the bit-packed ``w_qp`` / ``w_blkp`` /
+  ``w_q2``, the int8 codes ``w_pc`` / ``w_bfp`` and actsparse's block
+  stack ``w_ablk``), are saved verbatim; one that would need widening (a
+  bf16 ``w_ablk``) is a ``TypeError``, never a silent cast.
 * **Placement** — each restored tensor goes to the device of its template
   leaf (the reference's mesh re-sharding has no one-card counterpart).
 """

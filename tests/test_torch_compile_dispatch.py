@@ -134,15 +134,19 @@ def test_compile_model_matches_reference(models, name):
 
 def test_compile_model_errors(models):
     jcfg, tcfg, jp, tp = models
-    with pytest.raises(NotImplementedError, match="cost model"):
-        tc.compile_model(tp, tcfg, rules=tc.CompileRules(min_weight_elems=0),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="autotune"):
+    # no policies entry: the cost model picks, as the reference's does
+    kw = dict(min_weight_elems=0)
+    jcm = jc.compile_model(jp, jcfg, rules=jc.CompileRules(**kw))
+    tcm = tc.compile_model(tp, tcfg, rules=tc.CompileRules(**kw),
+                           device="cpu")
+    assert [(r.name, r.policy) for r in tcm.report] == \
+        [(r.name, r.policy) for r in jcm.report]
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
         tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
             policies={"wq": "autotune"}, min_weight_elems=1 << 20))
     with pytest.raises(ValueError, match="unknown policy"):
         tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
-            policies={"wq": "perchannel"}, min_weight_elems=1 << 20))
+            policies={"wq": "perchannel8"}, min_weight_elems=1 << 20))
     with pytest.raises(ValueError, match="policies keys matched no"):
         tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
             policies={"wz": "quant"}, min_weight_elems=1 << 20))
@@ -154,10 +158,13 @@ def test_compile_model_errors(models):
     with pytest.raises(ValueError, match="already compiled"):
         tc.compile_model(cm.params, tcfg, device="cpu",
                          rules=tc.CompileRules(**RULES["int4_serve"]))
-    with pytest.raises(NotImplementedError, match="int2x4"):
-        tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
-            quant_bits=2, min_weight_elems=0,
-            policies={k: "quant" for k in ATTN + MLP}))
+    # quant at 2 bits: the int2 family's int2x4 container
+    cm2 = tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
+        quant_bits=2, min_weight_elems=0,
+        policies={k: "quant" for k in ATTN + MLP}))
+    assert all(set(leaf) >= {"w_q2", "w_s"} for _, leaf, _ in (
+        (p, par[k], k) for p, par, k in tc._iter_linears(
+            cm2.params["blocks"], "blocks")))
     with pytest.raises(NotImplementedError, match="dense family"):
         tc.compile_model(tp, dataclasses.replace(tcfg, family="moe"),
                          device="cpu")
@@ -274,20 +281,26 @@ def test_validate_leaves_names_the_family(models):
 
 
 def test_registry_queries():
-    assert treg.weight_leaf_names() == ("w_blkp", "w_blk", "w_qp", "w_q", "w")
+    assert treg.weight_leaf_names() == jreg.weight_leaf_names() == (
+        "w_blkp", "w_blk", "w_q2", "w_qp", "w_q", "w_grp", "w_pc", "w_bfp",
+        "w_ablk", "w")
     assert [f.name for f in treg.all_families()] == [
-        "sparse_packed", "sparse", "quant_packed", "quant", "dense"]
+        f.name for f in jreg.all_families()]
     for f in treg.all_families():
         j = jreg.get(f.name)  # the reference family of the same name
-        assert (f.key_leaf, f.leaf_names, f.needs_pattern, f.leaf_ndim) == \
-            (j.key_leaf, j.leaf_names, j.needs_pattern, dict(j.leaf_ndim))
+        assert (f.key_leaf, f.leaf_names, f.needs_pattern, f.leaf_ndim,
+                f.kind, f.container, f.code_leaf) == \
+            (j.key_leaf, j.leaf_names, j.needs_pattern, dict(j.leaf_ndim),
+             j.kind, j.container, j.code_leaf)
     assert treg.pattern_leaf({"w_blk": None}) and not treg.pattern_leaf({"w": 1})
-    assert treg.policy_names() == ("quant", "sparse")
+    assert treg.policy_names() == jreg.policy_names() == (
+        "actsparse", "bfp8", "perchannel", "quant", "sparse")
     assert treg.policy_eliminates_blocks("sparse")
+    assert treg.policy_eliminates_blocks("actsparse")
     assert not treg.policy_eliminates_blocks("quant")
     assert not treg.policy_eliminates_blocks("dense")
     with pytest.raises(KeyError, match="no registered policy"):
-        treg.policy_compiler("bfp8")
+        treg.policy_compiler("gsparse")
     with pytest.raises(ValueError, match="already registered"):
         treg.register(treg.all_families()[-1])
 

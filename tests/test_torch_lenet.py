@@ -239,16 +239,20 @@ def test_compile_lenet_errors(params):
     tp = params_from_numpy(params, device="cpu")
     with pytest.raises(ValueError, match="matched no LeNet layer"):
         tc.compile_lenet(tp, {"fc9": np.ones((2, 2), bool)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="cost model"):
-        tc.compile_lenet(tp, rules=tc.CompileRules(min_weight_elems=0),
-                         device="cpu")
+    # no policies entry: the cost model picks, as the reference's does
+    jcm = jc.compile_lenet(params, rules=jc.CompileRules(min_weight_elems=0))
+    tcm = tc.compile_lenet(tp, rules=tc.CompileRules(min_weight_elems=0),
+                           device="cpu")
+    assert [(r.name, r.policy) for r in tcm.report] == \
+        [(r.name, r.policy) for r in jcm.report]
     with pytest.raises(ValueError, match="does not match the kernel"):
         tc.compile_lenet(tp, {"conv1": np.ones((5, 5, 1, 7), bool)},
                          rules=tc.CompileRules(**RULES["table1"]),
                          blocks=BLOCKS, device="cpu")
     rules = dataclasses.replace(tc.CompileRules(**RULES["table1"]),
                                 quant_bits=2)
-    with pytest.raises(NotImplementedError, match="int2x4"):
-        tc.compile_lenet(tp, rules=dataclasses.replace(
-            rules, policies={**rules.policies, "fc1": "quant"}),
-            blocks=BLOCKS, device="cpu")
+    # quant at 2 bits: fc1 (K = 256) in the int2 family's container
+    cm2 = tc.compile_lenet(tp, rules=dataclasses.replace(
+        rules, policies={**rules.policies, "fc1": "quant"}),
+        blocks=BLOCKS, device="cpu")
+    assert cm2.layers["fc1"].per_byte == 4 and cm2.layers["fc1"].axis == 0
