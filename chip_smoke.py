@@ -73,7 +73,22 @@ Phases, each fatal on failure:
    convs, the fused forward against the twin with its launches, and
    ``run_dse`` / ``balanced_folding_baseline`` at the Table-I budget on
    both HWSpecs (estimates);
-7. train   — llama3.2-1b at full width (random weights from a seed),
+7. zoo     — qwen1.5-4b and starcoder2-7b at full width (bf16, random
+   weights from a seed), each compiled with the serve phase's rules (no
+   ``wg`` for starcoder2's GELU MLP; the untied head takes the cost
+   model's pick), with its host and device memory peaks; the twin check
+   (a prefill chunk and 4 decode steps; the float cache within
+   ``TWIN_TOL``, the int4x2 cache within ``ZOO_TWIN_TOL``); the serve
+   phase's 16 requests captured, every matmul and packed attention read on the
+   route its shape rule names (starcoder2's 16-row prefill chunks: 144
+   query rows a kv head, the single kernel), and eagerly with the same
+   tokens; captured decode and prefill profiles; their leaves (``wq``,
+   ``wk``, the MLP, the head) and attention reads at M = 8 held against
+   the plain versions and timed; then the acceptance matrix on the
+   kernels (``build_matrix``, ``dispatch="kernel"``): every oracle floor,
+   the 8 expected_fail cells failing, bfp8@2 passing, the 4 autotune
+   cells not run, each cell's decode time;
+8. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
    through ``TrainRunner`` (global batch 4 x 2048, 2 micro-batches,
@@ -259,7 +274,8 @@ def sweep_sparse(rng, dev):
     patterns, many blocks per column, blocks taller than a staging round),
     the thin-M cases (M in {1, 3, 8, 16}, the three byte containers, K up
     to 8192 with up to 64 blocks per column, an absent column block, bias
-    or not, over the activations) and the tensor-core cases (bf16 x, M in
+    or not, over the activations; the untied heads' 384 and 1187 column
+    blocks) and the tensor-core cases (bf16 x, M in
     {17, 40, 128, 512}, the three byte containers, K up to 8192, N in {512,
     2048, 8192}, an absent column block, empty patterns, 64-row and
     256-column blocks, bias or not, over the activations; each bitwise
@@ -289,6 +305,10 @@ def sweep_sparse(rng, dev):
             for ki, nR in enumerate((64, 12, 2)):
                 cases.append((container, M, 128, nR, False, mi + ci + ki, 3,
                               128, None))
+    # thin-M at the untied heads' shapes, with a bias: qwen1.5-4b (K = 2560,
+    # N = 151936 = 1187 column blocks) and starcoder2-7b (4608, 49152)
+    cases += [("int4x2", 8, 128, 20, False, 0, 1187, 128, torch.bfloat16),
+              ("int4x2", 16, 128, 36, False, 0, 384, 128, torch.bfloat16)]
     # tensor cores: (K, N) = (8192, 512), (2048, 2048), (2048, 8192) and a
     # 2-block K, then 64-row blocks, 256-column blocks and empty patterns
     bf16 = torch.bfloat16
@@ -363,8 +383,9 @@ def sweep_quant(rng, dev):
     """quant_matmul against its plain version on every route: the first
     design's shapes (M in {1, 8, 16, 128}, an odd N that keeps M = 8 on the
     tiled kernel), the thin-M cases (M in {1, 3, 8, 16}, K in {2048, 8192},
-    N in {96, 512, 2048}) and the tensor-core cases (bf16 x, M in {17, 40,
-    128, 512}, K in {2048, 8192}, N in {512, 2048, 8192}, each bitwise
+    N in {96, 512, 2048}; and qwen1.5-4b's and starcoder2-7b's leaf
+    shapes) and the tensor-core cases (bf16 x, M in {17, 40, 128, 512}, K
+    in {2048, 8192}, N in {512, 2048, 8192}, each bitwise
     equal on a second call), every container, with and without bias, over
     the activations; each call must take the route ``qmm_route`` names."""
     from repro_torch.core.quant import pack_codes
@@ -379,6 +400,9 @@ def sweep_quant(rng, dev):
         (2560, 96, 8, None), (2560, 96, 16, None), (512, 90, 8, None)]
     shapes += [(K, N, M, None) for M in (1, 3, 8, 16) for K in (2048, 8192)
                for N in (96, 512, 2048)]
+    # the leaf shapes of qwen1.5-4b and starcoder2-7b on thin-M
+    shapes += [(2560, 2560, 8, None), (6912, 2560, 16, None),
+               (4608, 512, 8, None), (18432, 4608, 8, None)]
     shapes += [(K, N, M, bf16) for M in (17, 40, 128, 512)
                for K, N in ((2048, 512), (2048, 2048), (8192, 2048),
                             (2048, 8192))]
@@ -501,10 +525,11 @@ def random_cache(B, T, Hkv, Dh, dev):
 
 def sweep_attention(rng, dev):
     """packed_decode_attention against its plain version on both routes:
-    C in {1, 16}, G in {1, 4}, Dh in {64, 128}, bt 64 (and 16: several
-    tiles per split), slots whose rows are all dead (length 0), start at
-    length 1, end mid-tile and reach the extent; C·G = 128, over the split
-    plan's cap, on the single kernel; f32 and bf16 q.  Each call must take
+    C in {1, 16}, G in {1, 4} (and starcoder2-7b's 9 at Dh 128), Dh in
+    {64, 128}, bt 64 (and 16: several tiles per split), slots whose rows
+    are all dead (length 0), start at length 1, end mid-tile and reach the
+    extent; C·G = 128 and 144, over the split plan's cap, on the single
+    kernel; f32 and bf16 q.  Each call must take
     the route ``pda_plan`` names, give the same bits on a second call, and
     the same bits at the full extent and at a bounded one (lengths <= 128).
     Every case runs again over the same codes as int8 (the int4 container,
@@ -519,6 +544,9 @@ def sweep_attention(rng, dev):
               for Dh in (64, 128)]
     shapes += [(1, 4, 64, 16), (16, 4, 128, 16), (4, 2, 64, 32),
                (16, 8, 64, 64)]
+    # starcoder2-7b's GQA (G = 9, Dh 128): a decode read (split) and a
+    # 16-row prefill chunk (144 query rows a kv head: the single kernel)
+    shapes += [(1, 9, 128, 64), (16, 9, 128, 64)]
     cases = 0
     for C, G, Dh, bt in shapes:
         H = Hkv * G
@@ -1135,7 +1163,12 @@ def measure_kernels(cm, cfg, dev, counts):
                 q, *ext8[i], lengths, bt=bt, packed=False), 32),
             "plain_ms": device_ms(lambda i: lambda: tiled_packed_attention(
                 q, *ext8[i], lengths, bt=bt, packed=False), 8),
-            "bound_ms": b8, "bound_by": f8}
+            "bound_ms": b8, "bound_by": f8,
+            # SDPA reads the same dequantised bf16 cache for either
+            # container: timed again here beside the int8-code read
+            "library_ms": device_ms(
+                lambda i: lambda: F.scaled_dot_product_attention(
+                    qh, *kvd[i], attn_mask=mask), 4)}
         return t
 
     attn_t = attention_case(
@@ -1586,19 +1619,19 @@ def compiled_forward(cm, cfg, dev):
             "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
 
 
-def twin_check(cm, cfg, dev, prompt, kv_cache, want=None):
+def twin_check(cm, cfg, dev, prompt, kv_cache, want=None, tol=None):
     """Kernel path vs plain versions on the card: one prefill chunk and 4
     greedy decode steps, teacher-forced with the kernel path's tokens.
 
-    Logits must agree within ``TWIN_TOL[kv_cache]`` (relative to the
-    largest logit) and the greedy tokens must be equal, unless both paths
-    score the two candidates within that tolerance of each other.  ``want``
-    is the launches by route a decode step must make (default: the serve
-    phase's compile, every matmul on its thin-M route).
+    Logits must agree within ``tol`` (default ``TWIN_TOL[kv_cache]``,
+    relative to the largest logit) and the greedy tokens must be equal,
+    unless both paths score the two candidates within that tolerance of
+    each other.  ``want`` is the launches by route a decode step must make
+    (default: the serve phase's compile, every matmul on its thin-M route).
     """
     from repro_torch.models.model import decode_step, init_cache, prefill_step
 
-    tol = TWIN_TOL[kv_cache]
+    tol = TWIN_TOL[kv_cache] if tol is None else tol
     toks = torch.as_tensor(prompt[None], device=dev)
     caches = {m: init_cache(cfg, 1, 512, kv_cache=kv_cache, device=dev)
               for m in ("auto", "twin")}
@@ -1813,6 +1846,19 @@ def quant_conv_operands(cp):
     return pl.values, False, pl.values
 
 
+def conv2d_call(cp, xin):
+    """The one-call library yardstick of a fused conv: ``F.conv2d`` on the
+    densified weight, the conv alone (no bias, relu or pool)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.compile_sparse import conv_weight_unmatrix
+    from repro_torch.core.dispatch import _payload_dense_f32
+    w4 = conv_weight_unmatrix(_payload_dense_f32(cp.payload, xin.device),
+                              cp.kernel).permute(3, 2, 0, 1).contiguous()
+    xn = xin.permute(0, 3, 1, 2).contiguous()
+    return lambda: F.conv2d(xn, w4)
+
+
 def measure_lenet_kernels(params, x, cms, dev):
     """Time each LeNet kernel at B=256 on the compiled model's own leaves,
     summed over its launches in one forward, beside its bound, its plain
@@ -1820,7 +1866,6 @@ def measure_lenet_kernels(params, x, cms, dev):
     forward (each layer reads what the one before just wrote)."""
     import torch.nn.functional as F
 
-    from repro_torch.core.compile_sparse import conv_weight_unmatrix
     from repro_torch.core.dispatch import _payload_dense_f32, conv_dispatch
     from repro_torch.kernels import fc_stack as fk
     from repro_torch.kernels.fc_stack import (fc_stack_matmul,
@@ -1846,10 +1891,8 @@ def measure_lenet_kernels(params, x, cms, dev):
                 ("conv2", cm.layers["conv2"], h1)]
 
     def library(cp, xin):
-        w4 = conv_weight_unmatrix(_payload_dense_f32(cp.payload, dev),
-                                  cp.kernel).permute(3, 2, 0, 1).contiguous()
-        xn = xin.permute(0, 3, 1, 2).contiguous()
-        return lambda i: lambda: F.conv2d(xn, w4)
+        call = conv2d_call(cp, xin)
+        return lambda i: call
 
     def add(name, source, replaces, counts, rows, shape, library_note,
             routes=()):
@@ -2368,10 +2411,9 @@ def unpacked(ops):
     return unpack_codes(w, ops[5].block[0], axis=1, bits=8 // ratio)
 
 
-def time_family(ops, payload, dense_bf16, M, act):
-    """Kernel, plain and one-call library times of one family leaf at M rows
-    (bf16), its inputs outside L2, beside its bound."""
-    from repro_torch.core.sparsity import CompressedLinear
+def time_family(ops, dense_bf16, M, act):
+    """Kernel, plain and one-call library times of one leaf's operands at M
+    rows (bf16), its inputs outside L2, beside its bound."""
     w = ops[2]
     y = family_kernel_call(ops, w, act)()
     ref = family_plain_call(ops, unpacked(ops), act)()
@@ -2395,6 +2437,7 @@ def time_family(ops, payload, dense_bf16, M, act):
         ops_n = 2.0 * M * pat.n_blocks_present * pat.block[0] * pat.block[1]
     b, by = bound(moved, ops_n, "bf16")
     return {"max_abs_err": float((y.float() - ref.float()).abs().max()),
+            "tol": tol_for(y.dtype, ref.float()),
             "ms": device_ms(lambda i: family_kernel_call(ops, ws[i], act), n),
             "plain_ms": device_ms(
                 lambda i: family_plain_call(ops, cs[i], act), n_plain),
@@ -2456,7 +2499,7 @@ def families_leaves(dev):
                 checked += 1
                 if (M, dt) not in FAMILY_TIMED:
                     continue
-                t = time_family(ops, p, dense_bf16, M,
+                t = time_family(ops, dense_bf16, M,
                                 ("trelu", FAMILY_TAU) if act else None)
                 row = {"family": fam, "leaf": leaf, "label": label,
                        "shape": f"M={M} K={K} N={N}", "route": route,
@@ -2478,37 +2521,59 @@ def families_leaves(dev):
     return rows, checked
 
 
-def decode_want(cm, cfg, dev):
-    """The launches per route one decode step (M = 1) needs, from each
-    layer-0 leaf's operands through its kernel's shape rule."""
-    from repro_torch.core import payload_registry
+def compiled_leaves(cm):
+    """(path, leaf) of each compiled linear: layer 0's slice of every block
+    linear, and the untied head where the model has one."""
     from repro_torch.core.compile_sparse import _iter_linears
-    want = {QMM_THIN: 0, QMM_TC: 0, QMM_TILED: 0, BSM_THIN: 0, BSM_TC: 0,
-            BSM_TILED: 0}
-    names = {("quant", "thin_m"): QMM_THIN, ("quant", "tensor_core"): QMM_TC,
-             ("quant", "tiled"): QMM_TILED, ("sparse", "thin_m"): BSM_THIN,
-             ("sparse", "tensor_core"): BSM_TC, ("sparse", "tiled"): BSM_TILED}
-    shape_of = {r.name: r.shape for r in cm.report}
-    x = torch.zeros((1, cfg.d_model), device=dev, dtype=torch.bfloat16)
     for path, parent, key in _iter_linears(cm.params["blocks"], "blocks"):
-        leaf = {k: v[0] for k, v in parent[key].items()}
-        fam = payload_registry.family_for_leaves(leaf)
-        K, N = shape_of[path]
-        xk = torch.zeros((1, K), device=dev, dtype=torch.bfloat16)
-        if fam.name in ("sparse", "sparse_packed", "actsparse"):
-            pat = cm.patterns[(K, N)]
-            blocks = leaf[fam.key_leaf]
-            packed = "int2x4" if fam.name == "sparse_packed" and \
-                blocks.shape[1] * 4 == pat.block[0] else (
-                    "int4x2" if fam.name == "sparse_packed" else False)
-            ops = ("sparse", xk, blocks, None, packed, pat)
-        else:
-            codes = leaf[fam.key_leaf]
-            packed = {"int2": "int2x4", "quant_packed": "int4x2"}.get(
-                fam.name, False)
-            ops = ("quant", xk, codes, None, packed)
-        route, _ = family_route(ops, 1, x)
-        want[names[(ops[0], route)]] += cfg.n_layers
+        yield path, {k: v[0] for k, v in parent[key].items()}
+    if isinstance(cm.params.get("head"), dict):
+        yield "head", cm.params["head"]
+
+
+def leaf_ops(cm, path, leaf, x):
+    """What the leaf's family hands its kernel for the activation ``x`` (as
+    ``family_operands``; the scales leaf is ``w_s``, None where the family
+    keeps others), or None for a dense leaf."""
+    from repro_torch.core import payload_registry
+    fam = payload_registry.family_for_leaves(leaf)
+    if fam.name == "dense":
+        return None
+    shape_of = {r.name: r.shape for r in cm.report}
+    if fam.name in ("sparse", "sparse_packed", "actsparse"):
+        pat = cm.patterns[shape_of[path]]
+        blocks = leaf[fam.key_leaf]
+        packed = "int2x4" if fam.name == "sparse_packed" and \
+            blocks.shape[1] * 4 == pat.block[0] else (
+                "int4x2" if fam.name == "sparse_packed" else False)
+        return "sparse", x, blocks, leaf.get("w_s"), packed, pat
+    packed = {"int2": "int2x4", "quant_packed": "int4x2"}.get(fam.name, False)
+    return "quant", x, leaf[fam.key_leaf], leaf.get("w_s"), packed
+
+
+ROUTE_COUNTER = {("quant", "thin_m"): QMM_THIN,
+                 ("quant", "tensor_core"): QMM_TC,
+                 ("quant", "tiled"): QMM_TILED,
+                 ("sparse", "thin_m"): BSM_THIN,
+                 ("sparse", "tensor_core"): BSM_TC,
+                 ("sparse", "tiled"): BSM_TILED}
+
+
+def decode_want(cm, cfg, dev, M=1):
+    """The launches per route one step of M rows (a decode step of M slots,
+    or a prefill chunk of M rows) needs, from each layer-0 leaf's and the
+    head's operands through its kernel's shape rule."""
+    want = dict.fromkeys(ROUTE_COUNTER.values(), 0)
+    shape_of = {r.name: r.shape for r in cm.report}
+    for path, leaf in compiled_leaves(cm):
+        x = torch.zeros((M, shape_of[path][0]), device=dev,
+                        dtype=torch.bfloat16)
+        ops = leaf_ops(cm, path, leaf, x)
+        if ops is None:
+            continue
+        route, _ = family_route(ops, M, x)
+        want[ROUTE_COUNTER[(ops[0], route)]] += \
+            1 if path == "head" else cfg.n_layers
     return want
 
 
@@ -2711,7 +2776,8 @@ def families_lenet(dev):
                             h, vals, rws, cls, n_row_blocks=nR,
                             n_col_blocks=nC, scales=pl.scales, bias=b, **kw),
                         4),
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": device_ms(lambda i: conv2d_call(cp, h), 16)})
                 h = yk
         if cname == "int2_conv":
             h = x
@@ -2740,7 +2806,8 @@ def families_lenet(dev):
                         h, w_q, s, b, packed=packed, **kw), 16),
                     "plain_ms": device_ms(lambda i: lambda: quant_conv_ref(
                         h, codes, s, b, out_dtype=h.dtype, **kw), 4),
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": device_ms(lambda i: conv2d_call(cp, h), 16)})
                 f32_check(f"quant_conv int2 {name}", yk, yr)
                 h = yk
         del cm
@@ -2766,6 +2833,401 @@ def families(dev, report, kernels):
                           "lenet": lenet_out, "rows": rows,
                           "seconds": {"leaves": t1 - t0, "models": t2 - t1,
                                       "lenet": t3 - t2}}
+
+
+# -------------------------------------------------------------------- zoo
+
+
+ZOO_ARCHS = ("qwen1.5-4b", "starcoder2-7b")
+# the leaves timed at M = 8 beside their bound, plain and library times
+ZOO_LEAVES = {"qwen1.5-4b": ("blocks/attn/wq", "blocks/mlp/wg",
+                             "blocks/mlp/wd", "head"),
+              "starcoder2-7b": ("blocks/attn/wq", "blocks/attn/wk",
+                                "blocks/mlp/wu", "blocks/mlp/wd", "head")}
+ZOO_M = 8
+# The zoo configs' int4x2 twin bound.  qwen1.5-4b keeps TWIN_TOL.  For
+# starcoder2-7b the gap is int4 K/V code flips compounding through its 32
+# layers: a one-step bf16 difference flips a code, which moves that value
+# by amax/7.  ``twin_layers`` records it on the card: the share of a
+# layer's K/V codes that differ between the kernel and plain paths grows
+# with depth, while with the float cache the two agree within TWIN_TOL;
+# and the plain bf16 path is itself 0.12-0.14 from the plain f32 path on
+# the same cache (NVIDIA H100 80GB HBM3, 700 W).  So the kernel path is
+# held to that distance, 0.15, not to TWIN_TOL.
+ZOO_TWIN_TOL = {"qwen1.5-4b": TWIN_TOL["int4x2"], "starcoder2-7b": 0.15}
+# the acceptance matrix's compressed forwards reach these kernels
+MATRIX_KERNELS = ("block_sparse_matmul", "quant_matmul", "block_sparse_conv",
+                  "quant_conv", "fc_stack_matmul", "flash_attention")
+
+
+def zoo_rules(cfg):
+    """SERVE_RULES for ``cfg``: a GELU MLP has no ``wg``, and a policy key
+    that names no leaf raises in ``compile_model``, so it is dropped."""
+    from repro_torch.core.compile_sparse import CompileRules
+    pols = {k: v for k, v in SERVE_RULES["policies"].items()
+            if k != "wg" or cfg.act == "swiglu"}
+    return CompileRules(**{**SERVE_RULES, "policies": pols})
+
+
+class RssPeak:
+    """The process's resident set in bytes before a block and its peak
+    while the block runs, sampled from /proc/self/statm every 20 ms."""
+
+    def __enter__(self):
+        import os
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def head_route(cm, dev, M):
+    """The kernel and route of the untied head's call on M rows (None for
+    a dense head)."""
+    shape_of = {r.name: r.shape for r in cm.report}
+    x = torch.zeros((M, shape_of["head"][0]), device=dev, dtype=torch.bfloat16)
+    ops = leaf_ops(cm, "head", cm.params["head"], x)
+    return None if ops is None else ROUTE_COUNTER[(ops[0], family_route(
+        ops, M, x)[0])]
+
+
+def twin_layers(cm, cfg, dev, prompt):
+    """Where the int4x2 twin gap enters: one prefill chunk and 4 decode
+    steps (teacher-forced with the kernel path's tokens) through the
+    kernel path, the plain path and the plain path in f32 (its bf16
+    leaves cast up); the logits' gaps (relative to the largest logit) and,
+    per layer, the share of the chunk's K/V codes that differ and the
+    largest relative gap of its K scales.  A record: ``twin_check`` holds
+    the bound."""
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.models.model import decode_step, init_cache, prefill_step
+    from repro_torch.tree import tree_map
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    paths = {"kernel": (cm.params, cfg, "auto"),
+             "plain": (cm.params, cfg, "twin"),
+             "plain_f32": (tree_map(lambda t: t.float() if t.dtype
+                                    == torch.bfloat16 else t, cm.params),
+                           f32, "twin")}
+    toks = torch.as_tensor(prompt[None], device=dev)
+    caches = {k: init_cache(c, 1, 512, kv_cache="int4x2", device=dev)
+              for k, (_, c, _) in paths.items()}
+    logits = {k: [prefill_step(p, c, caches[k], toks, patterns=cm.patterns,
+                               dispatch=m, t_bound=32, bt=64)[0][0, -1]
+                  .float()] for k, (p, c, m) in paths.items()}
+    C = len(prompt)
+    codes = {k: [unpack_int4(caches[k][leaf][:, 0, :C], cfg.head_dim,
+                             axis=-1) for leaf in ("k_p", "v_p")]
+             for k in paths}
+    scales = {k: caches[k]["k_s"][:, 0, :C].float() for k in paths}
+    for _ in range(4):
+        tok = torch.argmax(logits["kernel"][-1]).view(1, 1)
+        for k, (p, c, m) in paths.items():
+            logits[k].append(decode_step(p, c, caches[k], tok,
+                                         patterns=cm.patterns, dispatch=m,
+                                         t_bound=64, bt=64)[0][0, -1].float())
+    out = {}
+    for a, b in (("kernel", "plain"), ("kernel", "plain_f32"),
+                 ("plain", "plain_f32")):
+        out[f"{a}_vs_{b}"] = {
+            "logits": [float((x - y).abs().max() / y.abs().max())
+                       for x, y in zip(logits[a], logits[b])],
+            "code_flip_share": [float(sum((ca[i] != cb[i]).float().mean()
+                                          for ca, cb in zip(codes[a],
+                                                            codes[b])) / 2)
+                                for i in range(cfg.n_layers)],
+            "k_scale_gap": [float((scales[a][i] - scales[b][i]).abs().max()
+                                  / scales[b][i].abs().max())
+                            for i in range(cfg.n_layers)]}
+    return out
+
+
+def pda_route(cfg, B, C, bt):
+    """The route ``pda_plan`` names for a read of C rows of B slots."""
+    from repro_torch.kernels.flash_attention import decode_packed as dp
+    plan = dp.pda_plan(B, C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 512,
+                       bt)
+    return PDA_SINGLE if plan is None else PDA_SPLIT
+
+
+def serve_want(cm, cfg, dev, decode_steps, prefill_steps):
+    """The launches by route of a serving window: decode steps of 8 slots
+    and 16-row prefill chunks, each call on the route its rule names."""
+    from repro_torch.core.dispatch import ATTN_BT_DEFAULT
+    want = {PDA_SPLIT: 0, PDA_SINGLE: 0}
+    for M, steps, C in ((8, decode_steps, 1), (16, prefill_steps, 16)):
+        for k, n in decode_want(cm, cfg, dev, M).items():
+            want[k] = want.get(k, 0) + n * steps
+        B = 8 if C == 1 else 1
+        want[pda_route(cfg, B, C, ATTN_BT_DEFAULT)] += cfg.n_layers * steps
+    return want
+
+
+def zoo_leaf_rows(cm, cfg, dev):
+    """ZOO_LEAVES of the compiled model at M = 8 (bf16), each on the route
+    its rule names, held against its plain version and timed beside its
+    bound and the one-call library yardstick (``x @ W``, W dense bf16)."""
+    from repro_torch.core.compile_sparse import _decompress_leaf
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+    shape_of = {r.name: r.shape for r in cm.report}
+    policy_of = {r.name: r.policy for r in cm.report}
+    leaves = dict(compiled_leaves(cm))
+    rows = {"quant_matmul": [], "block_sparse_matmul": []}
+    for path in ZOO_LEAVES[cfg.name]:
+        K, N = shape_of[path]
+        x = torch.randn((ZOO_M, K), device=dev).to(torch.bfloat16)
+        ops = leaf_ops(cm, path, leaves[path], x)
+        require(ops is not None, f"zoo {cfg.name}: {path} compiled dense")
+        kernel = "quant_matmul" if ops[0] == "quant" \
+            else "block_sparse_matmul"
+        route, plan = family_route(ops, ZOO_M, x)
+        took_route(qk if ops[0] == "quant" else sk, QMM_ROUTES, route,
+                   family_kernel_call(ops, ops[2]))
+        dense = _decompress_leaf(leaves[path], cm.patterns.get((K, N)),
+                                 torch.bfloat16, shape=(K, N))["w"]
+        t = time_family(ops, dense, ZOO_M, None)
+        del dense
+        label = f"zoo {cfg.name} {path} M={ZOO_M} K={K} N={N} {route}"
+        require(t["max_abs_err"] <= t["tol"],
+                f"{label}: kernel vs plain max abs err {t['max_abs_err']}")
+        detail = {"policy": policy_of[path], "container": ops[4] or str(
+            ops[2].dtype).split(".")[-1]}
+        if ops[0] == "sparse":
+            pat = ops[5]
+            detail["blocks"] = (f"{pat.n_blocks_present}/"
+                                f"{pat.n_blocks_total} of {pat.block}")
+        if route == "thin_m":
+            detail["plan"] = list(plan)
+        rows[kernel].append({"config": cfg.name, "leaf": path,
+                             "shape": f"M={ZOO_M} K={K} N={N}",
+                             "route": route, **detail, **t})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_attention_row(cfg, dev, B, C, lens, T=512, bt=64):
+    """packed_decode_attention over B slots of a T-row int4x2 cache, C query
+    rows a slot (``lens`` (B, C): live rows of each), on the route
+    ``pda_plan`` names, held against its plain version and timed beside its
+    bound and SDPA on the dequantised bf16 cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import decode_packed as dp
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Hkv
+    q = torch.randn((B, C, H, Dh), device=dev).to(torch.bfloat16)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    caches = [random_cache(B, T, Hkv, Dh, dev)[:4] for _ in range(16)]
+    k_p, v_p = caches[0][:2]
+    plan = dp.pda_plan(B, C, H, Hkv, Dh, T, bt, k_p.data_ptr()
+                       | v_p.data_ptr() | int(k_p.stride(0)))
+    route = "single" if plan is None else "split"
+    routes = {"split": "launches_split", "single": "launches_single"}
+    y = took_route(dp, routes, route, lambda: dp.packed_decode_attention(
+        q, *caches[0], lengths, bt=bt))
+    ref = dp.tiled_packed_attention(q, *caches[0], lengths, bt=bt)
+    torch.cuda.synchronize()
+    err, tol = float((y.float() - ref.float()).abs().max()), \
+        flash_tol(torch.bfloat16, ref)
+    label = f"zoo {cfg.name} attention B={B} C={C} G={G} Dh={Dh} {route}"
+    require(err <= tol, f"{label}: max abs err {err}")
+
+    def dequantised(c):
+        k_p, v_p, k_s, v_s = c
+        kd, vd = ((unpack(a).float() * s[..., None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                  for a, s in ((k_p, k_s), (v_p, v_s)))
+        return kd, vd
+
+    def unpack(a):
+        from repro_torch.core.quant import unpack_int4
+        return unpack_int4(a, Dh, axis=-1)
+
+    kvd = [dequantised(c) for c in caches[:4]]
+    qh = q.permute(0, 2, 1, 3)
+    mask = (torch.arange(T, device=dev)[None, None, :]
+            < lengths[:, :, None])[:, None]
+    live = np.asarray(lens)
+    b, by = bound(nbytes(q, y, lengths)
+                  + int(live.max(axis=1).sum()) * Hkv * (Dh + 8),
+                  4.0 * H * Dh * float(live.sum()), "bf16")
+    row = {"config": cfg.name, "shape": f"B={B} C={C} H={H} Hkv={Hkv} "
+           f"Dh={Dh} extent {T}, bt={bt}, live rows {int(live.sum())}",
+           "route": route, "max_abs_err": err, "tol": tol,
+           "ms": device_ms(lambda i: lambda: dp.packed_decode_attention(
+               q, *caches[i], lengths, bt=bt), 16),
+           "plain_ms": device_ms(lambda i: lambda: dp.tiled_packed_attention(
+               q, *caches[i], lengths, bt=bt), 4),
+           "bound_ms": b, "bound_by": by,
+           "library_ms": device_ms(
+               lambda i: lambda: F.scaled_dot_product_attention(
+                   qh, *kvd[i], attn_mask=mask), 4)}
+    if plan is not None:
+        row["plan"] = list(plan)
+    return row
+
+
+def zoo_model(arch, dev):
+    """One config at full width: compile with the serving rules (host and
+    device peaks), the twin check, the serve phase's 16 requests captured
+    (every launch on the route its rule names) and eagerly (the same
+    tokens), the captured steps' profiles, and the leaf and attention
+    rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_sparse import compile_model
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with RssPeak() as rss:
+        cm = compile_model(params, cfg, rules=zoo_rules(cfg), device=dev)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    out = {"init_params_s": t1 - t0, "compile_s": t2 - t1,
+           "host_rss_before_compile": rss.before,
+           "host_rss_peak_compile": rss.peak,
+           "device_peak_init_compile": torch.cuda.max_memory_allocated(),
+           "container_storage_bytes": cm.container_storage_bytes,
+           "byte_compression": cm.byte_compression,
+           "policies": {r.name: r.policy for r in cm.report}}
+    out["head_route"] = {M: head_route(cm, dev, M) for M in (1, 8, 16)}
+    out["launches_per_step"] = {
+        "decode": decode_want(cm, cfg, dev, 8),
+        "prefill": decode_want(cm, cfg, dev, 16)}
+    print(f"zoo {arch}: compiled in {out['compile_s']:.1f} s (host RSS peak "
+          f"{rss.peak} bytes), policies {json.dumps(out['policies'])}; the "
+          f"head, picked by the cost model: {out['policies'].get('head')} "
+          f"on the routes {json.dumps(out['head_route'])} (rows M)",
+          flush=True)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(64, 257, size=16)]
+    out["twin_check"] = {}
+    for kv, tol in (("float", TWIN_TOL["float"]),
+                    ("int4x2", ZOO_TWIN_TOL[arch])):
+        tw = twin_check(cm, cfg, dev, prompts[0][:16], kv,
+                        want=decode_want(cm, cfg, dev), tol=tol)
+        out["twin_check"][kv] = {k: tw[k] for k in ("max_rel_err", "tol",
+                                                     "steps")}
+    out["twin_layers"] = twin_layers(cm, cfg, dev, prompts[0][:16])
+    print(f"zoo {arch}: twin check {json.dumps(out['twin_check'])}; "
+          f"by layer {json.dumps(out['twin_layers'])}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    eng, cap, counts = serve_run(cm, cfg, dev, prompts, count=True)
+    del eng
+    want = serve_want(cm, cfg, dev, cap["decode_steps"], cap["prefill_steps"])
+    got = {k: counts[k] for k in want}
+    require(got == want, f"zoo {arch}: served launches by route {got}, "
+                         f"the shape rules name {want}")
+    _, eager, _ = serve_run(cm, cfg, dev, prompts, capture=False)
+    require(eager.pop("tokens") == cap["tokens"],
+            f"zoo {arch}: captured and eager serving gave different tokens")
+    tokens = cap.pop("tokens")
+    require(all(len(t) == 32 and all(0 <= v < cfg.vocab for v in t)
+                for t in tokens), f"zoo {arch}: a request got a bad answer")
+    out["device_peak_serve"] = torch.cuda.max_memory_allocated()
+    out["serve"] = {**cap, "launches": {k: v for k, v in counts.items() if v},
+                    "eager": eager}
+    out["step_profile"] = {f"{ph}_captured": profile_step(cm, cfg, dev, ph,
+                                                          True)
+                           for ph in ("decode", "prefill")}
+    print(f"zoo {arch}: serve {json.dumps(out['serve'])}", flush=True)
+    print(f"zoo {arch}: step profile {json.dumps(out['step_profile'])}",
+          flush=True)
+
+    rows = zoo_leaf_rows(cm, cfg, dev)
+    del cm
+    torch.cuda.empty_cache()
+    lens = np.random.default_rng(1).integers(64, 320, size=(8, 1))
+    rows["packed_decode_attention"] = [zoo_attention_row(cfg, dev, 8, 1, lens)]
+    if arch == "starcoder2-7b":
+        rows["packed_decode_attention"].append(zoo_attention_row(
+            cfg, dev, 1, 16, 200 + np.arange(1, 17)[None]))
+    return out, rows
+
+
+def zoo_matrix(dev):
+    """The acceptance matrix on the card: ``build_matrix`` with every
+    compressed forward under ``dispatch="kernel"``, on the port's own
+    seeded weights (drawn on the host, as on the CPU).  Requires
+    ``floor_fails`` to find nothing: every oracle floor, the 8
+    expected_fail cells really failing their dense floor, bfp8@2 passing
+    on every config and exactly the autotune cells not run; returns the
+    payload and the launches it made."""
+    from repro_torch.core import acceptance as acc
+
+    reset_counts()
+    t0 = time.perf_counter()
+    m = acc.build_matrix(time_cells=True, log=lambda s: None, device=dev,
+                         dispatch="kernel")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    for name in MATRIX_KERNELS:
+        require(counts[name] > 0, f"zoo matrix: no {name} launch")
+    xf = sorted(k for k, r in m["cells"].items() if r["expected_fail"])
+    require(len(xf) == 8, f"zoo matrix: expected_fail cells {xf}")
+    fails = acc.floor_fails(m)
+    require(not fails, f"zoo matrix on the card: {fails}")
+    # the dense floors of the other weight-preserving cells, as data: they
+    # were set on the reference's weights
+    dense_floors = {k: r["dense_top1"] >= acc.DENSE_TOP1_FLOOR[r["bits"]]
+                    for k, r in m["cells"].items()
+                    if r["policy"] in acc.WEIGHT_PRESERVING
+                    and not r["expected_fail"]}
+    return {"seconds": seconds, "cells": m["cells"], "not_run": m["not_run"],
+            "dense_floor_held": dense_floors,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def zoo(dev, report, kernels):
+    """The zoo phase: qwen1.5-4b and starcoder2-7b at full width, then the
+    acceptance matrix; the kernels line's quant_matmul,
+    block_sparse_matmul and packed_decode_attention entries gain a ``zoo``
+    list."""
+    out, rows = {}, {}
+    t0 = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        t = time.perf_counter()
+        out[arch], r = zoo_model(arch, dev)
+        out[arch]["seconds"] = time.perf_counter() - t
+        for k, v in r.items():
+            rows.setdefault(k, []).extend(v)
+        torch.cuda.empty_cache()
+    out["matrix"] = zoo_matrix(dev)
+    out["seconds"] = time.perf_counter() - t0
+    for k in kernels:
+        if k["name"] in rows:
+            k["zoo"] = rows[k["name"]]
+    report["zoo"] = out
+    report["zoo_rows"] = rows
+
+
 
 
 def main() -> int:
@@ -2840,6 +3302,17 @@ def main() -> int:
               "not measured): " + json.dumps({
                   c: r["dse_estimate"] for c, r in fam["lenet"].items()}),
               flush=True)
+        zoo(dev, report, kernels)
+        mat = report["zoo"]["matrix"]
+        print(f"zoo matrix ({mat['seconds']:.1f} s, launches "
+              f"{json.dumps(mat['launches'])}); not run: "
+              f"{json.dumps(mat['not_run'])}", flush=True)
+        print(f"zoo matrix decode_us on {report['card']}: " + json.dumps(
+            {k: r["decode_us"] for k, r in mat["cells"].items()}), flush=True)
+        print("zoo matrix container_bytes (the port's own weights): "
+              + json.dumps({k: r["container_bytes"]
+                            for k, r in mat["cells"].items()}), flush=True)
+        print("zoo rows: " + json.dumps(report["zoo_rows"]), flush=True)
         train_counts = train(dev, report)
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)

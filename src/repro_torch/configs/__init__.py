@@ -5,9 +5,17 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from ..models.config import ArchConfig
+from ..models.config import SHAPES, ArchConfig, ShapeSpec
 
+__all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeSpec", "get_config",
+           "reduced_config"]
+
+# the reference's registry order (``repro.configs._MODULES``), dense
+# entries only; the other families come with ROADMAP Queue A item 8
 _MODULES = {
+    "llama3-405b": "llama3_405b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "starcoder2-7b": "starcoder2_7b",
     "llama3.2-1b": "llama3_2_1b",
 }
 

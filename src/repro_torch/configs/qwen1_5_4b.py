@@ -1,0 +1,18 @@
+"""qwen1.5-4b [dense] — MHA with QKV bias [hf:Qwen/Qwen1.5 family]."""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-4b",
+    family="dense",
+    n_layers=40,
+    d_model=2560,
+    n_heads=20,
+    n_kv_heads=20,
+    d_ff=6912,
+    vocab=151936,
+    head_dim=128,
+    act="swiglu",
+    norm="rms",
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)

@@ -25,6 +25,7 @@ _EXPORTS = {
                    "NetworkEstimate"),
     "dse": ("DSEResult", "apply_realised_densities",
             "balanced_folding_baseline", "run_dse"),
+    "lm_ir": ("lm_layer_specs",),
     "dispatch": ("DISPATCH_ENV", "ConvPayload", "DispatchConfig",
                  "conv_dispatch", "conv_im2col", "linear_dispatch",
                  "payload_dispatch"),

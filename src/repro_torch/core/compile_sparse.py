@@ -308,7 +308,7 @@ class _LeafPlan:
     path: str
     parent: dict
     key: str
-    stack: np.ndarray            # (L, K, N) f32
+    shape: Tuple[int, int, int]  # (L, K, N) of the weight stack
     stacked: bool
     mask: Optional[np.ndarray]   # (L, K, N) bool or None
     block: Optional[Tuple[int, int]]
@@ -317,6 +317,12 @@ class _LeafPlan:
     bits: int
     bd: float
     ed: float
+
+
+def _f32_stack(w) -> np.ndarray:
+    """A weight (K, N) or stack (L, K, N) as a host (L, K, N) f32 array."""
+    a = to_numpy_f32(w)
+    return a if a.ndim == 3 else a[None]
 
 
 def _iter_linears(tree: Any, path: str = "", in_linear_subtree: bool = False):
@@ -383,6 +389,9 @@ def compile_model(
         sites.append(("head", new_params, "head"))
 
     # Phase A — analyse each leaf: policy + (for sparse) its own bitmap.
+    # A leaf's f32 host stack is made where it is needed and dropped after
+    # (Phase C makes it again), so the host holds one stack at a time, not
+    # the whole model in f32.
     plans: List[_LeafPlan] = []
     for path, parent, key in sites:
         leaf = parent[key]
@@ -391,10 +400,9 @@ def compile_model(
                 f"{path}: leaf is already compiled ({sorted(leaf)}); "
                 "compile_model expects a raw dense parameter tree — use "
                 "decompress_model() first to recompile")
-        w = to_numpy_f32(leaf["w"])
-        stacked = w.ndim == 3
-        stack = w if stacked else w[None]
-        L, K, N = stack.shape
+        stacked = len(leaf["w"].shape) == 3
+        L, K, N = tuple(leaf["w"].shape) if stacked \
+            else (1,) + tuple(leaf["w"].shape)
         m = _lookup(masks, path, key, consumed_mask_keys)
         mask = None
         if m is not None:
@@ -421,9 +429,10 @@ def compile_model(
             path, _lookup(rules.policies, path, key, consumed_policy_keys),
             K, N, rules, block=block, block_density=bd, element_density=ed)
         if payload_registry.policy_eliminates_blocks(policy) and bitmap is None:
-            bitmap = _shared_bitmap(stack, block, rules.block_density)
+            bitmap = _shared_bitmap(_f32_stack(leaf["w"]), block,
+                                    rules.block_density)
             bd = bitmap.sum() / bitmap.size
-        plans.append(_LeafPlan(path, parent, key, stack, stacked, mask,
+        plans.append(_LeafPlan(path, parent, key, (L, K, N), stacked, mask,
                                block, bitmap, policy, bits, float(bd),
                                float(ed)))
 
@@ -444,7 +453,7 @@ def compile_model(
     for pl in plans:
         if not payload_registry.policy_eliminates_blocks(pl.policy):
             continue
-        K, N = pl.stack.shape[1:]
+        K, N = pl.shape[1:]
         prev = patterns.get((K, N))
         bitmap = pl.bitmap.copy() if prev is None else prev.bitmap | pl.bitmap
         patterns[(K, N)] = pattern_from_bitmap((K, N), pl.block, bitmap)
@@ -452,7 +461,7 @@ def compile_model(
     # Phase C — rewrite the leaves.
     for pl in plans:
         leaf = pl.parent[pl.key]
-        L, K, N = pl.stack.shape
+        L, K, N = pl.shape
         w0 = leaf["w"]
         dense_bytes = int(w0.numel() * w0.element_size())
         out = {k: v for k, v in leaf.items() if k != "w"}
@@ -465,22 +474,24 @@ def compile_model(
             if pl.mask is None:
                 out["w"] = w0.to(dev)
             else:
-                masked = pl.stack * pl.mask
+                masked = _f32_stack(w0) * pl.mask
                 w = masked if pl.stacked else masked[0]
                 out["w"] = torch.from_numpy(w).to(device=dev, dtype=w0.dtype)
             comp_bytes = cont_bytes = dense_bytes
         else:
             pc = payload_registry.policy_compiler(pl.policy)
             mask, pattern = pl.mask, None
+            stack = _f32_stack(w0)
             if eliminates:
                 if mask is None:
                     mask = np.stack([
                         _element_mask(wl, pl.bitmap, pl.block,
                                       rules.in_block_density)
-                        for wl in pl.stack])
+                        for wl in stack])
                 pattern = patterns[(K, N)]
             leaves, comp_bytes, cont_bytes, ed_r = pc.compile_stack(
-                pl.stack, mask, pattern=pattern, bits=pl.bits, rules=rules)
+                stack, mask, pattern=pattern, bits=pl.bits, rules=rules)
+            del stack, mask
             if ed_r is not None:
                 ed = ed_r
             if pattern is not None:
@@ -729,6 +740,8 @@ def decompress_model(cm: CompressedModel, *, dtype=torch.float32) -> Any:
         return out
     shape_of = {r.name: r.shape for r in cm.report}
     out = _copy_spine(cm.params)
+    if not isinstance(out.get("blocks"), dict):
+        return out   # a LeNet compile with no compressed layer
     for path, parent, k in _iter_linears(out["blocks"], "blocks"):
         parent[k] = _decompress_leaf(parent[k], cm.patterns.get(shape_of.get(path)),
                                      dtype, shape=shape_of.get(path))

@@ -562,6 +562,16 @@ def _payload_kn(payload: Any) -> Tuple[int, int]:
     return fam.payload_kn(payload)
 
 
+def _stack_activation(payload: Any, activation):
+    """The epilogue ``payload_dispatch`` would run for this payload: an
+    actsparse payload (a host ``tau``) sharpens a ReLU into its
+    threshold-ReLU, as its family's ``apply`` does."""
+    tau = getattr(payload, "tau", None)
+    if activation == "relu" and isinstance(tau, (int, float)):
+        return ("trelu", float(tau))
+    return activation
+
+
 def fc_stack_dispatch(
     payloads: Sequence[Any],
     x: torch.Tensor,
@@ -578,7 +588,8 @@ def fc_stack_dispatch(
     over the densified f32 weights (:func:`_payload_dense_f32`): one launch,
     intermediates never leave the chip.  ``twin`` chains the per-leaf
     :func:`payload_dispatch` plain versions — the same result to float
-    tolerance (a sparse container's twin sums K block by block).
+    tolerance (a sparse container's twin sums K block by block), each
+    payload's own epilogue included (:func:`_stack_activation`).
     """
     n = len(payloads)
     if not (n == len(biases) == len(activations)):
@@ -599,8 +610,10 @@ def fc_stack_dispatch(
     stack_leaf = "+".join(str(lf) for lf in leaves)
     if use_kernel(cfg, x, stack_leaf):
         ws = [_payload_dense_f32(p, x.device) for p in payloads]
-        return fc_stack_matmul(x.to(compute_dtype), ws, list(biases),
-                               list(activations), name=stack_leaf)
+        acts = [_stack_activation(p, a)
+                for p, a in zip(payloads, activations)]
+        return fc_stack_matmul(x.to(compute_dtype), ws, list(biases), acts,
+                               name=stack_leaf)
     y = x
     for payload, b, act, lf in zip(payloads, biases, activations, leaves):
         y = payload_dispatch(payload, y, dispatch=cfg, bias=b,

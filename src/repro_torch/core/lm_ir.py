@@ -1,0 +1,53 @@
+"""Layer IR extraction for LM architectures — feeds the Fig. 1 DSE.
+
+Summarises an (ArchConfig × ShapeSpec) cell into per-layer-class
+:class:`LayerSpec`s (attention projections, MLP, embeddings) so
+``run_dse`` can make the folding and sparsity decisions per layer.  A copy
+of ``repro.core.lm_ir`` for the dense, encoder and VLM families; the MoE,
+SSM and hybrid branches come with those families (ROADMAP Queue A item 8).
+"""
+from __future__ import annotations
+
+from typing import List
+
+from .cost_model import LayerSpec
+
+__all__ = ["lm_layer_specs"]
+
+
+def lm_layer_specs(cfg, shape) -> List[LayerSpec]:
+    """One LayerSpec per layer class per layer (flattened), per step.
+
+    decode: one token per sequence (B tokens); train/prefill: B×T tokens.
+    Attention and MLP are prunable (block density ≤ 0.5, element density
+    ≤ 0.25); the embeddings stay dense.
+    """
+    if cfg.family not in ("dense", "encoder", "vlm"):
+        raise NotImplementedError(
+            f"lm_layer_specs: the {cfg.family!r} family's layer IR is not "
+            "ported yet (ROADMAP Queue A item 8)")
+    B = shape.global_batch
+    tokens = B * (shape.seq_len if shape.kind != "decode" else 1)
+    D, Dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    act = 2.0 * tokens * D  # bf16 in+out per layer (approx)
+    specs: List[LayerSpec] = []
+
+    def add(name, wel, prunable=True, bd=0.5, ed=0.25, extra_flops=0.0):
+        specs.append(LayerSpec(
+            name=name, kind="linear",
+            flops=2.0 * tokens * wel + extra_flops,
+            weight_elems=int(wel), act_bytes=act,
+            prunable=prunable,
+            max_block_density=bd if prunable else 1.0,
+            max_element_density=ed if prunable else 1.0,
+        ))
+
+    attn_w = D * (H * Dh) + 2 * D * (Hkv * Dh) + (H * Dh) * D
+    attn_flops = 4.0 * tokens * shape.seq_len * H * Dh  # qk + pv
+    for i in range(cfg.n_layers):
+        add(f"attn_{i}", attn_w, extra_flops=attn_flops)
+        if cfg.d_ff:
+            add(f"mlp_{i}", (3 if cfg.act == "swiglu" else 2) * D * cfg.d_ff)
+    add("embed_unembed", cfg.vocab * D * (1 if cfg.tie_embeddings else 2),
+        prunable=False)
+    return specs

@@ -48,7 +48,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     n_micro = pick_n_micro(cfg, args.batch, 1)
     params = init_params(cfg, seed=0, device=dev)
-    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          state_dtype=cfg.opt_state_dtype)
     opt = adamw_init(params, opt_cfg)
     step = make_train_step(cfg, opt_cfg, n_micro)
 

@@ -1,15 +1,35 @@
-"""Architecture configuration — one instance per config file.
+"""Architecture configuration — one instance per config file — and the
+input shapes (``SHAPES``) the layer IR and the DSE are run at.
 
 The fields of ``repro.models.config.ArchConfig`` that the port's dense
 family reads, under the same names, so a configuration reads the same in
-both packages.
+both packages.  The MoE, SSM and VLM fields come with those families
+(ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "SHAPES", "ShapeSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+_NOT_PORTED = ("moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +50,46 @@ class ArchConfig:
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
     remat: bool = True        # forward recomputes each layer in backward
+    opt_state_dtype: str = "float32"  # float32 | bfloat16 (405B uses bf16)
     param_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def supports_decode(self) -> bool:
+        return self.family != "encoder"
+
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    def applicable_shapes(self) -> List[ShapeSpec]:
+        """The SHAPES this architecture runs: no decode for an encoder, the
+        500k context for the subquadratic families only."""
+        return [s for s in SHAPES.values()
+                if not (s.kind == "decode" and not self.supports_decode)
+                and not (s.name == "long_500k" and not self.subquadratic)]
+
+    def _check_counted(self) -> None:
+        if self.family in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{self.name}: the {self.family!r} family's fields are not "
+                "ported yet (ROADMAP Queue A item 8)")
+
+    def param_count(self) -> int:
+        """Analytic dense parameter count (for 6ND and memory napkin math)."""
+        self._check_counted()
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        H, Hkv, Dh = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = D * (H * Dh) + 2 * D * (Hkv * Dh) + (H * Dh) * D
+        mlp = (3 if self.act == "swiglu" else 2) * D * F
+        per_layer = attn + mlp if self.family in ("dense", "encoder", "vlm") \
+            else 0
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        return L * per_layer + emb
+
+    def active_param_count(self) -> int:
+        """Active params per token: all of them outside MoE."""
+        return self.param_count()

@@ -1,0 +1,129 @@
+"""The port's architecture registry, ``SHAPES``, parameter counts and LM
+layer IR vs the JAX reference.
+
+Configs, shapes, counts and layer specs are plain Python data and
+arithmetic in both packages, so they must be EQUAL; ``run_dse`` on the
+specs too (the same float arithmetic in the same order).
+"""
+import dataclasses
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.core import dse as jdse  # noqa: E402
+from repro.core import lm_ir as jlm  # noqa: E402
+from repro.models import config as jmc  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import dse as tdse  # noqa: E402
+from repro_torch.core import lm_ir as tlm  # noqa: E402
+from repro_torch.models import config as tmc  # noqa: E402
+
+DENSE = ["llama3-405b", "qwen1.5-4b", "starcoder2-7b", "llama3.2-1b"]
+# the budget of tests/test_lm_ir.py's DSE case
+BUDGET = 12 * 2 ** 30
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _port_fields_of(jcfg, tcfg):
+    return {k: getattr(jcfg, k) for k in _fields(tcfg)}
+
+
+def test_registry_is_the_references_dense_entries_in_order():
+    assert tconfigs.ARCH_IDS == DENSE
+    assert tconfigs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS
+                                 if jconfigs.get_config(a).family == "dense"]
+    assert tconfigs.SHAPES is tmc.SHAPES and tconfigs.ShapeSpec is tmc.ShapeSpec
+    with pytest.raises(KeyError, match="the port has"):
+        tconfigs.get_config("olmoe-1b-7b")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_config_equals_reference_field_by_field(arch):
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    assert _fields(tcfg) == _port_fields_of(jcfg, tcfg)
+    module = tconfigs._MODULES[arch]
+    assert module == jconfigs._MODULES[arch]
+    assert tconfigs.get_config(module) is tcfg
+    jr, tr = jconfigs.reduced_config(arch), tconfigs.reduced_config(arch)
+    assert _fields(tr) == _port_fields_of(jr, tr)
+
+
+def test_shapes_equal_reference():
+    assert {k: dataclasses.asdict(v) for k, v in tmc.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jmc.SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_shapes_and_parameter_counts_equal_reference(arch):
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    assert [s.name for s in tcfg.applicable_shapes()] == \
+        [s.name for s in jcfg.applicable_shapes()]
+    assert tcfg.supports_decode == jcfg.supports_decode
+    assert tcfg.subquadratic == jcfg.subquadratic
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    jr, tr = jconfigs.reduced_config(arch), tconfigs.reduced_config(arch)
+    assert tr.param_count() == jr.param_count()
+
+
+@pytest.mark.parametrize("family", ["encoder", "vlm"])
+def test_encoder_and_vlm_counts_and_shapes_equal_reference(family):
+    """The encoder and VLM branches on the dense fields (their frontends
+    come with ROADMAP Queue A item 8)."""
+    kw = dict(name="t", family=family, n_layers=3, d_model=64, n_heads=4,
+              n_kv_heads=2, d_ff=96, vocab=50, act="gelu")
+    jcfg, tcfg = jmc.ArchConfig(**kw), tmc.ArchConfig(**kw)
+    assert [s.name for s in tcfg.applicable_shapes()] == \
+        [s.name for s in jcfg.applicable_shapes()]
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    for shape in jcfg.applicable_shapes():
+        assert [dataclasses.asdict(s) for s in tlm.lm_layer_specs(
+            tcfg, shape)] == \
+            [dataclasses.asdict(s) for s in jlm.lm_layer_specs(jcfg, shape)]
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
+def test_unported_families_raise_naming_item_8(family):
+    cfg = tmc.ArchConfig(name="t", family=family, n_layers=2, d_model=64,
+                         n_heads=4, n_kv_heads=4, d_ff=128, vocab=64)
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        cfg.param_count()
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        cfg.active_param_count()
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tlm.lm_layer_specs(cfg, tmc.SHAPES["train_4k"])
+    assert cfg.subquadratic == (family != "moe")
+
+
+CELLS = [(arch, s.name) for arch in DENSE
+         for s in jconfigs.get_config(arch).applicable_shapes()]
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_lm_layer_specs_and_dse_equal_reference(arch, shape):
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    js = jlm.lm_layer_specs(jcfg, jmc.SHAPES[shape])
+    ts = tlm.lm_layer_specs(tcfg, tmc.SHAPES[shape])
+    assert [dataclasses.asdict(s) for s in ts] == \
+        [dataclasses.asdict(s) for s in js]
+    assert len(ts) == 2 * tcfg.n_layers + 1 and not ts[-1].prunable
+    jr = jdse.run_dse(js, resource_budget=BUDGET)
+    tr = tdse.run_dse(ts, resource_budget=BUDGET)
+    assert tr.sparse_layers == jr.sparse_layers
+    assert [dataclasses.asdict(c) for c in tr.configs] == \
+        [dataclasses.asdict(c) for c in jr.configs]
+    assert tr.trace == jr.trace
+    assert dataclasses.asdict(tr.estimate) == dataclasses.asdict(jr.estimate)
+    assert dataclasses.asdict(tr.baseline) == dataclasses.asdict(jr.baseline)
+
+
+def test_core_exports_lm_layer_specs_beside_run_dse():
+    from repro_torch import core
+    assert core.lm_layer_specs is tlm.lm_layer_specs
+    assert core.run_dse is tdse.run_dse
