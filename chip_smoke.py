@@ -49,6 +49,16 @@ Phases, each fatal on failure:
    tensor-core routes) and the flash kernel (tensor-core route), held
    against the twin path, with its wall time, device busy time and idle
    share;
+4b. autotune — on the serve phase's compile: ``autotune_model`` at M = 8
+   and 512 into a new table under ``chiprun_out/``, every candidate plan
+   held against its plain version before it is timed (CUDA events, leaves
+   rotated over copies past the L2); a second run times nothing;
+   ``autotune_attn`` at the engine's shape; ``ServeEngine(cm,
+   autotune=table)`` serves the 16 requests captured with every matmul
+   launch on its tuned plan (no misses, the routes its entries name), the
+   untuned engine's tokens or a tie at the first difference, a captured
+   decode step and prefill chunk bit for bit their eager steps; the tuned
+   decode step profiled beside the untuned one;
 5. lenet   — compile LeNet-5 at its published widths (random weights from a
    seed) with the Table-I whole-model rules, run the fused forward on 256
    synthetic digits, require ``block_sparse_conv`` x2 and
@@ -86,8 +96,8 @@ Phases, each fatal on failure:
    ``wk``, the MLP, the head) and attention reads at M = 8 held against
    the plain versions and timed; then the acceptance matrix on the
    kernels (``build_matrix``, ``dispatch="kernel"``): every oracle floor,
-   the 8 expected_fail cells failing, bfp8@2 passing, the 4 autotune
-   cells not run, each cell's decode time;
+   the 8 expected_fail cells failing, bfp8@2 passing, all 64 cells run
+   (the 4 autotune cells among them), each cell's decode time;
 8. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
@@ -1207,6 +1217,10 @@ FLASH_TC, FLASH_CC = "flash_attention/tensor_core", "flash_attention/cuda_core"
 BSC_REG, BSC_BAND = "block_sparse_conv/reg_tile", "block_sparse_conv/band"
 QCONV_REG, QCONV_BAND = "quant_conv/reg_tile", "quant_conv/band"
 FCS_STAGED, FCS_STREAM = "fc_stack_matmul/staged", "fc_stack_matmul/stream"
+# matmul launches given a tuned plan: on it / on the shape rule's instead
+TUNED_HITS = ("quant_matmul/tuned_hits", "block_sparse_matmul/tuned_hits")
+TUNED_MISSES = ("quant_matmul/tuned_misses",
+                "block_sparse_matmul/tuned_misses")
 
 
 def counters():
@@ -1239,7 +1253,11 @@ def counters():
             QCONV_REG: (qk, "conv_launches_reg"),
             QCONV_BAND: (qk, "conv_launches_band"),
             FCS_STAGED: (fc_stack, "launches_staged"),
-            FCS_STREAM: (fc_stack, "launches_stream")}
+            FCS_STREAM: (fc_stack, "launches_stream"),
+            TUNED_HITS[0]: (qk, "tuned_hits"),
+            TUNED_HITS[1]: (sk, "tuned_hits"),
+            TUNED_MISSES[0]: (qk, "tuned_misses"),
+            TUNED_MISSES[1]: (sk, "tuned_misses")}
 
 
 def reset_counts():
@@ -1276,9 +1294,7 @@ def serve(dev, report):
     t2 = time.perf_counter()
     report["serve_setup_s"] = {"init_params": t1 - t0, "compile_model": t2 - t1}
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in rng.integers(64, 257, size=16)]
+    prompts = serve_prompts(cfg)
     runs = {}
     # the measured configuration first, counted: int4x2, fused, captured
     eng, runs["captured"], counts = serve_run(cm, cfg, dev, prompts,
@@ -1326,7 +1342,139 @@ def serve(dev, report):
         for phase in ("decode", "prefill") for mode in ("captured", "eager")}
     report["pdl_edges"] = pdl_edges(cm, cfg, dev)
     report["compiled_forward"] = compiled_forward(cm, cfg, dev)
-    return cm, cfg, counts
+    return cm, cfg, counts, tokens
+
+
+# ---------------------------------------------------------------- autotune
+
+TUNE_MS = (8, 512)   # the engine's 8 decode rows; a 512-row prefill
+SERVE_PAIR_KEYS = ("tokens_per_s", "decode_step_ms_p50",
+                   "prefill_step_ms_p50", "ttft_ms_p50")
+
+
+def tuned_rows(table):
+    """Per tuned key of the last tuning run: the rule's plan and median
+    time (the first candidate timed), the winner's, its roofline seed and
+    every candidate timed (each held against its plain version first)."""
+    out = {}
+    for log in table.log:
+        if log.get("cached"):
+            continue
+        cands = log["candidates"]   # the attention read's rule: bt 64
+        rule = next((c for c in cands if c.get("bt") == 64), cands[0])
+        won = table.get(log["key"])
+        out[log["key"]] = {
+            "rule": [rule["route"], rule.get("plan", rule.get("bt")),
+                     rule["median_us"], rule["spread_us"]],
+            "tuned": [won.route, won.plan if won.bt is None else won.bt,
+                      won.measured_us],
+            "predicted_us": won.predicted_us,
+            "candidates": log["candidates"]}
+    return out
+
+
+def autotune(cm, cfg, dev, report, tokens):
+    """The autotune phase on the serve phase's compile: tune every leaf at
+    M = 8 and 512 (a new table under ``chiprun_out/``: no stale cache),
+    each candidate held against its plain version before it is timed; a
+    second run times nothing; tune the attention read's kv tile at the
+    engine's shape; serve the 16 requests on the tuned and the untuned
+    engine in turns, captured (every tuned matmul launch on its entry's
+    plan: no misses; the tokens the untuned engine's, or tied at the
+    first difference; a captured decode step and prefill chunk bit for bit
+    their eager steps); profile the tuned decode step beside the untuned
+    one, in turns."""
+    from repro_torch.core import autotune as ta
+    from repro_torch.core.dispatch import DispatchConfig
+
+    path = ROOT / "chiprun_out" / "autotune_torch.json"
+    path.unlink(missing_ok=True)
+    out = report["autotune"] = {}
+    t0 = time.perf_counter()
+    table = ta.autotune_model(cm, M=TUNE_MS, x_dtype=torch.bfloat16,
+                              path=str(path))
+    out["tune_s"] = time.perf_counter() - t0
+    out["keys"] = tuned_rows(table)
+    out["n_timings"] = table.n_timings()
+    require(out["n_timings"] > 0 and out["keys"],
+            f"autotune timed nothing: {table.log}")
+    require(all(e.use_kernel for e in table.entries.values()),
+            "a tuned entry on the card names the plain version")
+    t0 = time.perf_counter()
+    again = ta.autotune_model(cm, M=TUNE_MS, x_dtype=torch.bfloat16,
+                              path=str(path))
+    out["retune_s"] = time.perf_counter() - t0
+    require(again.n_timings() == 0 and again.entries == table.entries,
+            f"the second tuning run timed {again.n_timings()} candidates")
+    t0 = time.perf_counter()
+    attn = ta.autotune_attn(B=8, T=512, H=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                            Dh=cfg.head_dim, x_dtype=torch.bfloat16,
+                            table=again, device=dev)
+    out["attn_s"] = time.perf_counter() - t0
+    out["attn"] = tuned_rows(again)
+    require(attn.use_kernel and attn.bt in ta.ATTN_BTS, f"attn entry {attn}")
+
+    prompts = serve_prompts(cfg)
+    # untuned and tuned engines in turns (untuned, tuned, tuned, untuned):
+    # the serving numbers compared within this call; the first tuned run
+    # is counted and checked
+    pairs = {}
+    for name in ("untuned", "tuned", "tuned_2", "untuned_2"):
+        kw = {"autotune": again} if name.startswith("tuned") else {}
+        e, r, c = serve_run(cm, cfg, dev, prompts, count=name == "tuned",
+                            **kw)
+        pairs[name] = {k: r[k] for k in SERVE_PAIR_KEYS}
+        if name == "tuned":
+            eng, run, counts = e, r, c
+        else:
+            require(r["tokens"] == (run["tokens"] if kw else tokens),
+                    f"the {name} engine served other tokens than its twin")
+            del e
+    out["serve_pairs"] = pairs
+    require(eng._bt == attn.bt and eng.dispatch.m_bucket == 8,
+            f"the tuned engine pinned bt {eng._bt}, m_bucket "
+            f"{eng.dispatch.m_bucket}")
+    hits = sum(counts[k] for k in TUNED_HITS)
+    misses = sum(counts[k] for k in TUNED_MISSES)
+    matmuls = counts["quant_matmul"] + counts["block_sparse_matmul"]
+    require(hits > 0 and misses == 0 and hits == matmuls,
+            f"tuned engine: {hits} tuned hits, {misses} misses, {matmuls} "
+            f"matmul launches")
+    named = {"quant": set(), "sparse": set()}
+    for key, e in again.entries.items():
+        kind = key.split(":")[0]
+        if kind in named and key.split(":")[1] == "M8":
+            named[kind].add(e.route)
+    off = {c: counts[c] for (kind, route), c in ROUTE_COUNTER.items()
+           if route not in named[kind] and counts[c]}
+    require(not off, f"tuned engine: launches off the routes its entries "
+                     f"name ({named}): {off}")
+    require(counts[PDA_SINGLE if attn.route == "split" else PDA_SPLIT] == 0,
+            f"tuned engine: attention reads off the {attn.route} route")
+    got = run.pop("tokens")
+    tuned_disp = DispatchConfig(tuned=again, m_bucket=8)
+    run["divergences"] = read_divergences(
+        cm, cfg, dev, prompts, tokens, got,
+        reads={"untuned": dict(bt=64),
+               "tuned": dict(bt=attn.bt, dispatch=tuned_disp)},
+        what="tuned engine")
+    run["launches"] = {k: v for k, v in counts.items() if v}
+    out["serve"] = run
+    out["capture_check"] = capture_check(eng, cfg)
+    del eng
+    out["decode_profile"] = {}
+    for name in ("untuned", "tuned", "tuned_2", "untuned_2"):
+        kw = {"autotune": again} if name.startswith("tuned") else {}
+        out["decode_profile"][name] = profile_step(cm, cfg, dev, "decode",
+                                                   True, steps=20, **kw)
+    return out
+
+
+def serve_prompts(cfg):
+    """The serve phase's 16 requests: 64–256 prompt tokens, from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+            for n in rng.integers(64, 257, size=16)]
 
 
 # warm-up requests that reach every bucket the measured requests use:
@@ -1430,12 +1578,19 @@ def capture_check(eng, cfg):
     return out
 
 
-def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens):
-    """Requests whose "unpack"-read tokens differ from the fused read's:
-    at the first differing token, both reads are replayed teacher-forced
-    on one slot (the fused tokens before it) and must score the two
-    candidates within ``TWIN_TOL["int4x2"]`` of the largest logit — a tie.
-    Returns one entry per differing request."""
+READS = {"fused": dict(bt=64, packed_read="fused"),
+         "unpack": dict(bt=64, packed_read="unpack")}
+
+
+def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens,
+                     reads=READS, what="unpack read"):
+    """Requests whose tokens differ from the reference run's (by default
+    the "unpack" read against the fused one): at the first differing
+    token, each of ``reads`` (name -> step keywords, the reference run's
+    first) is replayed teacher-forced on one slot (the reference tokens
+    before it) and must score the two candidates within
+    ``TWIN_TOL["int4x2"]`` of the largest logit — a tie.  Returns one entry
+    per differing request."""
     from repro_torch.models.model import decode_step, init_cache, prefill_step
 
     tol = TWIN_TOL["int4x2"]
@@ -1446,7 +1601,7 @@ def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens):
         i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         prompt = prompts[uid]
         last = {}
-        for read in ("fused", "unpack"):
+        for read, kw in reads.items():
             cache = init_cache(cfg, 1, 512, kv_cache="int4x2", device=dev)
             for pos in range(0, len(prompt), 16):
                 chunk = np.zeros((1, 16), np.int32)
@@ -1455,32 +1610,34 @@ def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens):
                 logits = prefill_step(
                     cm.params, cfg, cache, torch.as_tensor(chunk, device=dev),
                     patterns=cm.patterns, n_valid=torch.tensor(
-                        [n], dtype=torch.int32, device=dev), bt=64,
-                    packed_read=read)[0][0, n - 1]
+                        [n], dtype=torch.int32, device=dev),
+                    **kw)[0][0, n - 1]
             for tok in a[:i]:
                 logits = decode_step(
                     cm.params, cfg, cache, torch.tensor([[tok]], device=dev),
-                    patterns=cm.patterns, bt=64, packed_read=read)[0][0, 0]
+                    patterns=cm.patterns, **kw)[0][0, 0]
             last[read] = logits.float()
-        top = float(last["fused"].abs().max())
+        top = float(next(iter(last.values())).abs().max())
         gaps = [abs(float(v[a[i]] - v[b[i]])) / top for v in last.values()]
         entry = {"uid": uid, "step": i, "tokens": [a[i], b[i]],
                  "gaps": gaps}
-        require(max(gaps) <= tol, f"unpack read: request {uid} step {i} "
+        require(max(gaps) <= tol, f"{what}: request {uid} step {i} "
                                   f"is not a tie: {entry}")
         out.append(entry)
     return out
 
 
-def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5):
+def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
+                 **kw):
     """Where a serving step's time goes: the engine's step at 8 slots of
     200 cached rows (int4x2 cache, bucket 256; a prefill chunk of 16 rows
     into slot 0), each ending as the engine's does with its logits' argmax
     on the host: wall-clock per step beside the device time of the kernels
-    it launches, from torch.profiler (CUPTI); captured or eager."""
+    it launches, from torch.profiler (CUPTI); captured or eager.  ``kw``
+    goes to the engine (``autotune=table``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = serve_engine(cm, cfg, dev, capture=capture)
+    eng = serve_engine(cm, cfg, dev, capture=capture, **kw)
     eng._fill("tok", np.zeros((8, 1), np.int32))
     eng._fill("act", np.ones(8, np.int32))
     eng._fill("ptok", np.arange(16, dtype=np.int32)[None])
@@ -3177,8 +3334,8 @@ def zoo_matrix(dev):
     seeded weights (drawn on the host, as on the CPU).  Requires
     ``floor_fails`` to find nothing: every oracle floor, the 8
     expected_fail cells really failing their dense floor, bfp8@2 passing
-    on every config and exactly the autotune cells not run; returns the
-    payload and the launches it made."""
+    on every config and all 64 cells run, the autotune cells among them;
+    returns the payload and the launches it made."""
     from repro_torch.core import acceptance as acc
 
     reset_counts()
@@ -3192,6 +3349,9 @@ def zoo_matrix(dev):
         require(counts[name] > 0, f"zoo matrix: no {name} launch")
     xf = sorted(k for k, r in m["cells"].items() if r["expected_fail"])
     require(len(xf) == 8, f"zoo matrix: expected_fail cells {xf}")
+    require(len(m["cells"]) == 64 and not m["not_run"],
+            f"zoo matrix: {len(m['cells'])} cells run, not run "
+            f"{m['not_run']}")
     fails = acc.floor_fails(m)
     require(not fails, f"zoo matrix on the card: {fails}")
     # the dense floors of the other weight-preserving cells, as data: they
@@ -3268,7 +3428,7 @@ def main() -> int:
         print("tensor-core f32 sums vs plain, share of max|pre|: "
               + json.dumps(report["tc_f32_sum_err"]), flush=True)
 
-        cm, cfg, counts = serve(dev, report)
+        cm, cfg, counts, tokens = serve(dev, report)
         print(f"serve: {json.dumps(report['serve'])}", flush=True)
         print(f"twin check: {json.dumps(report['twin_check'])}", flush=True)
         print(f"capture check: {json.dumps(report['capture_check'])}",
@@ -3279,6 +3439,26 @@ def main() -> int:
               flush=True)
         print(f"compiled forward: {json.dumps(report['compiled_forward'])}",
               flush=True)
+        tune = autotune(cm, cfg, dev, report, tokens)
+        print("autotune (rule plan / tuned plan, us; NVIDIA card above): "
+              + json.dumps({k: {f: r[f] for f in ("rule", "tuned",
+                                                  "predicted_us")}
+                            for k, r in tune["keys"].items()}), flush=True)
+        print("autotune candidates: " + json.dumps(
+            {k: r["candidates"] for k, r in tune["keys"].items()}),
+            flush=True)
+        print("autotune attention: " + json.dumps(tune["attn"]), flush=True)
+        print("autotune serve: " + json.dumps(
+            {k: v for k, v in tune.items()
+             if k not in ("keys", "attn", "decode_profile", "serve_pairs")}),
+            flush=True)
+        print("autotune serving, untuned / tuned in turns: "
+              + json.dumps(tune["serve_pairs"]), flush=True)
+        print("autotune decode profile (captured): " + json.dumps(
+            {k: {f: v[f] for f in ("wall_ms_per_step",
+                                   "device_busy_ms_per_step",
+                                   "device_idle_share")}
+             for k, v in tune["decode_profile"].items()}), flush=True)
 
         kernels = measure_kernels(cm, cfg, dev, counts)
         del cm

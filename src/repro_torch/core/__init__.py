@@ -1,10 +1,9 @@
 """LogicSparse core of the port: engine-free static sparsity, the payload
 families and their dispatch, and the hardware-aware cost model and DSE.
 
-Exports the reference's ``repro.core`` names that the port has (the
-autotuner is not ported yet).  They load on first access, so importing a
-kernel module that imports ``core.quant`` never imports the dispatch that
-imports the kernels back.
+Exports the reference's ``repro.core`` names.  They load on first
+access, so importing a kernel module that imports ``core.quant`` never
+imports the dispatch that imports the kernels back.
 """
 from __future__ import annotations
 
@@ -29,6 +28,11 @@ _EXPORTS = {
     "dispatch": ("DISPATCH_ENV", "ConvPayload", "DispatchConfig",
                  "conv_dispatch", "conv_im2col", "linear_dispatch",
                  "payload_dispatch"),
+    "autotune": ("AUTOTUNE_CACHE_ENV", "TuneOptions", "TunedConfig",
+                 "TunedTable", "autotune_attn", "autotune_leaf",
+                 "autotune_lenet", "autotune_model", "bucket_m",
+                 "default_cache_path", "dse_retune", "load_table",
+                 "schedule_hash", "tune_key", "tuned_policy"),
     "compile_sparse": ("CompileRules", "CompressedModel", "LayerReport",
                        "choose_policy", "compile_lenet", "compile_model",
                        "conv_weight_matrix", "conv_weight_unmatrix",

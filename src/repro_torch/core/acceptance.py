@@ -37,11 +37,14 @@ port adds:
   ``BENCH_zoo_matrix.json``;
 * :func:`floor_fails` holds a payload to the checks that need no
   committed file (the card's check, on the port's own weights);
-* the ``NOT_RUN`` cells (``autotune@8`` on every config: the autotuner is
-  ROADMAP Queue A item 7) are never evaluated and never count as passing.
-  :func:`build_matrix` lists them under ``"not_run"`` beside ``"cells"``;
-  :func:`check_matrix` returns a :class:`MatrixCheck` whose ``not_run``
-  names them with the reason, beside ``fails``.
+* the ``autotune@8`` cells (``tuned_policy``'s picks, deterministic) are
+  held to the committed bytes like every other cell, where the reference
+  exempts them;
+* a cell the port cannot compile would stand in ``NOT_RUN`` (none does:
+  all 64 run), never evaluated and never counted as passing;
+  :func:`build_matrix` lists such cells under ``"not_run"`` beside
+  ``"cells"``, and :func:`check_matrix`'s :class:`MatrixCheck` names them
+  with the reason beside ``fails``.
 """
 from __future__ import annotations
 
@@ -100,11 +103,8 @@ EXPECTED_FAIL: Dict[Tuple[str, int], str] = {
                        "2-bit codes — same collapse as naive quant",
 }
 
-# cells the port cannot compile yet, on every config, and why
-NOT_RUN: Dict[Tuple[str, int], str] = {
-    ("autotune", 8): "policy 'autotune' needs the autotuner, which is not "
-                     "ported yet (ROADMAP Queue A item 7)",
-}
+# cells the port cannot compile yet, on every config, and why: none
+NOT_RUN: Dict[Tuple[str, int], str] = {}
 
 ORACLE_TOP1_FLOOR = 0.999
 ORACLE_MSE_CEIL = 1e-6

@@ -68,8 +68,8 @@ __all__ = [
 _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 _LINEAR_SUBTREES = ("attn", "mlp", "shared")
 
-# accepted as an override value beside compile_policies(): the reference
-# defers the pick and the bit-width to its autotuner, not ported yet
+# accepted as an override value beside compile_policies(): the pick and
+# the bit-width come from autotune.tuned_policy
 AUTOTUNE_POLICY = "autotune"
 
 
@@ -276,15 +276,13 @@ def _decide_policy(name: str, override: Optional[str], K: int, N: int,
                    element_density: float,
                    spec: Optional[LayerSpec] = None) -> Tuple[str, int]:
     """Per-layer (policy, quant_bits): the explicit override, else the
-    cost model's pick; a cost-model "sparse" falls back to "quant" when
-    the rule block cannot tile the shape.  ``spec`` carries a conv leaf's
-    cost inputs (see :func:`choose_policy`)."""
+    cost model's pick; ``"autotune"`` defers both to
+    :func:`repro_torch.core.autotune.tuned_policy`; a cost-model "sparse"
+    falls back to "quant" when the rule block cannot tile the shape.
+    ``spec`` carries a conv leaf's cost inputs (see
+    :func:`choose_policy`)."""
     valid = compile_policies()
-    if override == AUTOTUNE_POLICY:
-        raise NotImplementedError(
-            f"{name}: policy 'autotune' needs the autotuner, which is not "
-            "ported yet (ROADMAP Queue A item 7)")
-    if override is not None and override not in valid:
+    if override is not None and override not in valid + (AUTOTUNE_POLICY,):
         raise ValueError(
             f"{name}: unknown policy {override!r} — valid: "
             f"{valid + (AUTOTUNE_POLICY,)}")
@@ -294,6 +292,12 @@ def _decide_policy(name: str, override: Optional[str], K: int, N: int,
             f"{name}: policy {override!r} was explicitly requested but "
             f"block {rules.block} cannot tile shape {(K, N)} — pick a "
             "dividing block or drop the override")
+    if override == AUTOTUNE_POLICY:
+        from .autotune import tuned_policy
+        return tuned_policy(
+            K, N, rules=rules, block_density=block_density,
+            element_density=element_density,
+            sparse_eligible=block is not None, spec=spec)
     policy = override or choose_policy(
         K, N, rules=rules, block_density=block_density,
         element_density=element_density, sparse_eligible=block is not None,

@@ -31,7 +31,14 @@ the ``REPRO_TORCH_DISPATCH`` environment variable, else ``auto``):
 
 * ``auto``   — the kernel for CUDA tensors, the plain version for CPU ones;
 * ``kernel`` — the kernel; a CPU tensor raises;
-* ``twin``   — the plain version, on any device.
+* ``twin``   — the plain version, on any device;
+* ``autotune`` — ``auto`` with the on-disk tuned table
+  (:func:`repro_torch.core.autotune.load_table`) attached.
+
+A tuned table (``DispatchConfig.tuned``) names, per (kind, shape, dtype,
+backend, schedule) key, the kernel route and plan each matmul launches
+(:func:`tuned_plan`); a plan the call cannot take runs the shape rule's
+route instead, counted in the wrapper's ``tuned_misses``.
 
 Nothing here sends a CUDA tensor to the plain version on its own: a shape or
 dtype the kernel cannot take raises, naming the leaf.  The fused bias +
@@ -49,6 +56,7 @@ chain of linear payloads through one ``fc_stack_matmul`` launch.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
@@ -92,11 +100,13 @@ __all__ = [
     "conv_pre_pad",
     "derived",
     "fc_stack_dispatch",
+    "fused_conv_entry",
     "gsparse_apply",
     "linear_dispatch",
     "payload_dispatch",
     "perchannel_fold",
     "resolve",
+    "tuned_plan",
     "unit_scales",
     "use_kernel",
 ]
@@ -105,6 +115,8 @@ Params = Dict[str, Any]
 
 DISPATCH_ENV = "REPRO_TORCH_DISPATCH"
 DISPATCH_MODES = ("auto", "kernel", "twin")
+# accepted by resolve() beside DISPATCH_MODES: auto with the tuned table
+AUTOTUNE_MODE = "autotune"
 
 # kv-tile rows of the packed attention read.  The serving engine pins it for
 # the cache's lifetime: the online softmax is extent-invariant only at a
@@ -114,25 +126,44 @@ ATTN_BT_DEFAULT = 64
 
 @dataclasses.dataclass(frozen=True)
 class DispatchConfig:
-    """Kernel-or-plain-version selection (see the module docstring)."""
+    """Kernel-or-plain-version selection (see the module docstring).
+
+    ``tuned``: an optional :class:`repro_torch.core.autotune.TunedTable`
+    (identity-hashed, so this stays hashable) whose entries name each
+    matmul's route and plan.  ``m_bucket`` pins the rows of tuned lookups
+    (bucketed by ``autotune.bucket_m``); None: each call looks up its own
+    rows.  The serving engine pins its ``batch_slots``."""
 
     mode: str = "auto"
+    tuned: Optional[Any] = None
+    m_bucket: Optional[int] = None
 
     def __post_init__(self):
         if self.mode not in DISPATCH_MODES:
             raise ValueError(
                 f"unknown dispatch mode {self.mode!r} — valid: "
-                f"{DISPATCH_MODES} (from {DISPATCH_ENV} or dispatch=)")
+                f"{DISPATCH_MODES} or {AUTOTUNE_MODE!r} (from {DISPATCH_ENV} "
+                "or dispatch=)")
+        if self.m_bucket is not None and int(self.m_bucket) < 1:
+            raise ValueError(
+                f"illegal m_bucket={self.m_bucket!r} — tuned lookups need a "
+                "positive row count (or None for each call's own rows)")
 
 
 def resolve(dispatch: Union[None, str, DispatchConfig] = None) -> DispatchConfig:
     """Normalise a dispatch override to a DispatchConfig (None reads
-    ``REPRO_TORCH_DISPATCH``, default ``auto``; unknown modes raise)."""
+    ``REPRO_TORCH_DISPATCH``, default ``auto``; ``autotune`` is ``auto``
+    with the on-disk tuned table, empty when there is none; unknown modes
+    raise)."""
     if isinstance(dispatch, DispatchConfig):
         return dispatch
     if dispatch is None:
         dispatch = os.environ.get(DISPATCH_ENV, "auto").strip() or "auto"
-    return DispatchConfig(mode=str(dispatch).lower())
+    mode = str(dispatch).lower()
+    if mode == AUTOTUNE_MODE:
+        from .autotune import load_table
+        return DispatchConfig(mode="auto", tuned=load_table())
+    return DispatchConfig(mode=mode)
 
 
 def use_kernel(cfg: DispatchConfig, x: torch.Tensor,
@@ -150,6 +181,63 @@ def use_kernel(cfg: DispatchConfig, x: torch.Tensor,
             f"input is on {x.device}, and the CUDA kernels run only on "
             "CUDA tensors — use 'auto' or 'twin' on the CPU")
     return True
+
+
+def _lead_rows(x: torch.Tensor) -> int:
+    return int(math.prod(x.shape[:-1]))
+
+
+def _tuned_entry(cfg: DispatchConfig, kind: str, M: int, K: int, N: int,
+                 x_dtype, device, pattern: Optional[BlockSparsePattern] = None,
+                 leaf: Optional[str] = None, container: Optional[str] = None):
+    """The tuned table's entry for a call (None: no table or no entry):
+    the per-leaf key first when ``leaf`` is named, then the shared one.
+    ``M`` is the call's rows, or the config's pinned ``m_bucket``; the
+    backend is ``device``'s."""
+    if cfg.tuned is None:
+        return None
+    from .autotune import backend_tag, tune_key
+    if cfg.m_bucket is not None:
+        M = int(cfg.m_bucket)
+    kw = dict(kind=kind, M=M, K=K, N=N, dtype=x_dtype,
+              backend=backend_tag(device), pattern=pattern,
+              container=container)
+    if leaf is not None:
+        entry = cfg.tuned.get(tune_key(**kw, leaf=leaf))
+        if entry is not None:
+            return entry
+    return cfg.tuned.get(tune_key(**kw))
+
+
+def _kernel_entry(entry, x: torch.Tensor, leaf: Optional[str], kind: str):
+    """``entry`` for a kernel call, or None where the plain version runs
+    (a CPU entry on a CPU tensor).  An entry naming the plain version on a
+    CUDA tensor raises: the plain version is never chosen for one."""
+    if entry is None or entry.use_kernel:
+        return entry
+    if x.is_cuda:
+        raise ValueError(
+            f"{leaf or '<unnamed>'}: the tuned {kind} entry names the plain "
+            f"version (use_kernel=False) for a tensor on {x.device}; a CUDA "
+            "tensor always takes a kernel — retune on this card")
+    return None
+
+
+def tuned_plan(cfg: DispatchConfig, kind: str, x: torch.Tensor, K: int,
+               N: int, *, pattern: Optional[BlockSparsePattern] = None,
+               leaf: Optional[str] = None,
+               container: Optional[str] = None):
+    """The ``(route, plan)`` the tuned table names for a matmul on ``x``
+    (rows ``x``'s leading dims), or None: no table, no entry, ``twin``, or
+    a CPU entry (the plain version, which the wrapper takes for a CPU
+    tensor anyway).  ``kind`` is "quant" / "sparse", ``conv_``-prefixed on
+    the im2col path; ``container`` the leaf's container tag."""
+    if cfg.tuned is None or cfg.mode == "twin":
+        return None
+    entry = _kernel_entry(
+        _tuned_entry(cfg, kind, _lead_rows(x), K, N, x.dtype, x.device,
+                     pattern, leaf, container), x, leaf, kind)
+    return None if entry is None else (entry.route, entry.plan)
 
 
 def attn_packed_eligible(Dh: int, bt: int, packed: bool = True) -> bool:
@@ -180,14 +268,19 @@ def linear_dispatch(
     compute_dtype=None,
     activation=None,
     leaf: Optional[str] = None,
+    op: str = "linear",
 ) -> torch.Tensor:
     """Apply one compiled linear leaf: y = act(x @ W + b).
 
     The leaf dict's key leaf selects its registered family, whose ``apply``
     runs the kernel or the plain version.  ``p["b"]`` and ``activation``
-    fuse into the kernels' epilogue.  ``leaf`` names the layer in errors.
+    fuse into the kernels' epilogue.  ``leaf`` names the layer in errors
+    and in per-leaf tuned lookups; ``op`` ("linear" | "conv") tags the
+    tuned key, so an im2col'd conv never shares a linear's entries.
     """
     _check_activation(activation)
+    if op not in ("linear", "conv"):
+        raise ValueError(f"unknown dispatch op {op!r} — 'linear' or 'conv'")
     cfg = resolve(dispatch)
     if compute_dtype is None:
         compute_dtype = x.dtype
@@ -196,7 +289,7 @@ def linear_dispatch(
         raise ValueError(f"unknown linear leaves {list(p)}")
     return fam.apply(p, x, pattern=pattern, cfg=cfg, bias=p.get("b"),
                      activation=activation, compute_dtype=compute_dtype,
-                     leaf=leaf)
+                     leaf=leaf, tag="conv_" if op == "conv" else "")
 
 
 def payload_dispatch(
@@ -208,10 +301,12 @@ def payload_dispatch(
     activation=None,
     compute_dtype=None,
     leaf: Optional[str] = None,
+    op: str = "linear",
 ) -> torch.Tensor:
     """Dispatch over a payload object (CompressedLinear — optionally
     bit-packed — PackedTensor, QuantizedTensor or a plain dense tensor):
-    unwrap it to its family's leaf dict and run :func:`linear_dispatch`.
+    unwrap it to its family's leaf dict and run :func:`linear_dispatch`
+    (``op`` as there).
     A :class:`ConvPayload` raises: it goes through :func:`conv_dispatch`."""
     if isinstance(payload, ConvPayload):
         raise TypeError(
@@ -228,7 +323,7 @@ def payload_dispatch(
         p["b"] = bias
     return linear_dispatch(p, x, pattern=pattern, dispatch=dispatch,
                            compute_dtype=compute_dtype,
-                           activation=activation, leaf=leaf)
+                           activation=activation, leaf=leaf, op=op)
 
 
 def attn_packed_dispatch(
@@ -249,11 +344,20 @@ def attn_packed_dispatch(
     container: int4x2 (two codes a byte) or int4 (int8 codes).  Decode
     rows and prefill chunks of both containers take the kernel
     (``packed_decode_attention``); ``twin`` takes
-    :func:`tiled_packed_attention`.  ``bt`` defaults to
-    :data:`ATTN_BT_DEFAULT`."""
+    :func:`tiled_packed_attention`.  ``bt`` comes from the caller, else
+    the tuned ``attn_packed`` entry, else :data:`ATTN_BT_DEFAULT` (the
+    serving engine pins it for the cache's lifetime)."""
     cfg = resolve(dispatch)
-    bt = ATTN_BT_DEFAULT if bt is None else int(bt)
     name = leaf or "attn.kv"
+    if bt is None:
+        B, _, H, Dh = q.shape
+        entry = None if cfg.mode == "twin" else _kernel_entry(
+            _tuned_entry(cfg, "attn_packed", B, k_s.shape[1], H * Dh,
+                         q.dtype, q.device, leaf=leaf,
+                         container=None if packed else "int4"),
+            q, name, "attn_packed")
+        bt = entry.bt if entry is not None and entry.bt else ATTN_BT_DEFAULT
+    bt = int(bt)
     if not use_kernel(cfg, q, name):
         return tiled_packed_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
                                       packed=packed)
@@ -467,7 +571,21 @@ def _conv_fused(cp: ConvPayload, x: torch.Tensor, cfg: DispatchConfig,
                       dilation=cp.dilation)
     out_dtype = compute_dtype if compute_dtype is not None else x.dtype
     return fam.conv_fused(cp, xp, cfg=cfg, bias=bias, activation=activation,
-                          out_dtype=out_dtype, leaf=leaf, pool=pool)
+                          out_dtype=out_dtype, leaf=leaf, pool=pool,
+                          M=x.shape[0] * Ho * Wo)
+
+
+def fused_conv_entry(cfg: DispatchConfig, kind: str, cp: ConvPayload,
+                     x: torch.Tensor, M: int, leaf: Optional[str],
+                     container: Optional[str],
+                     pattern: Optional[BlockSparsePattern] = None):
+    """The tuned ``fusedconv_*`` entry of a fused conv call, looked up as
+    the reference's fused convs do (no tuner writes these keys: the conv
+    kernels keep their own route rule); one naming the plain version on a
+    CUDA tensor raises."""
+    return _kernel_entry(
+        _tuned_entry(cfg, kind, M, cp.K, cp.N, x.dtype, x.device, pattern,
+                     leaf, container), x, leaf, kind)
 
 
 def conv_dispatch(
@@ -534,7 +652,7 @@ def conv_dispatch(
                           padding=cp.padding, dilation=cp.dilation)
     y = payload_dispatch(cp.payload, patches, dispatch=cfg, bias=bias,
                          activation=activation, compute_dtype=compute_dtype,
-                         leaf=leaf)
+                         leaf=leaf, op="conv")
     if pool is not None:
         y = _pool_nhwc(y, pool)
     return y

@@ -176,10 +176,10 @@ def run_dse(
     retune: Optional[Callable[[LayerSpec, FoldingConfig, HWSpec],
                               Optional[FoldingConfig]]] = None,
 ) -> DSEResult:
-    """Fig. 1 DSE.  ``retune`` (the reference's ``autotune.dse_retune``;
-    the port's autotuner is not ported yet) lets step 3's bottleneck
-    elimination propose a tuner move: given the bottleneck layer's spec and current folding config it may return a
-    refined config (re-ranked bit-width / tiles), competing against
+    """Fig. 1 DSE.  ``retune`` (:func:`repro_torch.core.autotune.
+    dse_retune`) lets step 3's bottleneck elimination propose a tuner
+    move: given the bottleneck layer's spec and current folding config it
+    may return a refined config (a re-ranked bit-width), competing against
     sparse-/factor-unfold on the same Δlatency/Δresource rule."""
     specs = list(specs)
     budget = resource_budget if resource_budget is not None else hw.hbm_bytes * 0.5

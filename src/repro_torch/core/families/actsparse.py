@@ -56,7 +56,12 @@ def _host_tau(tau):
 # ----------------------------------------------------------------- execute
 
 
-def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
+# the container tag of this family's tuned keys (the reference's)
+ACTSPARSE_CONTAINER = "actsparse"
+
+
+def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
+           tag=""):
     if pattern is None:
         raise ValueError(_NEED_PATTERN)
     act, post_tau = activation, None
@@ -68,9 +73,13 @@ def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
         else:
             act, post_tau = None, tau
     cl = CompressedLinear(pattern=pattern, blocks=p["w_ablk"])
+    K, N = pattern.shape
     y = _d.sparse_linear(x, cl, bias=bias, activation=act,
                          out_dtype=compute_dtype,
-                         use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                         use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                         plan=_d.tuned_plan(cfg, tag + "sparse", x, K, N,
+                                            pattern=pattern, leaf=leaf,
+                                            container=ACTSPARSE_CONTAINER))
     if post_tau is not None:
         # trelu with tau >= 0 subsumes the ReLU: negatives are below tau
         y = torch.where(y > post_tau.to(y.dtype), y,

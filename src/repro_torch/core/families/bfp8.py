@@ -62,8 +62,14 @@ def quantize_bfp8(w) -> BFP8Tensor:
 # ----------------------------------------------------------------- execute
 
 
-def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
+# the container tag of this family's tuned keys (the reference's)
+BFP8_CONTAINER = "bfp8"
+
+
+def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
+           tag=""):
     del pattern
+    K, N = (int(d) for d in p["w_bfp"].shape[-2:])
     # the exponent folds at the emit step: the kernel's per-output-channel
     # scale vector is exactly 2**e
     qt = QuantizedTensor(values=p["w_bfp"],
@@ -71,7 +77,10 @@ def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
                          axis=1, bits=8)
     return _d.quant_linear(x, qt, bias=bias, activation=activation,
                            out_dtype=compute_dtype,
-                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                           plan=_d.tuned_plan(cfg, tag + "quant", x, K, N,
+                                              leaf=leaf,
+                                              container=BFP8_CONTAINER))
 
 
 # ------------------------------------------------------------------ payload

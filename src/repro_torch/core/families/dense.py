@@ -13,7 +13,9 @@ from .. import dispatch as _d
 from .. import payload_registry as _reg
 
 
-def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
+def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
+           tag=""):
+    del tag  # never tuned
     del pattern, cfg, leaf
     y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
     return _d._epilogue(y, bias, activation, compute_dtype)

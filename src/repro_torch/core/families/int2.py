@@ -35,7 +35,7 @@ from ..quant import (
 
 
 def _apply_int2(p, x, *, pattern, cfg, bias, activation, compute_dtype,
-                leaf):
+                leaf, tag=""):
     # the container cannot tell K from K+1..K+3: the logical K comes from x
     del pattern
     wp = p["w_q2"]
@@ -56,7 +56,10 @@ def _apply_int2(p, x, *, pattern, cfg, bias, activation, compute_dtype,
             scales=scales, axis=1, bits=2)
     return _d.quant_linear(x, qt, bias=bias, activation=activation,
                            out_dtype=compute_dtype,
-                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                           plan=_d.tuned_plan(cfg, tag + "quant", x, K, N,
+                                              leaf=leaf,
+                                              container=PACKED_CONTAINER_INT2))
 
 
 # ------------------------------------------------------------------ payload
@@ -83,13 +86,20 @@ def _payload_dense(payload):
 # --------------------------------------------------------------- fused conv
 
 
-def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool):
+def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool, M):
     # the int4x2 conv entry reads the payload's own per_byte / container:
     # crumbs decoded in the kernel when K divides by 4, else int8 codes
     from .quant import _conv_fused as _quant_conv_fused
 
     return _quant_conv_fused(cp, x, cfg=cfg, bias=bias, activation=activation,
-                             out_dtype=out_dtype, leaf=leaf, pool=pool)
+                             out_dtype=out_dtype, leaf=leaf, pool=pool, M=M)
+
+
+def _tune_prepare(leaves, pattern, K):
+    """Timed packed, in the kernel (the quant family's runner takes the
+    int2x4 container as it is)."""
+    del pattern, K
+    return dict(leaves), PACKED_CONTAINER_INT2
 
 
 # --------------------------------------------------------------- decompress
@@ -139,6 +149,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     decompress=_decompress,
     payload_dense=_payload_dense,
     payload_kn=lambda payload: tuple(map(int, payload.shape)),
+    tune_prepare=_tune_prepare,
     leaf_ndim={"w_q2": 2, "w_s": 1},
     container_leaves=("w_q2",),
     sample=_sample,

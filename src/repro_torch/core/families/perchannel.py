@@ -55,16 +55,24 @@ def quantize_per_channel(w, bits: int = 8) -> PerChannelQuant:
 # ----------------------------------------------------------------- execute
 
 
-def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf):
+# the container tag of this family's tuned keys (the reference's)
+PERCHANNEL_CONTAINER = "perchannel"
+
+
+def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
+           tag=""):
     del pattern
     w = p["w_pc"]
-    N = int(w.shape[-1])
+    K, N = (int(d) for d in w.shape[-2:])
     xs = _d.perchannel_fold(x, p["w_pcs"], compute_dtype)
     qt = QuantizedTensor(values=w, scales=_d.unit_scales(N, x.device),
                          axis=1, bits=8)
     return _d.quant_linear(xs, qt, bias=bias, activation=activation,
                            out_dtype=compute_dtype,
-                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                           plan=_d.tuned_plan(cfg, tag + "quant", x, K, N,
+                                              leaf=leaf,
+                                              container=PERCHANNEL_CONTAINER))
 
 
 # ------------------------------------------------------------------ payload

@@ -19,29 +19,33 @@ from .. import dispatch as _d
 from .. import payload_registry as _reg
 from ..quant import (
     PACKED_CONTAINER,
+    PACKED_CONTAINER_INT2,
     PackedTensor,
     QuantizedTensor,
     pack_codes,
     pack_int4,
     pack_quantized,
     quantize,
+    unpack_codes,
     unpack_int4,
 )
 
 
 def _apply_quant(p, x, *, pattern, cfg, bias, activation, compute_dtype,
-                 leaf):
+                 leaf, tag=""):
     del pattern
-    N = int(p["w_q"].shape[-1])
+    K, N = (int(d) for d in p["w_q"].shape[-2:])
     qt = QuantizedTensor(values=p["w_q"], scales=p["w_s"].reshape(N), axis=1,
                          bits=8)
     return _d.quant_linear(x, qt, bias=bias, activation=activation,
                            out_dtype=compute_dtype,
-                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                           plan=_d.tuned_plan(cfg, tag + "quant", x, K, N,
+                                              leaf=leaf))
 
 
 def _apply_quant_packed(p, x, *, pattern, cfg, bias, activation,
-                        compute_dtype, leaf):
+                        compute_dtype, leaf, tag=""):
     # the container cannot tell K from K+1 when K is odd: K comes from x
     del pattern
     wp = p["w_qp"]
@@ -55,7 +59,10 @@ def _apply_quant_packed(p, x, *, pattern, cfg, bias, activation,
                       scales=p["w_s"].reshape(N), bits=4, per_byte=2)
     return _d.quant_linear(x, pt, bias=bias, activation=activation,
                            out_dtype=compute_dtype,
-                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                           use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                           plan=_d.tuned_plan(cfg, tag + "quant", x, K, N,
+                                              leaf=leaf,
+                                              container=PACKED_CONTAINER))
 
 
 # ------------------------------------------------------------------ payload
@@ -112,13 +119,17 @@ def _payload_kn(payload):
 # --------------------------------------------------------------- fused conv
 
 
-def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool):
+def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool, M):
     """The quant_conv entry (patches gathered in the kernel, pooled emit)
     over a pre-padded VALID input; shared by the int8 and packed payload
-    forms.  ``twin`` returns None: the caller takes the im2col leg."""
+    forms.  ``twin`` returns None: the caller takes the im2col leg.  The
+    ``fusedconv_quant`` tuned lookup is the reference's (M = B·Ho·Wo)."""
     if not _d.use_kernel(cfg, x, leaf):
         return None
     payload = cp.payload
+    _d.fused_conv_entry(cfg, "fusedconv_quant", cp, x, M, leaf,
+                        getattr(payload, "container", None)
+                        if isinstance(payload, PackedTensor) else None)
     K, N = cp.K, cp.N
     packed = False
     if isinstance(payload, PackedTensor):
@@ -155,6 +166,74 @@ def _decompress_packed(leaf, *, pattern, shape, dtype):
     w_q = unpack_int4(leaf["w_qp"], shape[0], axis=-2)
     leaf = {**{k: v for k, v in leaf.items() if k != "w_qp"}, "w_q": w_q}
     return _decompress(leaf, pattern=pattern, shape=shape, dtype=dtype)
+
+
+# ----------------------------------------------------------------- autotune
+
+
+def _tune_prepare(leaves, pattern, K):
+    """A packed container is timed packed, in its kernel: the leaves as
+    they are, and the container tag of their keys."""
+    del pattern, K
+    return dict(leaves), PACKED_CONTAINER
+
+
+def _tune_operands(x, leaves):
+    """(x, codes or container, scales, packed tag) as the family's apply
+    hands them to ``quant_matmul``: a container packed along K (K a
+    multiple of its codes a byte) in its kernel, else its int8 codes."""
+    K = int(x.shape[-1])
+    for name, per_byte, tag in (("w_qp", 2, PACKED_CONTAINER),
+                                ("w_q2", 4, PACKED_CONTAINER_INT2)):
+        if name in leaves:
+            w = leaves[name]
+            if K % per_byte:
+                return x, unpack_codes(w, K, axis=0, bits=8 // per_byte), \
+                    leaves["w_s"], False
+            return x, w, leaves["w_s"], tag
+    return x, leaves["w_q"], leaves["w_s"], False
+
+
+def _tune_candidates(x, leaves, pattern):
+    from ...kernels.quant_matmul.kernel import qmm_candidates
+    from ...kernels.sparse_matmul.kernel import packed_ratio
+
+    del pattern
+    x, w, _, packed = _tune_operands(x, leaves)
+    M, K = x.shape
+    return qmm_candidates(M, K, int(w.shape[-1]), packed_ratio(packed),
+                          x.dtype == torch.bfloat16, w.data_ptr(),
+                          x.data_ptr())
+
+
+def _tune_runner(cand, x, leaves, pattern):
+    """One candidate ``(route, plan)`` on ``quant_matmul``, or the plain
+    version (None), on the operands of :func:`_tune_operands`."""
+    from ...kernels.quant_matmul.kernel import quant_matmul
+    from ...kernels.quant_matmul.ref import quant_matmul_ref
+
+    del pattern
+    x, w, s, packed = _tune_operands(x, leaves)
+    N = int(w.shape[-1])
+    s = s.reshape(N).to(torch.float32)
+    if cand is None:
+        codes = unpack_codes(w, int(x.shape[-1]), axis=0,
+                             bits=4 if packed == PACKED_CONTAINER else 2) \
+            if packed else w
+        return lambda: quant_matmul_ref(x, codes, s, out_dtype=x.dtype)
+    return lambda: quant_matmul(x, w, s, packed=packed, plan=cand,
+                                name="autotune")
+
+
+def _leaf_kn(leaves, pattern):
+    """(K, N) of quant leaves; a packed container's K is its rows times
+    its codes a byte (the tuner takes the logical K from x)."""
+    del pattern
+    for name, per_byte in (("w_q", 1), ("w_qp", 2), ("w_q2", 4)):
+        if name in leaves:
+            rows, N = (int(d) for d in leaves[name].shape[-2:])
+            return rows * per_byte, N
+    raise ValueError(f"no quant code leaf in {sorted(leaves)}")
 
 
 # ------------------------------------------------------------------- policy
@@ -259,6 +338,7 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     decompress=_decompress_packed,
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
+    tune_prepare=_tune_prepare,
     leaf_ndim={"w_qp": 2, "w_s": 1},
     container_leaves=("w_qp",),
     sample=_sample_packed,
@@ -277,6 +357,9 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     decompress=_decompress,
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
+    tune_candidates=_tune_candidates,
+    tune_runner=_tune_runner,
+    leaf_kn=_leaf_kn,
     leaf_ndim={"w_q": 2, "w_s": 1},
     sample=_sample,
     validate=_validate_scales("quant", "w_q"),

@@ -21,6 +21,7 @@ from .. import payload_registry as _reg
 from ..quant import (
     PACKED_CONTAINER,
     PackedTensor,
+    container_tag,
     pack_codes,
     pack_int4,
     quantize,
@@ -35,14 +36,17 @@ _NEED_PATTERN = (
 
 
 def _apply_sparse(p, x, *, pattern, cfg, bias, activation, compute_dtype,
-                  leaf):
+                  leaf, tag=""):
     if pattern is None:
         raise ValueError(_NEED_PATTERN)
     cl = CompressedLinear(pattern=pattern, blocks=p["w_blk"],
                           scales=p.get("w_s"))
+    K, N = pattern.shape
     return _d.sparse_linear(x, cl, bias=bias, activation=activation,
                             out_dtype=compute_dtype,
-                            use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                            use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                            plan=_d.tuned_plan(cfg, tag + "sparse", x, K, N,
+                                               pattern=pattern, leaf=leaf))
 
 
 def _container_per_byte(rows: int, bk: int):
@@ -57,7 +61,7 @@ def _container_per_byte(rows: int, bk: int):
 
 
 def _apply_sparse_packed(p, x, *, pattern, cfg, bias, activation,
-                         compute_dtype, leaf):
+                         compute_dtype, leaf, tag=""):
     if pattern is None:
         raise ValueError(_NEED_PATTERN)
     wp = p["w_blkp"]
@@ -75,9 +79,14 @@ def _apply_sparse_packed(p, x, *, pattern, cfg, bias, activation,
         blocks=PackedTensor(data=wp, shape=(int(wp.shape[0]), bk, bn),
                             axis=1, bits=width, per_byte=per_byte),
         scales=p.get("w_s"), bits=width)
+    K, N = pattern.shape
     return _d.sparse_linear(x, cl, bias=bias, activation=activation,
                             out_dtype=compute_dtype,
-                            use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf)
+                            use_kernel=_d.use_kernel(cfg, x, leaf), leaf=leaf,
+                            plan=_d.tuned_plan(cfg, tag + "sparse", x, K, N,
+                                               pattern=pattern, leaf=leaf,
+                                               container=container_tag(
+                                                   per_byte)))
 
 
 # ------------------------------------------------------------------ payload
@@ -123,14 +132,18 @@ def _payload_kn(payload):
 # --------------------------------------------------------------- fused conv
 
 
-def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool):
+def _conv_fused(cp, x, *, cfg, bias, activation, out_dtype, leaf, pool, M):
     """The block_sparse_conv entry (patches gathered in the kernel, pooled
     emit) over a pre-padded VALID input; shared by both container forms.
-    ``twin`` returns None: the caller takes the im2col leg."""
+    ``twin`` returns None: the caller takes the im2col leg.  The
+    ``fusedconv_sparse`` tuned lookup is the reference's (M = B·Ho·Wo)."""
     if not _d.use_kernel(cfg, x, leaf):
         return None
     payload = cp.payload
     pat = payload.pattern
+    _d.fused_conv_entry(cfg, "fusedconv_sparse", cp, x, M, leaf,
+                        payload.blocks.container if payload.packed else None,
+                        pat)
     if payload.packed and payload.blocks.axis % 3 == 1 \
             and pat.block[0] % payload.blocks.per_byte == 0:
         blocks, packed = payload.blocks.data, payload.blocks.container
@@ -181,6 +194,70 @@ def _decompress_packed(leaf, *, pattern, shape, dtype):
     blk = unpack_codes(wp, bk, axis=-2, bits=8 // per_byte)
     leaf = {**{k: v for k, v in leaf.items() if k != "w_blkp"}, "w_blk": blk}
     return _decompress(leaf, pattern=pattern, shape=shape, dtype=dtype)
+
+
+# ----------------------------------------------------------------- autotune
+
+
+def _tune_prepare(leaves, pattern, K):
+    """A packed container is timed packed, in its kernel: the leaves as
+    they are, and the container tag of their keys."""
+    del K
+    per_byte = _container_per_byte(int(leaves["w_blkp"].shape[-2]),
+                                   pattern.block[0]) or 2
+    return dict(leaves), container_tag(per_byte)
+
+
+def _tune_operands(leaves, pattern):
+    """(payload, blocks, packed tag) as the families' apply hands them to
+    ``block_sparse_matmul`` through ``sparse_linear``."""
+    if "w_blkp" in leaves:
+        wp = leaves["w_blkp"]
+        bk, bn = pattern.block
+        per_byte = _container_per_byte(int(wp.shape[-2]), bk)
+        cl = CompressedLinear(
+            pattern=pattern,
+            blocks=PackedTensor(data=wp, shape=(int(wp.shape[0]), bk, bn),
+                                axis=1, bits=8 // per_byte,
+                                per_byte=per_byte),
+            scales=leaves.get("w_s"), bits=8 // per_byte)
+        if bk % per_byte == 0:
+            return cl, wp, cl.blocks.container
+        return cl, cl.block_values(), False
+    cl = CompressedLinear(pattern=pattern, blocks=leaves["w_blk"],
+                          scales=leaves.get("w_s"))
+    return cl, cl.blocks, False
+
+
+def _tune_candidates(x, leaves, pattern):
+    from ...kernels.sparse_matmul.kernel import bsm_candidates, packed_ratio
+
+    _, blocks, packed = _tune_operands(leaves, pattern)
+    bk, bn = pattern.block
+    sched = schedule_for(pattern, x.device)
+    return bsm_candidates(int(x.shape[0]), bk, bn, packed_ratio(packed),
+                          sched.n_col_blocks, sched.max_blocks_per_col,
+                          x.dtype == torch.bfloat16, blocks.data_ptr(),
+                          blocks.element_size(), x.data_ptr())
+
+
+def _tune_runner(cand, x, leaves, pattern):
+    """One candidate ``(route, plan)`` on ``block_sparse_matmul``, or the
+    plain version (None), on the operands of :func:`_tune_operands`."""
+    from ...kernels.sparse_matmul.kernel import block_sparse_matmul
+
+    cl, blocks, packed = _tune_operands(leaves, pattern)
+    if cand is None:
+        return lambda: _d.sparse_linear(x, cl, use_kernel=False)
+    sched = schedule_for(pattern, x.device)
+    return lambda: block_sparse_matmul(x, blocks, sched, scales=cl.scales,
+                                       packed=packed, plan=cand,
+                                       name="autotune")
+
+
+def _leaf_kn(leaves, pattern):
+    del leaves
+    return tuple(map(int, pattern.shape))
 
 
 # ------------------------------------------------------------------- policy
@@ -309,6 +386,7 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     decompress=_decompress_packed,
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
+    tune_prepare=_tune_prepare,
     leaf_ndim={"w_blkp": 3, "w_s": 1},
     container_leaves=("w_blkp",),
     sample=_sample_packed,
@@ -328,6 +406,9 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     decompress=_decompress,
     payload_dense=_payload_dense,
     payload_kn=_payload_kn,
+    tune_candidates=_tune_candidates,
+    tune_runner=_tune_runner,
+    leaf_kn=_leaf_kn,
     leaf_ndim={"w_blk": 3, "w_s": 1},
     # float blocks on the unquantised path, int8 codes with w_s scales
     leaf_dtype_kinds={"w_blk": "fi"},

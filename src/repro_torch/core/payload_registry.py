@@ -27,12 +27,16 @@ __all__ = [
     "family_for_leaf_name",
     "family_for_leaves",
     "family_of_payload",
+    "kind_family",
+    "kind_needs_pattern",
     "pattern_leaf",
     "policy_compiler",
     "policy_eliminates_blocks",
     "policy_names",
     "register",
     "register_policy",
+    "representative_leaves",
+    "tunable_kinds",
     "unwrap_payload",
     "validate_leaves",
     "weight_leaf_names",
@@ -68,6 +72,15 @@ class PayloadFamily:
       ("sparse" / "quant"; None: not tuned); ``container`` — the storage
       container tag ("int4x2", "int2x4"; None: unpacked); ``code_leaf`` —
       the leaf holding the quantised codes (defaults to ``key_leaf``).
+    * The autotuner's hooks: ``tune_prepare(leaves, pattern, K)`` — the
+      leaves the tuner times and their container tag (bit-packed families:
+      the packed leaves as they are, timed in their kernel);
+      ``tune_candidates(x, leaves, pattern)`` — the kernel's ``(route,
+      plan)`` candidates at those operands, the rule's first;
+      ``tune_runner(cand, x, leaves, pattern)`` — a thunk running one
+      candidate (None: the plain version); ``leaf_kn(leaves, pattern)`` —
+      the leaves' (K, N).  The last three live on each kind's unpacked
+      family (:func:`kind_family`), which runs every container of the kind.
     """
 
     name: str
@@ -90,6 +103,10 @@ class PayloadFamily:
     leaf_dtype_kinds: Mapping[str, str] = dataclasses.field(
         default_factory=dict)
     container_leaves: Tuple[str, ...] = ()
+    tune_prepare: Optional[Callable] = None
+    tune_candidates: Optional[Callable] = None
+    tune_runner: Optional[Callable] = None
+    leaf_kn: Optional[Callable] = None
 
     def __post_init__(self):
         if self.key_leaf not in self.leaf_names:
@@ -300,6 +317,45 @@ def pattern_leaf(p: Mapping[str, Any]) -> bool:
     """Does this leaf dict need the static pattern side-table?"""
     fam = family_for_leaves(p)
     return fam is not None and fam.needs_pattern
+
+
+# ----------------------------------------------------------------- autotune
+
+
+def kind_family(kind: str) -> Optional[PayloadFamily]:
+    """The unpacked family of a tune kind ("sparse" / "quant"), whose
+    hooks the tuner calls; container variants share its kind."""
+    for fam in all_families():
+        if fam.kind == kind and fam.container is None:
+            return fam
+    return None
+
+
+def tunable_kinds() -> Tuple[str, ...]:
+    """Every tune kind the registry knows (the policy names
+    ``autotune_model`` tunes; the others it skips)."""
+    out: List[str] = []
+    for fam in all_families():
+        if fam.kind is not None and fam.kind not in out:
+            out.append(fam.kind)
+    return tuple(out)
+
+
+def kind_needs_pattern(kind: str) -> bool:
+    fam = kind_family(kind)
+    return fam is not None and fam.needs_pattern
+
+
+def representative_leaves(leaf: Mapping[str, Any]) -> Dict[str, Any]:
+    """Layer 0 of a stacked leaf dict (a leaf is stacked when its ndim is
+    one above its family's declared ``leaf_ndim``): the tuner's view.
+    Names no family declares are dropped."""
+    ndim: Dict[str, int] = {}
+    for fam in all_families():
+        for k, n in fam.leaf_ndim.items():
+            ndim.setdefault(k, n)
+    return {k: (v[0] if v.ndim == ndim[k] + 1 else v)
+            for k, v in leaf.items() if k in ndim}
 
 
 def policy_compiler(name: str,

@@ -2,21 +2,35 @@
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Optional
 
 # Every wrapper's launch counters: module (under this package) -> counter
-# names.  Each wrapper adds one to its counters where it launches a kernel.
+# names.  Each wrapper adds one to its counters where it launches a kernel;
+# the matmuls' ``tuned_hits`` / ``tuned_misses`` count their launches given
+# a tuned plan (on it / on the shape rule's instead).
 LAUNCH_COUNTERS = {
     "sparse_matmul.kernel": ("launches", "launches_thin", "launches_tc",
                              "launches_tiled", "conv_launches",
-                             "conv_launches_reg", "conv_launches_band"),
+                             "conv_launches_reg", "conv_launches_band",
+                             "tuned_hits", "tuned_misses"),
     "quant_matmul.kernel": ("launches", "launches_thin", "launches_tc",
                             "launches_tiled", "conv_launches",
-                            "conv_launches_reg", "conv_launches_band"),
+                            "conv_launches_reg", "conv_launches_band",
+                            "tuned_hits", "tuned_misses"),
     "flash_attention.decode_packed": ("launches", "launches_split",
                                       "launches_single"),
     "flash_attention.kernel": ("launches", "launches_tc", "launches_cc"),
     "fc_stack": ("launches", "launches_staged", "launches_stream"),
+}
+
+
+# kernel -> (module, its pure plan check: ``(route, plan, *shape)`` -> why
+# the route and plan cannot take the call, or None)
+PLAN_ERRORS = {
+    "quant_matmul": ("quant_matmul.kernel", "qmm_plan_error"),
+    "block_sparse_matmul": ("sparse_matmul.kernel", "bsm_plan_error"),
+    "packed_decode_attention": ("flash_attention.decode_packed",
+                                "pda_plan_error"),
 }
 
 
@@ -37,3 +51,16 @@ def add_launch_counts(delta: Dict[str, int]) -> None:
             m, c = key.split(":")
             mod = _module(m)
             setattr(mod, c, getattr(mod, c) + n)
+
+
+def check_plan(kernel: str, route: str, plan, shape, *,
+               name: Optional[str] = None) -> None:
+    """Raise ValueError, naming ``name`` (the leaf), when ``kernel``'s
+    ``route`` with ``plan`` cannot take a call of ``shape`` (the arguments
+    of its route rule, as :data:`PLAN_ERRORS`' function takes them after
+    route and plan).  Pure: host integers only, so testable on the CPU."""
+    mod, fn = PLAN_ERRORS[kernel]
+    err = getattr(_module(mod), fn)(route, plan, *shape)
+    if err is not None:
+        raise ValueError(f"{name or kernel}: {kernel} cannot take route "
+                         f"{route!r} with plan {plan!r} here: {err}")

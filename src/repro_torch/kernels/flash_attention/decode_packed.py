@@ -29,8 +29,9 @@ import torch
 from .. import build
 from ...core.quant import unpack_int4
 
-__all__ = ["PdaPlan", "launches", "launches_single", "launches_split",
-           "packed_decode_attention", "pda_plan", "tiled_packed_attention"]
+__all__ = ["ATTN_BT_CANDIDATES", "PdaPlan", "launches", "launches_single",
+           "launches_split", "packed_decode_attention", "pda_candidates",
+           "pda_plan", "pda_plan_error", "tiled_packed_attention"]
 
 NEG_INF = -1e30
 
@@ -47,6 +48,8 @@ SPLIT_MAX_QROWS = 64     # query rows C·G one split CTA serves, at most
 SPLIT_SHAPES = {(64, 16), (64, 32), (64, 64), (64, 128), (128, 16),
                 (128, 32), (128, 64)}
 SMEM_MAX = 232448        # shared memory a CTA may take on the H100
+# kv tiles the autotuner tries (every Dh 64 one has a split build)
+ATTN_BT_CANDIDATES = (16, 32, 64, 128)
 
 
 class PdaPlan(NamedTuple):
@@ -98,6 +101,39 @@ def pda_plan(B: int, C: int, H: int, Hkv: int, Dh: int, T: int, bt: int,
     return PdaPlan(per, -(-n_t // per))
 
 
+def pda_plan_error(route: str, plan, B: int, C: int, H: int, Hkv: int,
+                   Dh: int, T: int, bt: int, kv_addr: int = 0,
+                   packed: bool = True) -> Optional[str]:
+    """Why ``route`` ("split" or "single") cannot read this cache (the
+    arguments of :func:`pda_plan`), or None when it can.  ``plan`` must be
+    None: the split plan follows from ``bt`` and ``T``.  Pure: the
+    wrapper's check of a given route."""
+    if plan is not None:
+        return "the attention read takes a route and bt, no plan"
+    if bt < 1:
+        return f"bt must be positive, got {bt}"
+    if route == "single":
+        return None
+    if route == "split":
+        if pda_plan(B, C, H, Hkv, Dh, T, bt, kv_addr, packed) is None:
+            return (f"the split route needs (Dh, bt) in {sorted(SPLIT_SHAPES)}"
+                    f", at most {SPLIT_MAX_QROWS} query rows a kv head, the "
+                    f"shared memory and 16-byte aligned codes; got Dh={Dh}, "
+                    f"bt={bt}, {C * (H // Hkv)} rows")
+        return None
+    return f"unknown route {route!r}"
+
+
+def pda_candidates(B: int, C: int, H: int, Hkv: int, Dh: int, T: int,
+                   kv_addr: int = 0, packed: bool = True):
+    """``(route, bt)`` candidates of a packed attention read for the
+    autotuner: each of :data:`ATTN_BT_CANDIDATES` on the route
+    :func:`pda_plan` names for it — split where it has a plan, single
+    otherwise.  The rule's own tile is the engine's default, 64."""
+    return [("single" if pda_plan(B, C, H, Hkv, Dh, T, bt, kv_addr, packed)
+             is None else "split", bt) for bt in ATTN_BT_CANDIDATES]
+
+
 def _lib(route: str):
     lib = build.library("packed_decode_attention")
     if route == "split":
@@ -137,16 +173,22 @@ def packed_decode_attention(
     bt: int = 64,
     packed: bool = True,
     name: str = "packed_decode_attention",
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention of C query rows per slot over the quantised cache, in q's
     dtype.  Cache leaves may be views whose slot stride exceeds T rows
-    (a bounded extent of a longer cache)."""
+    (a bounded extent of a longer cache).  ``route`` ("split" / "single")
+    replaces the rule's (:func:`pda_plan`) on CUDA tensors; one the read
+    cannot take (:func:`pda_plan_error`) raises."""
     global launches, launches_split, launches_single
     if not q.is_cuda:
         return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt,
                                       packed=packed)
-    plan = pda_plan(*_plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, packed,
-                                name))
+    args = _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, packed, name)
+    if route is not None:
+        from .. import check_plan
+        check_plan("packed_decode_attention", route, None, args, name=name)
+    plan = None if route == "single" else pda_plan(*args)
     out = _launch(q, k_p, v_p, k_s, v_s, lengths, bt, plan, name)
     launches += 1
     if plan is None:

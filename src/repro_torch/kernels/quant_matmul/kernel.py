@@ -35,6 +35,7 @@ from ..sparse_matmul.kernel import (
     TC_MIN_STEPS,
     X_DTYPES,
     _check_activation,
+    _int_plan,
     act_args,
     check_conv_input,
     check_cuda_operand,
@@ -51,8 +52,9 @@ from ..sparse_matmul.kernel import (
 
 __all__ = ["QmmPlan", "QmmTcPlan", "conv_launches", "conv_launches_band",
            "conv_launches_reg", "launches", "launches_tc", "launches_thin",
-           "launches_tiled", "qmm_plan", "qmm_route", "qmm_tc_plan",
-           "quant_conv", "quant_matmul"]
+           "launches_tiled", "qmm_candidates", "qmm_plan", "qmm_plan_error",
+           "qmm_route", "qmm_tc_plan", "quant_conv", "quant_matmul",
+           "tuned_hits", "tuned_misses"]
 
 # kernel launches since the counters were last set to 0
 launches = 0         # quant_matmul, every route
@@ -62,6 +64,10 @@ launches_tiled = 0   # quant_matmul, tiled route
 conv_launches = 0    # quant_conv, every route
 conv_launches_reg = 0   # quant_conv, register-tiled route
 conv_launches_band = 0  # quant_conv, band route
+# quant_matmul launches given a tuned plan: on it, or (the plan illegal for
+# the call) on the shape rule's route and plan instead
+tuned_hits = 0
+tuned_misses = 0
 
 THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
 THIN_COLS = 128      # output columns per CTA of the thin-M kernel
@@ -79,8 +85,8 @@ class QmmPlan(NamedTuple):
     rows_per_split: int
 
 
-def qmm_plan(M: int, K: int, N: int, ratio: int,
-             w_ptr: int = 0) -> Optional[QmmPlan]:
+def qmm_plan(M: int, K: int, N: int, ratio: int, w_ptr: int = 0,
+             cta_target: int = CTA_TARGET) -> Optional[QmmPlan]:
     """The route of a quant matmul, as a shape rule: the thin-M plan when
     ``M <= THIN_M_MAX``, ``N % 4 == 0`` and the container's address
     ``w_ptr`` is 4-byte aligned (each lane loads 4 bytes of a byte row);
@@ -89,12 +95,12 @@ def qmm_plan(M: int, K: int, N: int, ratio: int,
     The plan cuts the ``K / ratio`` byte rows into splits of whole rows, at
     most :data:`THIN_KCAP` codes each, and enough of them that the grid of
     ``ceil(N / THIN_COLS)`` column tiles times the splits reaches
-    :data:`CTA_TARGET` CTAs, unless that would leave fewer than
-    :data:`THIN_MIN_ROWS` rows to a split."""
+    ``cta_target`` CTAs (:data:`CTA_TARGET` by default), unless that would
+    leave fewer than :data:`THIN_MIN_ROWS` rows to a split."""
     if M > THIN_M_MAX or N % 4 or w_ptr % 4:
         return None
     rows = K // ratio
-    want = -(-CTA_TARGET // -(-N // THIN_COLS))
+    want = -(-cta_target // -(-N // THIN_COLS))
     per = min(max(rows // want, THIN_MIN_ROWS), THIN_KCAP // ratio, rows)
     return QmmPlan(THIN_COLS, -(-rows // per), per)
 
@@ -109,19 +115,20 @@ class QmmTcPlan(NamedTuple):
     steps_per_split: int
 
 
-def qmm_tc_plan(M: int, K: int, N: int,
-                m_tile: Optional[int] = None) -> QmmTcPlan:
+def qmm_tc_plan(M: int, K: int, N: int, m_tile: Optional[int] = None,
+                cuts: Optional[int] = None) -> QmmTcPlan:
     """The tensor-core kernel's tiles and K splits: the K / :data:`TC_K_STEP`
     steps cut into :func:`tc_cuts` even splits (none when the ``ceil(M /
     m_tile) * N / TC_COLS`` tiles alone reach about one wave of the card),
     each of at least :data:`TC_MIN_STEPS` steps when K has that many;
-    ``m_tile`` (64 or 128) by :func:`tc_m_tile` unless given."""
+    ``m_tile`` (64 or 128) by :func:`tc_m_tile` and the cuts by
+    :func:`tc_cuts` unless given."""
     steps = K // TC_K_STEP
     n_tiles = N // TC_COLS
 
     def plan(m):
-        splits = min(tc_cuts(-(-M // m) * n_tiles),
-                     max(steps // TC_MIN_STEPS, 1))
+        c = tc_cuts(-(-M // m) * n_tiles) if cuts is None else cuts
+        splits = min(c, max(steps // TC_MIN_STEPS, 1))
         per = -(-steps // splits)
         return QmmTcPlan(m, TC_COLS, -(-steps // per), per)
 
@@ -144,10 +151,93 @@ def qmm_route(M: int, K: int, N: int, ratio: int, x_bf16: bool,
     plan = qmm_plan(M, K, N, ratio, w_ptr)
     if plan is not None:
         return "thin_m", plan
-    if x_bf16 and M > THIN_M_MAX and K % TC_K_STEP == 0 \
-            and N % TC_COLS == 0 and w_ptr % 16 == 0 and x_ptr % 16 == 0:
+    if _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) is None:
         return "tensor_core", qmm_tc_plan(M, K, N)
     return "tiled", None
+
+
+def _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) -> Optional[str]:
+    """Why the tensor-core route cannot take these operands, or None."""
+    if not x_bf16:
+        return "the tensor-core route needs bf16 x"
+    if M <= THIN_M_MAX:
+        return f"the tensor-core route needs M > {THIN_M_MAX}, got {M}"
+    if K % TC_K_STEP or N % TC_COLS:
+        return (f"the tensor-core route needs K % {TC_K_STEP} == 0 and "
+                f"N % {TC_COLS} == 0, got K={K}, N={N}")
+    if w_ptr % 16 or x_ptr % 16:
+        return "the tensor-core route needs 16-byte aligned x and codes"
+    return None
+
+
+def qmm_plan_error(route: str, plan, M: int, K: int, N: int, ratio: int,
+                   x_bf16: bool, w_ptr: int = 0,
+                   x_ptr: int = 0) -> Optional[str]:
+    """Why ``route`` with ``plan`` (a :class:`QmmPlan` / :class:`QmmTcPlan`
+    or its tuple of ints; None for "tiled") cannot take the quant matmul of
+    these operands (the arguments of :func:`qmm_route`), or None when it
+    can.  Pure: the wrapper's check of a given plan."""
+    if route == "tiled":
+        return None if plan is None else "the tiled route takes no plan"
+    if route == "thin_m":
+        if qmm_plan(M, K, N, ratio, w_ptr) is None:
+            return (f"the thin-M route needs M <= {THIN_M_MAX}, N % 4 == 0 "
+                    f"and 4-byte aligned codes, got M={M}, N={N}")
+        t = _int_plan(plan, 3, "the thin-M route")
+        if isinstance(t, str):
+            return t
+        cols, splits, per = t
+        rows = K // ratio
+        if cols != THIN_COLS or not 1 <= per <= min(rows, THIN_KCAP // ratio) \
+                or splits != -(-rows // per):
+            return (f"plan {t}: {THIN_COLS} columns a CTA and splits of 1 "
+                    f"to {min(rows, THIN_KCAP // ratio)} byte rows must "
+                    f"cover {rows} rows")
+        return None
+    if route == "tensor_core":
+        err = _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr)
+        if err is not None:
+            return err
+        t = _int_plan(plan, 4, "the tensor-core route")
+        if isinstance(t, str):
+            return t
+        m_tile, n_tile, splits, per = t
+        steps = K // TC_K_STEP
+        if m_tile not in (64, 128) or n_tile != TC_COLS:
+            return f"tiles {m_tile} x {n_tile}, not 64/128 x {TC_COLS}"
+        if not min(TC_MIN_STEPS, steps) <= per <= steps \
+                or splits != -(-steps // per):
+            return (f"{splits} splits of {per} steps: splits of at least "
+                    f"{min(TC_MIN_STEPS, steps)} steps must cover {steps}")
+        return None
+    return f"unknown route {route!r}"
+
+
+def qmm_candidates(M: int, K: int, N: int, ratio: int, x_bf16: bool,
+                   w_ptr: int = 0, x_ptr: int = 0):
+    """``(route, plan)`` candidates of a quant matmul for the autotuner,
+    the rule's own (:func:`qmm_route`) first: the thin-M plan with
+    :data:`CTA_TARGET` halved and doubled; the tensor-core plans with 64-
+    and 128-row tiles crossed with 1, :func:`tc_cuts` and twice that many
+    K splits; the tiled route, always legal.  Every one passes
+    :func:`qmm_plan_error`."""
+    args = (M, K, N, ratio, x_bf16, w_ptr, x_ptr)
+    out = [qmm_route(*args)]
+
+    def add(route, plan):
+        if (route, plan) not in out and not qmm_plan_error(route, plan, *args):
+            out.append((route, plan))
+
+    if out[0][0] == "thin_m":
+        for target in (CTA_TARGET // 2, CTA_TARGET * 2):
+            add("thin_m", qmm_plan(M, K, N, ratio, w_ptr, target))
+    elif _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) is None:
+        for m in (64, 128):
+            c = tc_cuts(-(-M // m) * (N // TC_COLS))
+            for cuts in (1, c, 2 * c):
+                add("tensor_core", qmm_tc_plan(M, K, N, m_tile=m, cuts=cuts))
+    add("tiled", None)
+    return out
 
 
 def _lib():
@@ -188,14 +278,23 @@ def quant_matmul(
     activation=None,
     packed=False,
     name: str = "quant_matmul",
+    plan=None,
+    tuned: bool = False,
 ) -> torch.Tensor:
     """y = act(x @ dequant(W) + b), in x's dtype.
 
     ``w_q`` is ``(K, N)`` int8, or with ``packed`` "int4x2"/"int2x4" the
     uint8 container ``(K / ratio, N)`` packed along K (K divisible by the
     ratio).  ``name`` labels errors (the dispatch passes the leaf name).
+
+    ``plan``: a ``(route, plan)`` pair (:func:`qmm_candidates`) to launch
+    instead of the shape rule's; one the call cannot take
+    (:func:`qmm_plan_error`) raises — unless ``tuned`` (it came from a
+    tuned table), when the rule's route and plan run instead, counted in
+    ``tuned_misses``; a tuned plan that runs counts in ``tuned_hits``.
     """
-    global launches, launches_thin, launches_tc, launches_tiled
+    global launches, launches_thin, launches_tc, launches_tiled, \
+        tuned_hits, tuned_misses
     ratio = packed_ratio(packed)
     M, K = x.shape
     N = int(w_q.shape[1])
@@ -207,6 +306,12 @@ def quant_matmul(
         raise ValueError(
             f"{name}: weight rows {int(w_q.shape[0])} x {ratio} codes/byte "
             f"!= K={K}")
+    shape = (M, K, N, ratio, x.dtype == torch.bfloat16, w_q.data_ptr(),
+             x.data_ptr())
+    err = None if plan is None else qmm_plan_error(plan[0], plan[1], *shape)
+    if err is not None and not tuned:
+        from .. import check_plan
+        check_plan("quant_matmul", plan[0], plan[1], shape, name=name)
     if not x.is_cuda:
         from .ref import quant_matmul_ref
         from ...core.quant import unpack_codes
@@ -218,8 +323,15 @@ def quant_matmul(
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
     if M < 1:
         raise ValueError(f"{name}: needs at least one row, got M={M}")
-    route, plan = qmm_route(M, K, N, ratio, x.dtype == torch.bfloat16,
-                            w_q.data_ptr(), x.data_ptr())
+    if plan is None or err is not None:
+        if err is not None:
+            tuned_misses += 1
+        route, plan = qmm_route(*shape)
+    else:
+        tuned_hits += int(tuned)
+        route = plan[0]
+        plan = None if route == "tiled" else \
+            (QmmPlan if route == "thin_m" else QmmTcPlan)(*plan[1])
     out = _launch(x, w_q, scales, bias, activation, ratio, route, plan, name)
     launches += 1
     if route == "thin_m":

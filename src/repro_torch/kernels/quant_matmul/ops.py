@@ -19,13 +19,16 @@ def quant_linear(
     out_dtype=None,
     use_kernel: bool = True,
     leaf: Optional[str] = None,
+    plan=None,
 ) -> torch.Tensor:
     """y = act(x @ dequant(W) + b); x may be (..., K).
 
     A :class:`PackedTensor` packed along K (K divisible by its code count)
     reaches the kernel in its container; any other packing unpacks to the
     int8 codes first.  ``use_kernel=False`` runs the plain version.
-    ``out_dtype`` defaults to x's dtype; x is cast to it first.
+    ``out_dtype`` defaults to x's dtype; x is cast to it first.  ``plan``:
+    a tuned ``(route, plan)`` for the kernel (``quant_matmul``'s ``plan``
+    with ``tuned=True``: one the call cannot take runs the shape rule's).
     """
     packed = False
     if isinstance(qt, PackedTensor):
@@ -44,7 +47,8 @@ def quant_linear(
     if use_kernel:
         y = quant_matmul(xm.contiguous(), values, scales, bias,
                          activation=activation, packed=packed,
-                         name=leaf or "quant_linear")
+                         name=leaf or "quant_linear", plan=plan,
+                         tuned=plan is not None)
     else:
         y = quant_matmul_ref(xm, values, scales, bias=bias,
                              activation=activation, out_dtype=out_dtype)

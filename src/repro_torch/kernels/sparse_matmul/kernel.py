@@ -42,10 +42,12 @@ from .. import build
 
 __all__ = ["ACTIVATIONS", "BsmPlan", "BsmTcPlan", "ConvPlan", "POOL_MODES",
            "Schedule", "apply_activation", "block_sparse_conv",
-           "block_sparse_matmul", "bsm_plan", "bsm_route", "bsm_tc_plan",
-           "conv_launches", "conv_launches_band", "conv_launches_reg",
-           "conv_route", "im2col_valid", "launches", "launches_tc",
-           "launches_thin", "launches_tiled", "make_schedule", "pool_nhwc"]
+           "block_sparse_matmul", "bsm_candidates", "bsm_plan",
+           "bsm_plan_error", "bsm_route", "bsm_tc_plan", "conv_launches",
+           "conv_launches_band", "conv_launches_reg", "conv_route",
+           "im2col_valid", "launches", "launches_tc", "launches_thin",
+           "launches_tiled", "make_schedule", "pool_nhwc", "tuned_hits",
+           "tuned_misses"]
 
 # kernel launches since the counters were last set to 0
 launches = 0         # block_sparse_matmul, every route
@@ -55,6 +57,10 @@ launches_tiled = 0   # block_sparse_matmul, tiled route
 conv_launches = 0    # block_sparse_conv, every route
 conv_launches_reg = 0   # block_sparse_conv, register-tiled route
 conv_launches_band = 0  # block_sparse_conv, band route
+# block_sparse_matmul launches given a tuned plan: on it, or (the plan
+# illegal for the call) on the shape rule's route and plan instead
+tuned_hits = 0
+tuned_misses = 0
 
 THIN_M_MAX = 16      # rows of the thin-M route (decode batches)
 THIN_COLS = 128      # output columns per CTA of the thin-M kernel
@@ -231,7 +237,8 @@ class BsmPlan(NamedTuple):
 
 def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
              max_blocks_per_col: int, w_ptr: int = 0,
-             elem_bytes: int = 1) -> Optional[BsmPlan]:
+             elem_bytes: int = 1,
+             blocks_per_range: Optional[int] = None) -> Optional[BsmPlan]:
     """The route of a block-sparse matmul, as a shape rule: the thin-M plan
     when ``M <= THIN_M_MAX``, the container has 1-byte elements (int8,
     int4x2, int2x4: ``elem_bytes`` 1; f32 and bf16 blocks keep the tiled
@@ -244,19 +251,32 @@ def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
     block per range, so the grid of column slices times the fullest
     column's ranges has the most CTAs, unless that grid would exceed
     :data:`THIN_CTA_CAP` CTAs (each range writes an f32 partial), and at
-    most as many blocks as :data:`THIN_XCAP` staged x floats allow."""
+    most as many blocks as :data:`THIN_XCAP` staged x floats allow
+    (:func:`thin_block_cap`).  ``blocks_per_range`` sets the blocks of a
+    range instead (None when the cap does not allow it)."""
     if M > THIN_M_MAX or elem_bytes != 1 or bn % 4 or w_ptr % 4 or bk % 8 \
             or bk % ratio:
         return None
-    cap = THIN_XCAP // (bk * rows_per_cta(M))
+    cap = thin_block_cap(M, bk)
     if cap < 1:
         return None
     slices = -(-bn // THIN_COLS)
     if max_blocks_per_col == 0:
         return BsmPlan(1, 0, slices)
-    per = -(-max_blocks_per_col * n_col_blocks * slices // THIN_CTA_CAP)
-    per = max(1, min(per, cap))
+    if blocks_per_range is not None:
+        if not 1 <= blocks_per_range <= cap:
+            return None
+        per = int(blocks_per_range)
+    else:
+        per = -(-max_blocks_per_col * n_col_blocks * slices // THIN_CTA_CAP)
+        per = max(1, min(per, cap))
     return BsmPlan(per, -(-max_blocks_per_col // per), slices)
+
+
+def thin_block_cap(M: int, bk: int) -> int:
+    """Blocks a thin-M range may hold: their x rows (``bk`` by the kernel's
+    row tile for M rows) fit the :data:`THIN_XCAP` floats of the stage."""
+    return THIN_XCAP // (bk * rows_per_cta(M))
 
 
 def tc_cuts(tiles: int) -> int:
@@ -292,19 +312,21 @@ class BsmTcPlan(NamedTuple):
 
 
 def bsm_tc_plan(M: int, bk: int, bn: int, n_col_blocks: int,
-                max_blocks_per_col: int,
-                m_tile: Optional[int] = None) -> BsmTcPlan:
+                max_blocks_per_col: int, m_tile: Optional[int] = None,
+                cuts: Optional[int] = None) -> BsmTcPlan:
     """The tensor-core kernel's tiles and ranges: the fullest column's
     blocks cut into :func:`tc_cuts` ranges of whole blocks (one range, a
     whole column per CTA emitted in place, when the ``ceil(M / m_tile) *
     n_col_blocks * bn / TC_COLS`` tiles alone reach about one wave), each of
     at least :data:`TC_MIN_STEPS` steps, their partials added by a reduce
-    pass; ``m_tile`` (64 or 128) by :func:`tc_m_tile` unless given."""
+    pass; ``m_tile`` (64 or 128) by :func:`tc_m_tile` and the cuts by
+    :func:`tc_cuts` unless given."""
     n_tiles = n_col_blocks * (bn // TC_COLS)
     spb = bk // TC_K_STEP    # steps per block
 
     def plan(m):
-        per = -(-max_blocks_per_col // tc_cuts(-(-M // m) * n_tiles))
+        c = tc_cuts(-(-M // m) * n_tiles) if cuts is None else cuts
+        per = -(-max_blocks_per_col // c)
         per = max(per, -(-TC_MIN_STEPS // spb))
         return BsmTcPlan(m, TC_COLS, per,
                          max(-(-max_blocks_per_col // per), 1))
@@ -330,12 +352,127 @@ def bsm_route(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
                     w_ptr, elem_bytes)
     if plan is not None:
         return "thin_m", plan
-    if x_bf16 and M > THIN_M_MAX and elem_bytes == 1 and bk % TC_K_STEP == 0 \
-            and bk % ratio == 0 and bn % TC_COLS == 0 and w_ptr % 16 == 0 \
-            and x_ptr % 16 == 0:
+    if _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
+                     x_ptr) is None:
         return "tensor_core", bsm_tc_plan(M, bk, bn, n_col_blocks,
                                           max_blocks_per_col)
     return "tiled", None
+
+
+def _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
+                  x_ptr) -> Optional[str]:
+    """Why the tensor-core route cannot take these operands, or None."""
+    if not x_bf16:
+        return "the tensor-core route needs bf16 x"
+    if M <= THIN_M_MAX:
+        return f"the tensor-core route needs M > {THIN_M_MAX}, got {M}"
+    if elem_bytes != 1:
+        return "the tensor-core route needs a 1-byte container"
+    if bk % TC_K_STEP or bk % ratio or bn % TC_COLS:
+        return (f"the tensor-core route needs bk % {TC_K_STEP} == 0 and "
+                f"bn % {TC_COLS} == 0, got block ({bk}, {bn})")
+    if w_ptr % 16 or x_ptr % 16:
+        return "the tensor-core route needs 16-byte aligned x and blocks"
+    return None
+
+
+def _int_plan(plan, n: int, what: str):
+    """``plan`` as a tuple of ``n`` ints (>= 0), or an error string."""
+    try:
+        t = tuple(int(v) for v in plan)
+    except TypeError:
+        return f"{what} needs a plan of {n} ints, got {plan!r}"
+    if len(t) != n or any(v < 0 for v in t) or t != tuple(plan):
+        return f"{what} needs a plan of {n} non-negative ints, got {plan!r}"
+    return t
+
+
+def bsm_plan_error(route: str, plan, M: int, bk: int, bn: int, ratio: int,
+                   n_col_blocks: int, max_blocks_per_col: int, x_bf16: bool,
+                   w_ptr: int = 0, elem_bytes: int = 1,
+                   x_ptr: int = 0) -> Optional[str]:
+    """Why ``route`` with ``plan`` (a :class:`BsmPlan` / :class:`BsmTcPlan`
+    or its tuple of ints; None for "tiled") cannot take the block-sparse
+    matmul of these operands (the arguments of :func:`bsm_route`), or None
+    when it can.  Pure: the wrapper's check of a given plan."""
+    if route == "tiled":
+        return None if plan is None else "the tiled route takes no plan"
+    if route == "thin_m":
+        if bsm_plan(M, bk, bn, ratio, n_col_blocks, max_blocks_per_col,
+                    w_ptr, elem_bytes) is None:
+            return (f"the thin-M route needs M <= {THIN_M_MAX}, a 1-byte "
+                    f"container, bn % 4 == 0, bk % 8 == 0 and 4-byte aligned "
+                    f"blocks, got M={M}, block ({bk}, {bn})")
+        t = _int_plan(plan, 3, "the thin-M route")
+        if isinstance(t, str):
+            return t
+        per, ranges, slices = t
+        cap = thin_block_cap(M, bk)
+        if not 1 <= per <= cap:
+            return f"{per} blocks a range, the stage holds 1 to {cap}"
+        if ranges != -(-max_blocks_per_col // per) \
+                or slices != -(-bn // THIN_COLS):
+            return (f"ranges {ranges} and slices {slices} do not cover "
+                    f"{max_blocks_per_col} blocks of {bn} columns")
+        return None
+    if route == "tensor_core":
+        err = _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
+                            x_ptr)
+        if err is not None:
+            return err
+        t = _int_plan(plan, 4, "the tensor-core route")
+        if isinstance(t, str):
+            return t
+        m_tile, n_tile, per, ranges = t
+        if m_tile not in (64, 128) or n_tile != TC_COLS:
+            return f"tiles {m_tile} x {n_tile}, not 64/128 x {TC_COLS}"
+        if per * (bk // TC_K_STEP) < TC_MIN_STEPS \
+                or ranges != max(-(-max_blocks_per_col // per), 1):
+            return (f"{per} blocks a range over {ranges} ranges: ranges of "
+                    f"at least {TC_MIN_STEPS} steps must cover "
+                    f"{max_blocks_per_col} blocks")
+        return None
+    return f"unknown route {route!r}"
+
+
+def bsm_candidates(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
+                   max_blocks_per_col: int, x_bf16: bool, w_ptr: int = 0,
+                   elem_bytes: int = 1, x_ptr: int = 0):
+    """``(route, plan)`` candidates of a block-sparse matmul for the
+    autotuner, the rule's own (:func:`bsm_route`) first: the thin-M plan
+    with 1, 2 or 4 blocks a range (legal at every thin M too, so a table
+    tuned at one decode row count serves the others); the tensor-core
+    plans with 64- and 128-row tiles crossed with 1, :func:`tc_cuts` and
+    twice that many ranges a column; the tiled route, always legal.  Every
+    one passes :func:`bsm_plan_error`."""
+    args = (M, bk, bn, ratio, n_col_blocks, max_blocks_per_col, x_bf16,
+            w_ptr, elem_bytes, x_ptr)
+    out = [bsm_route(*args)]
+
+    def add(route, plan, also_thin16=False):
+        if (route, plan) in out or bsm_plan_error(route, plan, *args):
+            return
+        if also_thin16 and bsm_plan_error(
+                route, plan, THIN_M_MAX, *args[1:]):
+            return
+        out.append((route, plan))
+
+    if out[0][0] == "thin_m" and max_blocks_per_col:
+        for per in (1, 2, 4):
+            add("thin_m", bsm_plan(M, bk, bn, ratio, n_col_blocks,
+                                   max_blocks_per_col, w_ptr, elem_bytes,
+                                   blocks_per_range=per), True)
+    elif _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
+                       x_ptr) is None:
+        n_tiles = n_col_blocks * (bn // TC_COLS)
+        for m in (64, 128):
+            c = tc_cuts(-(-M // m) * n_tiles)
+            for cuts in (1, c, 2 * c):
+                add("tensor_core", bsm_tc_plan(
+                    M, bk, bn, n_col_blocks, max_blocks_per_col, m_tile=m,
+                    cuts=cuts))
+    add("tiled", None)
+    return out
 
 
 # ------------------------------------------------------------------ wrapper
@@ -382,6 +519,8 @@ def block_sparse_matmul(
     activation=None,
     packed=False,
     name: str = "block_sparse_matmul",
+    plan=None,
+    tuned: bool = False,
 ) -> torch.Tensor:
     """y = act(x @ W + b) for a block-compacted W, in x's dtype.
 
@@ -392,8 +531,15 @@ def block_sparse_matmul(
     Any M >= 1 runs as is: the kernel's row tile masks the rows past M, so
     thin decode batches (the TPU kernel's separate decode entry) need no
     padding.  ``name`` labels errors (the dispatch passes the leaf name).
+
+    ``plan``: a ``(route, plan)`` pair (:func:`bsm_candidates`) to launch
+    instead of the shape rule's; one the call cannot take
+    (:func:`bsm_plan_error`) raises — unless ``tuned`` (it came from a
+    tuned table), when the rule's route and plan run instead, counted in
+    ``tuned_misses``; a tuned plan that runs counts in ``tuned_hits``.
     """
-    global launches, launches_thin, launches_tc, launches_tiled
+    global launches, launches_thin, launches_tc, launches_tiled, \
+        tuned_hits, tuned_misses
     ratio = packed_ratio(packed)
     P, bkp, bn = (int(d) for d in blocks.shape)
     bk = bkp * ratio
@@ -401,6 +547,13 @@ def block_sparse_matmul(
     if K != schedule.n_row_blocks * bk:
         raise ValueError(
             f"{name}: K={K} != n_row_blocks*bk={schedule.n_row_blocks * bk}")
+    shape = (M, bk, bn, ratio, schedule.n_col_blocks,
+             schedule.max_blocks_per_col, x.dtype == torch.bfloat16,
+             blocks.data_ptr(), blocks.element_size(), x.data_ptr())
+    err = None if plan is None else bsm_plan_error(plan[0], plan[1], *shape)
+    if err is not None and not tuned:
+        from .. import check_plan
+        check_plan("block_sparse_matmul", plan[0], plan[1], shape, name=name)
     if not x.is_cuda:
         from .ref import block_sparse_matmul_ref
         from ...core.quant import unpack_codes
@@ -425,10 +578,15 @@ def block_sparse_matmul(
         raise ValueError(
             f"{name}: {P} blocks but the schedule lists "
             f"{int(schedule.rows.numel())}")
-    route, plan = bsm_route(M, bk, bn, ratio, schedule.n_col_blocks,
-                            schedule.max_blocks_per_col,
-                            x.dtype == torch.bfloat16, blocks.data_ptr(),
-                            blocks.element_size(), x.data_ptr())
+    if plan is None or err is not None:
+        if err is not None:
+            tuned_misses += 1
+        route, plan = bsm_route(*shape)
+    else:
+        tuned_hits += int(tuned)
+        route = plan[0]
+        plan = None if route == "tiled" else \
+            (BsmPlan if route == "thin_m" else BsmTcPlan)(*plan[1])
     out = _launch(x, blocks, schedule, scales, bias, activation, ratio, route,
                   plan, name)
     launches += 1

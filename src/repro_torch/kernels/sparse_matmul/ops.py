@@ -38,6 +38,7 @@ def sparse_linear(
     out_dtype=None,
     use_kernel: bool = True,
     leaf: Optional[str] = None,
+    plan=None,
 ) -> torch.Tensor:
     """y = act(x @ W + b) for a compile-time-compacted W.
 
@@ -46,7 +47,9 @@ def sparse_linear(
     along bk (bk divisible by the code count) reaches the kernel in its
     container; any other packing unpacks to the int8 codes first.
     ``use_kernel=False`` runs the plain version.  ``out_dtype`` defaults to
-    x's dtype; x is cast to it first.
+    x's dtype; x is cast to it first.  ``plan``: a tuned ``(route, plan)``
+    for the kernel (``block_sparse_matmul``'s ``plan`` with
+    ``tuned=True``: one the call cannot take runs the shape rule's).
     """
     pat = cl.pattern
     K, N = pat.shape
@@ -71,7 +74,8 @@ def sparse_linear(
         y = block_sparse_matmul(xm.contiguous(), blocks,
                                 schedule_for(pat, x.device), scales=cl.scales,
                                 bias=bias, activation=activation,
-                                packed=packed, name=name)
+                                packed=packed, name=name, plan=plan,
+                                tuned=plan is not None)
     else:
         nR, nC = pat.bitmap.shape
         y = block_sparse_matmul_ref(

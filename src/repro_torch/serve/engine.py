@@ -110,16 +110,29 @@ class ServeEngine:
     then the plain read).  ``capture`` runs the steps as CUDA graphs, one
     per bucket: None captures on CUDA and runs eagerly on the CPU, False
     runs eagerly, True on the CPU raises.
+
+    ``autotune``: False, True (tune the compiled model's leaves at M =
+    ``batch_slots`` with ``autotune_options``, through the on-disk table of
+    :func:`repro_torch.core.autotune.default_cache_path`), or a
+    :class:`~repro_torch.core.autotune.TunedTable` used as it is.  The
+    table rides on the dispatch config with its lookups pinned to
+    ``batch_slots`` rows (prefill chunks read the decode entries; thin-M
+    plans do not depend on M); a quantised cache takes its kv tile from
+    :func:`~repro_torch.core.autotune.autotune_attn`, pinned for the
+    engine's lifetime.  Captured steps capture the tuned plans, so a replay
+    launches what the eager step launches.
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch_slots: int = 4,
                  max_len: int = 256, patterns=None, dispatch=None,
+                 autotune=False, autotune_options=None,
                  kv_cache: str = "float", prefill_chunk: int = 16,
                  packed_read: str = "fused", device=None,
                  capture: Optional[bool] = None):
-        if isinstance(params, CompressedModel):
-            patterns = params.patterns if patterns is None else patterns
-            params = params.params
+        cm = params if isinstance(params, CompressedModel) else None
+        if cm is not None:
+            patterns = cm.patterns if patterns is None else patterns
+            params = cm.params
         self.device = resolve_device(device)
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(
@@ -141,6 +154,9 @@ class ServeEngine:
         self.packed_read = packed_read
         self.prefill_chunk = max(1, int(prefill_chunk))
         self._bt = ATTN_BT_DEFAULT if kv_cache in ("int4", "int4x2") else None
+        if autotune is not False and autotune is not None:
+            self._autotune(cm, autotune, autotune_options,
+                           params["embed"]["w"].dtype)
         self.cache = init_cache(cfg, batch_slots, max_len, kv_cache=kv_cache,
                                 device=self.device)
         self._batch_axes = cache_batch_axes(cfg, kv_cache=kv_cache)
@@ -173,6 +189,37 @@ class ServeEngine:
         self._stats = {"prefill_steps": 0, "decode_steps": 0,
                        "prefill_tokens": 0, "decode_tokens": 0,
                        "prefill_ms": [], "decode_ms": []}
+
+    def _autotune(self, cm, autotune, options, x_dtype) -> None:
+        """Attach the tuned table (tuning ``cm`` first unless one is given)
+        with lookups pinned to ``batch_slots`` rows, and pin the kv tile
+        of a quantised cache from the tuned attention read."""
+        from ..core.autotune import (
+            TuneOptions,
+            TunedTable,
+            autotune_attn,
+            autotune_model,
+        )
+
+        options = options or TuneOptions()
+        if isinstance(autotune, TunedTable):
+            table = autotune
+        elif cm is None:
+            raise ValueError(
+                "ServeEngine(autotune=True) needs a CompressedModel — a raw "
+                "parameter tree has no compiled leaves to tune")
+        else:
+            table = autotune_model(cm, M=self.slots, x_dtype=x_dtype,
+                                   options=options)
+        self.dispatch = dataclasses.replace(self.dispatch, tuned=table,
+                                            m_bucket=self.slots)
+        if self._bt is not None:
+            cfg = self.cfg
+            self._bt = autotune_attn(
+                B=self.slots, T=self.max_len, H=cfg.n_heads,
+                Hkv=cfg.n_kv_heads, Dh=cfg.head_dim, x_dtype=x_dtype,
+                packed=self.kv_cache == "int4x2", options=options,
+                table=table, device=self.device).bt or ATTN_BT_DEFAULT
 
     def submit(self, req: Request):
         if len(req.prompt) == 0:

@@ -14,7 +14,8 @@ Every cell that runs must pass the reference's ``check_matrix`` rules
 against the committed row: container bytes exactly, stored-bits ratio
 within 1e-6 of it, dense top-1 within ``TOP1_REGRESSION_TOL``, every
 floor, the ``expected_fail`` cells failing their dense floor.  The
-``autotune@8`` cells are reported not run (ROADMAP Queue A item 7).
+``autotune@8`` cells run too (``tuned_policy``'s picks) and are held to
+the committed bytes, where the reference exempts them.
 """
 import json
 import pathlib
@@ -88,7 +89,7 @@ def test_grid_extents_and_key_format_pinned():
     assert len({b for _, _, b in specs}) >= 3
     assert acc.cell_key("lenet", "quant", 4) == "lenet/quant@4"
     assert {acc.cell_key(*s) for s in specs} == set(COMMITTED["cells"])
-    assert len(RUN) == 60 and len(AUTOTUNE) == 4
+    assert len(RUN) == 64 and len(AUTOTUNE) == 4
 
 
 @pytest.mark.parametrize("key", RUN)
@@ -101,7 +102,7 @@ def test_cell_passes_against_committed_row(checked, key):
 def test_check_has_no_structural_failure(checked):
     chk, lines = checked
     assert chk.fails == []
-    assert sum("not run" in ln for ln in lines) == 4
+    assert sum("not run" in ln for ln in lines) == 0
 
 
 @pytest.mark.parametrize("config", acc.ZOO_CONFIGS)
@@ -116,19 +117,14 @@ def test_expected_fail_cells_fail_and_bfp8_at_2_passes(checked, config):
     assert not b2.expected_fail and b2.dense_top1 >= floor
 
 
-@pytest.mark.parametrize("key", AUTOTUNE)
-def test_autotune_cells_are_reported_not_run(checked, built, key):
+def test_every_cell_runs(checked, built):
+    """All 64 cells run, the 4 autotune cells among them, with the
+    reference's ``tuned_policy`` picks (``sparse`` everywhere)."""
     chk, _ = checked
-    assert key not in chk.results
-    assert "Queue A item 7" in chk.not_run[key]
-    assert key not in built["cells"] and key in built["not_run"]
-
-
-def test_only_the_autotune_cells_are_not_run(checked, built):
-    chk, _ = checked
-    assert sorted(chk.not_run) == sorted(AUTOTUNE)
-    assert sorted(built["not_run"]) == sorted(AUTOTUNE)
-    assert sorted(built["cells"]) == sorted(RUN)
+    assert acc.NOT_RUN == {} and chk.not_run == {} and built["not_run"] == {}
+    assert sorted(chk.results) == sorted(built["cells"]) == sorted(RUN)
+    for key in AUTOTUNE:
+        assert built["cells"][key]["policies_used"] == ["sparse"]
 
 
 @pytest.mark.parametrize("key", RUN)
@@ -216,7 +212,7 @@ def test_floor_fails_names_each_broken_condition(built):
         fails = acc.floor_fails(bad)
         assert len(fails) == 1 and said in fails[0], (key, fails)
     bad = copy.deepcopy(built)
-    bad["not_run"].pop(AUTOTUNE[0])
+    bad["not_run"][AUTOTUNE[0]] = "dropped"
     assert acc.floor_fails(bad) and "not run" in acc.floor_fails(bad)[0]
 
 

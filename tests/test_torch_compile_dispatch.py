@@ -141,9 +141,13 @@ def test_compile_model_errors(models):
                            device="cpu")
     assert [(r.name, r.policy) for r in tcm.report] == \
         [(r.name, r.policy) for r in jcm.report]
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
-            policies={"wq": "autotune"}, min_weight_elems=1 << 20))
+    # "autotune" takes tuned_policy's pick, the reference's
+    kw = dict(policies={"wq": "autotune"}, min_weight_elems=1 << 20)
+    jcm = jc.compile_model(jp, jcfg, rules=jc.CompileRules(**kw))
+    tcm = tc.compile_model(tp, tcfg, device="cpu",
+                           rules=tc.CompileRules(**kw))
+    assert [(r.name, r.policy, r.container_bytes) for r in tcm.report] == \
+        [(r.name, r.policy, r.container_bytes) for r in jcm.report]
     with pytest.raises(ValueError, match="unknown policy"):
         tc.compile_model(tp, tcfg, device="cpu", rules=tc.CompileRules(
             policies={"wq": "perchannel8"}, min_weight_elems=1 << 20))

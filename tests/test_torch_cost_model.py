@@ -337,16 +337,3 @@ def test_compile_conv_without_policy_matches_reference():
                                           device="cpu")
         assert dataclasses.asdict(trep) == dataclasses.asdict(jrep)
         assert (tpat is None) == (jpat is None)
-
-
-def test_autotune_policy_still_raises_and_names_its_queue_item():
-    w = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tc.compile_conv(w.reshape(1, 1, 64, 64), policy="autotune",
-                        device="cpu")
-    tp = interop.params_from_numpy(
-        {k: np.asarray(v)
-         for k, v in jl.init_lenet(jax.random.PRNGKey(0)).items()}, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tc.compile_lenet(tp, rules=tc.CompileRules(
-            policies={"fc1": "autotune"}), device="cpu")
