@@ -83,8 +83,9 @@ Phases, each fatal on failure:
    convs, the fused forward against the twin with its launches, and
    ``run_dse`` / ``balanced_folding_baseline`` at the Table-I budget on
    both HWSpecs (estimates);
-7. zoo     — qwen1.5-4b and starcoder2-7b at full width (bf16, random
-   weights from a seed), each compiled with the serve phase's rules (no
+7. zoo     — qwen1.5-4b and starcoder2-7b at full width, cut to 10 and 8
+   layers in depth (``ZOO_LAYERS``; bf16, random weights from a seed),
+   each compiled with the serve phase's rules (no
    ``wg`` for starcoder2's GELU MLP; the untied head takes the cost
    model's pick), with its host and device memory peaks; the twin check
    (a prefill chunk and 4 decode steps; the float cache within
@@ -98,6 +99,23 @@ Phases, each fatal on failure:
    kernels (``build_matrix``, ``dispatch="kernel"``): every oracle floor,
    the 8 expected_fail cells failing, bfp8@2 passing, all 64 cells run
    (the 4 autotune cells among them), each cell's decode time;
+7b. encoder_vlm_moe — four configs at full width (bf16, random weights
+   from seed 0), each compiled with ``zoo_rules`` (the head left to the
+   cost model), each path's counts set to 0 just before it and read just
+   after: hubert-xlarge's compiled forward on 4 x 1024 frame embeddings
+   (non-causal; every matmul on its rule's route, 48 flash calls on the
+   CUDA-core route for Dh 80), held against the twin within
+   ``TWIN_TOL["float"]``; phi-3-vision-4.2b's twin check, its 16 requests
+   served captured (every launch on its rule's route, the Dh 96 reads on
+   the single kernel) with the capture check, its captured step profiles
+   and the compiled forward over 576 prefix embeddings and 512 tokens;
+   olmoe-1b-7b and qwen2-moe-a2.7b (cut to 4 of 24 layers) through the
+   token drip: a twin check that also counts the router choices that
+   differ (``MOE_TWIN_TOL``), 16 and 4 requests served captured per bucket
+   with every launch on its rule's route and the bitwise capture check,
+   and the captured drip step's profile; the flash kernel at Dh 80 and
+   96 and the single packed read at Dh 96 timed beside their bounds,
+   plain versions and SDPA;
 8. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
@@ -1533,22 +1551,24 @@ def serve_run(cm, cfg, dev, prompts, count=False, **kw):
 
 
 def capture_check(eng, cfg):
-    """One captured decode step and one captured prefill chunk, replayed
-    from a saved cache state, against the same step run eagerly from that
-    state: logits and cache bit for bit, and the same launches."""
+    """One captured step of each phase the engine captured (a decode step
+    and a prefill chunk; a drip step), at its largest bucket, replayed from
+    a saved cache state, against the same step run eagerly from that state:
+    logits and cache bit for bit, and the same launches."""
     out = {}
-    cases = {"decode": max(tb for ph, tb in eng._graphs if ph == "decode"),
-             "prefill": max(tb for ph, tb in eng._graphs if ph == "prefill")}
+    cases = {}
+    for ph, tb in eng._graphs:
+        cases[ph] = max(tb, cases.get(ph, 0))
     rng = np.random.default_rng(3)
     eng._fill("tok", rng.integers(0, cfg.vocab, (eng.slots, 1)))
     eng._fill("act", np.ones(eng.slots, np.int32))
     eng._fill("ptok", rng.integers(0, cfg.vocab, (1, eng.prefill_chunk)))
     eng._fill("nv", eng.prefill_chunk)
     eng._fill("slot", 3)
-    eng.cache["length"].fill_(cases["decode"] // 2)
+    eng.cache["length"].fill_(cases.get("decode", max(cases.values())) // 2)
     saved = {k: v.clone() for k, v in eng.cache.items()}
     for phase, tb in cases.items():
-        fn = eng._decode_fn if phase == "decode" else eng._prefill_fn
+        fn = eng.phase_fn(phase)
         torch.cuda.synchronize()
         reset_counts()
         eager = fn(tb).clone()
@@ -1647,7 +1667,7 @@ def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
 
     def step():
         logits = eng._step_logits(phase, 256)
-        last = logits[:, 0] if phase == "decode" else logits[0]
+        last = logits[0] if phase == "prefill" else logits[:, 0]
         torch.argmax(last, dim=-1).cpu()
         length.fill_(200)
 
@@ -1824,7 +1844,8 @@ def twin_check(cm, cfg, dev, prompt, kv_cache, want=None, tol=None):
             want = dict(want or {QMM_THIN: 4 * L, QMM_TC: 0, QMM_TILED: 0,
                                  BSM_THIN: 3 * L, BSM_TC: 0, BSM_TILED: 0})
             if kv_cache != "float":
-                want.update({PDA_SPLIT: L, PDA_SINGLE: 0})
+                want.update({PDA_SPLIT: 0, PDA_SINGLE: 0})
+                want[pda_route(cfg, 1, 1, 64)] = L
             got = {k: per_step[k] for k in want}
             require(got == want, f"{kv_cache} cache: a decode step launched "
                                  f"{got} by route, expected {want}")
@@ -3002,9 +3023,12 @@ ZOO_LEAVES = {"qwen1.5-4b": ("blocks/attn/wq", "blocks/mlp/wg",
               "starcoder2-7b": ("blocks/attn/wq", "blocks/attn/wk",
                                 "blocks/mlp/wu", "blocks/mlp/wd", "head")}
 ZOO_M = 8
+# the zoo configs' depth on the card: a quarter of their layers (40 and
+# 32), at full width, so the script stays well inside its time limit
+ZOO_LAYERS = {"qwen1.5-4b": 10, "starcoder2-7b": 8}
 # The zoo configs' int4x2 twin bound.  qwen1.5-4b keeps TWIN_TOL.  For
 # starcoder2-7b the gap is int4 K/V code flips compounding through its 32
-# layers: a one-step bf16 difference flips a code, which moves that value
+# layers (measured at its full depth): a one-step bf16 difference flips a code, which moves that value
 # by amax/7.  ``twin_layers`` records it on the card: the share of a
 # layer's K/V codes that differ between the kernel and plain paths grows
 # with depth, while with the float cache the two agree within TWIN_TOL;
@@ -3018,11 +3042,15 @@ MATRIX_KERNELS = ("block_sparse_matmul", "quant_matmul", "block_sparse_conv",
 
 
 def zoo_rules(cfg):
-    """SERVE_RULES for ``cfg``: a GELU MLP has no ``wg``, and a policy key
-    that names no leaf raises in ``compile_model``, so it is dropped."""
+    """SERVE_RULES for ``cfg``: a policy key that names no leaf raises in
+    ``compile_model``, so the keys ``cfg`` has no leaf for are dropped (a
+    GELU MLP has no ``wg``; an MoE without a shared expert has no MLP
+    leaf, its routed experts and router are never compiled)."""
     from repro_torch.core.compile_sparse import CompileRules
+    mlp = cfg.family != "moe" or cfg.n_shared_experts
     pols = {k: v for k, v in SERVE_RULES["policies"].items()
-            if k != "wg" or cfg.act == "swiglu"}
+            if (k != "wg" or cfg.act == "swiglu")
+            and (mlp or k not in ("wg", "wu", "wd"))}
     return CompileRules(**{**SERVE_RULES, "policies": pols})
 
 
@@ -3052,6 +3080,43 @@ class RssPeak:
         self._stop.set()
         self._thread.join()
         self.peak = max(self.peak, self._rss())
+
+
+def family_model(arch, dev, layers=None):
+    """A config at full width (``layers`` cuts its depth) from seed 0,
+    compiled with ``zoo_rules`` (the head left to the cost model), with
+    the compile's host and device peaks (the zoo and encoder/VLM/MoE
+    phases)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_sparse import compile_model
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with RssPeak() as rss:
+        cm = compile_model(params, cfg, rules=zoo_rules(cfg), device=dev)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    out = {"n_layers": cfg.n_layers, "init_params_s": t1 - t0,
+           "compile_s": t2 - t1, "host_rss_before_compile": rss.before,
+           "host_rss_peak_compile": rss.peak,
+           "device_peak_init_compile": torch.cuda.max_memory_allocated(),
+           "param_bytes": int(sum(r.dense_bytes for r in cm.report)),
+           "container_storage_bytes": cm.container_storage_bytes,
+           "byte_compression": cm.byte_compression,
+           "policies": {r.name: r.policy for r in cm.report}}
+    print(f"{arch}: {cfg.n_layers} layers compiled in {out['compile_s']:.1f}"
+          f" s, policies {json.dumps(out['policies'])}", flush=True)
+    return cm, cfg, out
 
 
 def head_route(cm, dev, M):
@@ -3241,44 +3306,19 @@ def zoo_attention_row(cfg, dev, B, C, lens, T=512, bt=64):
 
 
 def zoo_model(arch, dev):
-    """One config at full width: compile with the serving rules (host and
-    device peaks), the twin check, the serve phase's 16 requests captured
+    """One config at full width, cut to ``ZOO_LAYERS`` in depth: compile
+    with the serving rules (host and device peaks), the twin check, the serve phase's 16 requests captured
     (every launch on the route its rule names) and eagerly (the same
     tokens), the captured steps' profiles, and the leaf and attention
     rows."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.compile_sparse import compile_model
-    from repro_torch.models.model import init_params
-
-    cfg = get_config(arch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with RssPeak() as rss:
-        cm = compile_model(params, cfg, rules=zoo_rules(cfg), device=dev)
-        torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del params
-    torch.cuda.empty_cache()
-    out = {"init_params_s": t1 - t0, "compile_s": t2 - t1,
-           "host_rss_before_compile": rss.before,
-           "host_rss_peak_compile": rss.peak,
-           "device_peak_init_compile": torch.cuda.max_memory_allocated(),
-           "container_storage_bytes": cm.container_storage_bytes,
-           "byte_compression": cm.byte_compression,
-           "policies": {r.name: r.policy for r in cm.report}}
+    cm, cfg, out = family_model(arch, dev, ZOO_LAYERS[arch])
     out["head_route"] = {M: head_route(cm, dev, M) for M in (1, 8, 16)}
     out["launches_per_step"] = {
         "decode": decode_want(cm, cfg, dev, 8),
         "prefill": decode_want(cm, cfg, dev, 16)}
-    print(f"zoo {arch}: compiled in {out['compile_s']:.1f} s (host RSS peak "
-          f"{rss.peak} bytes), policies {json.dumps(out['policies'])}; the "
-          f"head, picked by the cost model: {out['policies'].get('head')} "
-          f"on the routes {json.dumps(out['head_route'])} (rows M)",
-          flush=True)
+    print(f"zoo {arch}: the head, picked by the cost model: "
+          f"{out['policies'].get('head')} on the routes "
+          f"{json.dumps(out['head_route'])} (rows M)", flush=True)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
@@ -3388,6 +3428,356 @@ def zoo(dev, report, kernels):
     report["zoo_rows"] = rows
 
 
+# -------------------------------------------- encoder, VLM and MoE families
+
+
+ENCODER_ARCH, VLM_ARCH = "hubert-xlarge", "phi-3-vision-4.2b"
+ENCODER_BATCH = (4, 1024)     # 4 clips of 1024 frames (~20 s of audio each)
+VLM_PREFIX, VLM_TOKENS = 576, 512
+# MoE configs served by the token drip: (arch, layers kept, requests).
+# qwen2-moe-a2.7b is cut to 4 of its 24 layers to stay in time; olmoe-1b-7b
+# runs whole.
+MOE_PATHS = (("olmoe-1b-7b", None, 16), ("qwen2-moe-a2.7b", 4, 4))
+# The MoE configs' int4x2 twin bound.  The gap is starcoder2-7b's K/V code
+# flips plus the router's: a bf16 step that moves a gate across its
+# neighbour changes the token's top-k, a discontinuous change that then
+# compounds through the layers.  ``moe_twin_check`` records it on the card
+# (NVIDIA H100 80GB HBM3, 700 W): with the float cache the kernel and plain
+# paths differ by 0.017-0.046 of the largest logit (olmoe-1b-7b) with 2.0%
+# of the router choices flipped; with the int4x2 cache by 0.099-0.125 with
+# 7.5% flipped, rising with depth; qwen2-moe-a2.7b (4 layers) 0.030-0.113;
+# and the plain bf16 path is itself 0.16-0.19 (olmoe-1b-7b) and 0.15-0.29
+# (qwen2-moe-a2.7b) from the plain f32 path, with 9-12% of its router
+# choices flipped.  So the kernel path is held to 0.15, starcoder2-7b's
+# bound, and to no more than the plain bf16 path's distance from f32.
+MOE_TWIN_TOL = {"olmoe-1b-7b": 0.15, "qwen2-moe-a2.7b": 0.15}
+
+
+def forward_check(cm, cfg, dev, batch, want):
+    """The compiled full-sequence forward on ``batch``: the launches by
+    route ``want`` names, finite logits held against ``dispatch="twin"``
+    within the serving path's float tolerance; then its wall time, device
+    busy time and idle share."""
+    from repro_torch.models.model import forward
+
+    with torch.no_grad():
+        forward(cm.params, cfg, batch, patterns=cm.patterns)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = forward(cm.params, cfg, batch, patterns=cm.patterns)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        yt = forward(cm.params, cfg, batch, patterns=cm.patterns,
+                     dispatch="twin")
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{cfg.name} forward launched {got} by route, "
+                         f"expected {want}")
+    y, yt = y.float(), yt.float()
+    require(bool(torch.isfinite(y).all()), f"{cfg.name} forward: non-finite")
+    top = float(yt.abs().max())
+    rel = float((y - yt).abs().max()) / top
+    tol = TWIN_TOL["float"]
+    require(rel <= tol, f"{cfg.name} forward: kernel vs twin logits max rel "
+                        f"err {rel} > {tol}")
+    shape = tuple(y.shape)
+    del y, yt
+
+    def fwd():
+        with torch.no_grad():
+            forward(cm.params, cfg, batch, patterns=cm.patterns)
+
+    prof = profile_forward(fwd, steps=3)
+    top_us = sorted(prof.pop("device_us_per_forward").items(),
+                    key=lambda kv: -kv[1])[:8]
+    return {"logits_shape": list(shape), "launches": got, "max_rel_err": rel,
+            "tol": tol, "largest_logit": top, **prof,
+            "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
+
+
+def flash_row(dev, cfg, B, T, causal):
+    """The flash kernel at one layer of a forward of ``cfg`` (B x T, its
+    heads and head dim) on the route ``flash_route`` names, held against
+    its plain version and timed beside its bound and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ins = [[torch.randn(s_, device=dev).to(torch.bfloat16)
+            for s_ in ((B, T, H, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
+           for _ in range(4)]
+    q, k, v = ins[0]
+    route = fk.flash_route(q, k, v)
+    routes = {"tensor_core": "launches_tc", "cuda_core": "launches_cc"}
+    y = took_route(fk, routes, route, lambda: fk.flash_attention_fwd(
+        q, k, v, causal=causal))
+    ref = fk.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    tol = flash_tol(torch.bfloat16, ref)
+    require(err <= tol, f"flash {cfg.name} Dh={Dh}: max abs err {err}")
+    pairs = T * (T + 1) / 2 if causal else T * T
+    b, by = bound(nbytes(q, k, v, y), 4.0 * B * H * Dh * pairs, "bf16")
+    heads = [[t.permute(0, 2, 1, 3) for t in qkv] for qkv in ins]
+    return {"config": cfg.name, "shape": f"B={B} T={T} H={H} Hkv={Hkv} "
+            f"Dh={Dh} bf16 {'causal' if causal else 'non-causal'}",
+            "route": route, "max_abs_err": err, "tol": tol,
+            "ms": device_ms(lambda i: lambda: fk.flash_attention_fwd(
+                *ins[i], causal=causal), 4),
+            "plain_ms": device_ms(lambda i: lambda: fk.flash_attention_plain(
+                *ins[i], causal=causal), 2),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(
+                lambda i: lambda: F.scaled_dot_product_attention(
+                    *heads[i], is_causal=causal, enable_gqa=True), 4)}
+
+
+def encoder_path(dev):
+    """hubert-xlarge at full width: the compiled forward on 4 x 1024 frame
+    embeddings, non-causal; every linear on its rule's route, the
+    attention on the flash kernel's CUDA-core route (Dh 80)."""
+    cm, cfg, out = family_model(ENCODER_ARCH, dev)
+    B, T = ENCODER_BATCH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((B, T, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    want = decode_want(cm, cfg, dev, B * T)
+    want.update({FLASH_TC: 0, FLASH_CC: cfg.n_layers})
+    out["forward"] = forward_check(cm, cfg, dev, {"frame_embeds": frames},
+                                   want)
+    out["forward"]["frames"] = [B, T]
+    print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
+    del cm, frames
+    torch.cuda.empty_cache()
+    return out, {"flash_attention": [flash_row(dev, cfg, B, T, False)]}
+
+
+def vlm_path(dev):
+    """phi-3-vision-4.2b at full width: the twin check, the 16 requests
+    served captured with every launch on its rule's route (the Dh 96 reads
+    on the single kernel) and the capture check, the captured step
+    profiles, then the compiled forward over 576 prefix embeddings and 512
+    tokens."""
+    cm, cfg, out = family_model(VLM_ARCH, dev)
+    prompts = serve_prompts(cfg)
+    tw = twin_check(cm, cfg, dev, prompts[0][:16], "int4x2",
+                    want=decode_want(cm, cfg, dev))
+    out["twin_check"] = {k: tw[k] for k in ("max_rel_err", "tol", "steps")}
+    torch.cuda.reset_peak_memory_stats()
+    eng, cap, counts = serve_run(cm, cfg, dev, prompts, count=True)
+    out["capture_check"] = capture_check(eng, cfg)
+    del eng
+    want = serve_want(cm, cfg, dev, cap["decode_steps"], cap["prefill_steps"])
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{cfg.name}: served launches by route {got}, the "
+                         f"shape rules name {want}")
+    tokens = cap.pop("tokens")
+    require(all(len(t) == 32 and all(0 <= v < cfg.vocab for v in t)
+                for t in tokens), f"{cfg.name}: a request got a bad answer")
+    out["device_peak_serve"] = torch.cuda.max_memory_allocated()
+    out["serve"] = {**cap, "launches": {k: v for k, v in counts.items() if v}}
+    out["step_profile"] = {f"{ph}_captured": profile_step(cm, cfg, dev, ph,
+                                                          True)
+                           for ph in ("decode", "prefill")}
+    print(f"{cfg.name}: twin check {json.dumps(out['twin_check'])}; capture "
+          f"check {json.dumps(out['capture_check'])}", flush=True)
+    print(f"{cfg.name}: serve {json.dumps(out['serve'])}", flush=True)
+    print(f"{cfg.name}: step profile {json.dumps(out['step_profile'])}",
+          flush=True)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (1, VLM_TOKENS)), dtype=torch.int32, device=dev),
+        "prefix_embeds": torch.as_tensor(rng.standard_normal(
+            (1, VLM_PREFIX, cfg.d_model)), dtype=torch.bfloat16,
+            device=dev)}
+    T = VLM_PREFIX + VLM_TOKENS
+    want = decode_want(cm, cfg, dev, T)
+    want.update({FLASH_TC: 0, FLASH_CC: cfg.n_layers})
+    out["forward"] = forward_check(cm, cfg, dev, batch, want)
+    out["forward"]["prefix_tokens"] = [VLM_PREFIX, VLM_TOKENS]
+    print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
+    del cm
+    torch.cuda.empty_cache()
+    lens = np.random.default_rng(1).integers(64, 320, size=(8, 1))
+    rows = {"packed_decode_attention": [
+        zoo_attention_row(cfg, dev, 8, 1, lens),
+        zoo_attention_row(cfg, dev, 1, 16, 200 + np.arange(1, 17)[None])],
+        "flash_attention": [flash_row(dev, cfg, 1, T, True)]}
+    return out, rows
+
+
+def moe_twin_check(cm, cfg, dev, prompt, tol=None):
+    """The MoE kernel path against its plain versions on the card: the
+    prompt dripped a token at a time, then 4 greedy decode steps, all
+    teacher-forced with the kernel path's tokens, through five paths: the
+    kernel and plain paths on the int4x2 cache and on the float cache,
+    and the plain path in f32 (its bf16 leaves cast up) on the int4x2
+    cache.  The int4x2 kernel path's logits must lie within ``tol``
+    (default ``MOE_TWIN_TOL``) of the plain path's, relative to the
+    largest, at the prompt's last token and each step, and no farther than
+    the plain path lies from the plain f32 path; its greedy tokens equal
+    or tied, and a decode step's launches on the routes their rules
+    name.  Recorded beside it: each pair's logit gaps and the share of
+    router choices (token, expert) that differ, per layer."""
+    from repro_torch.models import blocks
+    from repro_torch.models.model import decode_step, init_cache
+    from repro_torch.tree import tree_map
+
+    tol = MOE_TWIN_TOL[cfg.name] if tol is None else tol
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                   cm.params)
+    paths = {"kernel": (cm.params, cfg, "auto", "int4x2"),
+             "plain": (cm.params, cfg, "twin", "int4x2"),
+             "kernel_float": (cm.params, cfg, "auto", "float"),
+             "plain_float": (cm.params, cfg, "twin", "float"),
+             "plain_f32": (p32, f32, "twin", "int4x2")}
+    ids = {k: [] for k in paths}
+    logits = {k: [] for k in paths}
+    route = blocks.moe_route
+    cur = [None]
+
+    def spy(p, cfg_, xt, dispatch=None):
+        r = route(p, cfg_, xt, dispatch)
+        ids[cur[0]].append(r[0])
+        return r
+
+    caches = {k: init_cache(c, 1, 512, kv_cache=kv, device=dev)
+              for k, (_, c, _, kv) in paths.items()}
+    per_step = None
+    blocks.moe_route = spy
+    try:
+        feed = [int(t) for t in prompt]
+        for i in range(len(prompt) + 4):
+            tok = torch.tensor([[feed[i]]], device=dev)
+            for k, (p, c, mode, _) in paths.items():
+                cur[0] = k
+                first = k == "kernel" and i == len(prompt)
+                if first:
+                    reset_counts()
+                y = decode_step(p, c, caches[k], tok, patterns=cm.patterns,
+                                dispatch=mode, t_bound=32, bt=64)[0][0, 0]
+                if first:
+                    per_step = read_counts()
+                if i >= len(prompt) - 1:
+                    logits[k].append(y.float())
+            if i >= len(prompt) - 1:
+                feed.append(int(torch.argmax(logits["kernel"][-1])))
+    finally:
+        blocks.moe_route = route
+    del p32
+    L = cfg.n_layers
+    pairs = {}
+    for a, b in (("kernel", "plain"), ("kernel_float", "plain_float"),
+                 ("kernel", "plain_f32"), ("plain", "plain_f32")):
+        flips = [0] * L
+        for n, (x, y) in enumerate(zip(ids[a], ids[b])):
+            flips[n % L] += sum(len(set(u.tolist()) - set(v.tolist()))
+                                for u, v in zip(x, y))
+        calls = len(ids[a]) // L
+        pairs[f"{a}_vs_{b}"] = {
+            "logits": [float((x - y).abs().max() / y.abs().max())
+                       for x, y in zip(logits[a], logits[b])],
+            "router_flip_share": sum(flips) / (calls * L * cfg.top_k),
+            "router_flip_share_by_layer": [f / (calls * cfg.top_k)
+                                           for f in flips]}
+    steps = []
+    for a, t in zip(logits["kernel"], logits["plain"]):
+        require(bool(torch.isfinite(a).all() and torch.isfinite(t).all()),
+                f"{cfg.name}: non-finite logits")
+        tk, tt = int(torch.argmax(a)), int(torch.argmax(t))
+        top = float(t.abs().max())
+        steps.append({
+            "token": tk, "plain_token": tt,
+            "rel_err": float((a - t).abs().max()) / top,
+            "tie": tk != tt and all(
+                abs(float(v[tk] - v[tt])) <= tol * top for v in (a, t))})
+    max_rel = max(s_["rel_err"] for s_ in steps)
+    out = {"steps": steps, "max_rel_err": max_rel, "tol": tol,
+           "launches_per_decode_step": {k: v for k, v in per_step.items()
+                                        if v}, "pairs": pairs}
+    print(f"{cfg.name}: twin check {json.dumps(out)}", flush=True)
+    want = decode_want(cm, cfg, dev)
+    want.update({PDA_SPLIT: 0, PDA_SINGLE: 0})
+    want[pda_route(cfg, 1, 1, 64)] = L
+    got = {k: per_step[k] for k in want}
+    require(got == want, f"{cfg.name}: a decode step launched {got} by "
+                         f"route, expected {want}")
+    require(max_rel <= tol, f"{cfg.name}: kernel vs plain logits max rel err "
+                            f"{max_rel} > {tol}")
+    bf16_gap = max(pairs["plain_vs_plain_f32"]["logits"])
+    require(max_rel <= bf16_gap,
+            f"{cfg.name}: kernel vs plain logits max rel err {max_rel} "
+            f"exceeds the plain bf16 path's distance from f32, {bf16_gap}")
+    for i, s_ in enumerate(steps):
+        require(s_["token"] == s_["plain_token"] or s_["tie"],
+                f"{cfg.name}: greedy token differs between kernel and plain "
+                f"path at step {i}: {s_}")
+    return out
+
+
+def moe_path(arch, layers, n_requests, dev):
+    """An MoE config at full width (``layers`` cuts its depth): the twin
+    check with its router flips, then ``n_requests`` of the serve phase's
+    requests through the token drip, captured per bucket, every launch on
+    the route its rule names, and the capture check; the captured drip
+    step's profile."""
+    cm, cfg, out = family_model(arch, dev, layers)
+    prompts = serve_prompts(cfg)[:n_requests]
+    out["twin_check"] = moe_twin_check(cm, cfg, dev, prompts[0][:16])
+    torch.cuda.reset_peak_memory_stats()
+    eng, cap, counts = serve_run(cm, cfg, dev, prompts, count=True)
+    require(cap["prefill_steps"] == 0 and cap["graphs"] > 0,
+            f"{cfg.name}: the drip ran {cap['prefill_steps']} prefill steps, "
+            f"{cap['graphs']} graphs")
+    out["capture_check"] = capture_check(eng, cfg)
+    require(set(out["capture_check"]) == {"drip"},
+            f"{cfg.name}: captured phases {sorted(out['capture_check'])}")
+    del eng
+    want = serve_want(cm, cfg, dev, cap["decode_steps"], 0)
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{cfg.name}: served launches by route {got}, the "
+                         f"shape rules name {want}")
+    tokens = cap.pop("tokens")
+    require(all(len(t) == 32 and all(0 <= v < cfg.vocab for v in t)
+                for t in tokens), f"{cfg.name}: a request got a bad answer")
+    out["device_peak_serve"] = torch.cuda.max_memory_allocated()
+    out["serve"] = {**cap, "requests": n_requests,
+                    "launches": {k: v for k, v in counts.items() if v}}
+    out["step_profile"] = {"drip_captured": profile_step(cm, cfg, dev, "drip",
+                                                         True)}
+    print(f"{cfg.name}: capture check {json.dumps(out['capture_check'])}; "
+          f"serve {json.dumps(out['serve'])}", flush=True)
+    print(f"{cfg.name}: step profile {json.dumps(out['step_profile'])}",
+          flush=True)
+    del cm
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_vlm_moe(dev, report):
+    """The encoder, VLM and MoE phase, each path's launch counts set to 0
+    just before it and read just after; its flash_attention and
+    packed_decode_attention rows at the new head dims go to
+    ``report["encoder_vlm_moe_rows"]`` (the kernels line's entries gain
+    them as an ``encoder_vlm_moe`` list)."""
+    out, rows = {}, {}
+    report["encoder_vlm_moe"] = out
+    report["encoder_vlm_moe_rows"] = rows
+    t0 = time.perf_counter()
+    for name, fn in ((ENCODER_ARCH, encoder_path), (VLM_ARCH, vlm_path)):
+        t = time.perf_counter()
+        out[name], r = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t
+        for k, v in r.items():
+            rows.setdefault(k, []).extend(v)
+    for arch, layers, n in MOE_PATHS:
+        t = time.perf_counter()
+        out[arch] = moe_path(arch, layers, n, dev)
+        out[arch]["seconds"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+
+
 
 
 def main() -> int:
@@ -3493,6 +3883,14 @@ def main() -> int:
               + json.dumps({k: r["container_bytes"]
                             for k, r in mat["cells"].items()}), flush=True)
         print("zoo rows: " + json.dumps(report["zoo_rows"]), flush=True)
+        encoder_vlm_moe(dev, report)
+        evm = report["encoder_vlm_moe"]
+        print(f"encoder/VLM/MoE ({evm['seconds']:.1f} s) launches by route: "
+              + json.dumps({a: r.get("serve", r.get("forward", {})).get(
+                  "launches") for a, r in evm.items() if isinstance(r, dict)}),
+              flush=True)
+        print("encoder/VLM/MoE rows: "
+              + json.dumps(report["encoder_vlm_moe_rows"]), flush=True)
         train_counts = train(dev, report)
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)
@@ -3504,6 +3902,10 @@ def main() -> int:
             "top_device_us_per_step": {k[:80]: v for k, v in top}}),
             flush=True)
         kernels.append(measure_flash(dev, train_counts))
+        for k in kernels:
+            if k["name"] in report["encoder_vlm_moe_rows"]:
+                k["encoder_vlm_moe"] = report["encoder_vlm_moe_rows"][
+                    k["name"]]
         report["kernels"] = kernels
     finally:
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -10,13 +10,17 @@ from ..models.config import SHAPES, ArchConfig, ShapeSpec
 __all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeSpec", "get_config",
            "reduced_config"]
 
-# the reference's registry order (``repro.configs._MODULES``), dense
-# entries only; the other families come with ROADMAP Queue A item 8
+# the reference's registry order (``repro.configs._MODULES``) without the
+# SSM and hybrid entries (xlstm-1.3b, zamba2-2.7b: ROADMAP Queue A item 8)
 _MODULES = {
     "llama3-405b": "llama3_405b",
     "qwen1.5-4b": "qwen1_5_4b",
     "starcoder2-7b": "starcoder2_7b",
     "llama3.2-1b": "llama3_2_1b",
+    "hubert-xlarge": "hubert_xlarge",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -34,11 +38,16 @@ def get_config(arch: str) -> ArchConfig:
 
 def reduced_config(arch: str) -> ArchConfig:
     """Tiny same-family config for CPU runs and tests (a copy of
-    ``repro.configs.reduced_config`` for the dense family)."""
+    ``repro.configs.reduced_config`` for the port's families)."""
     cfg = get_config(arch)
     small: dict = dict(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=128,
         head_dim=16, param_dtype="float32", remat=False,
     )
     small["n_kv_heads"] = 4 if cfg.n_kv_heads == cfg.n_heads else 2
+    if cfg.family == "moe":
+        small.update(n_experts=8, top_k=min(cfg.top_k, 4), d_expert=32,
+                     n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.frontend == "patch":
+        small.update(n_prefix_tokens=4)
     return dataclasses.replace(cfg, **small)

@@ -32,6 +32,7 @@ policies; ``H100_SXM`` is opt-in.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -359,18 +360,25 @@ def compile_model(
     rules: CompileRules = CompileRules(),
     device=None,
 ) -> CompressedModel:
-    """Lower a dense-family transformer parameter tree onto the compressed
-    datapath; the compiled leaves land on ``device`` (CUDA unless
-    ``device="cpu"``).
+    """Lower a transformer parameter tree (dense, encoder, VLM or MoE
+    family) onto the compressed datapath; the compiled leaves land on
+    ``device`` (CUDA unless ``device="cpu"``).
 
     ``masks`` maps leaf names ("wq", ...) or full paths ("blocks/attn/wq")
     to (L, K, N) / (K, N) boolean keep-masks; absent entries are derived by
     two-level pruning at ``rules.block_density`` x
     ``rules.in_block_density``.
+
+    As in the reference, the MoE routed experts (``eg`` / ``eu`` / ``ed``)
+    and the router are not lowered (their dispatch is data-dependent) and
+    appear as dense report rows; the shared expert (``moe/shared``)
+    compiles like any MLP.  A stub frontend's ``frontend_proj`` stays
+    dense and unreported.
     """
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "encoder", "vlm", "moe"):
         raise NotImplementedError(
-            f"the port compiles the dense family only, got {cfg.family!r}")
+            f"the port compiles the attention/MLP families (dense, encoder, "
+            f"vlm, moe), got {cfg.family!r} (ROADMAP Queue A item 8)")
     dev = resolve_device(device)
     patterns: Dict[Tuple[int, int], BlockSparsePattern] = {}
     report: List[LayerReport] = []
@@ -509,6 +517,21 @@ def compile_model(
             dense_bytes=dense_bytes, compressed_bytes=int(comp_bytes),
             block_density=float(bd), element_density=float(ed),
             container_bytes=int(cont_bytes)))
+
+    # the weights left dense on purpose (MoE routed experts + router), so
+    # ``compression`` covers the whole model
+    if cfg.family == "moe":
+        moe = params["blocks"].get("moe", {})
+        for k in ("router", "eg", "eu", "ed"):
+            if isinstance(moe.get(k), dict) and "w" in moe[k]:
+                w = moe[k]["w"]
+                b = int(w.numel() * w.element_size())
+                report.append(LayerReport(
+                    name=f"blocks/moe/{k}", policy="dense",
+                    shape=tuple(int(d) for d in w.shape[-2:]),
+                    n_layers=math.prod(int(d) for d in w.shape[:-2]),
+                    dense_bytes=b, compressed_bytes=b, block_density=1.0,
+                    element_density=1.0))
     return CompressedModel(params=new_params, patterns=patterns, report=report)
 
 

@@ -1,9 +1,9 @@
 """Layer IR extraction for LM architectures — feeds the Fig. 1 DSE.
 
 Summarises an (ArchConfig × ShapeSpec) cell into per-layer-class
-:class:`LayerSpec`s (attention projections, MLP, embeddings) so
+:class:`LayerSpec`s (attention projections, MLP, experts, embeddings) so
 ``run_dse`` can make the folding and sparsity decisions per layer.  A copy
-of ``repro.core.lm_ir`` for the dense, encoder and VLM families; the MoE,
+of ``repro.core.lm_ir`` for the dense, encoder, VLM and MoE families; the
 SSM and hybrid branches come with those families (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
@@ -19,10 +19,12 @@ def lm_layer_specs(cfg, shape) -> List[LayerSpec]:
     """One LayerSpec per layer class per layer (flattened), per step.
 
     decode: one token per sequence (B tokens); train/prefill: B×T tokens.
-    Attention and MLP are prunable (block density ≤ 0.5, element density
-    ≤ 0.25); the embeddings stay dense.
+    Attention, MLP and experts are prunable (block density ≤ 0.5, element
+    density ≤ 0.25); the embeddings stay dense.  An MoE layer holds every
+    expert's weights but moves only the active ones (top-k + shared) per
+    token.
     """
-    if cfg.family not in ("dense", "encoder", "vlm"):
+    if cfg.family not in ("dense", "encoder", "vlm", "moe"):
         raise NotImplementedError(
             f"lm_layer_specs: the {cfg.family!r} family's layer IR is not "
             "ported yet (ROADMAP Queue A item 8)")
@@ -46,7 +48,13 @@ def lm_layer_specs(cfg, shape) -> List[LayerSpec]:
     attn_flops = 4.0 * tokens * shape.seq_len * H * Dh  # qk + pv
     for i in range(cfg.n_layers):
         add(f"attn_{i}", attn_w, extra_flops=attn_flops)
-        if cfg.d_ff:
+        if cfg.family == "moe":
+            e_w = 3 * D * cfg.d_expert
+            active = cfg.top_k + cfg.n_shared_experts
+            add(f"moe_{i}", e_w * (cfg.n_experts + cfg.n_shared_experts),
+                bd=0.5, ed=0.25)
+            specs[-1].flops = 2.0 * tokens * e_w * active
+        elif cfg.d_ff:
             add(f"mlp_{i}", (3 if cfg.act == "swiglu" else 2) * D * cfg.d_ff)
     add("embed_unembed", cfg.vocab * D * (1 if cfg.tie_embeddings else 2),
         prunable=False)

@@ -1,15 +1,21 @@
-"""Transformer blocks of the dense family: GQA attention over a float,
-int4 or bit-packed int4x2 KV cache, and the MLP — every linear through the
-compressed-linear dispatch."""
+"""Transformer blocks: GQA attention over a float, int4 or bit-packed
+int4x2 KV cache, the MLP, the MoE layer — every linear through the
+compressed-linear dispatch — and the conv-bearing patch-embedding hook."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core import payload_registry
-from ..core.dispatch import attn_full_dispatch, attn_packed_dispatch
+from ..core.dispatch import (
+    ConvPayload,
+    attn_full_dispatch,
+    attn_packed_dispatch,
+    conv_dispatch,
+)
 from ..core.families._util import he_init
 from ..core.quant import pack_int4, unpack_int4
 from .config import ArchConfig
@@ -80,8 +86,9 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
     }
 
 
-def mlp_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
-    D, F_ = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, L: int,
+             d_ff: Optional[int] = None) -> Params:
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "swiglu":
         return {"wg": _lin_init(gen, cfg, L, D, F_),
                 "wu": _lin_init(gen, cfg, L, D, F_),
@@ -189,9 +196,13 @@ def attn_apply(
         if n_valid is None else n_valid.to(torch.int32)
     row = torch.arange(T, dtype=torch.int32, device=x.device)
     # row c attends to idx + c + 1 positions; garbage rows clamp to the
-    # last valid extent (>= 1, so no all-masked softmax row)
+    # last valid extent (>= 1, so no all-masked softmax row).  A slot whose
+    # length runs past the read extent (an idle slot of the token drip,
+    # which advances every step) reads the whole extent, never past it.
+    T_c = (cache["k"] if "k" in cache else cache["k_s"]).shape[1]
+    ext = T_c if t_bound is None else min(t_bound, T_c)
     lengths = idx[:, None] + torch.minimum(row + 1, nv[:, None])
-    lengths = torch.clamp_min(lengths, 1)
+    lengths = torch.clamp(lengths, 1, ext)
     if "k" in cache:
         _kv_insert(cache["k"], k, idx)
         _kv_insert(cache["v"], v, idx)
@@ -272,16 +283,151 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def mlp_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, patterns=None,
-              dispatch=None) -> torch.Tensor:
-    D, F_ = cfg.d_model, cfg.d_ff
+              dispatch=None, *, d_ff: Optional[int] = None,
+              name: str = "mlp") -> torch.Tensor:
+    """``d_ff`` overrides the config's width (the MoE shared expert);
+    ``name`` prefixes the leaf names the dispatch reports."""
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
     if "wg" in p:
         g = F.silu(lin_apply(cfg, p["wg"], x, D, F_, patterns, dispatch,
-                             "mlp/wg").to(torch.float32))
+                             f"{name}/wg").to(torch.float32))
         u = lin_apply(cfg, p["wu"], x, D, F_, patterns, dispatch,
-                      "mlp/wu").to(torch.float32)
+                      f"{name}/wu").to(torch.float32)
         return lin_apply(cfg, p["wd"], (g * u).to(x.dtype), F_, D, patterns,
-                         dispatch, "mlp/wd")
+                         dispatch, f"{name}/wd")
     h = F.gelu(lin_apply(cfg, p["wu"], x, D, F_, patterns, dispatch,
-                         "mlp/wu").to(torch.float32), approximate="tanh")
+                         f"{name}/wu").to(torch.float32), approximate="tanh")
     return lin_apply(cfg, p["wd"], h.to(x.dtype), F_, D, patterns, dispatch,
-                     "mlp/wd")
+                     f"{name}/wd")
+
+
+# ----------------------------------------------------------------------- moe
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
+    """The router (f32, He init), the routed experts' SwiGLU stacks (L, E,
+    K, N) drawn normal / sqrt(K), and the shared expert (an MLP of width
+    ``d_expert * n_shared_experts``) where the config has one."""
+    D, Fe, E = cfg.d_model, cfg.d_expert, cfg.n_experts
+    p: Params = {
+        "router": {"w": he_init(gen, (L, D, E), torch.float32, D)},
+        "eg": {"w": he_init(gen, (L, E, D, Fe), _dtype(cfg), D)},
+        "eu": {"w": he_init(gen, (L, E, D, Fe), _dtype(cfg), D)},
+        "ed": {"w": he_init(gen, (L, E, Fe, D), _dtype(cfg), Fe)},
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, L,
+                               d_ff=cfg.d_expert * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Static per-expert capacity for S tokens: ``ceil(S·K/E·cf)`` capped
+    at S, and never below 8."""
+    C = math.ceil(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, min(C, S))
+
+
+def moe_route(p: Params, cfg: ArchConfig, xt: torch.Tensor, dispatch=None):
+    """The routing of S tokens ``xt`` (S, D): an f32 router and softmax,
+    the top-k experts with gates renormalised to sum 1, and each (token,
+    choice) entry's slot in its expert's buffer of ``moe_capacity`` rows.
+
+    Ties rank the lower expert first, as ``jax.lax.top_k`` does (a stable
+    descending sort).  The entries sort by expert stably and rank within
+    their expert's run (``searchsorted``, left side); an entry ranked at or
+    past the capacity is dropped to slot ``E·C``.  Returns (ids (S, K),
+    gates (S, K), order, keep, dest) with the last three over the sorted
+    S·K entries."""
+    S = xt.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    logits = linear_apply(p["router"], xt.to(torch.float32),
+                          dispatch=dispatch, leaf="moe/router")
+    gates = torch.softmax(logits, dim=-1)
+    gate_s, ids_s = torch.sort(gates, dim=-1, descending=True, stable=True)
+    gate_k, ids_k = gate_s[:, :K], ids_s[:, :K]
+    gate_k = gate_k / torch.clamp_min(gate_k.sum(-1, keepdim=True), 1e-9)
+    C = moe_capacity(cfg, S)
+    flat_ids = ids_k.reshape(-1)
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    seg_start = torch.searchsorted(
+        sorted_ids, torch.arange(E, device=xt.device, dtype=sorted_ids.dtype))
+    rank = torch.arange(S * K, device=xt.device) - seg_start[sorted_ids]
+    keep = rank < C
+    dest = torch.where(keep, sorted_ids * C + rank,
+                       torch.full_like(rank, E * C))
+    return ids_k, gate_k, order, keep, dest
+
+
+def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, patterns=None,
+              dispatch=None) -> torch.Tensor:
+    """Sort-based top-k dispatch with static capacity (drop policy), as the
+    reference's ``_moe_apply``: every shape is static, so a step that
+    routes captures into a CUDA graph.
+
+    Each kept entry's token row is written to its own buffer row (the drop
+    slot ``E·C`` takes the rest and is discarded); the experts run as
+    batched products, g and u in f32 and ``g·u`` cast to the activation
+    dtype before ``ed``.  The K weighted outputs of a token are put back in
+    (token, choice) order and summed over the choices — a fixed order, so
+    the combine is deterministic on the card (a scatter-add would add them
+    in whatever order its atomics land).  The shared expert's MLP adds on
+    top."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    S = B * T
+    xt = x.reshape(S, D)
+    _, gate_k, order, keep, dest = moe_route(p, cfg, xt, dispatch)
+    C = moe_capacity(cfg, S)
+    src_tok = order // K
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, dest, xt[src_tok])
+    eb = buf[:E * C].reshape(E, C, D)
+    ebf = eb.to(torch.float32)
+    g = F.silu(torch.bmm(ebf, p["eg"]["w"].to(torch.float32)))
+    u = torch.bmm(ebf, p["eu"]["w"].to(torch.float32))
+    yo = torch.bmm((g * u).to(xt.dtype), p["ed"]["w"]).reshape(E * C, D)
+    gathered = torch.where(keep[:, None], yo[torch.clamp_max(dest, E * C - 1)],
+                           torch.zeros((), dtype=yo.dtype, device=yo.device))
+    w = gate_k.reshape(-1)[order]
+    contrib = (gathered * w[:, None]).to(xt.dtype)
+    y = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    y = y.reshape(S, K, D).sum(dim=1)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], cfg, xt, patterns, dispatch,
+                          d_ff=cfg.d_expert * cfg.n_shared_experts,
+                          name="moe/shared")
+    return y.reshape(B, T, D)
+
+
+# --------------------------------------------------------- patch embedding
+
+
+def patch_embed_apply(p, x: torch.Tensor, *, bias=None, dispatch=None,
+                      activation=None, leaf=None) -> torch.Tensor:
+    """Conv-bearing embedding hook (ViT/VLM patch embed, CNN stems).
+
+    ``p`` is a compiled :class:`~repro_torch.core.dispatch.ConvPayload`
+    (through :func:`conv_dispatch`: the fused conv kernels on the card) or
+    a raw dense leaf ``{"w": (kh, kw, cin, cout)[, "b"]}`` (a plain
+    ``F.conv2d``).  Both run the same conv: non-overlapping (kh, kw)-strided
+    VALID patches, NHWC in and out; a payload compiled at another stride
+    raises in ``conv_dispatch``.  ``bias`` applies on both branches (the
+    raw leaf's own ``"b"`` when none is given).
+    """
+    if isinstance(p, ConvPayload):
+        kh, kw = p.kernel[0], p.kernel[1]
+        return conv_dispatch(p, x, strides=(kh, kw), padding="VALID",
+                             bias=bias, activation=activation,
+                             dispatch=dispatch, leaf=leaf)
+    from ..kernels.sparse_matmul.kernel import apply_activation
+
+    w = p["w"]
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 stride=(kh, kw)).permute(0, 2, 3, 1)
+    b = bias if bias is not None else p.get("b")
+    if b is not None:
+        y = y + b
+    return apply_activation(y, activation)

@@ -1,10 +1,10 @@
 """Architecture configuration — one instance per config file — and the
 input shapes (``SHAPES``) the layer IR and the DSE are run at.
 
-The fields of ``repro.models.config.ArchConfig`` that the port's dense
-family reads, under the same names, so a configuration reads the same in
-both packages.  The MoE, SSM and VLM fields come with those families
-(ROADMAP Queue A item 8).
+The fields of ``repro.models.config.ArchConfig`` that the port's
+families (dense, encoder, VLM, MoE) read, under the same names, so a
+configuration reads the same in both packages.  The SSM and hybrid fields
+come with those families (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
@@ -29,13 +29,13 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-_NOT_PORTED = ("moe", "ssm", "hybrid")
+_NOT_PORTED = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # the port runs "dense"
+    family: str               # dense | moe | encoder | vlm (ssm, hybrid: not yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,6 +49,18 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    capacity_factor: float = 1.25
+
+    # VLM / audio stub frontend
+    n_prefix_tokens: int = 0  # image/audio embeddings prepended (stub)
+    frontend: str = ""        # 'patch' (vlm) | 'frame' (audio encoder input)
+
     remat: bool = True        # forward recomputes each layer in backward
     opt_state_dtype: str = "float32"  # float32 | bfloat16 (405B uses bf16)
     param_dtype: str = "bfloat16"
@@ -85,11 +97,24 @@ class ArchConfig:
         H, Hkv, Dh = self.n_heads, self.n_kv_heads, self.head_dim
         attn = D * (H * Dh) + 2 * D * (Hkv * Dh) + (H * Dh) * D
         mlp = (3 if self.act == "swiglu" else 2) * D * F
-        per_layer = attn + mlp if self.family in ("dense", "encoder", "vlm") \
-            else 0
+        per_layer = 0
+        if self.family in ("dense", "encoder", "vlm"):
+            per_layer = attn + mlp
+        elif self.family == "moe":
+            e_mlp = 3 * D * self.d_expert
+            per_layer = attn + (self.n_experts + self.n_shared_experts) \
+                * e_mlp + D * self.n_experts  # router
         emb = V * D * (1 if self.tie_embeddings else 2)
         return L * per_layer + emb
 
     def active_param_count(self) -> int:
-        """Active params per token: all of them outside MoE."""
-        return self.param_count()
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        D, L = self.d_model, self.n_layers
+        H, Hkv, Dh = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = D * (H * Dh) + 2 * D * (Hkv * Dh) + (H * Dh) * D
+        e_mlp = 3 * D * self.d_expert
+        per_layer = attn + (self.top_k + self.n_shared_experts) * e_mlp
+        emb = self.vocab * D * (1 if self.tie_embeddings else 2)
+        return L * per_layer + emb

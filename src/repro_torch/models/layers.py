@@ -1,5 +1,5 @@
 """Shared building blocks: norms, RoPE, the full-sequence and float-cache
-attention reads and the compressed-linear alias.
+attention reads and the compressed-linear and conv aliases.
 
 Every cast sits where the reference (``repro.models.layers``) puts it, so
 the same inputs round at the same places.  The reference scales q as
@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.dispatch import linear_dispatch
+from ..core.dispatch import conv_dispatch, linear_dispatch
 from ..core.sparsity import BlockSparsePattern
 
 Params = Dict[str, Any]
@@ -30,6 +30,17 @@ def linear_apply(p: Params, x: torch.Tensor, *,
     return linear_dispatch(p, x, pattern=pattern, dispatch=dispatch,
                            compute_dtype=compute_dtype, activation=activation,
                            leaf=leaf)
+
+
+def conv_apply(cp, x: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
+               activation=None, compute_dtype=None, dispatch=None,
+               leaf: Optional[str] = None) -> torch.Tensor:
+    """Apply one compiled conv leaf, y = act(conv(x, W) + b) in NHWC — an
+    alias of :func:`repro_torch.core.dispatch.conv_dispatch` for any
+    conv-bearing config (CNN stems, ViT patch embeddings)."""
+    return conv_dispatch(cp, x, dispatch=dispatch, bias=bias,
+                         activation=activation, compute_dtype=compute_dtype,
+                         leaf=leaf)
 
 
 # --------------------------------------------------------------------- norms

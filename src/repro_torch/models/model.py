@@ -1,9 +1,17 @@
-"""The dense-family transformer: init, the full-sequence forward and loss
-(training and prefill), and the cached decode/prefill steps.
+"""The transformer families that are attention plus an FFN — dense,
+encoder, VLM and MoE: init, the full-sequence forward and loss (training,
+prefill and scoring), and the cached decode/prefill steps.
 
 Parameters are plain dicts of tensors whose per-layer leaves are stacked
 along a leading layer axis ``(L, ...)``, as in the JAX reference; the steps
 loop over the layers in Python.  Caches are updated in place.
+
+The encoder (``frontend="frame"``) and the VLM (``frontend="patch"``) ride
+the dense block behind a stub frontend, one ``frontend_proj`` projection of
+precomputed frame or prefix embeddings; an encoder has no decode cache.
+MoE swaps the MLP for :func:`repro_torch.models.blocks.moe_apply`; its
+router's static capacity depends on the token count, so it serves through
+per-token ``decode_step`` (no ``active`` mask, no chunked prefill).
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from .blocks import (
     attn_init,
     mlp_apply,
     mlp_init,
+    moe_apply,
+    moe_init,
     norm_apply,
     norm_init,
 )
@@ -29,12 +39,22 @@ from .layers import Params, linear_apply
 __all__ = ["cache_batch_axes", "decode_step", "embed_inputs", "forward",
            "init_cache", "init_params", "loss_fn", "prefill_step"]
 
+FAMILIES = ("dense", "encoder", "vlm", "moe")
+# the families with a decode cache (an encoder has none)
+DECODE_FAMILIES = ("dense", "vlm", "moe")
+
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense family only, got {cfg.family!r} "
-            "(ROADMAP Queue A, remaining families)")
+            f"the port runs the {', '.join(FAMILIES)} families, got "
+            f"{cfg.family!r} (ROADMAP Queue A item 8)")
+
+
+def _check_decode(cfg: ArchConfig) -> None:
+    _check_family(cfg)
+    if cfg.family not in DECODE_FAMILIES:
+        raise ValueError(f"{cfg.family} has no decode cache")
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
@@ -49,14 +69,21 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
                                     device=dev) * 0.02).to(dt)},
         "blocks": {"ln1": norm_init(cfg, L, dev),
                    "attn": attn_init(gen, cfg, L),
-                   "ln2": norm_init(cfg, L, dev),
-                   "mlp": mlp_init(gen, cfg, L)},
+                   "ln2": norm_init(cfg, L, dev)},
         "final_norm": norm_init(cfg, 0, dev),
     }
+    if cfg.family == "moe":
+        params["blocks"]["moe"] = moe_init(gen, cfg, L)
+    else:
+        params["blocks"]["mlp"] = mlp_init(gen, cfg, L)
     if not cfg.tie_embeddings:
         params["head"] = {"w": (torch.randn((cfg.d_model, cfg.vocab),
                                             generator=gen, device=dev)
                                 * 0.02).to(dt)}
+    if cfg.frontend:  # stub modality frontend: a single projection
+        params["frontend_proj"] = {"w": (torch.randn(
+            (cfg.d_model, cfg.d_model), generator=gen, device=dev)
+            * 0.02).to(dt)}
     return params
 
 
@@ -64,8 +91,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                kv_cache: str = "float", *, device=None) -> Dict:
     """Stacked decode cache (leading axis = layer): ``"float"`` stores
     activations, ``"int4"`` int8 codes + per-row scales, ``"int4x2"`` the
-    same codes packed two per byte + the scales."""
-    _check_family(cfg)
+    same codes packed two per byte + the scales.  An encoder has none."""
+    _check_decode(cfg)
     return attn_cache_init(cfg, batch, max_len, kv_cache=kv_cache,
                            layers=cfg.n_layers, device=resolve_device(device))
 
@@ -73,7 +100,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def cache_batch_axes(cfg: ArchConfig, kv_cache: str = "float") -> Dict[str, int]:
     """Per-leaf batch (serving slot) axis of :func:`init_cache`'s leaves:
     every attention leaf stacks as (L, B, ...)."""
-    _check_family(cfg)
+    _check_decode(cfg)
     leaves = attn_cache_init(cfg, 1, 1, kv_cache=kv_cache, device="meta")
     return {k: 1 for k in leaves}
 
@@ -91,14 +118,21 @@ def _layers(params: Params, cache: Dict, cfg: ArchConfig):
             {k: v[i] for k, v in cache.items()}
 
 
+def _ffn(p, cfg, h, patterns, dispatch):
+    """The block's second half: the MoE layer or the MLP, on ln2(h)."""
+    x = norm_apply(cfg, p["ln2"], h)
+    if cfg.family == "moe":
+        return moe_apply(p["moe"], cfg, x, patterns, dispatch)
+    return mlp_apply(p["mlp"], cfg, x, patterns=patterns, dispatch=dispatch)
+
+
 def _dense_block(p, cfg, h, positions, cache, patterns, dispatch, n_valid,
                  t_bound, bt, packed_read):
     a, _ = attn_apply(p["attn"], cfg, norm_apply(cfg, p["ln1"], h), positions,
                       cache, patterns, dispatch, n_valid=n_valid,
                       t_bound=t_bound, bt=bt, packed_read=packed_read)
     h = h + a
-    return h + mlp_apply(p["mlp"], cfg, norm_apply(cfg, p["ln2"], h),
-                         patterns=patterns, dispatch=dispatch)
+    return h + _ffn(p, cfg, h, patterns, dispatch)
 
 
 def _head(params: Params, cfg: ArchConfig, h: torch.Tensor, patterns,
@@ -110,18 +144,27 @@ def _head(params: Params, cfg: ArchConfig, h: torch.Tensor, patterns,
         (cfg.d_model, cfg.vocab)), dispatch=dispatch, leaf="head")
 
 
-def embed_inputs(params: Params, cfg: ArchConfig,
-                 batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding of ``batch["tokens"]`` (B, T): returns (h, positions).
-    The reference's stub frontends (frame / prefix embeddings) belong to
-    families the port does not run, and raise."""
+def embed_inputs(params: Params, cfg: ArchConfig, batch: Dict, *,
+                 dispatch=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token / stub-frontend embedding: returns (h, positions).
+
+    ``frontend="frame"`` (audio encoder): ``batch["frame_embeds"]`` (B, T,
+    D) through ``frontend_proj``.  Otherwise ``batch["tokens"]`` (B, T) are
+    looked up; with ``frontend="patch"`` (VLM), ``batch["prefix_embeds"]``
+    (B, P, D) go through ``frontend_proj`` and are prepended.  Positions
+    count from 0 over the whole sequence."""
     _check_family(cfg)
-    if "frame_embeds" in batch or "prefix_embeds" in batch:
-        raise NotImplementedError(
-            "stub modality frontends are not ported (ROADMAP Queue A, "
-            "remaining families)")
-    tokens = batch["tokens"]
-    h = params["embed"]["w"][tokens.to(torch.int64)]
+    if cfg.frontend == "frame":
+        h = batch["frame_embeds"].to(_dtype(cfg))
+        h = linear_apply(params["frontend_proj"], h, dispatch=dispatch,
+                         leaf="frontend_proj")
+    else:
+        h = params["embed"]["w"][batch["tokens"].to(torch.int64)]
+        if cfg.frontend == "patch" and "prefix_embeds" in batch:
+            pre = batch["prefix_embeds"].to(h.dtype)
+            pre = linear_apply(params["frontend_proj"], pre,
+                               dispatch=dispatch, leaf="frontend_proj")
+            h = torch.cat([pre, h], dim=1)
     B, T = h.shape[:2]
     pos = torch.arange(T, device=h.device)[None].expand(B, T)
     return h, pos
@@ -131,8 +174,7 @@ def _full_block(p, cfg, h, positions, patterns, dispatch):
     a, _ = attn_apply(p["attn"], cfg, norm_apply(cfg, p["ln1"], h), positions,
                       None, patterns, dispatch)
     h = h + a
-    return h + mlp_apply(p["mlp"], cfg, norm_apply(cfg, p["ln2"], h),
-                         patterns=patterns, dispatch=dispatch)
+    return h + _ffn(p, cfg, h, patterns, dispatch)
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
@@ -146,7 +188,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
     in the reference.  ``patterns`` / ``dispatch`` as in
     :func:`decode_step`, for compiled parameter trees.
     """
-    h, positions = embed_inputs(params, cfg, batch)
+    h, positions = embed_inputs(params, cfg, batch, dispatch=dispatch)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p_layer = _tree_index(params["blocks"], i)
@@ -161,9 +203,12 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
             dispatch=None) -> torch.Tensor:
     """Mean next-token cross-entropy over ``batch["labels"] >= 0``, from f32
-    logits by logsumexp (no (B, T, V) log-prob tensor)."""
+    logits by logsumexp (no (B, T, V) log-prob tensor).  A VLM's prefix
+    positions carry no label: their logits are dropped."""
     logits = forward(params, cfg, batch, dispatch=dispatch).to(torch.float32)
     labels = batch["labels"].to(torch.int64)
+    if cfg.frontend == "patch" and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
@@ -194,8 +239,16 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict,
     quantised caches' read ("fused" or "unpack", see
     :func:`repro_torch.models.blocks.attn_apply`); ``patterns`` is the
     compile pass's side-table and ``dispatch`` the kernel mode.
+
+    MoE refuses ``active``: a masked slot's garbage row still competes for
+    expert capacity and could displace a live token's routing.
     """
-    _check_family(cfg)
+    _check_decode(cfg)
+    if active is not None and cfg.family == "moe":
+        raise ValueError(
+            "decode_step active= mask is unsupported for moe — a masked "
+            "garbage row still competes for expert capacity and can "
+            "displace live tokens' routing")
     positions = cache["length"][0][:, None].clone()
     nv = None if active is None else active.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
@@ -215,8 +268,16 @@ def prefill_step(params: Params, cfg: ArchConfig, cache: Dict,
     ``n_valid`` (B,) counts the real rows of a ragged final chunk; the
     final real row's logits give the first generated token.  Other
     arguments as :func:`decode_step`.
+
+    Only the attention-only families (dense, VLM) chunk: a MoE chunk would
+    change the router's static capacity (a function of the token count).
     """
-    _check_family(cfg)
+    _check_decode(cfg)
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(
+            f"prefill_step supports the attention-only families "
+            f"('dense', 'vlm'), not {cfg.family!r} — serve other families "
+            "through per-token decode_step")
     C = tokens.shape[1]
     positions = cache["length"][0][:, None] \
         + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]

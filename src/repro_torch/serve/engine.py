@@ -1,13 +1,22 @@
-"""Batched serving engine: continuous batching with chunked prefill.
+"""Batched serving engine: continuous batching, in one of two modes
+chosen by the model family at construction.
 
-Prompts run through :func:`repro_torch.models.model.prefill_step` in
-fixed-size chunks (``prefill_chunk`` tokens, the per-step prefill budget),
-writing straight into the cache container; every engine step advances ONE
-prefilling slot by one chunk AND every decoding slot by one token
-(``decode_step`` with an ``active`` mask), so a long prompt never stalls
-the decoding slots.  The first generated token comes from the final
-chunk's logits.  A prompt whose chunk schedule cannot fit the cache
-(``ceil(P/C)·C > max_len``) falls back to a token drip for that request.
+* **Chunked interleave** (the attention-only families: dense, vlm).
+  Prompts run through :func:`repro_torch.models.model.prefill_step` in
+  fixed-size chunks (``prefill_chunk`` tokens, the per-step prefill
+  budget), writing straight into the cache container; every engine step
+  advances ONE prefilling slot by one chunk AND every decoding slot by one
+  token (``decode_step`` with an ``active`` mask), so a long prompt never
+  stalls the decoding slots.  The first generated token comes from the
+  final chunk's logits.  A prompt whose chunk schedule cannot fit the
+  cache (``ceil(P/C)·C > max_len``) falls back to a token drip for that
+  request.
+* **Token drip** (moe).  Exactly one token for every slot each step
+  through ``decode_step`` with no ``active`` mask, prompts fed one token
+  at a time: a MoE router's static capacity depends on the token count,
+  so the family keeps the reference's legacy path.  Idle slots step too,
+  writing garbage rows their next admission resets; their reads are held
+  to the step's extent.  An encoder has no decode cache and is refused.
 
 Prefill gathers the slot's batch-of-one cache, runs the chunk on it and
 scatters it back, so a chunk write cannot touch a neighbouring slot.
@@ -16,8 +25,8 @@ kv tile size pinned at startup — the packed read skips dead tiles, so the
 bound changes the work, never the result.
 
 On a CUDA device each step is captured once per bucket, as the reference
-compiles one step per bucket: the first decode step (and the first
-prefill chunk) at a new bucket runs eagerly, as the real step, and is then
+compiles one step per bucket: the first decode step (prefill chunk, drip
+step) at a new bucket runs eagerly, as the real step, and is then
 captured into a ``torch.cuda.CUDAGraph``; every later step at that bucket
 replays the graph.  The step's inputs (tokens, ``active``, ``n_valid``,
 the prefill slot) live in static device buffers filled by ``copy_`` before
@@ -46,6 +55,10 @@ from ..device import resolve_device
 from ..kernels import add_launch_counts, launch_counts
 from ..models.config import ArchConfig
 from ..models.model import cache_batch_axes, decode_step, init_cache, prefill_step
+
+# families whose prompts run through the chunked prefill path; the others
+# take the token drip
+_CHUNKED_FAMILIES = ("dense", "vlm")
 
 
 @dataclasses.dataclass
@@ -117,9 +130,10 @@ class ServeEngine:
     :class:`~repro_torch.core.autotune.TunedTable` used as it is.  The
     table rides on the dispatch config with its lookups pinned to
     ``batch_slots`` rows (prefill chunks read the decode entries; thin-M
-    plans do not depend on M); a quantised cache takes its kv tile from
-    :func:`~repro_torch.core.autotune.autotune_attn`, pinned for the
-    engine's lifetime.  Captured steps capture the tuned plans, so a replay
+    plans do not depend on M); a quantised cache of a chunked family takes
+    its kv tile from :func:`~repro_torch.core.autotune.autotune_attn`,
+    pinned for the engine's lifetime (the drip keeps the default, as the
+    reference's does).  Captured steps capture the tuned plans, so a replay
     launches what the eager step launches.
     """
 
@@ -153,6 +167,7 @@ class ServeEngine:
         self.kv_cache = kv_cache
         self.packed_read = packed_read
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self._chunked = cfg.family in _CHUNKED_FAMILIES
         self._bt = ATTN_BT_DEFAULT if kv_cache in ("int4", "int4x2") else None
         if autotune is not False and autotune is not None:
             self._autotune(cm, autotune, autotune_options,
@@ -213,7 +228,7 @@ class ServeEngine:
                                    options=options)
         self.dispatch = dataclasses.replace(self.dispatch, tuned=table,
                                             m_bucket=self.slots)
-        if self._bt is not None:
+        if self._bt is not None and self._chunked:
             cfg = self.cfg
             self._bt = autotune_attn(
                 B=self.slots, T=self.max_len, H=cfg.n_heads,
@@ -276,12 +291,13 @@ class ServeEngine:
             self.active[slot] = req
             self.remaining[slot] = req.max_new_tokens
             self._len[slot] = 0
-            if self._chunk_fits(req):
+            if self._chunked and self._chunk_fits(req):
                 self._phase[slot] = "prefill"
                 self.prompt_pos[slot] = 0
                 self._order.append(slot)
             else:
-                # token drip: the rounded-up chunk schedule overruns the cache
+                # token drip: a family that does not chunk, or a prompt
+                # whose rounded-up chunk schedule overruns the cache
                 self._phase[slot] = "decode"
                 self.prompt_pos[slot] = 1
                 self.last_tok[slot, 0] = int(req.prompt[0])
@@ -338,15 +354,29 @@ class ServeEngine:
             leaf.index_copy_(axes[k], inp["slot"], sub[k])
         return logits
 
+    def _drip_fn(self, tb: int) -> torch.Tensor:
+        """One token for every slot, idle ones included (no ``active``
+        mask, as the reference's legacy step)."""
+        logits, _ = decode_step(
+            self.params, self.cfg, self.cache, self._inputs["tok"],
+            patterns=self.patterns, dispatch=self.dispatch, t_bound=tb,
+            bt=self._bt, packed_read=self.packed_read)
+        return logits
+
+    def phase_fn(self, phase: str) -> Callable[[int], torch.Tensor]:
+        """The eager step of ``phase`` ("decode" | "prefill" | "drip") at a
+        bucket, over the static inputs."""
+        return {"decode": self._decode_fn, "prefill": self._prefill_fn,
+                "drip": self._drip_fn}[phase]
+
     def _step_logits(self, phase: str, tb: int) -> torch.Tensor:
-        """Logits of one ``phase`` step ("decode" | "prefill") at bucket
-        ``tb`` over the static inputs: eager, or the bucket's graph.  The
-        first step at a bucket runs eagerly on the capture stream (which
-        builds the kernel libraries and sets up every library handle for
-        it), then is captured: capture records without running, so the
+        """Logits of one ``phase`` step ("decode" | "prefill" | "drip") at
+        bucket ``tb`` over the static inputs: eager, or the bucket's graph.
+        The first step at a bucket runs eagerly on the capture stream
+        (which builds the kernel libraries and sets up every library handle
+        for it), then is captured: capture records without running, so the
         cache advances once."""
-        fn = functools.partial(
-            self._decode_fn if phase == "decode" else self._prefill_fn, tb)
+        fn = functools.partial(self.phase_fn(phase), tb)
         if not self.capture:
             return fn()
         g = self._graphs.get((phase, tb))
@@ -399,15 +429,18 @@ class ServeEngine:
                 self.remaining[slot] -= 1
             self._finish(slot, now)
 
-    def _step_decode(self, dec_slots: List[int]):
-        """One token for every decoding slot; the others are masked out."""
-        act = np.zeros(self.slots, np.int32)
-        act[dec_slots] = 1
+    def _step_decode(self, dec_slots: List[int], phase: str = "decode"):
+        """One token for every decoding slot; the others are masked out.
+        ``phase="drip"`` steps every slot, idle ones included (no mask):
+        the token drip of a family that does not chunk."""
         tb = self._bucket_t(max(int(self._len[s]) for s in dec_slots) + 1)
         t0 = time.perf_counter()
         self._fill("tok", self.last_tok)
-        self._fill("act", act)
-        logits = self._step_logits("decode", tb)
+        if phase == "decode":
+            act = np.zeros(self.slots, np.int32)
+            act[dec_slots] = 1
+            self._fill("act", act)
+        logits = self._step_logits(phase, tb)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
         now = time.perf_counter()
         self._stats["decode_steps"] += 1
@@ -418,7 +451,7 @@ class ServeEngine:
             self._len[slot] += 1
             pos = self.prompt_pos[slot]
             if pos < len(req.prompt):
-                # drip fallback: still feeding the prompt
+                # token drip: still feeding the prompt
                 self.last_tok[slot, 0] = int(req.prompt[pos])
                 self.prompt_pos[slot] = pos + 1
                 continue
@@ -434,6 +467,9 @@ class ServeEngine:
         self._admit()
         if not self.active:
             return 0
+        if not self._chunked:
+            self._step_decode(sorted(self.active), "drip")
+            return len(self.active)
         # the decode set is taken BEFORE the prefill advances: a slot that
         # finishes its prompt this step got its first token from the chunk
         dec_slots = sorted(s for s, ph in self._phase.items()

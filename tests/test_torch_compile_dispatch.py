@@ -169,9 +169,10 @@ def test_compile_model_errors(models):
     assert all(set(leaf) >= {"w_q2", "w_s"} for _, leaf, _ in (
         (p, par[k], k) for p, par, k in tc._iter_linears(
             cm2.params["blocks"], "blocks")))
-    with pytest.raises(NotImplementedError, match="dense family"):
-        tc.compile_model(tp, dataclasses.replace(tcfg, family="moe"),
-                         device="cpu")
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            tc.compile_model(tp, dataclasses.replace(tcfg, family=family),
+                             device="cpu")
 
 
 # ---------------------------------------------------------------- dispatch

@@ -21,6 +21,9 @@ from repro_torch.core import lm_ir as tlm  # noqa: E402
 from repro_torch.models import config as tmc  # noqa: E402
 
 DENSE = ["llama3-405b", "qwen1.5-4b", "starcoder2-7b", "llama3.2-1b"]
+# the encoder, VLM and MoE configs (ported beside the dense ones)
+NEW = ["hubert-xlarge", "qwen2-moe-a2.7b", "olmoe-1b-7b", "phi-3-vision-4.2b"]
+PORTED = DENSE + NEW
 # the budget of tests/test_lm_ir.py's DSE case
 BUDGET = 12 * 2 ** 30
 
@@ -34,15 +37,19 @@ def _port_fields_of(jcfg, tcfg):
 
 
 def test_registry_is_the_references_dense_entries_in_order():
-    assert tconfigs.ARCH_IDS == DENSE
-    assert tconfigs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS
-                                 if jconfigs.get_config(a).family == "dense"]
+    """The reference's registry in its order, less the SSM and hybrid
+    entries (ROADMAP Queue A item 8)."""
+    assert tconfigs.ARCH_IDS == PORTED
+    assert tconfigs.ARCH_IDS == [
+        a for a in jconfigs.ARCH_IDS
+        if jconfigs.get_config(a).family not in ("ssm", "hybrid")]
     assert tconfigs.SHAPES is tmc.SHAPES and tconfigs.ShapeSpec is tmc.ShapeSpec
-    with pytest.raises(KeyError, match="the port has"):
-        tconfigs.get_config("olmoe-1b-7b")
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
+        with pytest.raises(KeyError, match="the port has"):
+            tconfigs.get_config(arch)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_config_equals_reference_field_by_field(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert _fields(tcfg) == _port_fields_of(jcfg, tcfg)
@@ -58,7 +65,7 @@ def test_shapes_equal_reference():
         {k: dataclasses.asdict(v) for k, v in jmc.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_shapes_and_parameter_counts_equal_reference(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert [s.name for s in tcfg.applicable_shapes()] == \
@@ -73,8 +80,7 @@ def test_shapes_and_parameter_counts_equal_reference(arch):
 
 @pytest.mark.parametrize("family", ["encoder", "vlm"])
 def test_encoder_and_vlm_counts_and_shapes_equal_reference(family):
-    """The encoder and VLM branches on the dense fields (their frontends
-    come with ROADMAP Queue A item 8)."""
+    """The encoder and VLM branches on the dense fields."""
     kw = dict(name="t", family=family, n_layers=3, d_model=64, n_heads=4,
               n_kv_heads=2, d_ff=96, vocab=50, act="gelu")
     jcfg, tcfg = jmc.ArchConfig(**kw), tmc.ArchConfig(**kw)
@@ -90,18 +96,32 @@ def test_encoder_and_vlm_counts_and_shapes_equal_reference(family):
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
 def test_unported_families_raise_naming_item_8(family):
-    cfg = tmc.ArchConfig(name="t", family=family, n_layers=2, d_model=64,
-                         n_heads=4, n_kv_heads=4, d_ff=128, vocab=64)
+    """The SSM and hybrid families still raise, naming Queue A item 8; MoE
+    counts and lays out its layers as the reference does."""
+    kw = dict(name="t", family=family, n_layers=2, d_model=64, n_heads=4,
+              n_kv_heads=4, d_ff=128, vocab=64)
+    cfg = tmc.ArchConfig(**kw)
+    assert cfg.subquadratic == (family != "moe")
+    if family == "moe":
+        kw.update(n_experts=6, top_k=2, d_expert=24, n_shared_experts=1)
+        cfg, jcfg = tmc.ArchConfig(**kw), jmc.ArchConfig(**kw)
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count() \
+            < cfg.param_count()
+        assert [dataclasses.asdict(s) for s in tlm.lm_layer_specs(
+            cfg, tmc.SHAPES["train_4k"])] == \
+            [dataclasses.asdict(s) for s in jlm.lm_layer_specs(
+                jcfg, jmc.SHAPES["train_4k"])]
+        return
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         cfg.param_count()
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         cfg.active_param_count()
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         tlm.lm_layer_specs(cfg, tmc.SHAPES["train_4k"])
-    assert cfg.subquadratic == (family != "moe")
 
 
-CELLS = [(arch, s.name) for arch in DENSE
+CELLS = [(arch, s.name) for arch in PORTED
          for s in jconfigs.get_config(arch).applicable_shapes()]
 
 

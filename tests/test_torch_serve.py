@@ -207,8 +207,10 @@ def test_init_shapes_and_cache_axes_match_reference():
         assert tm.cache_batch_axes(tcfg, kv) == jm.cache_batch_axes(jcfg, kv)
     with pytest.raises(ValueError, match="unknown kv_cache container"):
         tm.init_cache(tcfg, 2, 8, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family"):
-        tm.init_params(dataclasses.replace(tcfg, family="ssm"), device="cpu")
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            tm.init_params(dataclasses.replace(tcfg, family=family),
+                           device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tm.init_params(tcfg)
