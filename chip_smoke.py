@@ -105,17 +105,38 @@ Phases, each fatal on failure:
    after: hubert-xlarge's compiled forward on 4 x 1024 frame embeddings
    (non-causal; every matmul on its rule's route, 48 flash calls on the
    CUDA-core route for Dh 80), held against the twin within
-   ``TWIN_TOL["float"]``; phi-3-vision-4.2b's twin check, its 16 requests
+   ``TWIN_TOL["float"]``; phi-3-vision-4.2b (cut to 16 of 32 layers,
+   ``VLM_LAYERS``): its twin check, its 16 requests
    served captured (every launch on its rule's route, the Dh 96 reads on
    the single kernel) with the capture check, its captured step profiles
    and the compiled forward over 576 prefix embeddings and 512 tokens;
-   olmoe-1b-7b and qwen2-moe-a2.7b (cut to 4 of 24 layers) through the
+   olmoe-1b-7b and qwen2-moe-a2.7b (cut to 8 of 16 and 4 of 24 layers)
+   through the
    token drip: a twin check that also counts the router choices that
    differ (``MOE_TWIN_TOL``), 16 and 4 requests served captured per bucket
    with every launch on its rule's route and the bitwise capture check,
    and the captured drip step's profile; the flash kernel at Dh 80 and
    96 and the single packed read at Dh 96 timed beside their bounds,
-   plain versions and SDPA;
+   plain versions and SDPA, and the MLP leaves and the tiled heads at
+   their forwards' rows beside theirs and ``x @ W``;
+7c. ssm_hybrid — xlstm-1.3b (raw parameters, its mLSTM projections int8
+   leaves: ``linear_mode="int8"``) and zamba2-2.7b (compiled with
+   ``zoo_rules``: the shared attention and the head) at full width and
+   depth (bf16, random weights from seed 0), each path's counts set to 0
+   just before it and read just after: a drip twin check (a 16-token
+   prompt dripped, 4 greedy steps; ``SSM_TWIN_TOL``, with the plain bf16
+   path's distance from f32 beside it), the 16 requests through the
+   captured token drip (xlstm-1.3b one graph, 168 thin-M ``quant_matmul``
+   launches a step; zamba2-2.7b a graph a bucket, 36 thin-M
+   ``quant_matmul``, 27 + the head's thin-M ``block_sparse_matmul`` and 9
+   single packed reads a step) with the bitwise capture check, the 4
+   shortest served eagerly with the same tokens, the captured drip step's
+   profile, the resident
+   state bytes of a slot and the memory peaks; the full-sequence forward
+   at B = 1, T = 512 on its kernels against the twin (xlstm-1.3b's last
+   16 positions also against its drip, in bf16 and f32); the int8 mLSTM
+   leaves, zamba2-2.7b's shared leaves, its packed read (Dh 80) and flash
+   call timed beside their bounds, plain versions and library calls;
 8. train   — llama3.2-1b at full width (random weights from a seed),
    ``block_aware_prune`` masks on every MLP weight, one step under
    ``dispatch="kernel"`` held against ``"twin"``, then 6 AdamW steps
@@ -146,6 +167,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch  # noqa: E402,F401  (fails outside a checkout)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor core / fp32
@@ -1507,16 +1529,17 @@ def serve_engine(cm, cfg, dev, **kw):
                        device=dev, **kw)
 
 
-def serve_run(cm, cfg, dev, prompts, count=False, **kw):
+def serve_run(cm, cfg, dev, prompts, count=False, warm=WARM, **kw):
     """Serve ``prompts`` (32 new tokens each) on a new engine, after warm-up
-    requests that reach every bucket; the counts are set to 0 just before
-    the measured requests and read just after.  Returns the engine, its
+    requests ``warm`` ((prompt tokens, new tokens) pairs; by default ones
+    that reach every bucket); the counts are set to 0 just before the
+    measured requests and read just after.  Returns the engine, its
     numbers and tokens, and the counts (None unless ``count``)."""
     from repro_torch.serve.engine import Request
 
     eng = serve_engine(cm, cfg, dev, **kw)
     rng = np.random.default_rng(1)
-    for i, (n, new) in enumerate(WARM):
+    for i, (n, new) in enumerate(warm):
         eng.submit(Request(uid=-1 - i, prompt=rng.integers(
             0, cfg.vocab, n).astype(np.int32), max_new_tokens=new))
     eng.run()
@@ -1550,6 +1573,14 @@ def serve_run(cm, cfg, dev, prompts, count=False, **kw):
         "tokens": [r.out for r in done]}, counts
 
 
+def cache_length(cache):
+    """The attention cache's ``length`` leaf (the hybrid's under
+    ``"attn"``), or None for a cache with no attention."""
+    if "length" in cache:
+        return cache["length"]
+    return cache["attn"]["length"] if "attn" in cache else None
+
+
 def capture_check(eng, cfg):
     """One captured step of each phase the engine captured (a decode step
     and a prefill chunk; a drip step), at its largest bucket, replayed from
@@ -1565,8 +1596,11 @@ def capture_check(eng, cfg):
     eng._fill("ptok", rng.integers(0, cfg.vocab, (1, eng.prefill_chunk)))
     eng._fill("nv", eng.prefill_chunk)
     eng._fill("slot", 3)
-    eng.cache["length"].fill_(cases.get("decode", max(cases.values())) // 2)
-    saved = {k: v.clone() for k, v in eng.cache.items()}
+    length = cache_length(eng.cache)
+    if length is not None:
+        length.fill_(cases.get("decode", max(cases.values())) // 2)
+    saved = tree_map(torch.clone, eng.cache)
+    restore = lambda: tree_map(lambda v, s: v.copy_(s), eng.cache, saved)
     for phase, tb in cases.items():
         fn = eng.phase_fn(phase)
         torch.cuda.synchronize()
@@ -1574,15 +1608,14 @@ def capture_check(eng, cfg):
         eager = fn(tb).clone()
         torch.cuda.synchronize()
         eager_counts = read_counts()
-        eager_cache = {k: v.clone() for k, v in eng.cache.items()}
-        for k, v in eng.cache.items():
-            v.copy_(saved[k])
+        eager_cache = tree_map(torch.clone, eng.cache)
+        restore()
         reset_counts()
         replay = eng._step_logits(phase, tb).clone()
         torch.cuda.synchronize()
         replay_counts = read_counts()
-        same_cache = all(torch.equal(v, eager_cache[k])
-                         for k, v in eng.cache.items())
+        same_cache = all(torch.equal(v, e) for v, e in zip(
+            tree_leaves(eng.cache), tree_leaves(eager_cache)))
         diff = float((replay.float() - eager.float()).abs().max())
         require(torch.equal(replay, eager) and same_cache,
                 f"captured {phase} step (bucket {tb}) differs from the eager "
@@ -1590,8 +1623,7 @@ def capture_check(eng, cfg):
         require(replay_counts == eager_counts,
                 f"captured {phase} step launched {replay_counts}, the eager "
                 f"step {eager_counts}")
-        for k, v in eng.cache.items():
-            v.copy_(saved[k])
+        restore()
         out[phase] = {"bucket": tb, "bitwise_equal": True,
                       "launches": {k: n for k, n in replay_counts.items()
                                    if n}}
@@ -1651,7 +1683,8 @@ def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
                  **kw):
     """Where a serving step's time goes: the engine's step at 8 slots of
     200 cached rows (int4x2 cache, bucket 256; a prefill chunk of 16 rows
-    into slot 0), each ending as the engine's does with its logits' argmax
+    into slot 0; the SSM family's one bucket, its states as they run), each
+    ending as the engine's does with its logits' argmax
     on the host: wall-clock per step beside the device time of the kernels
     it launches, from torch.profiler (CUPTI); captured or eager.  ``kw``
     goes to the engine (``autotune=table``)."""
@@ -1663,15 +1696,18 @@ def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
     eng._fill("ptok", np.arange(16, dtype=np.int32)[None])
     eng._fill("nv", 16)
     eng._fill("slot", 0)
-    length = eng.cache["length"]
+    length = cache_length(eng.cache)
+    tb = 0 if length is None else 256
 
     def step():
-        logits = eng._step_logits(phase, 256)
+        logits = eng._step_logits(phase, tb)
         last = logits[0] if phase == "prefill" else logits[:, 0]
         torch.argmax(last, dim=-1).cpu()
-        length.fill_(200)
+        if length is not None:
+            length.fill_(200)
 
-    length.fill_(200)
+    if length is not None:
+        length.fill_(200)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1892,7 +1928,9 @@ def host_ms(fn, iters: int = 20) -> float:
 
 def profile_forward(fwd, steps: int = 5, unit: str = "forward"):
     """Device busy time and idle share of one call of ``fwd`` (a forward,
-    or a train step with ``unit="step"``), from torch.profiler."""
+    or a train step with ``unit="step"``), from torch.profiler's device
+    activity alone (the host's op events would only slow its processing:
+    xlstm-1.3b's forward has ~100k)."""
     from torch.profiler import ProfilerActivity, profile
 
     fwd()
@@ -1902,8 +1940,7 @@ def profile_forward(fwd, steps: int = 5, unit: str = "forward"):
         fwd()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fwd()
         torch.cuda.synchronize()
@@ -2701,10 +2738,15 @@ def families_leaves(dev):
 
 def compiled_leaves(cm):
     """(path, leaf) of each compiled linear: layer 0's slice of every block
-    linear, and the untied head where the model has one."""
+    linear, the hybrid's unstacked shared attention block, and the untied
+    head where the model has one."""
     from repro_torch.core.compile_sparse import _iter_linears
     for path, parent, key in _iter_linears(cm.params["blocks"], "blocks"):
         yield path, {k: v[0] for k, v in parent[key].items()}
+    if isinstance(cm.params.get("shared_attn"), dict):
+        for path, parent, key in _iter_linears(cm.params["shared_attn"],
+                                               "shared_attn"):
+            yield path, parent[key]
     if isinstance(cm.params.get("head"), dict):
         yield "head", cm.params["head"]
 
@@ -2740,7 +2782,10 @@ ROUTE_COUNTER = {("quant", "thin_m"): QMM_THIN,
 def decode_want(cm, cfg, dev, M=1):
     """The launches per route one step of M rows (a decode step of M slots,
     or a prefill chunk of M rows) needs, from each layer-0 leaf's and the
-    head's operands through its kernel's shape rule."""
+    head's operands through its kernel's shape rule.  A block leaf runs
+    once a layer, the hybrid's shared block once a super-block, the head
+    once."""
+    from repro_torch.models.model import n_superblocks
     want = dict.fromkeys(ROUTE_COUNTER.values(), 0)
     shape_of = {r.name: r.shape for r in cm.report}
     for path, leaf in compiled_leaves(cm):
@@ -2750,8 +2795,9 @@ def decode_want(cm, cfg, dev, M=1):
         if ops is None:
             continue
         route, _ = family_route(ops, M, x)
-        want[ROUTE_COUNTER[(ops[0], route)]] += \
-            1 if path == "head" else cfg.n_layers
+        want[ROUTE_COUNTER[(ops[0], route)]] += 1 if path == "head" else (
+            n_superblocks(cfg) if path.startswith("shared_attn/")
+            else cfg.n_layers)
     return want
 
 
@@ -3191,19 +3237,22 @@ def serve_want(cm, cfg, dev, decode_steps, prefill_steps):
     """The launches by route of a serving window: decode steps of 8 slots
     and 16-row prefill chunks, each call on the route its rule names."""
     from repro_torch.core.dispatch import ATTN_BT_DEFAULT
+    from repro_torch.models.model import n_superblocks
     want = {PDA_SPLIT: 0, PDA_SINGLE: 0}
     for M, steps, C in ((8, decode_steps, 1), (16, prefill_steps, 16)):
         for k, n in decode_want(cm, cfg, dev, M).items():
             want[k] = want.get(k, 0) + n * steps
         B = 8 if C == 1 else 1
-        want[pda_route(cfg, B, C, ATTN_BT_DEFAULT)] += cfg.n_layers * steps
+        want[pda_route(cfg, B, C, ATTN_BT_DEFAULT)] += \
+            n_superblocks(cfg) * steps
     return want
 
 
-def zoo_leaf_rows(cm, cfg, dev):
-    """ZOO_LEAVES of the compiled model at M = 8 (bf16), each on the route
-    its rule names, held against its plain version and timed beside its
-    bound and the one-call library yardstick (``x @ W``, W dense bf16)."""
+def zoo_leaf_rows(cm, cfg, dev, leaves_m=None):
+    """Leaves of the compiled model at M rows (bf16): ``leaves_m`` ((path,
+    M) pairs; default ZOO_LEAVES at M = 8), each on the route its rule
+    names, held against its plain version and timed beside its bound and
+    the one-call library yardstick (``x @ W``, W dense bf16)."""
     from repro_torch.core.compile_sparse import _decompress_leaf
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.sparse_matmul import kernel as sk
@@ -3211,21 +3260,23 @@ def zoo_leaf_rows(cm, cfg, dev):
     policy_of = {r.name: r.policy for r in cm.report}
     leaves = dict(compiled_leaves(cm))
     rows = {"quant_matmul": [], "block_sparse_matmul": []}
-    for path in ZOO_LEAVES[cfg.name]:
+    if leaves_m is None:
+        leaves_m = [(path, ZOO_M) for path in ZOO_LEAVES[cfg.name]]
+    for path, M in leaves_m:
         K, N = shape_of[path]
-        x = torch.randn((ZOO_M, K), device=dev).to(torch.bfloat16)
+        x = torch.randn((M, K), device=dev).to(torch.bfloat16)
         ops = leaf_ops(cm, path, leaves[path], x)
         require(ops is not None, f"zoo {cfg.name}: {path} compiled dense")
         kernel = "quant_matmul" if ops[0] == "quant" \
             else "block_sparse_matmul"
-        route, plan = family_route(ops, ZOO_M, x)
+        route, plan = family_route(ops, M, x)
         took_route(qk if ops[0] == "quant" else sk, QMM_ROUTES, route,
                    family_kernel_call(ops, ops[2]))
         dense = _decompress_leaf(leaves[path], cm.patterns.get((K, N)),
                                  torch.bfloat16, shape=(K, N))["w"]
-        t = time_family(ops, dense, ZOO_M, None)
+        t = time_family(ops, dense, M, None)
         del dense
-        label = f"zoo {cfg.name} {path} M={ZOO_M} K={K} N={N} {route}"
+        label = f"zoo {cfg.name} {path} M={M} K={K} N={N} {route}"
         require(t["max_abs_err"] <= t["tol"],
                 f"{label}: kernel vs plain max abs err {t['max_abs_err']}")
         detail = {"policy": policy_of[path], "container": ops[4] or str(
@@ -3237,7 +3288,7 @@ def zoo_leaf_rows(cm, cfg, dev):
         if route == "thin_m":
             detail["plan"] = list(plan)
         rows[kernel].append({"config": cfg.name, "leaf": path,
-                             "shape": f"M={ZOO_M} K={K} N={N}",
+                             "shape": f"M={M} K={K} N={N}",
                              "route": route, **detail, **t})
         torch.cuda.empty_cache()
     return rows
@@ -3434,10 +3485,14 @@ def zoo(dev, report, kernels):
 ENCODER_ARCH, VLM_ARCH = "hubert-xlarge", "phi-3-vision-4.2b"
 ENCODER_BATCH = (4, 1024)     # 4 clips of 1024 frames (~20 s of audio each)
 VLM_PREFIX, VLM_TOKENS = 576, 512
+# phi-3-vision-4.2b is cut to 16 of its 32 layers, and olmoe-1b-7b to 8 of
+# 16, since the SSM and hybrid phase joined the script: it ran 632.5-760.9
+# s with them whole, past half its limit
+VLM_LAYERS = 16
 # MoE configs served by the token drip: (arch, layers kept, requests).
-# qwen2-moe-a2.7b is cut to 4 of its 24 layers to stay in time; olmoe-1b-7b
-# runs whole.
-MOE_PATHS = (("olmoe-1b-7b", None, 16), ("qwen2-moe-a2.7b", 4, 4))
+# qwen2-moe-a2.7b is cut to 4 of its 24 layers to stay in time, olmoe-1b-7b
+# to 8 of 16 (above).
+MOE_PATHS = (("olmoe-1b-7b", 8, 16), ("qwen2-moe-a2.7b", 4, 4))
 # The MoE configs' int4x2 twin bound.  The gap is starcoder2-7b's K/V code
 # flips plus the router's: a bf16 step that moves a gate across its
 # neighbour changes the token's top-k, a discontinuous change that then
@@ -3453,11 +3508,12 @@ MOE_PATHS = (("olmoe-1b-7b", None, 16), ("qwen2-moe-a2.7b", 4, 4))
 MOE_TWIN_TOL = {"olmoe-1b-7b": 0.15, "qwen2-moe-a2.7b": 0.15}
 
 
-def forward_check(cm, cfg, dev, batch, want):
+def forward_check(cm, cfg, dev, batch, want, tol=TWIN_TOL["float"],
+                  steps=3):
     """The compiled full-sequence forward on ``batch``: the launches by
     route ``want`` names, finite logits held against ``dispatch="twin"``
-    within the serving path's float tolerance; then its wall time, device
-    busy time and idle share."""
+    within ``tol`` (the serving path's float tolerance); then its wall
+    time, device busy time and idle share over ``steps`` forwards."""
     from repro_torch.models.model import forward
 
     with torch.no_grad():
@@ -3476,7 +3532,6 @@ def forward_check(cm, cfg, dev, batch, want):
     require(bool(torch.isfinite(y).all()), f"{cfg.name} forward: non-finite")
     top = float(yt.abs().max())
     rel = float((y - yt).abs().max()) / top
-    tol = TWIN_TOL["float"]
     require(rel <= tol, f"{cfg.name} forward: kernel vs twin logits max rel "
                         f"err {rel} > {tol}")
     shape = tuple(y.shape)
@@ -3486,7 +3541,7 @@ def forward_check(cm, cfg, dev, batch, want):
         with torch.no_grad():
             forward(cm.params, cfg, batch, patterns=cm.patterns)
 
-    prof = profile_forward(fwd, steps=3)
+    prof = profile_forward(fwd, steps=steps)
     top_us = sorted(prof.pop("device_us_per_forward").items(),
                     key=lambda kv: -kv[1])[:8]
     return {"logits_shape": list(shape), "launches": got, "max_rel_err": rel,
@@ -3547,9 +3602,15 @@ def encoder_path(dev):
                                    want)
     out["forward"]["frames"] = [B, T]
     print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
-    del cm, frames
+    del frames
+    # the forward's MLP leaf and its head (the 128-block does not tile
+    # 504 columns: the tiled quant route) at the forward's rows
+    rows = zoo_leaf_rows(cm, cfg, dev, [("blocks/mlp/wu", B * T),
+                                        ("head", B * T)])
+    del cm
     torch.cuda.empty_cache()
-    return out, {"flash_attention": [flash_row(dev, cfg, B, T, False)]}
+    rows["flash_attention"] = [flash_row(dev, cfg, B, T, False)]
+    return out, rows
 
 
 def vlm_path(dev):
@@ -3558,7 +3619,7 @@ def vlm_path(dev):
     on the single kernel) and the capture check, the captured step
     profiles, then the compiled forward over 576 prefix embeddings and 512
     tokens."""
-    cm, cfg, out = family_model(VLM_ARCH, dev)
+    cm, cfg, out = family_model(VLM_ARCH, dev, VLM_LAYERS)
     prompts = serve_prompts(cfg)
     tw = twin_check(cm, cfg, dev, prompts[0][:16], "int4x2",
                     want=decode_want(cm, cfg, dev))
@@ -3596,13 +3657,17 @@ def vlm_path(dev):
     out["forward"] = forward_check(cm, cfg, dev, batch, want)
     out["forward"]["prefix_tokens"] = [VLM_PREFIX, VLM_TOKENS]
     print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
+    # the MLP leaf at the decode step's rows and the forward's, and the
+    # head at the forward's (the tiled quant route)
+    rows = zoo_leaf_rows(cm, cfg, dev, [("blocks/mlp/wg", 8),
+                                        ("blocks/mlp/wg", T), ("head", T)])
     del cm
     torch.cuda.empty_cache()
     lens = np.random.default_rng(1).integers(64, 320, size=(8, 1))
-    rows = {"packed_decode_attention": [
+    rows["packed_decode_attention"] = [
         zoo_attention_row(cfg, dev, 8, 1, lens),
-        zoo_attention_row(cfg, dev, 1, 16, 200 + np.arange(1, 17)[None])],
-        "flash_attention": [flash_row(dev, cfg, 1, T, True)]}
+        zoo_attention_row(cfg, dev, 1, 16, 200 + np.arange(1, 17)[None])]
+    rows["flash_attention"] = [flash_row(dev, cfg, 1, T, True)]
     return out, rows
 
 
@@ -3778,6 +3843,384 @@ def encoder_vlm_moe(dev, report):
     out["seconds"] = time.perf_counter() - t0
 
 
+# ------------------------------------------------ SSM and hybrid families
+
+
+SSM_ARCH, HYBRID_ARCH = "xlstm-1.3b", "zamba2-2.7b"
+SSM_FORWARD_T = 512          # two chunks of the chunkwise forms
+# The drip twin check's bound, of the largest logit.  zamba2-2.7b's shared
+# attention reads the int4x2 cache: TWIN_TOL's.  xlstm-1.3b reads no KV
+# cache, but its 48 layers each round their output and gates to bf16
+# around f32 states, and the mLSTM's normaliser divides by a sum of them:
+# on the card (NVIDIA H100 80GB HBM3, 700 W) the kernel path lay
+# 0.020-0.025 of the largest logit from the plain path, and the plain bf16
+# path itself 0.017-0.024 from the plain f32 path.  So the kernel path is
+# held to 0.05 and, past TWIN_TOL, to no more than 1.25x the plain bf16
+# path's distance from f32 (``drip_twin_check``).
+SSM_TWIN_TOL = {SSM_ARCH: 0.05, HYBRID_ARCH: TWIN_TOL["int4x2"]}
+BF16_GAP_SLACK = 1.25
+# xlstm-1.3b's chunkwise forward against its drip with every leaf in f32:
+# the same arithmetic in another order (on the card: under 1e-5 of the
+# largest logit at every position of 512, NVIDIA H100 80GB HBM3, 700 W)
+SSM_F32_TOL = 1e-4
+# warm-up requests of the captured drip: the hybrid's reach every bucket;
+# the SSM family has one, captured at its first step
+SSM_WARM = {"ssm": ((2, 2),), "hybrid": WARM}
+# the requests served eagerly against the captured run: the shortest 4 (an
+# eager step is host-bound, 50-100 ms)
+SSM_EAGER_REQUESTS = 4
+# the mLSTM projections the int8 leaves run: (leaf, rows) pairs timed
+SSM_LEAVES = (("wq", 8), ("wo", 8), ("wq", SSM_FORWARD_T),
+              ("wo", SSM_FORWARD_T))
+HYBRID_LEAVES = (("shared_attn/attn/wq", 8), ("shared_attn/mlp/wg", 8),
+                 ("shared_attn/mlp/wd", 8),
+                 ("shared_attn/attn/wq", SSM_FORWARD_T),
+                 ("shared_attn/mlp/wg", SSM_FORWARD_T))
+
+
+def mlstm_leaf_ops(params, name, x):
+    """Layer 0's int8 mLSTM leaf ``name`` as the quant family hands it to
+    its kernel for the activation ``x``."""
+    leaf = {k: v[0, 0] for k, v in params["blocks"]["mlstm"][name].items()}
+    return "quant", x, leaf["w_q"], leaf["w_s"], False
+
+
+def ssm_want(params, cfg, dev, M):
+    """The launches by route of one step of M rows of the SSM family: the
+    four int8 projections of each mLSTM layer on their rule's route."""
+    want = dict.fromkeys(ROUTE_COUNTER.values(), 0)
+    n_m = cfg.n_layers - cfg.n_layers // cfg.slstm_every
+    for name in ("wq", "wk", "wv", "wo"):
+        K = params["blocks"]["mlstm"][name]["w_q"].shape[-2]
+        x = torch.zeros((M, K), device=dev, dtype=torch.bfloat16)
+        ops = mlstm_leaf_ops(params, name, x)
+        want[ROUTE_COUNTER[("quant", family_route(ops, M, x)[0])]] += n_m
+    return want
+
+
+def drip_want(cm, cfg, dev, M):
+    """One step of M rows of either family: its matmuls by route, and the
+    hybrid's packed reads (one a super-block) on ``pda_plan``'s route."""
+    from repro_torch.models.model import n_superblocks
+    want = {PDA_SPLIT: 0, PDA_SINGLE: 0, FLASH_TC: 0, FLASH_CC: 0}
+    if cfg.family == "ssm":
+        want.update(ssm_want(cm.params, cfg, dev, M))
+    else:
+        want.update(decode_want(cm, cfg, dev, M))
+        want[pda_route(cfg, M, 1, 64)] += n_superblocks(cfg)
+    return want
+
+
+def drip_twin_check(cm, cfg, dev, prompt, tol):
+    """The token drip's kernel path against its plain versions on the card:
+    the prompt dripped a token at a time through ``decode_step`` at B = 1,
+    then 4 greedy steps, teacher-forced with the kernel path's tokens,
+    through the kernel ("auto") and plain ("twin") paths and the plain
+    path in f32 (bf16 leaves cast up), the hybrid on the int4x2 cache.  The
+    kernel path's logits must lie within ``tol`` of the plain path's,
+    relative to the largest, at the prompt's last token and each step,
+    greedy tokens equal or tied, and a step's launches on the routes their
+    rules name; the plain path's distance from f32 is recorded beside
+    it."""
+    from repro_torch.models.model import decode_step, init_cache
+
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                   cm.params)
+    paths = {"kernel": (cm.params, cfg, "auto"),
+             "plain": (cm.params, cfg, "twin"),
+             "plain_f32": (p32, f32, "twin")}
+    caches = {k: init_cache(c, 1, 512, kv_cache="int4x2", device=dev)
+              for k, (_, c, _) in paths.items()}
+    logits = {k: [] for k in paths}
+    feed = [int(t) for t in prompt]
+    per_step = None
+    with torch.no_grad():
+        for i in range(len(prompt) + 4):
+            tok = torch.tensor([[feed[i]]], dtype=torch.int32, device=dev)
+            for k, (p, c, mode) in paths.items():
+                first = k == "kernel" and i == len(prompt)
+                if first:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                y = decode_step(p, c, caches[k], tok, patterns=cm.patterns,
+                                dispatch=mode, t_bound=32, bt=64)[0][0, 0]
+                if first:
+                    torch.cuda.synchronize()
+                    per_step = read_counts()
+                if i >= len(prompt) - 1:
+                    logits[k].append(y.float())
+            if i >= len(prompt) - 1:
+                feed.append(int(torch.argmax(logits["kernel"][-1])))
+    del p32, caches
+    torch.cuda.empty_cache()
+    gaps = {f"{a}_vs_{b}": [float((x - y).abs().max() / y.abs().max())
+                            for x, y in zip(logits[a], logits[b])]
+            for a, b in (("kernel", "plain"), ("plain", "plain_f32"),
+                         ("kernel", "plain_f32"))}
+    steps = []
+    for a, t in zip(logits["kernel"], logits["plain"]):
+        require(bool(torch.isfinite(a).all() and torch.isfinite(t).all()),
+                f"{cfg.name}: non-finite logits")
+        tk, tt = int(torch.argmax(a)), int(torch.argmax(t))
+        top = float(t.abs().max())
+        steps.append({
+            "token": tk, "plain_token": tt,
+            "rel_err": float((a - t).abs().max()) / top,
+            "tie": tk != tt and all(
+                abs(float(v[tk] - v[tt])) <= tol * top for v in (a, t))})
+    max_rel = max(s_["rel_err"] for s_ in steps)
+    want = drip_want(cm, cfg, dev, 1)
+    got = {k: per_step[k] for k in want}
+    out = {"steps": steps, "max_rel_err": max_rel, "tol": tol,
+           "launches_per_decode_step": {k: v for k, v in per_step.items()
+                                        if v}, "gaps": gaps}
+    print(f"{cfg.name}: twin check {json.dumps(out)}", flush=True)
+    require(got == want, f"{cfg.name}: a decode step launched {got} by "
+                         f"route, expected {want}")
+    require(max_rel <= tol, f"{cfg.name}: kernel vs plain logits max rel err "
+                            f"{max_rel} > {tol}")
+    if tol > TWIN_TOL["int4x2" if cfg.family == "hybrid" else "float"]:
+        kernel_f32 = max(gaps["kernel_vs_plain_f32"])
+        bf16_f32 = max(gaps["plain_vs_plain_f32"])
+        require(kernel_f32 <= BF16_GAP_SLACK * bf16_f32,
+                f"{cfg.name}: the kernel path lies {kernel_f32} from plain "
+                f"f32, past {BF16_GAP_SLACK}x the plain bf16 path's "
+                f"{bf16_f32}")
+    for i, s_ in enumerate(steps):
+        require(s_["token"] == s_["plain_token"] or s_["tie"],
+                f"{cfg.name}: greedy token differs between kernel and plain "
+                f"path at step {i}: {s_}")
+    return out
+
+
+def drip_logits(params, cfg, dev, tokens, last):
+    """Logits of the last ``last`` positions of ``tokens`` dripped one at a
+    time through a one-slot engine (captured steps).  Each step waits for
+    the card, as the engine's own steps do by reading their logits: the
+    next step's token goes through the same pinned staging buffer."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(params, cfg, batch_slots=1, max_len=len(tokens),
+                      device=dev)
+    out = []
+    for i, t in enumerate(tokens):
+        eng._fill("tok", np.asarray([[t]], np.int32))
+        tb = 0 if cfg.family == "ssm" else eng._bucket_t(i + 1)
+        y = eng._step_logits("drip", tb)
+        if i >= len(tokens) - last:
+            out.append(y[0, 0].float().clone())
+        torch.cuda.synchronize(dev)
+    del eng
+    return torch.stack(out)
+
+
+def chunkwise_vs_drip(cm, cfg, dev, batch, seq, last=16):
+    """xlstm-1.3b's chunkwise full-sequence forward against its recurrence
+    (the same tokens dripped through a one-slot engine) at the last
+    ``last`` positions, in bf16 (within ``SSM_TWIN_TOL``: the two round
+    differently at every bf16 step) and with the bf16 leaves cast to f32
+    (within ``SSM_F32_TOL``: the same arithmetic in another order)."""
+    from repro_torch.models.model import forward
+
+    out = {}
+    p32 = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                   cm.params)
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    for name, params, c, tol in (("bf16", cm.params, cfg, SSM_TWIN_TOL[
+            cfg.name]), ("f32", p32, f32, SSM_F32_TOL)):
+        with torch.no_grad():
+            full = forward(params, c, batch)[0, -last:].float()
+        rec = drip_logits(params, c, dev, seq, last)
+        rel = float((full - rec).abs().max()) / float(rec.abs().max())
+        out[name] = {"max_rel_err": rel, "tol": tol, "positions": last}
+        require(rel <= tol, f"{cfg.name}: {name} chunkwise forward vs the "
+                            f"drip's recurrence, last {last} positions: max "
+                            f"rel err {rel} > {tol}")
+        del full, rec
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def mlstm_leaf_rows(params, dev):
+    """SSM_LEAVES of xlstm-1.3b's int8 mLSTM (layer 0) at M rows (bf16),
+    each on the route its rule names, held against its plain version and
+    timed beside its bound and ``x @ W`` (W dense bf16)."""
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    rows = []
+    for name, M in SSM_LEAVES:
+        K, N = params["blocks"]["mlstm"][name]["w_q"].shape[-2:]
+        x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+        ops = mlstm_leaf_ops(params, name, x)
+        route, plan = family_route(ops, M, x)
+        took_route(qk, QMM_ROUTES, route, family_kernel_call(ops, ops[2]))
+        dense = (ops[2].float() * ops[3]).to(torch.bfloat16)
+        t = time_family(ops, dense, M, None)
+        del dense
+        label = f"{SSM_ARCH} mlstm/{name} M={M} K={K} N={N} {route}"
+        require(t["max_abs_err"] <= t["tol"],
+                f"{label}: kernel vs plain max abs err {t['max_abs_err']}")
+        row = {"config": SSM_ARCH, "leaf": f"blocks/mlstm/{name}",
+               "shape": f"M={M} K={K} N={N}", "route": route,
+               "container": "int8", **t}
+        if route == "thin_m":
+            row["plan"] = list(plan)
+        rows.append(row)
+    return rows
+
+
+def ssm_hybrid_model(arch, dev):
+    """xlstm-1.3b (raw parameters, its mLSTM projections synthetic int8
+    leaves: the reference does not compile the SSM family) or zamba2-2.7b
+    (compiled with ``zoo_rules``: the shared attention and the head), at
+    full width and depth from seed 0, with the host and device peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_sparse import CompressedModel
+    from repro_torch.models.model import init_params
+
+    if arch == HYBRID_ARCH:
+        return family_model(arch, dev)
+    cfg = dataclasses.replace(get_config(arch), linear_mode="int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+    out = {"n_layers": cfg.n_layers, "linear_mode": cfg.linear_mode,
+           "init_params_s": time.perf_counter() - t0,
+           "host_rss_peak_init": rss.peak,
+           "device_peak_init": torch.cuda.max_memory_allocated(),
+           "param_bytes": int(sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params)))}
+    print(f"{arch}: {cfg.n_layers} layers initialised, "
+          f"{out['param_bytes']} parameter bytes", flush=True)
+    # the raw tree where the helpers take a compiled model: no pattern
+    # table, no report row (the reference does not compile the SSM family;
+    # its int8 leaves are synthetic)
+    return CompressedModel(params=params, patterns={}, report=[]), cfg, out
+
+
+def ssm_hybrid_path(arch, dev):
+    """One config at full width: the drip twin check, the serve phase's 16
+    requests through the token drip, captured (every launch on the route
+    its rule names), the capture check, the shortest requests served
+    eagerly with the same tokens, the captured drip step's profile, then the full-sequence forward at B = 1,
+    T = 512 on its kernels held against the twin (xlstm-1.3b's last 16
+    positions also against the drip's logits: chunkwise against
+    recurrent)."""
+    t0 = time.perf_counter()
+    cm, cfg, out = ssm_hybrid_model(arch, dev)
+    parts = out["seconds_by_part"] = {"setup": time.perf_counter() - t0}
+    prompts = serve_prompts(cfg)
+    t0 = time.perf_counter()
+    out["twin_check"] = drip_twin_check(cm, cfg, dev, prompts[0][:16],
+                                        SSM_TWIN_TOL[arch])
+    parts["twin_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        eng, cap, counts = serve_run(cm, cfg, dev, prompts, count=True,
+                                     warm=SSM_WARM[cfg.family])
+    want_graphs = 1 if cfg.family == "ssm" else cap["graphs"]
+    require(cap["prefill_steps"] == 0 and cap["graphs"] == want_graphs > 0,
+            f"{cfg.name}: the drip ran {cap['prefill_steps']} prefill steps, "
+            f"{cap['graphs']} graphs")
+    out["capture_check"] = capture_check(eng, cfg)
+    require(set(out["capture_check"]) == {"drip"},
+            f"{cfg.name}: captured phases {sorted(out['capture_check'])}")
+    del eng
+    torch.cuda.empty_cache()
+    want = {k: n * cap["decode_steps"]
+            for k, n in drip_want(cm, cfg, dev, 8).items()}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{cfg.name}: served launches by route {got}, the "
+                         f"shape rules name {want}")
+    out["device_peak_serve"] = torch.cuda.max_memory_allocated()
+    out["host_rss_peak_serve"] = rss.peak
+    out["state_bytes_per_slot"] = cap["cache_bytes"] / 8
+    parts["serve_captured"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the shortest requests served eagerly (no warm-up: an eager engine
+    # captures nothing): each request's tokens are its own, as the drip
+    # computes every slot's row on its own
+    few = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[
+        :SSM_EAGER_REQUESTS]
+    _, eager, _ = serve_run(cm, cfg, dev, [prompts[i] for i in few],
+                            warm=(), capture=False)
+    torch.cuda.empty_cache()
+    parts["serve_eager"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(eager.pop("tokens") == [cap["tokens"][i] for i in few],
+            f"{cfg.name}: captured and eager serving gave different tokens")
+    tokens = cap.pop("tokens")
+    require(all(len(t) == 32 and all(0 <= v < cfg.vocab for v in t)
+                for t in tokens), f"{cfg.name}: a request got a bad answer")
+    out["serve"] = {**cap, "launches": {k: v for k, v in counts.items() if v},
+                    "eager": eager}
+    out["step_profile"] = {"drip_captured": profile_step(cm, cfg, dev, "drip",
+                                                         True)}
+    torch.cuda.empty_cache()
+    parts["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"{cfg.name}: capture check {json.dumps(out['capture_check'])}; "
+          f"serve {json.dumps(out['serve'])}", flush=True)
+    print(f"{cfg.name}: step profile {json.dumps(out['step_profile'])}",
+          flush=True)
+
+    T = SSM_FORWARD_T
+    seq = np.random.default_rng(2).integers(0, cfg.vocab, T).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(seq[None], device=dev)}
+    want = drip_want(cm, cfg, dev, T)
+    want.update({PDA_SPLIT: 0, PDA_SINGLE: 0})
+    if cfg.family == "hybrid":
+        from repro_torch.models.model import n_superblocks
+        want[FLASH_CC] = n_superblocks(cfg)
+    # the forward reads no KV cache: the float bound, or xlstm-1.3b's
+    tol = SSM_TWIN_TOL[arch] if cfg.family == "ssm" else TWIN_TOL["float"]
+    out["forward"] = forward_check(cm, cfg, dev, batch, want, tol=tol,
+                                   steps=1)
+    parts["forward_check"] = time.perf_counter() - t0
+    if cfg.family == "ssm":
+        out["forward"]["chunkwise_vs_drip"] = chunkwise_vs_drip(
+            cm, cfg, dev, batch, seq)
+    parts["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
+    if cfg.family == "ssm":
+        rows = {"quant_matmul": mlstm_leaf_rows(cm.params, dev)}
+    else:
+        rows = zoo_leaf_rows(cm, cfg, dev, HYBRID_LEAVES)
+    del cm
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        lens = np.random.default_rng(1).integers(64, 320, size=(8, 1))
+        rows["packed_decode_attention"] = [
+            zoo_attention_row(cfg, dev, 8, 1, lens)]
+        rows["flash_attention"] = [flash_row(dev, cfg, 1, T, True)]
+    parts["rows"] = time.perf_counter() - t0
+    return out, rows
+
+
+def ssm_hybrid(dev, report):
+    """The SSM and hybrid phase: xlstm-1.3b and zamba2-2.7b, each path's
+    launch counts set to 0 just before it and read just after; its rows go
+    to ``report["ssm_hybrid_rows"]`` (the kernels line's entries gain them
+    as an ``ssm_hybrid`` list)."""
+    out, rows = {}, {}
+    report["ssm_hybrid"] = out
+    report["ssm_hybrid_rows"] = rows
+    t0 = time.perf_counter()
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        t = time.perf_counter()
+        out[arch], r = ssm_hybrid_path(arch, dev)
+        out[arch]["seconds"] = time.perf_counter() - t
+        for k, v in r.items():
+            rows.setdefault(k, []).extend(v)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+
 
 
 def main() -> int:
@@ -3891,6 +4334,16 @@ def main() -> int:
               flush=True)
         print("encoder/VLM/MoE rows: "
               + json.dumps(report["encoder_vlm_moe_rows"]), flush=True)
+        ssm_hybrid(dev, report)
+        sh = report["ssm_hybrid"]
+        print(f"SSM/hybrid ({sh['seconds']:.1f} s) launches by route: "
+              + json.dumps({a: r["serve"]["launches"] for a, r in sh.items()
+                            if isinstance(r, dict)}), flush=True)
+        print("SSM/hybrid memory: " + json.dumps({
+            a: {k: v for k, v in r.items() if "peak" in k or "bytes" in k}
+            for a, r in sh.items() if isinstance(r, dict)}), flush=True)
+        print("SSM/hybrid rows: " + json.dumps(report["ssm_hybrid_rows"]),
+              flush=True)
         train_counts = train(dev, report)
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)
@@ -3903,9 +4356,9 @@ def main() -> int:
             flush=True)
         kernels.append(measure_flash(dev, train_counts))
         for k in kernels:
-            if k["name"] in report["encoder_vlm_moe_rows"]:
-                k["encoder_vlm_moe"] = report["encoder_vlm_moe_rows"][
-                    k["name"]]
+            for phase in ("encoder_vlm_moe", "ssm_hybrid"):
+                if k["name"] in report[f"{phase}_rows"]:
+                    k[phase] = report[f"{phase}_rows"][k["name"]]
         report["kernels"] = kernels
     finally:
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -10,8 +10,7 @@ from ..models.config import SHAPES, ArchConfig, ShapeSpec
 __all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeSpec", "get_config",
            "reduced_config"]
 
-# the reference's registry order (``repro.configs._MODULES``) without the
-# SSM and hybrid entries (xlstm-1.3b, zamba2-2.7b: ROADMAP Queue A item 8)
+# the reference's registry, in its order (``repro.configs._MODULES``)
 _MODULES = {
     "llama3-405b": "llama3_405b",
     "qwen1.5-4b": "qwen1_5_4b",
@@ -20,6 +19,8 @@ _MODULES = {
     "hubert-xlarge": "hubert_xlarge",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
@@ -38,7 +39,7 @@ def get_config(arch: str) -> ArchConfig:
 
 def reduced_config(arch: str) -> ArchConfig:
     """Tiny same-family config for CPU runs and tests (a copy of
-    ``repro.configs.reduced_config`` for the port's families)."""
+    ``repro.configs.reduced_config``)."""
     cfg = get_config(arch)
     small: dict = dict(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=128,
@@ -48,6 +49,12 @@ def reduced_config(arch: str) -> ArchConfig:
     if cfg.family == "moe":
         small.update(n_experts=8, top_k=min(cfg.top_k, 4), d_expert=32,
                      n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.family == "ssm":
+        small.update(n_layers=cfg.slstm_every, slstm_every=cfg.slstm_every,
+                     d_inner=128, d_ff=0, n_kv_heads=4)
+    if cfg.family == "hybrid":
+        small.update(n_layers=2 * 2, attn_every=2, d_inner=128, ssm_state=16,
+                     n_kv_heads=4)
     if cfg.frontend == "patch":
         small.update(n_prefix_tokens=4)
     return dataclasses.replace(cfg, **small)

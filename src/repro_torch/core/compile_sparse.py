@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_leaves
 from . import payload_registry
 from .cost_model import HWSpec, LayerSpec, TPU_V5E, decode_linear_spec, \
     layer_latency
@@ -360,9 +361,9 @@ def compile_model(
     rules: CompileRules = CompileRules(),
     device=None,
 ) -> CompressedModel:
-    """Lower a transformer parameter tree (dense, encoder, VLM or MoE
-    family) onto the compressed datapath; the compiled leaves land on
-    ``device`` (CUDA unless ``device="cpu"``).
+    """Lower a transformer parameter tree (dense, encoder, VLM, MoE or
+    hybrid family) onto the compressed datapath; the compiled leaves land
+    on ``device`` (CUDA unless ``device="cpu"``).
 
     ``masks`` maps leaf names ("wq", ...) or full paths ("blocks/attn/wq")
     to (L, K, N) / (K, N) boolean keep-masks; absent entries are derived by
@@ -373,12 +374,17 @@ def compile_model(
     and the router are not lowered (their dispatch is data-dependent) and
     appear as dense report rows; the shared expert (``moe/shared``)
     compiles like any MLP.  A stub frontend's ``frontend_proj`` stays
-    dense and unreported.
+    dense and unreported.  For the hybrid only the shared attention block
+    (``shared_attn``, unstacked (K, N) leaves) and the head are lowered;
+    its Mamba2 super-blocks stay dense, one aggregate report row.  The SSM
+    family is refused, as by the reference: its projections are not
+    lowered, so there is nothing to compile.
     """
-    if cfg.family not in ("dense", "encoder", "vlm", "moe"):
+    if cfg.family not in ("dense", "encoder", "vlm", "moe", "hybrid"):
         raise NotImplementedError(
-            f"the port compiles the attention/MLP families (dense, encoder, "
-            f"vlm, moe), got {cfg.family!r} (ROADMAP Queue A item 8)")
+            f"compile_model supports attention/MLP families, got "
+            f"{cfg.family} — the reference does not lower the SSM "
+            "family's projections")
     dev = resolve_device(device)
     patterns: Dict[Tuple[int, int], BlockSparsePattern] = {}
     report: List[LayerReport] = []
@@ -394,7 +400,12 @@ def compile_model(
         return table[key]
 
     new_params = _copy_spine(params)
-    sites = list(_iter_linears(new_params["blocks"], "blocks"))
+    sites = []
+    roots = [] if cfg.family == "hybrid" else ["blocks"]
+    if "shared_attn" in params:
+        roots.append("shared_attn")
+    for root in roots:
+        sites.extend(_iter_linears(new_params[root], root))
     if isinstance(params.get("head"), dict) and any(
             lk in params["head"]
             for lk in payload_registry.weight_leaf_names()):
@@ -532,6 +543,14 @@ def compile_model(
                     n_layers=math.prod(int(d) for d in w.shape[:-2]),
                     dense_bytes=b, compressed_bytes=b, block_density=1.0,
                     element_density=1.0))
+    if cfg.family == "hybrid":
+        # the Mamba2 super-blocks, not lowered: one aggregate dense row
+        b = sum(int(t.numel() * t.element_size())
+                for t in tree_leaves(params["blocks"]))
+        report.append(LayerReport(
+            name="blocks (ssm, not lowered)", policy="dense", shape=(0, 0),
+            n_layers=0, dense_bytes=b, compressed_bytes=b,
+            block_density=1.0, element_density=1.0))
     return CompressedModel(params=new_params, patterns=patterns, report=report)
 
 
@@ -769,9 +788,13 @@ def decompress_model(cm: CompressedModel, *, dtype=torch.float32) -> Any:
     out = _copy_spine(cm.params)
     if not isinstance(out.get("blocks"), dict):
         return out   # a LeNet compile with no compressed layer
-    for path, parent, k in _iter_linears(out["blocks"], "blocks"):
-        parent[k] = _decompress_leaf(parent[k], cm.patterns.get(shape_of.get(path)),
-                                     dtype, shape=shape_of.get(path))
+    for root in ("blocks", "shared_attn"):
+        if not isinstance(out.get(root), dict):
+            continue
+        for path, parent, k in _iter_linears(out[root], root):
+            pat = cm.patterns.get(shape_of.get(path))
+            parent[k] = _decompress_leaf(parent[k], pat, dtype,
+                                         shape=shape_of.get(path))
     if isinstance(out.get("head"), dict):
         out["head"] = _decompress_leaf(
             out["head"], cm.patterns.get(shape_of.get("head")), dtype,

@@ -21,6 +21,7 @@ import torch
 
 from .. import dispatch as _d
 from .. import payload_registry as _reg
+from ._util import int8_codes
 from ..quant import QuantizedTensor
 
 
@@ -160,6 +161,13 @@ def _sample(rng: np.random.Generator):
     return {"w_bfp": t.mantissas, "w_bfpe": t.exponents}, None
 
 
+def _init_bfp8(gen, K, N, *, dtype, pattern, lead):
+    del dtype, pattern
+    return {"w_bfp": int8_codes(gen, lead + (K, N)),
+            "w_bfpe": torch.full(lead + (N,), -10, dtype=torch.int8,
+                                 device=gen.device)}
+
+
 FAMILY = _reg.register(_reg.PayloadFamily(
     name="bfp8",
     key_leaf="w_bfp",
@@ -175,6 +183,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     container_leaves=("w_bfp",),
     sample=_sample,
     validate=_validate,
+    init_modes={"bfp8": _init_bfp8},
 ))
 
 POLICY = _reg.register_policy(_reg.PolicyCompiler(

@@ -11,6 +11,7 @@ import torch
 
 from .. import dispatch as _d
 from .. import payload_registry as _reg
+from ._util import he_init
 
 
 def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
@@ -39,6 +40,11 @@ def _payload_kn(payload):
     return tuple(map(int, payload.shape))
 
 
+def _init_dense(gen, K, N, *, dtype, pattern, lead):
+    del pattern
+    return {"w": he_init(gen, lead + (K, N), dtype, K)}
+
+
 def _sample(rng: np.random.Generator):
     return {"w": torch.as_tensor(rng.normal(size=(16, 8)), dtype=torch.float32)}, \
         None
@@ -55,4 +61,5 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     payload_kn=_payload_kn,
     leaf_ndim={"w": 2},
     sample=_sample,
+    init_modes={"dense": _init_dense},
 ))

@@ -13,6 +13,7 @@ import torch
 
 from .. import dispatch as _d
 from .. import payload_registry as _reg
+from ._util import fan_in_scales, he_init, int8_codes
 
 
 def _apply(p, x, *, pattern, cfg, bias, activation, compute_dtype, leaf,
@@ -35,6 +36,20 @@ def _validate(p, pattern):
             "Ng each) — stale scales from a different group count")
 
 
+def _init_gsparse(gen, K, N, *, dtype, pattern, lead):
+    assert pattern is not None  # the group count s
+    s = pattern
+    return {"w_grp": he_init(gen, lead + (s, K // s, N // s), dtype, K // s)}
+
+
+def _init_gsparse_int8(gen, K, N, *, dtype, pattern, lead):
+    del dtype
+    assert pattern is not None
+    s = pattern
+    return {"w_grp": int8_codes(gen, lead + (s, K // s, N // s)),
+            "w_s": fan_in_scales(gen, lead + (N,), K // s)}
+
+
 def _sample(rng: np.random.Generator):
     return {"w_grp": torch.as_tensor(rng.normal(size=(2, 8, 4)),
                                      dtype=torch.float32)}, None
@@ -50,4 +65,6 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_dtype_kinds={"w_grp": "fi"},
     sample=_sample,
     validate=_validate,
+    init_modes={"gsparse": _init_gsparse,
+                "gsparse_int8": _init_gsparse_int8},
 ))

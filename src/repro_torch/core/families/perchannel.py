@@ -22,6 +22,7 @@ import torch
 
 from .. import dispatch as _d
 from .. import payload_registry as _reg
+from ._util import fan_in_scales, int8_codes
 from ..quant import QuantizedTensor, quantize
 
 
@@ -150,6 +151,12 @@ def _sample(rng: np.random.Generator):
     return {"w_pc": pcq.values, "w_pcs": pcq.scales}, None
 
 
+def _init_perchannel_int8(gen, K, N, *, dtype, pattern, lead):
+    del dtype, pattern
+    return {"w_pc": int8_codes(gen, lead + (K, N)),
+            "w_pcs": fan_in_scales(gen, lead + (K,), K)}
+
+
 FAMILY = _reg.register(_reg.PayloadFamily(
     name="perchannel",
     key_leaf="w_pc",
@@ -165,6 +172,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     container_leaves=("w_pc",),
     sample=_sample,
     validate=_validate,
+    init_modes={"perchannel_int8": _init_perchannel_int8},
 ))
 
 POLICY = _reg.register_policy(_reg.PolicyCompiler(

@@ -17,6 +17,7 @@ import torch
 
 from .. import dispatch as _d
 from .. import payload_registry as _reg
+from ._util import fan_in_scales, int8_codes
 from ..quant import (
     PACKED_CONTAINER,
     PACKED_CONTAINER_INT2,
@@ -345,6 +346,13 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     validate=_validate_scales("quant_packed", "w_qp"),
 ))
 
+def _init_int8(gen, K, N, *, dtype, pattern, lead):
+    # near-zero-symmetric codes; the scales are set for recalibration
+    del dtype, pattern
+    return {"w_q": int8_codes(gen, lead + (K, N)),
+            "w_s": fan_in_scales(gen, lead + (N,), K)}
+
+
 FAMILY = _reg.register(_reg.PayloadFamily(
     name="quant",
     key_leaf="w_q",
@@ -363,6 +371,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_ndim={"w_q": 2, "w_s": 1},
     sample=_sample,
     validate=_validate_scales("quant", "w_q"),
+    init_modes={"int8": _init_int8},
 ))
 
 POLICY = _reg.register_policy(_reg.PolicyCompiler(

@@ -29,6 +29,7 @@ from ..quant import (
 )
 from ..sparsity import CompressedLinear, compress, decompress, pattern_from_mask
 from ...kernels.sparse_matmul.ops import schedule_for
+from ._util import fan_in_scales, he_init, int8_codes
 
 _NEED_PATTERN = (
     "sparse linear needs its static pattern — pass the compile_sparse "
@@ -393,6 +394,22 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     validate=_validate_blocks("sparse_packed", "w_blkp"),
 ))
 
+def _init_sparse(gen, K, N, *, dtype, pattern, lead):
+    assert pattern is not None
+    bk, bn = pattern.block
+    return {"w_blk": he_init(gen, lead + (pattern.n_blocks_present, bk, bn),
+                             dtype, K * pattern.block_density)}
+
+
+def _init_sparse_int8(gen, K, N, *, dtype, pattern, lead):
+    del dtype
+    assert pattern is not None
+    bk, bn = pattern.block
+    return {"w_blk": int8_codes(gen, lead + (pattern.n_blocks_present, bk,
+                                             bn)),
+            "w_s": fan_in_scales(gen, lead + (N,), K)}
+
+
 FAMILY = _reg.register(_reg.PayloadFamily(
     name="sparse",
     key_leaf="w_blk",
@@ -414,6 +431,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_dtype_kinds={"w_blk": "fi"},
     sample=_sample,
     validate=_validate_blocks("sparse", "w_blk"),
+    init_modes={"sparse": _init_sparse, "sparse_int8": _init_sparse_int8},
 ))
 
 POLICY = _reg.register_policy(_reg.PolicyCompiler(

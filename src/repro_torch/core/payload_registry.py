@@ -27,6 +27,8 @@ __all__ = [
     "family_for_leaf_name",
     "family_for_leaves",
     "family_of_payload",
+    "init_leaves",
+    "init_modes",
     "kind_family",
     "kind_needs_pattern",
     "pattern_leaf",
@@ -81,6 +83,10 @@ class PayloadFamily:
       candidate (None: the plain version); ``leaf_kn(leaves, pattern)`` —
       the leaves' (K, N).  The last three live on each kind's unpacked
       family (:func:`kind_family`), which runs every container of the kind.
+    * ``init_modes`` — ``models.blocks.linear_init`` mode name ->
+      ``fn(generator, K, N, *, dtype, pattern, lead) -> leaves``: random
+      leaves in the family's form drawn from a ``torch.Generator`` on its
+      device, each with the leading axes ``lead`` (a layer stack).
     """
 
     name: str
@@ -107,6 +113,8 @@ class PayloadFamily:
     tune_candidates: Optional[Callable] = None
     tune_runner: Optional[Callable] = None
     leaf_kn: Optional[Callable] = None
+    init_modes: Mapping[str, Callable] = dataclasses.field(
+        default_factory=dict)
 
     def __post_init__(self):
         if self.key_leaf not in self.leaf_names:
@@ -264,6 +272,30 @@ def validate_leaves(p: Mapping[str, Any],
         fam.validate(p, pattern)
     _VALIDATED.add(sig)
     return fam
+
+
+def init_modes() -> Dict[str, Callable]:
+    """Every registered family's init modes (a later family's name wins, as
+    in the reference's registry)."""
+    modes: Dict[str, Callable] = {}
+    for fam in all_families():
+        modes.update(fam.init_modes)
+    return modes
+
+
+def init_leaves(mode: str, generator: torch.Generator, K: int, N: int, *,
+                dtype, pattern=None, lead: Tuple[int, ...] = ()
+                ) -> Dict[str, Any]:
+    """Random leaves of one (K, N) linear in init mode ``mode`` (with the
+    leading axes ``lead``), for ``models.blocks.linear_init``: each family
+    contributes its modes, so a new format is initialisable without
+    touching the model code."""
+    modes = init_modes()
+    if mode not in modes:
+        raise ValueError(
+            f"unknown linear mode {mode!r} — registered: {sorted(modes)}")
+    return modes[mode](generator, K, N, dtype=dtype, pattern=pattern,
+                       lead=tuple(lead))
 
 
 def family_for_leaf_name(name: str) -> Optional[PayloadFamily]:

@@ -1,6 +1,10 @@
 """Transformer blocks: GQA attention over a float, int4 or bit-packed
 int4x2 KV cache, the MLP, the MoE layer — every linear through the
-compressed-linear dispatch — and the conv-bearing patch-embedding hook."""
+compressed-linear dispatch — and the conv-bearing patch-embedding hook.
+
+Linears are initialised by :func:`lin_init` in the config's
+``linear_mode`` (any family's init mode; the sparse modes share one
+pattern per (K, N) shape, :func:`_pattern`)."""
 from __future__ import annotations
 
 import math
@@ -18,6 +22,7 @@ from ..core.dispatch import (
 )
 from ..core.families._util import he_init
 from ..core.quant import pack_int4, unpack_int4
+from ..core.sparsity import shared_pattern
 from .config import ArchConfig
 from .layers import (
     Params,
@@ -25,6 +30,7 @@ from .layers import (
     decode_attention,
     layernorm,
     linear_apply,
+    linear_init,
     prefill_attention,
     rmsnorm,
 )
@@ -46,55 +52,96 @@ def norm_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(p, x) if cfg.norm == "rms" else layernorm(p, x)
 
 
+def _pattern(cfg: ArchConfig, K: int, N: int):
+    """The config's shared static pattern of a (K, N) linear under a sparse
+    ``linear_mode``: the group count s for ``gsparse*`` (None when the
+    groups would not be whole multiples of 8), a diagonal-striped
+    :class:`BlockSparsePattern` for ``sparse*`` (None when the block does
+    not tile the shape: the leaf falls back to dense), else None."""
+    mode = cfg.linear_mode
+    if mode.startswith("gsparse"):
+        s = max(1, round(1.0 / max(cfg.sparse_density, 1e-6)))
+        if K % s or N % s or (K // s) % 8 or (N // s) % 8:
+            return None
+        return s
+    if not mode.startswith("sparse"):
+        return None
+    bk = min(cfg.sparse_block[0], K)
+    bn = min(cfg.sparse_block[1], N)
+    if K % bk or N % bn:
+        return None
+    return shared_pattern(K, N, (bk, bn), cfg.sparse_density)
+
+
+def lin_init(gen: torch.Generator, cfg: ArchConfig, K: int, N: int, *,
+             bias: bool = False, lead: Tuple[int, ...] = ()) -> Params:
+    """One linear in ``cfg.linear_mode``, stacked over ``lead``; a sparse
+    mode whose pattern does not fit the shape inits dense."""
+    mode = cfg.linear_mode
+    sparse = mode.startswith("sparse") or mode.startswith("gsparse")
+    pat = _pattern(cfg, K, N) if sparse else None
+    if sparse and pat is None:
+        mode = "dense"
+    return linear_init(gen, K, N, dtype=_dtype(cfg), mode=mode, bias=bias,
+                       pattern=pat, lead=lead)
+
+
 def lin_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, K: int, N: int,
               patterns=None, dispatch=None, leaf: Optional[str] = None):
     """``patterns`` is the compile pass's side-table ((K, N) -> static
-    BlockSparsePattern), looked up for the families that need it."""
-    pat = (patterns or {}).get((K, N)) if payload_registry.pattern_leaf(p) \
-        else None
+    BlockSparsePattern), looked up for the families that need it; without
+    an entry, a pattern-bound leaf takes the config's shared pattern (the
+    synthetic ``linear_mode`` leaves of :func:`lin_init`)."""
+    pat = None
+    if payload_registry.pattern_leaf(p):
+        pat = (patterns or {}).get((K, N)) or _pattern(cfg, K, N)
     return linear_apply(p, x, pattern=pat, dispatch=dispatch, leaf=leaf)
 
 
 # ------------------------------------------------------------------- init
 
 
-def norm_init(cfg: ArchConfig, L: int, device) -> Params:
+def _lead(L) -> Tuple[int, ...]:
+    """Leading stack axes: an int L (0 = unstacked) or a tuple."""
+    if isinstance(L, tuple):
+        return L
+    return (L,) if L else ()
+
+
+def norm_init(cfg: ArchConfig, L, device) -> Params:
     """Norm gains (and biases) in bf16 whatever ``param_dtype`` is, as the
-    reference's ``rmsnorm_init`` / ``layernorm_init`` make them."""
-    shape = (L, cfg.d_model) if L else (cfg.d_model,)
+    reference's ``rmsnorm_init`` / ``layernorm_init`` make them; ``L`` is
+    the stack (an int, 0 = unstacked, or a tuple of axes)."""
+    shape = _lead(L) + (cfg.d_model,)
     p = {"g": torch.ones(shape, dtype=torch.bfloat16, device=device)}
     if cfg.norm != "rms":
         p["b"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return p
 
 
-def _lin_init(gen: torch.Generator, cfg: ArchConfig, L: int, K: int, N: int,
-              bias: bool = False) -> Params:
-    p = {"w": he_init(gen, (L, K, N), _dtype(cfg), K)}
-    if bias:
-        p["b"] = torch.zeros((L, N), dtype=_dtype(cfg), device=gen.device)
-    return p
-
-
 def attn_init(gen: torch.Generator, cfg: ArchConfig, L: int) -> Params:
+    """Attention projections stacked over ``L`` layers (0: unstacked, the
+    hybrid's shared block), in ``cfg.linear_mode``."""
     D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lead = _lead(L)
     return {
-        "wq": _lin_init(gen, cfg, L, D, H * Dh, bias=cfg.qkv_bias),
-        "wk": _lin_init(gen, cfg, L, D, Hkv * Dh, bias=cfg.qkv_bias),
-        "wv": _lin_init(gen, cfg, L, D, Hkv * Dh, bias=cfg.qkv_bias),
-        "wo": _lin_init(gen, cfg, L, H * Dh, D),
+        "wq": lin_init(gen, cfg, D, H * Dh, bias=cfg.qkv_bias, lead=lead),
+        "wk": lin_init(gen, cfg, D, Hkv * Dh, bias=cfg.qkv_bias, lead=lead),
+        "wv": lin_init(gen, cfg, D, Hkv * Dh, bias=cfg.qkv_bias, lead=lead),
+        "wo": lin_init(gen, cfg, H * Dh, D, lead=lead),
     }
 
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, L: int,
              d_ff: Optional[int] = None) -> Params:
     D, F_ = cfg.d_model, d_ff or cfg.d_ff
+    lead = _lead(L)
     if cfg.act == "swiglu":
-        return {"wg": _lin_init(gen, cfg, L, D, F_),
-                "wu": _lin_init(gen, cfg, L, D, F_),
-                "wd": _lin_init(gen, cfg, L, F_, D)}
-    return {"wu": _lin_init(gen, cfg, L, D, F_),
-            "wd": _lin_init(gen, cfg, L, F_, D)}
+        return {"wg": lin_init(gen, cfg, D, F_, lead=lead),
+                "wu": lin_init(gen, cfg, D, F_, lead=lead),
+                "wd": lin_init(gen, cfg, F_, D, lead=lead)}
+    return {"wu": lin_init(gen, cfg, D, F_, lead=lead),
+            "wd": lin_init(gen, cfg, F_, D, lead=lead)}
 
 
 # ----------------------------------------------------------------- attention

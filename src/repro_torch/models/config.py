@@ -2,14 +2,15 @@
 input shapes (``SHAPES``) the layer IR and the DSE are run at.
 
 The fields of ``repro.models.config.ArchConfig`` that the port's
-families (dense, encoder, VLM, MoE) read, under the same names, so a
-configuration reads the same in both packages.  The SSM and hybrid fields
-come with those families (ROADMAP Queue A item 8).
+families (dense, encoder, VLM, MoE, SSM, hybrid) read, under the same
+names, so a configuration reads the same in both packages.  The
+reference's ``seq_shard`` (sequence sharding of activations) is left out:
+the port runs on one card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 __all__ = ["ArchConfig", "SHAPES", "ShapeSpec"]
 
@@ -29,13 +30,11 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-_NOT_PORTED = ("ssm", "hybrid")
-
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # dense | moe | encoder | vlm (ssm, hybrid: not yet)
+    family: str               # dense | moe | ssm | hybrid | encoder | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,9 +56,21 @@ class ArchConfig:
     d_expert: int = 0
     capacity_factor: float = 1.25
 
+    # SSM / hybrid
+    ssm_variant: str = ""     # mlstm | mamba2
+    ssm_state: int = 0
+    slstm_every: int = 0      # xLSTM: every k-th block is sLSTM
+    attn_every: int = 0       # zamba2: shared attention block every k layers
+    d_inner: int = 0          # ssm inner width (default 2*d_model)
+
     # VLM / audio stub frontend
     n_prefix_tokens: int = 0  # image/audio embeddings prepended (stub)
     frontend: str = ""        # 'patch' (vlm) | 'frame' (audio encoder input)
+
+    # LogicSparse datapath of the synthetic init (models.blocks.lin_init)
+    linear_mode: str = "dense"        # an init mode of a payload family
+    sparse_block: Tuple[int, int] = (128, 128)
+    sparse_density: float = 1.0       # block density when linear_mode=sparse*
 
     remat: bool = True        # forward recomputes each layer in backward
     opt_state_dtype: str = "float32"  # float32 | bfloat16 (405B uses bf16)
@@ -68,6 +79,8 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.ssm_variant and not self.d_inner:
+            object.__setattr__(self, "d_inner", 2 * self.d_model)
 
     @property
     def supports_decode(self) -> bool:
@@ -84,15 +97,8 @@ class ArchConfig:
                 if not (s.kind == "decode" and not self.supports_decode)
                 and not (s.name == "long_500k" and not self.subquadratic)]
 
-    def _check_counted(self) -> None:
-        if self.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.name}: the {self.family!r} family's fields are not "
-                "ported yet (ROADMAP Queue A item 8)")
-
     def param_count(self) -> int:
         """Analytic dense parameter count (for 6ND and memory napkin math)."""
-        self._check_counted()
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         H, Hkv, Dh = self.n_heads, self.n_kv_heads, self.head_dim
         attn = D * (H * Dh) + 2 * D * (Hkv * Dh) + (H * Dh) * D
@@ -104,8 +110,16 @@ class ArchConfig:
             e_mlp = 3 * D * self.d_expert
             per_layer = attn + (self.n_experts + self.n_shared_experts) \
                 * e_mlp + D * self.n_experts  # router
+        elif self.family == "ssm":
+            di = self.d_inner
+            per_layer = 4 * D * di + di * D  # qkv/in + gates + out (approx)
+        elif self.family == "hybrid":
+            di = self.d_inner
+            per_layer = 3 * D * di + di * D + self.ssm_state * di // 8
         emb = V * D * (1 if self.tie_embeddings else 2)
-        return L * per_layer + emb
+        # the hybrid's one shared attention block
+        extra = attn if self.family == "hybrid" and self.attn_every else 0
+        return L * per_layer + emb + extra
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only routed top-k + shared)."""

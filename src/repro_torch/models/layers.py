@@ -10,15 +10,36 @@ that as ``q.to(f32) * scale``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..core import payload_registry
 from ..core.dispatch import conv_dispatch, linear_dispatch
 from ..core.sparsity import BlockSparsePattern
 
 Params = Dict[str, Any]
+
+
+def linear_init(generator: torch.Generator, K: int, N: int, *,
+                dtype=torch.bfloat16, bias: bool = False, mode: str = "dense",
+                pattern=None, lead: Tuple[int, ...] = ()) -> Params:
+    """Random leaves of one linear in any registered family's form, drawn
+    from ``generator`` on its device, with the leading axes ``lead`` (a
+    layer stack).
+
+    ``mode`` names an init mode of a family ("dense" | "int8" | "sparse" |
+    "sparse_int8" | "gsparse" | "gsparse_int8" | "perchannel_int8" |
+    "bfp8"); ``pattern`` is its static side-information (a
+    BlockSparsePattern for the block-sparse modes, the group count for the
+    group-diagonal ones).  ``bias`` adds a zero ``b`` leaf."""
+    p = dict(payload_registry.init_leaves(mode, generator, K, N, dtype=dtype,
+                                          pattern=pattern, lead=lead))
+    if bias:
+        p["b"] = torch.zeros(tuple(lead) + (N,), dtype=dtype,
+                             device=generator.device)
+    return p
 
 
 def linear_apply(p: Params, x: torch.Tensor, *,

@@ -1,10 +1,23 @@
-"""The transformer families that are attention plus an FFN — dense,
-encoder, VLM and MoE: init, the full-sequence forward and loss (training,
-prefill and scoring), and the cached decode/prefill steps.
+"""Model zoo: init, the full-sequence forward and loss (training, prefill
+and scoring), and the cached decode/prefill steps of every family — dense,
+encoder, VLM, MoE, SSM and hybrid.
 
 Parameters are plain dicts of tensors whose per-layer leaves are stacked
 along a leading layer axis ``(L, ...)``, as in the JAX reference; the steps
 loop over the layers in Python.  Caches are updated in place.
+
+The heterogeneous stacks are homogeneous *super-blocks*, with the
+reference's layout (so its parameter tree carries over unchanged):
+
+  xlstm  (ssm):    48 = 6 x [1 sLSTM + 7 mLSTM]               (slstm_every 8)
+  zamba2 (hybrid): 54 = 9 x [shared attention (tied) + 6 Mamba2]  (attn_every 6)
+
+A super-block's inner stacks (``m_ln``, ``mlstm``, ``mamba``) and their
+state caches carry a second stacked axis, ``(L, n_inner, ...)``; the
+hybrid's ``shared_attn`` block is unstacked and applied by every
+super-block, each with its own KV cache.  The recurrent families serve
+through per-token ``decode_step`` (no ``active`` mask, no chunked
+prefill): their state advances on every step.
 
 The encoder (``frontend="frame"``) and the VLM (``frontend="patch"``) ride
 the dense block behind a stub frontend, one ``frontend_proj`` projection of
@@ -21,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tree import tree_map
 from .blocks import (
     _dtype,
     attn_apply,
@@ -35,20 +49,34 @@ from .blocks import (
 )
 from .config import ArchConfig
 from .layers import Params, linear_apply
+from .ssm import (
+    mamba2_apply,
+    mamba2_cache_init,
+    mamba2_init,
+    mlstm_apply,
+    mlstm_cache_init,
+    mlstm_init,
+    slstm_apply,
+    slstm_cache_init,
+    slstm_init,
+)
 
 __all__ = ["cache_batch_axes", "decode_step", "embed_inputs", "forward",
-           "init_cache", "init_params", "loss_fn", "prefill_step"]
+           "init_cache", "init_params", "loss_fn", "n_superblocks",
+           "prefill_step"]
 
-FAMILIES = ("dense", "encoder", "vlm", "moe")
+FAMILIES = ("dense", "encoder", "vlm", "moe", "ssm", "hybrid")
 # the families with a decode cache (an encoder has none)
-DECODE_FAMILIES = ("dense", "vlm", "moe")
+DECODE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+# the families whose recurrent state advances on every step
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the port runs the {', '.join(FAMILIES)} families, got "
-            f"{cfg.family!r} (ROADMAP Queue A item 8)")
+        raise ValueError(
+            f"unknown family {cfg.family!r}; the port runs "
+            f"{', '.join(FAMILIES)}")
 
 
 def _check_decode(cfg: ArchConfig) -> None:
@@ -57,29 +85,61 @@ def _check_decode(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.family} has no decode cache")
 
 
+def n_superblocks(cfg: ArchConfig) -> int:
+    """The stacked axis of ``blocks``: super-blocks for the SSM and hybrid
+    families, layers for the others."""
+    if cfg.family == "ssm":
+        assert cfg.n_layers % cfg.slstm_every == 0
+        return cfg.n_layers // cfg.slstm_every
+    if cfg.family == "hybrid":
+        assert cfg.n_layers % cfg.attn_every == 0
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def _blocks_init(gen: torch.Generator, cfg: ArchConfig, dev) -> Params:
+    L = n_superblocks(cfg)
+    if cfg.family == "ssm":       # xLSTM super-block
+        inner = (L, cfg.slstm_every - 1)
+        return {"s_ln": norm_init(cfg, L, dev),
+                "slstm": slstm_init(gen, cfg, (L,)),
+                "m_ln": norm_init(cfg, inner, dev),
+                "mlstm": mlstm_init(gen, cfg, inner)}
+    if cfg.family == "hybrid":    # Zamba2 super-block (shared attn outside)
+        inner = (L, cfg.attn_every)
+        return {"m_ln": norm_init(cfg, inner, dev),
+                "mamba": mamba2_init(gen, cfg, inner)}
+    blocks = {"ln1": norm_init(cfg, L, dev), "attn": attn_init(gen, cfg, L),
+              "ln2": norm_init(cfg, L, dev)}
+    if cfg.family == "moe":
+        blocks["moe"] = moe_init(gen, cfg, L)
+    else:
+        blocks["mlp"] = mlp_init(gen, cfg, L)
+    return blocks
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
+    ``seed`` on ``device`` (CUDA unless ``device="cpu"``); linears in
+    ``cfg.linear_mode``."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    L, dt = cfg.n_layers, _dtype(cfg)
+    dt = _dtype(cfg)
     params: Params = {
         "embed": {"w": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                     device=dev) * 0.02).to(dt)},
-        "blocks": {"ln1": norm_init(cfg, L, dev),
-                   "attn": attn_init(gen, cfg, L),
-                   "ln2": norm_init(cfg, L, dev)},
+        "blocks": _blocks_init(gen, cfg, dev),
         "final_norm": norm_init(cfg, 0, dev),
     }
-    if cfg.family == "moe":
-        params["blocks"]["moe"] = moe_init(gen, cfg, L)
-    else:
-        params["blocks"]["mlp"] = mlp_init(gen, cfg, L)
     if not cfg.tie_embeddings:
         params["head"] = {"w": (torch.randn((cfg.d_model, cfg.vocab),
                                             generator=gen, device=dev)
                                 * 0.02).to(dt)}
+    if cfg.family == "hybrid" and cfg.attn_every:
+        params["shared_attn"] = {
+            "ln": norm_init(cfg, 0, dev), "attn": attn_init(gen, cfg, 0),
+            "ln2": norm_init(cfg, 0, dev), "mlp": mlp_init(gen, cfg, 0)}
     if cfg.frontend:  # stub modality frontend: a single projection
         params["frontend_proj"] = {"w": (torch.randn(
             (cfg.d_model, cfg.d_model), generator=gen, device=dev)
@@ -89,20 +149,45 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                kv_cache: str = "float", *, device=None) -> Dict:
-    """Stacked decode cache (leading axis = layer): ``"float"`` stores
+    """Stacked decode cache (leading axis = layer, or super-block).
+
+    The attention KV container ``kv_cache``: ``"float"`` stores
     activations, ``"int4"`` int8 codes + per-row scales, ``"int4x2"`` the
-    same codes packed two per byte + the scales.  An encoder has none."""
+    same codes packed two per byte + the scales.  The SSM family's cache is
+    ``{"slstm": {h, c, n}, "mlstm": {S, n}}``, the hybrid's ``{"attn":
+    <the KV container>, "mamba": {S, conv}}``: recurrent states in f32, O(1)
+    a slot, not per token.  An encoder has none."""
     _check_decode(cfg)
-    return attn_cache_init(cfg, batch, max_len, kv_cache=kv_cache,
-                           layers=cfg.n_layers, device=resolve_device(device))
+    dev = resolve_device(device)
+    L = n_superblocks(cfg)
+    if cfg.family == "ssm":
+        return {"slstm": slstm_cache_init(cfg, batch, (L,), dev),
+                "mlstm": mlstm_cache_init(cfg, batch,
+                                          (L, cfg.slstm_every - 1), dev)}
+    attn = attn_cache_init(cfg, batch, max_len, kv_cache=kv_cache, layers=L,
+                           device=dev)
+    if cfg.family == "hybrid":
+        return {"attn": attn,
+                "mamba": mamba2_cache_init(cfg, batch, (L, cfg.attn_every),
+                                           dev)}
+    return attn
 
 
-def cache_batch_axes(cfg: ArchConfig, kv_cache: str = "float") -> Dict[str, int]:
-    """Per-leaf batch (serving slot) axis of :func:`init_cache`'s leaves:
-    every attention leaf stacks as (L, B, ...)."""
+def cache_batch_axes(cfg: ArchConfig, kv_cache: str = "float") -> Dict:
+    """Per-leaf batch (serving slot) axis of :func:`init_cache`'s leaves, in
+    its structure: attention and sLSTM leaves stack as (L, B, ...), axis 1;
+    the inner-stacked mLSTM and Mamba2 leaves as (L, n_inner, B, ...), axis
+    2.  The engine splices slots through this spec, never by guessing the
+    axis from a size (a stacked axis may equal the slot count)."""
     _check_decode(cfg)
-    leaves = attn_cache_init(cfg, 1, 1, kv_cache=kv_cache, device="meta")
-    return {k: 1 for k in leaves}
+    meta = init_cache(cfg, 1, 1, kv_cache=kv_cache, device="meta")
+    if cfg.family == "ssm":
+        return {"slstm": tree_map(lambda _: 1, meta["slstm"]),
+                "mlstm": tree_map(lambda _: 2, meta["mlstm"])}
+    if cfg.family == "hybrid":
+        return {"attn": tree_map(lambda _: 1, meta["attn"]),
+                "mamba": tree_map(lambda _: 2, meta["mamba"])}
+    return tree_map(lambda _: 1, meta)
 
 
 def _tree_index(tree, i: int):
@@ -110,12 +195,6 @@ def _tree_index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, i) for k, v in tree.items()}
     return tree[i]
-
-
-def _layers(params: Params, cache: Dict, cfg: ArchConfig):
-    for i in range(cfg.n_layers):
-        yield _tree_index(params["blocks"], i), \
-            {k: v[i] for k, v in cache.items()}
 
 
 def _ffn(p, cfg, h, patterns, dispatch):
@@ -177,12 +256,67 @@ def _full_block(p, cfg, h, positions, patterns, dispatch):
     return h + _ffn(p, cfg, h, patterns, dispatch)
 
 
+def _ssm_superblock(p, cfg, h, cache, dispatch):
+    """xLSTM super-block: 1 sLSTM + (slstm_every - 1) mLSTM, pre-norm
+    residual; ``cache`` (the super-block's state views, updated in place)
+    or None for the full sequence."""
+    y, _ = slstm_apply(p["slstm"], cfg, norm_apply(cfg, p["s_ln"], h),
+                       cache["slstm"] if cache else None, dispatch)
+    h = h + y.to(h.dtype)
+    for j in range(cfg.slstm_every - 1):
+        y, _ = mlstm_apply(_tree_index(p["mlstm"], j), cfg,
+                           norm_apply(cfg, _tree_index(p["m_ln"], j), h),
+                           _tree_index(cache["mlstm"], j) if cache else None,
+                           dispatch)
+        h = h + y.to(h.dtype)
+    return h
+
+
+def _hybrid_superblock(p, shared, cfg, h, positions, cache, patterns,
+                       dispatch, t_bound=None, bt=None, packed_read="fused"):
+    """Zamba2 super-block: the tied shared attention + MLP (compiled leaves
+    read ``patterns``), then attn_every Mamba2 blocks; ``cache`` as in
+    :func:`_ssm_superblock`, its ``attn`` part the super-block's KV
+    cache."""
+    a, _ = attn_apply(shared["attn"], cfg, norm_apply(cfg, shared["ln"], h),
+                      positions, cache["attn"] if cache else None, patterns,
+                      dispatch, t_bound=t_bound, bt=bt,
+                      packed_read=packed_read)
+    h = h + a
+    h = h + mlp_apply(shared["mlp"], cfg, norm_apply(cfg, shared["ln2"], h),
+                      patterns=patterns, dispatch=dispatch)
+    for j in range(cfg.attn_every):
+        y, _ = mamba2_apply(_tree_index(p["mamba"], j), cfg,
+                            norm_apply(cfg, _tree_index(p["m_ln"], j), h),
+                            _tree_index(cache["mamba"], j) if cache else None,
+                            dispatch)
+        h = h + y.to(h.dtype)
+    return h
+
+
+def _block(p_layer, params, cfg, h, positions, cache, patterns, dispatch,
+           n_valid=None, t_bound=None, bt=None, packed_read="fused"):
+    """One layer (super-block) of any family; ``cache`` None for the full
+    sequence."""
+    if cfg.family == "ssm":
+        return _ssm_superblock(p_layer, cfg, h, cache, dispatch)
+    if cfg.family == "hybrid":
+        return _hybrid_superblock(p_layer, params["shared_attn"], cfg, h,
+                                  positions, cache, patterns, dispatch,
+                                  t_bound, bt, packed_read)
+    if cache is None:
+        return _full_block(p_layer, cfg, h, positions, patterns, dispatch)
+    return _dense_block(p_layer, cfg, h, positions, cache, patterns,
+                        dispatch, n_valid, t_bound, bt, packed_read)
+
+
 def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
             dispatch=None) -> torch.Tensor:
     """Full-sequence forward (train / prefill): logits (B, T, V).
 
     Attention runs through the flash op on the card (its backward
-    recomputes ``chunked_attention``).  With ``cfg.remat`` and autograd on,
+    recomputes ``chunked_attention``); the SSM blocks run their chunkwise
+    forms (the sLSTM a loop over T).  With ``cfg.remat`` and autograd on,
     each layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward, as ``jax.checkpoint`` does
     in the reference.  ``patterns`` / ``dispatch`` as in
@@ -190,13 +324,14 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
     """
     h, positions = embed_inputs(params, cfg, batch, dispatch=dispatch)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+    for i in range(n_superblocks(cfg)):
         p_layer = _tree_index(params["blocks"], i)
         if remat:
-            h = checkpoint(_full_block, p_layer, cfg, h, positions, patterns,
-                           dispatch, use_reentrant=False)
+            h = checkpoint(_block, p_layer, params, cfg, h, positions, None,
+                           patterns, dispatch, use_reentrant=False)
         else:
-            h = _full_block(p_layer, cfg, h, positions, patterns, dispatch)
+            h = _block(p_layer, params, cfg, h, positions, None, patterns,
+                       dispatch)
     return _head(params, cfg, h, patterns, dispatch)
 
 
@@ -218,9 +353,10 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
 def _run(params, cfg, cache, tokens, positions, patterns, dispatch, n_valid,
          t_bound, bt, packed_read):
     h = params["embed"]["w"][tokens.to(torch.int64)]
-    for p_layer, c_layer in _layers(params, cache, cfg):
-        h = _dense_block(p_layer, cfg, h, positions, c_layer, patterns,
-                         dispatch, n_valid, t_bound, bt, packed_read)
+    for i in range(n_superblocks(cfg)):
+        h = _block(_tree_index(params["blocks"], i), params, cfg, h,
+                   positions, _tree_index(cache, i), patterns, dispatch,
+                   n_valid, t_bound, bt, packed_read)
     return _head(params, cfg, h, patterns, dispatch), cache
 
 
@@ -241,15 +377,28 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict,
     compile pass's side-table and ``dispatch`` the kernel mode.
 
     MoE refuses ``active``: a masked slot's garbage row still competes for
-    expert capacity and could displace a live token's routing.
+    expert capacity and could displace a live token's routing.  The SSM and
+    hybrid families refuse it too: their recurrent state advances on every
+    step.  Their positions are implicit in the state (ssm) or the shared
+    attention's cache lengths (hybrid).
     """
     _check_decode(cfg)
+    if active is not None and cfg.family in RECURRENT_FAMILIES:
+        raise ValueError(
+            f"decode_step active= mask is attention-only — the {cfg.family} "
+            "family's recurrent state advances on every step and cannot "
+            "mask a slot out")
     if active is not None and cfg.family == "moe":
         raise ValueError(
             "decode_step active= mask is unsupported for moe — a masked "
             "garbage row still competes for expert capacity and can "
             "displace live tokens' routing")
-    positions = cache["length"][0][:, None].clone()
+    if cfg.family == "ssm":
+        positions = None
+    else:
+        length = cache["attn"]["length"] if cfg.family == "hybrid" \
+            else cache["length"]
+        positions = length[0][:, None].clone()
     nv = None if active is None else active.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
                 t_bound, bt, packed_read)

@@ -11,18 +11,26 @@ chosen by the model family at construction.
   final chunk's logits.  A prompt whose chunk schedule cannot fit the
   cache (``ceil(P/C)·C > max_len``) falls back to a token drip for that
   request.
-* **Token drip** (moe).  Exactly one token for every slot each step
-  through ``decode_step`` with no ``active`` mask, prompts fed one token
-  at a time: a MoE router's static capacity depends on the token count,
-  so the family keeps the reference's legacy path.  Idle slots step too,
-  writing garbage rows their next admission resets; their reads are held
-  to the step's extent.  An encoder has no decode cache and is refused.
+* **Token drip** (moe, ssm, hybrid).  Exactly one token for every slot
+  each step through ``decode_step`` with no ``active`` mask, prompts fed
+  one token at a time (``prefill_chunk`` is ignored): a MoE router's
+  static capacity depends on the token count and a recurrent state must
+  advance token by token, so these families keep the reference's legacy
+  path.  Idle slots step too, writing garbage their next admission resets
+  (rows past their length; recurrent state); their attention reads are
+  held to the step's extent.  An encoder has no decode cache and is
+  refused.
 
+The cache is a tree (the recurrent families nest their states); every
+walk over it — a slot's reset, the prefill gather / scatter,
+``cache_bytes`` — takes each leaf's slot axis from
+:func:`~repro_torch.models.model.cache_batch_axes`, never from a size.
 Prefill gathers the slot's batch-of-one cache, runs the chunk on it and
 scatters it back, so a chunk write cannot touch a neighbouring slot.
 Cache reads are bounded to a power-of-two extent (``_bucket_t``) with the
 kv tile size pinned at startup — the packed read skips dead tiles, so the
-bound changes the work, never the result.
+bound changes the work, never the result.  The SSM family has no
+attention read, so its drip has one bucket.
 
 On a CUDA device each step is captured once per bucket, as the reference
 compiles one step per bucket: the first decode step (prefill chunk, drip
@@ -55,6 +63,7 @@ from ..device import resolve_device
 from ..kernels import add_launch_counts, launch_counts
 from ..models.config import ArchConfig
 from ..models.model import cache_batch_axes, decode_step, init_cache, prefill_step
+from ..tree import tree_leaves, tree_map
 
 # families whose prompts run through the chunked prefill path; the others
 # take the token drip
@@ -254,7 +263,7 @@ class ServeEngine:
     def cache_bytes(self) -> int:
         """Resident bytes of the decode cache (all leaves, scales included)."""
         return sum(int(t.numel() * t.element_size())
-                   for t in self.cache.values())
+                   for t in tree_leaves(self.cache))
 
     def stats(self) -> Dict:
         """Per-phase counters: step counts, token counts, per-step ms; and
@@ -275,8 +284,8 @@ class ServeEngine:
 
     def _reset_slot(self, slot: int):
         """Zero one slot of every cache leaf along its batch axis."""
-        for k, leaf in self.cache.items():
-            leaf.select(self._batch_axes[k], slot).zero_()
+        tree_map(lambda leaf, ax: leaf.select(ax, slot).zero_(), self.cache,
+                 self._batch_axes)
 
     def _chunk_fits(self, req: Request) -> bool:
         C = self.prefill_chunk
@@ -344,14 +353,14 @@ class ServeEngine:
         the chunk, scatter it back (the slot is a device index, so one
         graph serves every slot)."""
         inp, axes = self._inputs, self._batch_axes
-        sub = {k: leaf.index_select(axes[k], inp["slot"])
-               for k, leaf in self.cache.items()}
+        sub = tree_map(lambda leaf, ax: leaf.index_select(ax, inp["slot"]),
+                       self.cache, axes)
         logits, _ = prefill_step(
             self.params, self.cfg, sub, inp["ptok"], patterns=self.patterns,
             dispatch=self.dispatch, n_valid=inp["nv"], t_bound=tb, bt=self._bt,
             packed_read=self.packed_read)
-        for k, leaf in self.cache.items():
-            leaf.index_copy_(axes[k], inp["slot"], sub[k])
+        tree_map(lambda leaf, s, ax: leaf.index_copy_(ax, inp["slot"], s),
+                 self.cache, sub, axes)
         return logits
 
     def _drip_fn(self, tb: int) -> torch.Tensor:
@@ -432,8 +441,10 @@ class ServeEngine:
     def _step_decode(self, dec_slots: List[int], phase: str = "decode"):
         """One token for every decoding slot; the others are masked out.
         ``phase="drip"`` steps every slot, idle ones included (no mask):
-        the token drip of a family that does not chunk."""
-        tb = self._bucket_t(max(int(self._len[s]) for s in dec_slots) + 1)
+        the token drip of a family that does not chunk.  The SSM family
+        reads no attention cache: one bucket (0) for all its steps."""
+        tb = 0 if self.cfg.family == "ssm" else \
+            self._bucket_t(max(int(self._len[s]) for s in dec_slots) + 1)
         t0 = time.perf_counter()
         self._fill("tok", self.last_tok)
         if phase == "decode":

@@ -169,10 +169,16 @@ def test_compile_model_errors(models):
     assert all(set(leaf) >= {"w_q2", "w_s"} for _, leaf, _ in (
         (p, par[k], k) for p, par, k in tc._iter_linears(
             cm2.params["blocks"], "blocks")))
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tc.compile_model(tp, dataclasses.replace(tcfg, family=family),
-                             device="cpu")
+    # the SSM family is refused, with the reference's message; the hybrid
+    # lowers its shared attention and head (none here), never ``blocks``
+    with pytest.raises(NotImplementedError,
+                       match="supports attention/MLP families, got ssm"):
+        tc.compile_model(tp, dataclasses.replace(tcfg, family="ssm"),
+                         device="cpu")
+    hy = tc.compile_model(tp, dataclasses.replace(tcfg, family="hybrid"),
+                          device="cpu")
+    assert [r.name for r in hy.report if r.name != "head"] == [
+        "blocks (ssm, not lowered)"]
 
 
 # ---------------------------------------------------------------- dispatch

@@ -21,8 +21,9 @@ from repro_torch.core import lm_ir as tlm  # noqa: E402
 from repro_torch.models import config as tmc  # noqa: E402
 
 DENSE = ["llama3-405b", "qwen1.5-4b", "starcoder2-7b", "llama3.2-1b"]
-# the encoder, VLM and MoE configs (ported beside the dense ones)
-NEW = ["hubert-xlarge", "qwen2-moe-a2.7b", "olmoe-1b-7b", "phi-3-vision-4.2b"]
+# the encoder, MoE, SSM, hybrid and VLM configs (ported beside the dense ones)
+NEW = ["hubert-xlarge", "qwen2-moe-a2.7b", "olmoe-1b-7b", "xlstm-1.3b",
+       "zamba2-2.7b", "phi-3-vision-4.2b"]
 PORTED = DENSE + NEW
 # the budget of tests/test_lm_ir.py's DSE case
 BUDGET = 12 * 2 ** 30
@@ -37,16 +38,15 @@ def _port_fields_of(jcfg, tcfg):
 
 
 def test_registry_is_the_references_dense_entries_in_order():
-    """The reference's registry in its order, less the SSM and hybrid
-    entries (ROADMAP Queue A item 8)."""
+    """The reference's registry, all ten entries in its order."""
     assert tconfigs.ARCH_IDS == PORTED
-    assert tconfigs.ARCH_IDS == [
-        a for a in jconfigs.ARCH_IDS
-        if jconfigs.get_config(a).family not in ("ssm", "hybrid")]
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert len(tconfigs.ARCH_IDS) == 10
     assert tconfigs.SHAPES is tmc.SHAPES and tconfigs.ShapeSpec is tmc.ShapeSpec
     for arch in ("xlstm-1.3b", "zamba2-2.7b"):
-        with pytest.raises(KeyError, match="the port has"):
-            tconfigs.get_config(arch)
+        assert tconfigs.get_config(arch).family in ("ssm", "hybrid")
+    with pytest.raises(KeyError, match="the port has"):
+        tconfigs.get_config("mamba-7b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -96,29 +96,32 @@ def test_encoder_and_vlm_counts_and_shapes_equal_reference(family):
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
 def test_unported_families_raise_naming_item_8(family):
-    """The SSM and hybrid families still raise, naming Queue A item 8; MoE
-    counts and lays out its layers as the reference does."""
+    """The MoE, SSM and hybrid branches (the last two once refused):
+    counts and layer specs as the reference's, on configs of their own
+    fields."""
     kw = dict(name="t", family=family, n_layers=2, d_model=64, n_heads=4,
               n_kv_heads=4, d_ff=128, vocab=64)
     cfg = tmc.ArchConfig(**kw)
     assert cfg.subquadratic == (family != "moe")
     if family == "moe":
         kw.update(n_experts=6, top_k=2, d_expert=24, n_shared_experts=1)
-        cfg, jcfg = tmc.ArchConfig(**kw), jmc.ArchConfig(**kw)
-        assert cfg.param_count() == jcfg.param_count()
-        assert cfg.active_param_count() == jcfg.active_param_count() \
-            < cfg.param_count()
+    elif family == "ssm":
+        kw.update(n_layers=4, ssm_variant="mlstm", slstm_every=2, d_ff=0)
+    else:
+        kw.update(n_layers=6, ssm_variant="mamba2", ssm_state=16,
+                  attn_every=3)
+    cfg, jcfg = tmc.ArchConfig(**kw), jmc.ArchConfig(**kw)
+    if family != "moe":
+        assert cfg.d_inner == jcfg.d_inner == 2 * cfg.d_model
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    if family == "moe":
+        assert cfg.active_param_count() < cfg.param_count()
+    for shape in ("train_4k", "long_500k"):
         assert [dataclasses.asdict(s) for s in tlm.lm_layer_specs(
-            cfg, tmc.SHAPES["train_4k"])] == \
+            cfg, tmc.SHAPES[shape])] == \
             [dataclasses.asdict(s) for s in jlm.lm_layer_specs(
-                jcfg, jmc.SHAPES["train_4k"])]
-        return
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        cfg.active_param_count()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tlm.lm_layer_specs(cfg, tmc.SHAPES["train_4k"])
+                jcfg, jmc.SHAPES[shape])]
 
 
 CELLS = [(arch, s.name) for arch in PORTED
@@ -132,7 +135,12 @@ def test_lm_layer_specs_and_dse_equal_reference(arch, shape):
     ts = tlm.lm_layer_specs(tcfg, tmc.SHAPES[shape])
     assert [dataclasses.asdict(s) for s in ts] == \
         [dataclasses.asdict(s) for s in js]
-    assert len(ts) == 2 * tcfg.n_layers + 1 and not ts[-1].prunable
+    L = tcfg.n_layers
+    # attention + MLP a layer; one SSM spec a layer; the hybrid's shared
+    # attention + MLP every attn_every layers, Mamba2 the others
+    n = {"ssm": L, "hybrid": L + L // max(tcfg.attn_every, 1)}.get(
+        tcfg.family, 2 * L)
+    assert len(ts) == n + 1 and not ts[-1].prunable
     jr = jdse.run_dse(js, resource_budget=BUDGET)
     tr = tdse.run_dse(ts, resource_budget=BUDGET)
     assert tr.sparse_layers == jr.sparse_layers

@@ -4,8 +4,6 @@ Logits: f32 ``rtol=1e-5, atol=1e-5`` (the two packages sum matmul products
 in different orders).  Integer cache containers (packed codes) must be
 equal byte for byte; their f32 scales within the same tolerance.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,12 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core import compile_sparse as jc  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.models.config import ArchConfig as JCfg  # noqa: E402
 from repro.serve.engine import Request as JReq, ServeEngine as JEng  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import reduced_config as t_reduced  # noqa: E402
 from repro_torch.core import compile_sparse as tc  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_packed as tdp  # noqa: E402
 from repro_torch.kernels.quant_matmul import kernel as tqk  # noqa: E402
@@ -207,10 +207,18 @@ def test_init_shapes_and_cache_axes_match_reference():
         assert tm.cache_batch_axes(tcfg, kv) == jm.cache_batch_axes(jcfg, kv)
     with pytest.raises(ValueError, match="unknown kv_cache container"):
         tm.init_cache(tcfg, 2, 8, "int8", device="cpu")
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tm.init_params(dataclasses.replace(tcfg, family=family),
-                           device="cpu")
+    # the SSM and hybrid families (once refused here) init the reference's
+    # layout, nested caches and axes included
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
+        jr, tr = j_reduced(arch), t_reduced(arch)
+        jpr = jm.init_params(jax.random.PRNGKey(0), jr)
+        assert shapes(tm.init_params(tr, seed=3, device="cpu")) == \
+            shapes(jax.tree_util.tree_map(np.asarray, jpr))
+        assert shapes(tm.init_cache(tr, 2, 8, "int4x2", device="cpu")) == \
+            shapes(jax.tree_util.tree_map(np.asarray, jm.init_cache(
+                jr, 2, 8, "int4x2")))
+        assert tm.cache_batch_axes(tr, "int4x2") == \
+            jm.cache_batch_axes(jr, "int4x2")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tm.init_params(tcfg)
