@@ -144,7 +144,23 @@ Phases, each fatal on failure:
    remat): the loss must fall, pruned weights stay exactly zero and the
    flash kernel runs 64 times per step, all on its tensor-core route; step
    ms, tokens/s, peak memory and
-   the device idle share of one step (torch.profiler).
+   the device idle share of one step (torch.profiler);
+8b. train_families — the MoE, SSM and hybrid families trained at full
+   width (bf16, f32 AdamW moments, remat; ``TRAIN_FAMILY_PATHS``):
+   olmoe-1b-7b (cut to 4 of 16 layers: 8 do not fit beside a functional
+   AdamW) and zamba2-2.7b (9 super-blocks) at 4 x 2048 tokens in 4
+   micro-batches, xlstm-1.3b (48 layers) at 4 x 512 in 2, frozen
+   ``block_aware_prune`` masks on each 2-D slice of the routed experts,
+   the Mamba2 ``wout`` and shared MLP, the mLSTM projections; the twin
+   check where a kernel runs (one step under ``dispatch="kernel"`` and one
+   under ``"twin"``, ``TRAIN_TWIN_TOL``), then 4 steps through
+   ``TrainRunner`` with the counts set to 0 just before and read just
+   after: finite, falling losses, pruned weights exactly zero, the flash
+   launches exactly 2 a super-block's attention and micro-batch on the
+   tensor-core route (olmoe, Dh 128) or the CUDA-core route (zamba2, Dh
+   80), none for xlstm-1.3b and no other kernel; step ms, tokens/s, peak
+   memory, a one-step profile; the flash forward and its backward's
+   recompute at both training shapes (B 1, T 2048) timed.
 
 Prints the kernels line, the card line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -1725,12 +1741,11 @@ def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[e.key] = e.self_device_time_total / steps
     busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     return {"captured": eng.capture, "graphs": eng.stats()["graphs"],
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms if dev_us else None,
             "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
-            "top_device_us_per_step": {k[:80]: v for k, v in top}}
+            "top_device_us_per_step": top_device_us(dev_us)}
 
 
 def pdl_edges(cm, cfg, dev):
@@ -1825,11 +1840,10 @@ def compiled_forward(cm, cfg, dev):
             forward(cm.params, cfg, {"tokens": toks}, patterns=cm.patterns)
 
     prof = profile_forward(fwd)
-    top_us = sorted(prof.pop("device_us_per_forward").items(),
-                    key=lambda kv: -kv[1])[:8]
+    top_us = top_device_us(prof.pop("device_us_per_forward"))
     return {"launches": {k: counts[k] for k in want}, "max_rel_err": rel,
             "tol": tol, "largest_logit": top, **prof,
-            "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
+            "top_device_us_per_forward": top_us}
 
 
 def twin_check(cm, cfg, dev, prompt, kv_cache, want=None, tol=None):
@@ -1926,28 +1940,45 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_forward(fwd, steps: int = 5, unit: str = "forward"):
+def top_device_us(dev_us, n: int = 8):
+    """The ``n`` largest device items, by name cut to 80 characters; names
+    that share the cut add up (a dict keyed by the cut name would keep the
+    last value under the first one's place)."""
+    cut = {}
+    for k, v in dev_us.items():
+        cut[k[:80]] = cut.get(k[:80], 0.0) + v
+    return dict(sorted(cut.items(), key=lambda kv: -kv[1])[:n])
+
+
+def profile_forward(fwd, steps: int = 5, unit: str = "forward",
+                    wall_ms=None):
     """Device busy time and idle share of one call of ``fwd`` (a forward,
     or a train step with ``unit="step"``), from torch.profiler's device
     activity alone (the host's op events would only slow its processing:
-    xlstm-1.3b's forward has ~100k)."""
+    xlstm-1.3b's forward has ~100k).  ``wall_ms``: the call's wall time
+    measured by the caller, warm (then ``fwd`` runs only under the
+    profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fwd()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
+    if wall_ms is None:
         fwd()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fwd()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fwd()
         torch.cuda.synchronize()
+    # the raw device events, summed by name: building key_averages' event
+    # tree took over a minute for a train step of ~10^5 launches
     dev_us = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[e.key] = e.self_device_time_total / steps
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev_us[e.name()] = dev_us.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e3 / steps
     busy_ms = sum(dev_us.values()) / 1e3
     return {f"wall_ms_per_{unit}": wall_ms,
             f"device_busy_ms_per_{unit}": busy_ms if dev_us else None,
@@ -2326,7 +2357,6 @@ def train(dev, report):
     on every ``wg``/``wu``/``wd``; the counts are set to 0 just before the
     run.  Holds one step against ``dispatch="twin"`` first."""
     from repro_torch.configs import get_config
-    from repro_torch.core.pruning import block_aware_prune
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -2340,10 +2370,7 @@ def train(dev, report):
     masks = {"blocks": {"mlp": {}}}
     for name in ("wg", "wu", "wd"):
         w = params["blocks"]["mlp"][name]["w"]
-        m = np.stack([block_aware_prune(w[i].float().cpu().numpy(),
-                                        **TRAIN_PRUNE)
-                      for i in range(cfg.n_layers)])
-        mt = torch.from_numpy(m).to(dev)
+        mt = prune_slices(w)
         w.mul_(mt.to(w.dtype))          # pruned before training, in place
         masks["blocks"]["mlp"][name] = {"w": mt}
     opt_cfg = AdamWConfig(**TRAIN_OPT)
@@ -2359,7 +2386,7 @@ def train(dev, report):
     for mode in ("kernel", "twin"):
         step = make_train_step(cfg, opt_cfg, TRAIN["n_micro"], masks,
                                dispatch=mode)
-        _, _, met = step(params, opt, batch)
+        met = step(params, opt, batch)[2]       # the new state is dropped
         twin[mode] = {k: float(met[k]) for k in ("loss", "grad_norm")}
         del met
     for k, tol in TRAIN_TWIN_TOL.items():
@@ -2375,8 +2402,10 @@ def train(dev, report):
         total_steps=TRAIN["steps"], ckpt_every=0, log_every=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    box = {"params": params, "opt": opt}
+    del params, opt          # the runner holds the only references
     reset_counts()
-    params, opt = runner.run(params, opt)
+    params, opt = runner.run(box.pop("params"), box.pop("opt"))
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -2474,6 +2503,231 @@ def measure_flash(dev, counts):
                  f"{route} route",
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True), (B, H, T, Dh) views"}
+
+
+# ------------------------------------------------------ train_families
+
+
+# The MoE, SSM and hybrid families trained at full width: bf16 weights,
+# each config's own AdamW moment dtype (f32), remat on, ``TRAIN_OPT``, 4
+# steps through ``TrainRunner`` on ``token_batch`` seed 0, frozen
+# ``block_aware_prune(**TRAIN_PRUNE)`` masks (one per 2-D slice) on the
+# named stacked leaves, pruned in place before training.  Each path: (arch,
+# layers kept or None for all, batch, seq, n_micro, masked leaves).
+#
+# olmoe-1b-7b is cut to 4 of its 16 layers.  AdamW is functional (the
+# runner retries a failed step from the old state), so its update holds
+# the old and the new parameters and moments beside the f32 gradient sums,
+# 24 B a parameter and the masks: at 4 layers (1.88 G parameters) the peak
+# is 51.5 GB on an H100 80GB, which at 8 layers (3.56 G) reckons ~97 GB,
+# past the card's 80 GiB.
+# xlstm-1.3b runs T 512: its sLSTM runs a step at a time.  zamba2-2.7b's
+# ``win`` (10,448 columns, not a multiple of 128) is not masked.
+TRAIN_FAMILY_PATHS = (
+    ("olmoe-1b-7b", 4, 4, 2048, 4,
+     tuple(("blocks", "moe", n, "w") for n in ("eg", "eu", "ed"))),
+    ("zamba2-2.7b", None, 4, 2048, 4,
+     (("blocks", "mamba", "wout", "w"),)
+     + tuple(("shared_attn", "mlp", n, "w") for n in ("wg", "wu", "wd"))),
+    ("xlstm-1.3b", None, 4, 512, 2,
+     tuple(("blocks", "mlstm", n, "w") for n in ("wq", "wk", "wv", "wo"))),
+)
+TRAIN_FAMILY_STEPS = 4
+# host threads computing the masks (numpy releases the GIL in its loops)
+PRUNE_THREADS = 8
+
+
+def tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def prune_slices(w):
+    """``block_aware_prune(**TRAIN_PRUNE)`` of every 2-D slice of ``w``
+    (..., K, N): a bool mask of ``w``'s shape on its device."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.pruning import block_aware_prune
+
+    flat = w.reshape(-1, *w.shape[-2:])
+    out = torch.empty(flat.shape, dtype=torch.bool, device=w.device)
+    with ThreadPoolExecutor(PRUNE_THREADS) as ex:
+        for lo in range(0, flat.shape[0], 64):
+            host = flat[lo:lo + 64].float().cpu().numpy()
+            masks = ex.map(lambda a: block_aware_prune(a, **TRAIN_PRUNE),
+                           list(host))
+            out[lo:lo + 64] = torch.from_numpy(np.stack(list(masks))).to(
+                w.device)
+    return out.reshape(w.shape)
+
+
+def train_family_path(spec, dev):
+    """One family's training at full width: the twin check (one step under
+    ``dispatch="kernel"`` and one under ``"twin"`` from the same state, where
+    the path has a kernel), then ``TRAIN_FAMILY_STEPS`` steps through
+    ``TrainRunner`` with the counts set to 0 just before and read just
+    after: finite, falling losses, pruned weights exactly zero, the flash
+    launches on the route its head dim names; step ms, tokens/s, peak
+    memory and a one-step profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.model import init_params, n_superblocks
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.runtime import RunnerConfig, TrainRunner
+    from repro_torch.train.trainer import make_train_step
+
+    arch, layers, B, T, n_micro, masked = spec
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    require(cfg.remat, f"{arch}: the training slice runs with remat")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    masks, n_masked = {}, 0
+    for path in masked:
+        w = tree_get(params, path)
+        m = prune_slices(w)
+        w.mul_(m.to(w.dtype))           # pruned before training, in place
+        d = masks
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = m
+        n_masked += m.numel()
+    opt_cfg = AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+    opt = adamw_init(params, opt_cfg)
+    toks, labels = token_batch(0, B, T, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    out = {"layers": cfg.n_layers, "batch": B, "seq": T, "n_micro": n_micro,
+           "steps": TRAIN_FAMILY_STEPS, "params": n_params,
+           "masked": ["/".join(p) for p in masked],
+           "masked_elements": n_masked,
+           "setup_s": time.perf_counter() - t0}
+
+    # one flash launch a super-block's attention in the forward and one in
+    # its remat recompute, per micro-batch
+    n_attn = n_superblocks(cfg) if cfg.family in ("moe", "hybrid") else 0
+    route = ((FLASH_TC if cfg.head_dim in (64, 128) else FLASH_CC)
+             if n_attn else None)
+    if n_attn:      # kernel vs twin: one step each from the same state
+        t = time.perf_counter()
+        twin = {}
+        for mode in ("kernel", "twin"):
+            step = make_train_step(cfg, opt_cfg, n_micro, masks,
+                                   dispatch=mode)
+            met = step(params, opt, batch)[2]   # the new state is dropped
+            twin[mode] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+            del met
+        for k, tol in TRAIN_TWIN_TOL.items():
+            a, b = twin["kernel"][k], twin["twin"][k]
+            rel = abs(a - b) / abs(b)
+            twin[f"{k}_rel_err"] = rel
+            require(math.isfinite(a) and rel <= tol,
+                    f"{arch} train step kernel vs twin {k}: {a} vs {b}, rel "
+                    f"err {rel} > {tol}")
+        out["twin_check"] = twin
+        out["twin_s"] = time.perf_counter() - t
+
+    step = make_train_step(cfg, opt_cfg, n_micro, masks)
+    runner = TrainRunner(step, lambda i: batch, RunnerConfig(
+        total_steps=TRAIN_FAMILY_STEPS, ckpt_every=0, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["resident_bytes"] = torch.cuda.memory_allocated(dev)
+    box = {"params": params, "opt": opt}
+    del params, opt          # the runner holds the only references
+    reset_counts()
+    params, opt = runner.run(box.pop("params"), box.pop("opt"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    log = runner.metrics_log
+    losses = [m["loss"] for m in log]
+    require(len(log) == TRAIN_FAMILY_STEPS
+            and all(map(math.isfinite, losses)),
+            f"{arch} train: {len(log)} steps, losses {losses}")
+    require(losses[-1] < losses[0],
+            f"{arch} train: the loss did not fall: {losses}")
+    for path in masked:
+        w, m = tree_get(params, path), tree_get(masks, path)
+        require(not bool(((w != 0) & ~m).any()),
+                f"{arch} train: pruned {'/'.join(path)} weights are not "
+                f"exactly zero")
+    want = n_attn * 2 * n_micro * TRAIN_FAMILY_STEPS
+    got = {k: counts[k] for k in ("flash_attention", FLASH_TC, FLASH_CC)}
+    require(got == {"flash_attention": want,
+                    FLASH_TC: want if route == FLASH_TC else 0,
+                    FLASH_CC: want if route == FLASH_CC else 0},
+            f"{arch} train: flash launches {got}, expected {want} on "
+            f"{route} (forward + remat recompute per super-block and "
+            f"micro-batch)")
+    require(sum(v for k, v in counts.items() if "/" not in k) == want,
+            f"{arch} train: kernels off the path launched: {counts}")
+    step_ms = [m["step_s"] * 1e3 for m in log]
+    p50 = pct(step_ms, 50)
+    t = time.perf_counter()
+    prof = profile_forward(lambda: step(params, opt, batch), steps=1,
+                           unit="step", wall_ms=p50)
+    top = top_device_us(prof.pop("device_us_per_step"))
+    out.update({
+        "losses": losses, "grad_norms": [m["grad_norm"] for m in log],
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "tokens_per_s": B * T / p50 * 1e3, "peak_memory_bytes": peak,
+        "launches": got, "flash_route": route,
+        "flash_launches_per_step": counts["flash_attention"] / len(log),
+        "twin_tol": TRAIN_TWIN_TOL, **prof,
+        "top_device_us_per_step": top,
+        "profile_s": time.perf_counter() - t})
+    return out, cfg, counts
+
+
+def train_flash_row(dev, cfg, launches):
+    """The flash kernel at one layer of ``cfg``'s training forward (one
+    micro-batch: B 1, T 2048) beside its bound, plain version and SDPA
+    (``flash_row``), and the backward that recomputes
+    ``chunked_attention`` there."""
+    from repro_torch.models.layers import chunked_attention
+
+    B, T = 1, 2048
+    row = flash_row(dev, cfg, B, T, True)
+    q, k, v = (torch.randn(s_, device=dev).to(torch.bfloat16)
+               for s_ in ((B, T, cfg.n_heads, cfg.head_dim),
+                          (B, T, cfg.n_kv_heads, cfg.head_dim),
+                          (B, T, cfg.n_kv_heads, cfg.head_dim)))
+    g = torch.randn_like(q)
+
+    def backward():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(chunked_attention(*leaves, causal=True), leaves,
+                            g)
+
+    row.update(launches=launches, backward_recompute_ms=event_ms(backward))
+    return row
+
+
+def train_families(dev, report):
+    """The MoE, SSM and hybrid families' training (``TRAIN_FAMILY_PATHS``),
+    each path's counts set to 0 just before it and read just after; the
+    flash rows at olmoe-1b-7b's and zamba2-2.7b's training shapes go to
+    ``report["train_families_rows"]``."""
+    out, rows = {}, {"flash_attention": []}
+    report["train_families"] = out
+    report["train_families_rows"] = rows
+    t0 = time.perf_counter()
+    for spec in TRAIN_FAMILY_PATHS:
+        t = time.perf_counter()
+        out[spec[0]], cfg, counts = train_family_path(spec, dev)
+        torch.cuda.empty_cache()
+        if counts["flash_attention"]:
+            rows["flash_attention"].append(train_flash_row(
+                dev, cfg, counts["flash_attention"]))
+        out[spec[0]]["seconds"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
 
 
 # ----------------------------------------------------------- families
@@ -3542,11 +3796,10 @@ def forward_check(cm, cfg, dev, batch, want, tol=TWIN_TOL["float"],
             forward(cm.params, cfg, batch, patterns=cm.patterns)
 
     prof = profile_forward(fwd, steps=steps)
-    top_us = sorted(prof.pop("device_us_per_forward").items(),
-                    key=lambda kv: -kv[1])[:8]
+    top_us = top_device_us(prof.pop("device_us_per_forward"))
     return {"logits_shape": list(shape), "launches": got, "max_rel_err": rel,
             "tol": tol, "largest_logit": top, **prof,
-            "top_device_us_per_forward": {k[:80]: v for k, v in top_us}}
+            "top_device_us_per_forward": top_us}
 
 
 def flash_row(dev, cfg, B, T, causal):
@@ -4348,15 +4601,30 @@ def main() -> int:
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)
         prof = report["train"]["profile"]
-        top = sorted(prof["device_us_per_step"].items(),
-                     key=lambda kv: -kv[1])[:8]
         print("train profile: " + json.dumps({
             **{k: v for k, v in prof.items() if k != "device_us_per_step"},
-            "top_device_us_per_step": {k[:80]: v for k, v in top}}),
-            flush=True)
+            "top_device_us_per_step": top_device_us(
+                prof["device_us_per_step"])}), flush=True)
+        train_families(dev, report)
+        tf = report["train_families"]
+        for arch, r in tf.items():
+            if not isinstance(r, dict):
+                continue
+            print(f"train_families {arch} on {report['card']}: " + json.dumps(
+                {k: r[k] for k in (
+                    "layers", "batch", "seq", "n_micro", "step_ms_p50",
+                    "tokens_per_s", "peak_memory_bytes", "device_idle_share",
+                    "wall_ms_per_step", "device_busy_ms_per_step", "losses",
+                    "launches", "twin_check", "setup_s", "seconds")
+                 if k in r}), flush=True)
+            print(f"train_families {arch} profile, top device items (us a "
+                  f"step): " + json.dumps(r["top_device_us_per_step"]),
+                  flush=True)
+        print(f"train_families ({tf['seconds']:.1f} s) flash rows: "
+              + json.dumps(report["train_families_rows"]), flush=True)
         kernels.append(measure_flash(dev, train_counts))
         for k in kernels:
-            for phase in ("encoder_vlm_moe", "ssm_hybrid"):
+            for phase in ("encoder_vlm_moe", "ssm_hybrid", "train_families"):
                 if k["name"] in report[f"{phase}_rows"]:
                     k[phase] = report[f"{phase}_rows"][k["name"]]
         report["kernels"] = kernels

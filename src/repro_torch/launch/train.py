@@ -4,9 +4,11 @@
       --steps 100 [--batch 8 --seq 256] [--full] [--device cpu] \\
       [--ckpt results/train_ckpt --ckpt-every 50]
 
-Runs the reduced config (2 layers, d_model 64, f32) unless ``--full``
-gives the published widths.  Parameters are random from seed 0 and tokens
-come from ``token_batch``.  The reference launcher's device mesh,
+Runs the reduced config unless ``--full`` gives the published widths;
+every family with a token input trains (dense, MoE, SSM, hybrid), and a
+frontend arch (the encoder's frames, the VLM's prefix) is refused with the
+reference's message.  Parameters are random from seed 0 and tokens come
+from ``token_batch``.  The reference launcher's device mesh,
 ``param_specs`` shardings and ``jax.distributed`` start-up are dropped: the
 port trains on one card (sharding is ROADMAP Queue A item 9).  CUDA unless
 ``--device cpu``.
@@ -45,6 +47,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
+    if cfg.frontend:
+        raise SystemExit("frontend archs: use examples/ drivers with "
+                         "precomputed embeddings")
     dev = resolve_device(args.device)
     n_micro = pick_n_micro(cfg, args.batch, 1)
     params = init_params(cfg, seed=0, device=dev)

@@ -7,6 +7,12 @@ pruned connectivity never regrows.  The math runs in f32 and casts back to
 each parameter's dtype (bf16 master weights at full width); integer leaves
 (int8 / packed storage) are frozen.  Functional: the inputs are left
 untouched, new trees are returned.
+
+A leaf of more than :data:`UPDATE_CHUNK` elements is updated a flat slice
+at a time into its new tensors, its mask applied slice by slice: every
+operation is elementwise, so the result is the same bit for bit, and the
+f32 temporaries stay a slice's size instead of several copies of the leaf
+(a stacked expert or Mamba2 leaf holds over a billion elements).
 """
 from __future__ import annotations
 
@@ -16,13 +22,15 @@ from typing import Any, Optional
 
 import torch
 
-from ..core.pruning import apply_masks
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "schedule"]
+__all__ = ["UPDATE_CHUNK", "AdamWConfig", "adamw_init", "adamw_update",
+           "global_norm", "schedule"]
 
 PyTree = Any
+
+# elements of a leaf updated at once (f32 temporaries of 256 MiB each)
+UPDATE_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +89,7 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
 
-    def upd(g, m, v, p):
-        if not p.is_floating_point():
-            return p, m, v  # frozen integer storage (int8 weights)
+    def upd_slice(g, m, v, p, mk):
         g = g.to(torch.float32) * scale
         m32 = m.to(torch.float32) * b1 + (1 - b1) * g
         v32 = v.to(torch.float32) * b2 + (1 - b2) * g * g
@@ -92,12 +98,30 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
         step_ = mhat / (torch.sqrt(vhat) + cfg.eps)
         if cfg.weight_decay:
             step_ = step_ + cfg.weight_decay * p.to(torch.float32)
-        new_p = p.to(torch.float32) - lr * step_
-        return new_p.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+        new_p = (p.to(torch.float32) - lr * step_).to(p.dtype)
+        if mk is not None:  # frozen sparsity: pruned weights stay exactly 0
+            new_p = new_p * mk.to(device=p.device, dtype=p.dtype)
+        return new_p, m32.to(m.dtype), v32.to(v.dtype)
 
-    flat = tree_map(upd, grads, state["m"], state["v"], params)
+    def upd(g, m, v, p, mk):
+        if not p.is_floating_point():
+            return p, m, v  # frozen integer storage (int8 weights)
+        if p.numel() <= UPDATE_CHUNK:
+            return upd_slice(g, m, v, p, mk)
+        out = tuple(torch.empty(p.shape, dtype=t.dtype, device=t.device)
+                    for t in (p, m, v))
+        ins = [t.reshape(-1) for t in (g, m, v, p)]
+        ins.append(None if mk is None else mk.reshape(-1))
+        flat_out = [t.view(-1) for t in out]
+        for lo in range(0, p.numel(), UPDATE_CHUNK):
+            sl = slice(lo, lo + UPDATE_CHUNK)
+            for dst, src in zip(flat_out, upd_slice(
+                    *(None if t is None else t[sl] for t in ins))):
+                dst[sl] = src
+        return out
+
+    flat = tree_map(upd, grads, state["m"], state["v"], params,
+                    masks if masks is not None else {})
     pick = lambda i: tree_map(lambda t: t[i], flat)
-    # frozen sparsity: pruned weights stay exactly zero
-    new_params = apply_masks(pick(0), masks)
     new_state = {"m": pick(1), "v": pick(2), "step": step}
-    return new_params, new_state, {"grad_norm": gn, "lr": lr}
+    return pick(0), new_state, {"grad_norm": gn, "lr": lr}

@@ -71,7 +71,14 @@ class TrainRunner:
     # ------------------------------------------------------------------ run
 
     def run(self, params: PyTree, opt_state: PyTree, *, start_step: int = 0):
+        """Train from ``params`` / ``opt_state`` (or the latest committed
+        checkpoint past ``start_step``) to ``total_steps``; returns the
+        final (params, opt_state).  Only the current state is held between
+        steps: a caller that passes its own last references (``run(
+        box.pop("params"), box.pop("opt"))``) lets the first state go after
+        the first step, so a step's peak holds two states, not three."""
         state = {"params": params, "opt": opt_state}
+        del params, opt_state
         step = start_step
         latest = self.ckpt.latest_step() if self._checkpointing() else None
         if latest is not None and latest > step:

@@ -63,7 +63,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
         leaves = tree_leaves(trainable)
         loss = loss_fn(_merge(trainable, frozen), cfg, batch,
                        dispatch=dispatch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (an encoder's token embedding)
+        # gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         by_id = {id(t): g for t, g in zip(leaves, grads)}
         return loss.detach(), tree_map(
             lambda t: None if t is None else by_id[id(t)], trainable)
@@ -82,14 +85,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
             for i in range(n_micro):
                 loss, g = value_and_grad(trainable, frozen,
                                          {k: v[i] for k, v in micro.items()})
-                # the accumulator is this step's own: add in place
-                tree_map(lambda a, b: None if a is None
-                         else a.add_(b.to(a.dtype)), grads, g)
+                # the accumulator is this step's own: add in place (a bf16
+                # gradient widens element by element, with no f32 copy)
+                tree_map(lambda a, b: None if a is None else a.add_(b),
+                         grads, g)
                 losses.append(loss)
                 del g
             losses = torch.stack(losses)
-            grads = tree_map(lambda g: None if g is None else g / n_micro,
-                             grads)
+            tree_map(lambda g: None if g is None else g.div_(n_micro), grads)
         # frozen (integer) leaves get scalar-zero placeholders so the
         # optimizer tree matches; adamw skips non-float params.
         grads = tree_map(lambda g, p: g if g is not None else torch.zeros(

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _train_families import one_thread  # noqa: E402,F401
 from repro.train.checkpoint import Checkpointer as JCheckpointer  # noqa: E402
 from repro_torch.train.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.train.runtime import RunnerConfig, TrainRunner  # noqa: E402
@@ -243,3 +244,100 @@ def test_runner_deadline_trips_and_retries(tmp_path):
     runner = TrainRunner(slow_once, lambda s: {}, cfg)
     runner.run({"x": torch.zeros(())}, {})
     assert calls["n"] == 2 and len(runner.metrics_log) == 1
+
+
+# ------------------------------------------- the new families' train state
+
+
+def _family_run(arch, ckpt_dir, params, total_steps=4):
+    """``TrainRunner`` over the reduced config's masked train step (2
+    micro-batches; ``block_aware_prune`` masks on one stacked leaf of the
+    family), a checkpoint every 2 steps."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.pruning import block_aware_prune
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = reduced_config(arch)
+    path = {"moe": ("moe", "eg"), "ssm": ("mlstm", "wq"),
+            "hybrid": ("mamba", "wout")}[cfg.family]
+    w = params["blocks"][path[0]][path[1]]["w"]
+    flat = w.float().reshape(-1, *w.shape[-2:]).numpy()
+    mask = torch.from_numpy(np.stack([block_aware_prune(
+        s, (16, 16), block_density=0.5, in_block_density=0.5)
+        for s in flat]).reshape(w.shape))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=total_steps)
+    step = make_train_step(cfg, opt_cfg, 2,
+                           {"blocks": {path[0]: {path[1]: {"w": mask}}}})
+
+    def data_fn(i):
+        toks, labels = token_batch(i, 4, 16, cfg.vocab)
+        return {"tokens": torch.from_numpy(toks),
+                "labels": torch.from_numpy(labels)}
+
+    runner = TrainRunner(step, data_fn, RunnerConfig(
+        total_steps=total_steps, ckpt_every=2, ckpt_dir=str(ckpt_dir),
+        log_every=100))
+    out = runner.run(params, adamw_init(params, opt_cfg))
+    return runner, out, (path, mask)
+
+
+def _assert_bitwise(a, b):
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        assert _bits(x) == _bits(y), p
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-1.3b",
+                                  "zamba2-2.7b"])
+def test_new_family_train_state_round_trips_and_resumes(arch, tmp_path):
+    """The nested params (stacked experts, the mLSTM / sLSTM stacks, the
+    tied ``shared_attn``; f32 weights, bf16 gains) and their AdamW state
+    restore bit for bit, and a runner resumed from step 2 of a copy
+    continues with the same losses, parameters and moments."""
+    import shutil
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    init = lambda: init_params(reduced_config(arch), seed=0, device="cpu")
+    ra, (pa, oa), (path, mask) = _family_run(arch, tmp_path / "a", init())
+    assert ra.ckpt.all_steps() == [2, 4]
+    template = {"params": init(),
+                "opt": adamw_init(init(), AdamWConfig())}
+    state, manifest = ra.ckpt.restore(template)
+    assert manifest["step"] == 4
+    _assert_bitwise(state, {"params": pa, "opt": oa})
+    w = pa["blocks"][path[0]][path[1]]["w"]
+    assert bool((w[~mask] == 0).all())
+
+    shutil.copytree(tmp_path / "a" / "step_000000002",
+                    tmp_path / "b" / "step_000000002")
+    rb, (pb, ob), _ = _family_run(arch, tmp_path / "b", init())
+    assert [m["loss"] for m in rb.metrics_log] == [
+        m["loss"] for m in ra.metrics_log[2:]]
+    _assert_bitwise({"params": pb, "opt": ob}, {"params": pa, "opt": oa})
+
+
+def test_runner_holds_only_the_current_state(tmp_path):
+    """A caller that hands over its last references lets the first state
+    go after the first step: a step's peak holds two states, not three."""
+    import weakref
+
+    seen = []
+
+    def step_fn(p, o, b):
+        seen.append(first() is not None)
+        return {"x": p["x"] + 1.0}, o, {"loss": torch.tensor(0.0)}
+
+    box = {"params": {"x": torch.zeros(3)}, "opt": {}}
+    first = weakref.ref(box["params"]["x"])
+    runner = TrainRunner(step_fn, lambda s: {}, RunnerConfig(
+        total_steps=3, ckpt_every=0, ckpt_dir=str(tmp_path)))
+    params, _ = runner.run(box.pop("params"), box.pop("opt"))
+    assert seen == [True, False, False]
+    assert float(params["x"][0]) == 3.0
