@@ -16,8 +16,8 @@ Phases, each fatal on failure:
    tiled), of ``packed_decode_attention`` (split across the cache, and the
    single kernel: C in {1, 16}, G in {1, 4}, Dh in {64, 128}, dead, ragged
    and full slots, bitwise equal across extents and calls) and of the flash
-   kernel (tensor cores for bf16 Dh 64/128, CUDA cores for the rest: causal
-   or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
+   kernel (tensor cores for bf16 Dh 64/80/96/128, CUDA cores for the rest:
+   causal or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
    gradient) and of the fused convs (register-tiled at LeNet's shapes,
    strided and unpooled, f32 and bf16 x; band for the 3 x 3 pool, and for
    every register-tiled case again) and of the FC stack (staged, f32 and
@@ -26,7 +26,9 @@ Phases, each fatal on failure:
    to take the route its shape rule names;
    then time kernel, plain version and a one-call PyTorch yardstick at the
    shapes the main paths give it, beside the least time the card could take
-   (``bound_ms``) and the first version of each redesigned kernel;
+   (``bound_ms``) and the first version of each redesigned kernel, and
+   the widened tensor-core routes (ragged quant column tiles, flash at Dh
+   80 / 96) beside their first designs at shapes off the main paths;
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
    to int4x2 quant/block-sparse leaves; serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, each step a CUDA graph per
@@ -104,7 +106,7 @@ Phases, each fatal on failure:
    cost model), each path's counts set to 0 just before it and read just
    after: hubert-xlarge's compiled forward on 4 x 1024 frame embeddings
    (non-causal; every matmul on its rule's route, 48 flash calls on the
-   CUDA-core route for Dh 80), held against the twin within
+   tensor-core route at Dh 80), held against the twin within
    ``TWIN_TOL["float"]``; phi-3-vision-4.2b (cut to 16 of 32 layers,
    ``VLM_LAYERS``): its twin check, its 16 requests
    served captured (every launch on its rule's route, the Dh 96 reads on
@@ -116,9 +118,11 @@ Phases, each fatal on failure:
    differ (``MOE_TWIN_TOL``), 16 and 4 requests served captured per bucket
    with every launch on its rule's route and the bitwise capture check,
    and the captured drip step's profile; the flash kernel at Dh 80 and
-   96 and the single packed read at Dh 96 timed beside their bounds,
-   plain versions and SDPA, and the MLP leaves and the tiled heads at
-   their forwards' rows beside theirs and ``x @ W``;
+   96 (tensor cores, and the CUDA-core first design) and the single
+   packed read at Dh 96 timed beside their bounds, plain versions and
+   SDPA, and the MLP leaves and the heads at their forwards' rows (phi-3-
+   vision-4.2b's on the tensor cores beside the tiled first design,
+   hubert-xlarge's tiled) beside theirs and ``x @ W``;
 7c. ssm_hybrid — xlstm-1.3b (raw parameters, its mLSTM projections int8
    leaves: ``linear_mode="int8"``) and zamba2-2.7b (compiled with
    ``zoo_rules``: the shared attention and the head) at full width and
@@ -149,7 +153,8 @@ Phases, each fatal on failure:
    width (bf16, f32 AdamW moments, remat; ``TRAIN_FAMILY_PATHS``):
    olmoe-1b-7b (cut to 4 of 16 layers: 8 do not fit beside a functional
    AdamW) and zamba2-2.7b (9 super-blocks) at 4 x 2048 tokens in 4
-   micro-batches, xlstm-1.3b (48 layers) at 4 x 512 in 2, frozen
+   micro-batches, xlstm-1.3b (cut to 24 of 48 layers) at 4 x 512 in 2,
+   frozen
    ``block_aware_prune`` masks on each 2-D slice of the routed experts,
    the Mamba2 ``wout`` and shared MLP, the mLSTM projections; the twin
    check where a kernel runs (one step under ``dispatch="kernel"`` and one
@@ -157,8 +162,8 @@ Phases, each fatal on failure:
    ``TrainRunner`` with the counts set to 0 just before and read just
    after: finite, falling losses, pruned weights exactly zero, the flash
    launches exactly 2 a super-block's attention and micro-batch on the
-   tensor-core route (olmoe, Dh 128) or the CUDA-core route (zamba2, Dh
-   80), none for xlstm-1.3b and no other kernel; step ms, tokens/s, peak
+   tensor-core route (olmoe, Dh 128; zamba2, Dh 80), none for xlstm-1.3b
+   and no other kernel; step ms, tokens/s, peak
    memory, a one-step profile; the flash forward and its backward's
    recompute at both training shapes (B 1, T 2048) timed.
 
@@ -451,9 +456,12 @@ def sweep_quant(rng, dev):
     tiled kernel), the thin-M cases (M in {1, 3, 8, 16}, K in {2048, 8192},
     N in {96, 512, 2048}; and qwen1.5-4b's and starcoder2-7b's leaf
     shapes) and the tensor-core cases (bf16 x, M in {17, 40, 128, 512}, K
-    in {2048, 8192}, N in {512, 2048, 8192}, each bitwise
-    equal on a second call), every container, with and without bias, over
-    the activations; each call must take the route ``qmm_route`` names."""
+    in {2048, 8192}, N in {512, 2048, 8192}; ragged last column tiles at N
+    in {48, 320, 32064} (phi-3-vision-4.2b's head at its forward's 1088
+    rows), one of them cut along K; each bitwise equal on a second call),
+    hubert-xlarge's 504-column head (no 16-byte code pitch: tiled), every
+    container, with and without bias, over the activations; each call must
+    take the route ``qmm_route`` names."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
@@ -472,6 +480,12 @@ def sweep_quant(rng, dev):
     shapes += [(K, N, M, bf16) for M in (17, 40, 128, 512)
                for K, N in ((2048, 512), (2048, 2048), (8192, 2048),
                             (2048, 8192))]
+    # ragged last column tiles, all but the head's cut along K
+    ragged = [(512, 320, 128, bf16), (8192, 320, 64, bf16),
+              (1024, 48, 24, bf16), (3072, 32064, 1088, bf16),
+              (1280, 504, 4096, bf16)]
+    shapes += ragged
+    split_ragged = 0
     cases = 0
     for ci, container in enumerate(("int8", "int4x2", "int2x4")):
         for mi, (K, N, M, xdt) in enumerate(shapes):
@@ -489,11 +503,13 @@ def sweep_quant(rng, dev):
             x = torch.randn((M, K), device=dev).to(xdt)
             bias = torch.randn((N,), device=dev) if (mi + ci) % 2 == 0 \
                 else None
-            route, _ = qk.qmm_route(M, K, N, ratio, xdt == bf16,
-                                    w.data_ptr(), x.data_ptr())
+            route, plan = qk.qmm_route(M, K, N, ratio, xdt == bf16,
+                                       w.data_ptr(), x.data_ptr())
             want = "thin_m" if M <= 16 and N % 4 == 0 else \
                 "tensor_core" if M > 16 and xdt == bf16 and K % 64 == 0 \
-                and N % 128 == 0 else "tiled"
+                and N % 16 == 0 else "tiled"
+            if route == "tensor_core" and N % 128:
+                split_ragged += plan.k_splits > 1
             require(route == want, f"qmm_route sent {container} M={M} K={K} "
                                    f"N={N} {xdt} to the {route} route, not "
                                    f"{want}")
@@ -517,7 +533,56 @@ def sweep_quant(rng, dev):
                 require(torch.equal(y, call()),
                         f"{label}: a second call gave other bits")
             cases += 1
+    require(split_ragged > 0, "no ragged tensor-core case was cut along K")
     return cases
+
+
+# Shapes the widened tensor-core rules now take besides the main paths'
+# (those are timed in their phases' rows): the quant sweep's ragged column
+# tiles (M, K, N; int4x2) and small flash calls at Dh 80 / 96 (B, T, H,
+# Hkv, Dh, causal).
+RAGGED_QMM = ((128, 512, 320), (64, 8192, 320), (24, 1024, 48),
+              (40, 2048, 4112))
+SMALL_FLASH = ((1, 257, 8, 2, 80, False), (3, 100, 8, 2, 96, True),
+               (1, 2048, 8, 2, 96, False))
+
+
+def route_pairs(dev):
+    """The new routes beside the first designs they replace at
+    ``RAGGED_QMM`` and ``SMALL_FLASH``: device ms of each (inputs outside
+    L2 for the matmuls), the rule's route first."""
+    from repro_torch.core.quant import pack_codes
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    rows = []
+    for M, K, N in RAGGED_QMM:
+        w = pack_codes(torch.randint(-7, 8, (K, N), device=dev).to(
+            torch.int8), axis=0, bits=4)
+        x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+        s = torch.rand((N,), device=dev) / 100
+        route, plan = qk.qmm_route(M, K, N, 2, True, w.data_ptr(),
+                                   x.data_ptr())
+        ws = copies(w, n_copies(nbytes(w)))
+        row = {"kernel": "quant_matmul", "shape": f"M={M} K={K} N={N} "
+               f"int4x2", "route": route, "plan": list(plan)}
+        for r, p_ in ((route, plan), ("tiled", None)):
+            row[f"{r}_ms"] = device_ms(
+                lambda i, r=r, p_=p_: lambda: qk._launch(
+                    x, ws[i], s, None, None, 2, r, p_), len(ws))
+        rows.append(row)
+    for B, T, H, Hkv, Dh, causal in SMALL_FLASH:
+        ins = [[torch.randn(s_, device=dev).to(torch.bfloat16)
+                for s_ in ((B, T, H, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
+               for _ in range(4)]
+        route = fk.flash_route(*ins[0])
+        row = {"kernel": "flash_attention", "shape": f"B={B} T={T} H={H} "
+               f"Hkv={Hkv} Dh={Dh} {'causal' if causal else 'non-causal'}",
+               "route": route}
+        for r in (route, "cuda_core"):
+            row[f"{r}_ms"] = device_ms(lambda i, r=r: lambda: fk._launch(
+                *ins[i], causal, r), 4)
+        rows.append(row)
+    return rows
 
 
 def tc_sum_error(dev):
@@ -683,9 +748,10 @@ def sweep_flash(rng, dev):
     """The flash kernels against their plain version.  The CUDA-core cases:
     causal and not, G in {1, 4}, Dh in {16, 64, 128} (and 40, 256), ragged
     T, Tq != Tk, B in {1, 3}, bf16 and f32, q read through a strided view,
-    and bf16 Dh 64 with rows that are not 16-byte multiples.  The
-    tensor-core cases: bf16, Dh 64 and 128, causal and not, G in {1, 2, 4},
-    Tq / Tk ragged and unequal up to 2048, B in {1, 3}, q strided.  Each
+    and bf16 Dh 64 with rows that are not 16-byte multiples; f32 Dh 80 and
+    96, and bf16 Dh 96 with such rows.  The tensor-core cases: bf16, Dh 64,
+    80, 96 and 128, causal and not, G in {1, 2, 4}, Tq / Tk ragged and
+    unequal up to 2048, B in {1, 3}, q strided.  Each
     call must take the route ``flash_route`` names.  Then the op's gradient
     against autograd through ``chunked_attention``."""
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -698,11 +764,12 @@ def sweep_flash(rng, dev):
     shapes += [(False, 4, 64, 100, 257, 0), (False, 1, 16, 257, 33, 0),
                (True, 4, 64, 257, 100, 0), (True, 2, 40, 130, 130, 0),
                (True, 1, 256, 70, 70, 0), (True, 2, 64, 100, 100, 1),
-               (False, 1, 64, 257, 100, 1)]
+               (False, 1, 64, 257, 100, 1), (True, 2, 80, 130, 130, 0),
+               (False, 4, 96, 257, 100, 0), (True, 1, 96, 100, 100, 1)]
     both = (torch.float32, torch.bfloat16)
     runs = [(s_, both) for s_ in shapes] + [
         ((causal, G, Dh, Tq, Tk, 0), (torch.bfloat16,))
-        for causal in (True, False) for Dh in (64, 128) for G in (1, 2, 4)
+        for causal in (True, False) for Dh in fk.TC_DH for G in (1, 2, 4)
         for Tq, Tk in ((100, 100), (257, 257), (2048, 1000), (257, 2048))]
     cases = 0
     for i, (shape, dts) in enumerate(runs):
@@ -716,8 +783,8 @@ def sweep_flash(rng, dev):
             k = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
             v = torch.randn((B, Tk, Hkv, Dh), device=dev).to(dt)
             route = fk.flash_route(q, k, v)
-            want = "tensor_core" if dt == torch.bfloat16 and Dh in (64, 128) \
-                and not pad else "cuda_core"
+            want = "tensor_core" if dt == torch.bfloat16 \
+                and Dh in (64, 80, 96, 128) and not pad else "cuda_core"
             require(route == want, f"flash_route sent {shape} {dt} to the "
                                    f"{route} route, not {want}")
             y = took_route(fk, routes, route, lambda: fk.flash_attention_fwd(
@@ -1469,6 +1536,7 @@ def autotune(cm, cfg, dev, report, tokens):
     out["attn_s"] = time.perf_counter() - t0
     out["attn"] = tuned_rows(again)
     require(attn.use_kernel and attn.bt in ta.ATTN_BTS, f"attn entry {attn}")
+    out["attn_rule_row"] = kv_tile_row(cfg, dev)
 
     prompts = serve_prompts(cfg)
     # untuned and tuned engines in turns (untuned, tuned, tuned, untuned):
@@ -1523,6 +1591,22 @@ def autotune(cm, cfg, dev, report, tokens):
         kw = {"autotune": again} if name.startswith("tuned") else {}
         out["decode_profile"][name] = profile_step(cm, cfg, dev, "decode",
                                                    True, steps=20, **kw)
+    return out
+
+
+def kv_tile_row(cfg, dev, B=8, T=512, bt=64):
+    """The kv tile's tuning shape on the rule's tile (``autotune_attn``:
+    B slots of one query row over every extent 32, 64, ... T, full), the
+    kernel's, plain version's, SDPA's and the bound's times each summed over
+    the extents, as the tuner sums its candidates'."""
+    extents = [32 * 2 ** i for i in range(int(math.log2(T // 32)) + 1)]
+    rows = [zoo_attention_row(cfg, dev, B, 1, np.full((B, 1), e), T=e,
+                              bt=bt) for e in extents]
+    out = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out.update(extents=extents, routes=sorted({r["route"] for r in rows}),
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               bound_by=sorted({r["bound_by"] for r in rows}))
     return out
 
 
@@ -2521,7 +2605,9 @@ def measure_flash(dev, counts):
 # 24 B a parameter and the masks: at 4 layers (1.88 G parameters) the peak
 # is 51.5 GB on an H100 80GB, which at 8 layers (3.56 G) reckons ~97 GB,
 # past the card's 80 GiB.
-# xlstm-1.3b runs T 512: its sLSTM runs a step at a time.  zamba2-2.7b's
+# xlstm-1.3b runs T 512 (its sLSTM runs a step at a time) at 24 of its 48
+# layers (3 of 6 super-blocks): whole, its host-bound steps took 115-133 s
+# of a script that ran 852-1038 s, past half its limit.  zamba2-2.7b's
 # ``win`` (10,448 columns, not a multiple of 128) is not masked.
 TRAIN_FAMILY_PATHS = (
     ("olmoe-1b-7b", 4, 4, 2048, 4,
@@ -2529,7 +2615,7 @@ TRAIN_FAMILY_PATHS = (
     ("zamba2-2.7b", None, 4, 2048, 4,
      (("blocks", "mamba", "wout", "w"),)
      + tuple(("shared_attn", "mlp", n, "w") for n in ("wg", "wu", "wd"))),
-    ("xlstm-1.3b", None, 4, 512, 2,
+    ("xlstm-1.3b", 24, 4, 512, 2,
      tuple(("blocks", "mlstm", n, "w") for n in ("wq", "wk", "wv", "wo"))),
 )
 TRAIN_FAMILY_STEPS = 4
@@ -2610,8 +2696,7 @@ def train_family_path(spec, dev):
     # one flash launch a super-block's attention in the forward and one in
     # its remat recompute, per micro-batch
     n_attn = n_superblocks(cfg) if cfg.family in ("moe", "hybrid") else 0
-    route = ((FLASH_TC if cfg.head_dim in (64, 128) else FLASH_CC)
-             if n_attn else None)
+    route = FLASH_TC if n_attn else None    # Dh 128 and 80: tensor cores
     if n_attn:      # kernel vs twin: one step each from the same state
         t = time.perf_counter()
         twin = {}
@@ -3530,6 +3615,8 @@ def zoo_leaf_rows(cm, cfg, dev, leaves_m=None):
                                  torch.bfloat16, shape=(K, N))["w"]
         t = time_family(ops, dense, M, None)
         del dense
+        if path == "head" and ops[0] == "quant" and route != "tiled":
+            t["first_version_ms"] = first_quant_ms(ops)
         label = f"zoo {cfg.name} {path} M={M} K={K} N={N} {route}"
         require(t["max_abs_err"] <= t["tol"],
                 f"{label}: kernel vs plain max abs err {t['max_abs_err']}")
@@ -3546,6 +3633,17 @@ def zoo_leaf_rows(cm, cfg, dev, leaves_m=None):
                              "route": route, **detail, **t})
         torch.cuda.empty_cache()
     return rows
+
+
+def first_quant_ms(ops):
+    """The first design of quant_matmul (the tiled kernel) on a leaf's
+    operands, its codes outside L2 as ``time_family`` reads them."""
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.sparse_matmul.kernel import packed_ratio
+    _, xq, w, s, packed = ops
+    ws = copies(w, n_copies(nbytes(w)))
+    return device_ms(lambda i: lambda: qk._launch(
+        xq, ws[i], s, None, None, packed_ratio(packed), "tiled"), len(ws))
 
 
 def zoo_attention_row(cfg, dev, B, C, lens, T=512, bt=64):
@@ -3805,7 +3903,8 @@ def forward_check(cm, cfg, dev, batch, want, tol=TWIN_TOL["float"],
 def flash_row(dev, cfg, B, T, causal):
     """The flash kernel at one layer of a forward of ``cfg`` (B x T, its
     heads and head dim) on the route ``flash_route`` names, held against
-    its plain version and timed beside its bound and SDPA."""
+    its plain version and timed beside its bound and SDPA; on the tensor
+    cores also the first design (the CUDA-core kernel) at the same shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -3827,37 +3926,42 @@ def flash_row(dev, cfg, B, T, causal):
     pairs = T * (T + 1) / 2 if causal else T * T
     b, by = bound(nbytes(q, k, v, y), 4.0 * B * H * Dh * pairs, "bf16")
     heads = [[t.permute(0, 2, 1, 3) for t in qkv] for qkv in ins]
-    return {"config": cfg.name, "shape": f"B={B} T={T} H={H} Hkv={Hkv} "
-            f"Dh={Dh} bf16 {'causal' if causal else 'non-causal'}",
-            "route": route, "max_abs_err": err, "tol": tol,
-            "ms": device_ms(lambda i: lambda: fk.flash_attention_fwd(
-                *ins[i], causal=causal), 4),
-            "plain_ms": device_ms(lambda i: lambda: fk.flash_attention_plain(
-                *ins[i], causal=causal), 2),
-            "bound_ms": b, "bound_by": by,
-            "library_ms": device_ms(
-                lambda i: lambda: F.scaled_dot_product_attention(
-                    *heads[i], is_causal=causal, enable_gqa=True), 4)}
+    row = {"config": cfg.name, "shape": f"B={B} T={T} H={H} Hkv={Hkv} "
+           f"Dh={Dh} bf16 {'causal' if causal else 'non-causal'}",
+           "route": route, "max_abs_err": err, "tol": tol,
+           "ms": device_ms(lambda i: lambda: fk.flash_attention_fwd(
+               *ins[i], causal=causal), 4),
+           "plain_ms": device_ms(lambda i: lambda: fk.flash_attention_plain(
+               *ins[i], causal=causal), 2),
+           "bound_ms": b, "bound_by": by,
+           "library_ms": device_ms(
+               lambda i: lambda: F.scaled_dot_product_attention(
+                   *heads[i], is_causal=causal, enable_gqa=True), 4)}
+    if route == "tensor_core":
+        row["first_version_ms"] = device_ms(lambda i: lambda: fk._launch(
+            *ins[i], causal, "cuda_core"), 4)
+    return row
 
 
 def encoder_path(dev):
     """hubert-xlarge at full width: the compiled forward on 4 x 1024 frame
     embeddings, non-causal; every linear on its rule's route, the
-    attention on the flash kernel's CUDA-core route (Dh 80)."""
+    attention on the flash kernel's tensor-core route (Dh 80)."""
     cm, cfg, out = family_model(ENCODER_ARCH, dev)
     B, T = ENCODER_BATCH
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randn((B, T, cfg.d_model), generator=gen,
                          device=dev).to(torch.bfloat16)
     want = decode_want(cm, cfg, dev, B * T)
-    want.update({FLASH_TC: 0, FLASH_CC: cfg.n_layers})
+    want.update({FLASH_TC: cfg.n_layers, FLASH_CC: 0})
     out["forward"] = forward_check(cm, cfg, dev, {"frame_embeds": frames},
                                    want)
     out["forward"]["frames"] = [B, T]
     print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
     del frames
     # the forward's MLP leaf and its head (the 128-block does not tile
-    # 504 columns: the tiled quant route) at the forward's rows
+    # 504 columns, nor do 504 one-byte codes make a 16-byte row pitch: the
+    # tiled quant route) at the forward's rows
     rows = zoo_leaf_rows(cm, cfg, dev, [("blocks/mlp/wu", B * T),
                                         ("head", B * T)])
     del cm
@@ -3906,14 +4010,18 @@ def vlm_path(dev):
             device=dev)}
     T = VLM_PREFIX + VLM_TOKENS
     want = decode_want(cm, cfg, dev, T)
-    want.update({FLASH_TC: 0, FLASH_CC: cfg.n_layers})
+    want.update({FLASH_TC: cfg.n_layers, FLASH_CC: 0})
     out["forward"] = forward_check(cm, cfg, dev, batch, want)
     out["forward"]["prefix_tokens"] = [VLM_PREFIX, VLM_TOKENS]
     print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
     # the MLP leaf at the decode step's rows and the forward's, and the
-    # head at the forward's (the tiled quant route)
+    # head at the forward's (32,064 columns: the tensor-core quant route,
+    # its last column tile ragged)
     rows = zoo_leaf_rows(cm, cfg, dev, [("blocks/mlp/wg", 8),
                                         ("blocks/mlp/wg", T), ("head", T)])
+    head = rows["quant_matmul"][-1]
+    require(head["leaf"] == "head" and head["route"] == "tensor_core",
+            f"{cfg.name}: the head at M={T} took the {head['route']} route")
     del cm
     torch.cuda.empty_cache()
     lens = np.random.default_rng(1).integers(64, 320, size=(8, 1))
@@ -4429,7 +4537,7 @@ def ssm_hybrid_path(arch, dev):
     want.update({PDA_SPLIT: 0, PDA_SINGLE: 0})
     if cfg.family == "hybrid":
         from repro_torch.models.model import n_superblocks
-        want[FLASH_CC] = n_superblocks(cfg)
+        want[FLASH_TC] = n_superblocks(cfg)
     # the forward reads no KV cache: the float bound, or xlstm-1.3b's
     tol = SSM_TWIN_TOL[arch] if cfg.family == "ssm" else TWIN_TOL["float"]
     out["forward"] = forward_check(cm, cfg, dev, batch, want, tol=tol,
@@ -4513,6 +4621,9 @@ def main() -> int:
         report["tc_f32_sum_err"] = tc_sum_error(dev)
         print("tensor-core f32 sums vs plain, share of max|pre|: "
               + json.dumps(report["tc_f32_sum_err"]), flush=True)
+        report["route_pairs"] = route_pairs(dev)
+        print("new routes beside their first designs (device ms): "
+              + json.dumps(report["route_pairs"]), flush=True)
 
         cm, cfg, counts, tokens = serve(dev, report)
         print(f"serve: {json.dumps(report['serve'])}", flush=True)
@@ -4534,9 +4645,12 @@ def main() -> int:
             {k: r["candidates"] for k, r in tune["keys"].items()}),
             flush=True)
         print("autotune attention: " + json.dumps(tune["attn"]), flush=True)
+        print("autotune attention, the rule's tile summed over the extents: "
+              + json.dumps(tune["attn_rule_row"]), flush=True)
         print("autotune serve: " + json.dumps(
             {k: v for k, v in tune.items()
-             if k not in ("keys", "attn", "decode_profile", "serve_pairs")}),
+             if k not in ("keys", "attn", "attn_rule_row", "decode_profile",
+                          "serve_pairs")}),
             flush=True)
         print("autotune serving, untuned / tuned in turns: "
               + json.dumps(tune["serve_pairs"]), flush=True)

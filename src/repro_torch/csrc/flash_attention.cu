@@ -26,10 +26,11 @@
 // shared-memory word it loads feeds 4 or 8 FMAs.  The probabilities pass
 // through shared memory to the P·V product.  Nothing of the (T, T) score
 // matrix reaches device memory.  The step that approaches the bound exists
-// for bf16 with Dh 64 or 128: those shapes take the tensor-core kernel of
-// flash_attention_tc.cu (wgmma), as `flash_route` in
+// for bf16 with Dh 64, 80, 96 or 128: those shapes take the tensor-core
+// kernel of flash_attention_tc.cu (wgmma), as `flash_route` in
 // kernels/flash_attention/kernel.py decides; this kernel keeps f32, the
-// other head dims and strides that are not whole 16-byte rows.
+// other head dims (16, 40, 256, ...) and strides that are not whole 16-byte
+// rows.
 #include "common.cuh"
 
 namespace {

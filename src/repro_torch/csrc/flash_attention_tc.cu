@@ -1,13 +1,14 @@
 // Full-sequence flash attention forward on the tensor cores: bf16 q, k, v
-// with Dh 64 or 128, causal or not, GQA, any Tq / Tk.
+// with Dh 64, 80, 96 or 128, causal or not, GQA, any Tq / Tk.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/kernel.py:76
 // (`flash_attention`, body `_kernel` at :31), the forward of the training
 // path's attention, for the shapes `flash_route` in
-// kernels/flash_attention/kernel.py sends here: bf16, Dh in {64, 128}, unit
-// stride along Dh, every other stride a multiple of 8 elements and 16-byte
-// aligned base pointers.  Everything else (f32, other Dh, odd strides) takes
-// the CUDA-core kernel of flash_attention.cu, which computes the same thing.
+// kernels/flash_attention/kernel.py sends here: bf16, Dh in {64, 80, 96,
+// 128}, unit stride along Dh, every other stride a multiple of 8 elements
+// and 16-byte aligned base pointers.  Everything else (f32, other Dh, odd
+// strides) takes the CUDA-core kernel of flash_attention.cu, which computes
+// the same thing.
 //
 // What it computes, as the TPU kernel does: o = softmax(q.k^T * scale) . v per
 // (batch, head) with an online softmax over 64-key tiles (running max m, sum
@@ -38,11 +39,24 @@
 // shared memory), so P never touches shared memory.  Key tiles wholly in a
 // warpgroup's future are skipped, and only tiles on the diagonal or the
 // ragged edge are masked element by element.  Two CTAs of two warpgroups
-// share an SM at Dh 64 (about 110 registers a thread), and it is across
-// those four warpgroups that the tensor cores overlap the exponentials:
-// overlapping a warpgroup's softmax with its own P.V (a third stage, both
-// products issued every tile) measured slower at Dh 64 on an H100.  Not yet
-// done: TMA loads from a producer warp with mbarriers.
+// share an SM at Dh 64, 80 and 96 (110 / 127 / 127 registers a thread, no
+// spills), and it is across those four warpgroups that the tensor cores
+// overlap the exponentials: overlapping a warpgroup's softmax with its own
+// P.V (a third stage, both products issued every tile) measured slower at
+// Dh 64 on an H100, and one CTA an SM (135-137 registers) 1.31-1.37x
+// slower at Dh 80 over 1024-2048 keys and 1.13x at Dh 96
+// (scripts/flash_tc_occupancy.py; NVIDIA H100 80GB HBM3, 700 W).  Dh 128
+// keeps one CTA an SM (159 registers).
+//
+// Dh 80 and 96 (hubert-xlarge and zamba2-2.7b; phi-3-vision-4.2b) use the
+// Dh 128 layout with the second 64-column half only partly filled: S takes
+// the 5 or 6 k16 steps that hold data, and P.V is one wgmma of N = 80 or 96
+// (m64n80k16 / m64n96k16) whose MN-major descriptor reads the first 16 or
+// 32 columns of V's second half; the columns past Dh are never copied or
+// read.  Exact 32- and 64-byte-swizzled column blocks (no unused columns,
+// 61 / 73 KB of shared memory against 97 KB) gave the same results and
+// timed slower on an H100 in a one-off comparison.  Not yet done: TMA
+// loads from a producer warp with mbarriers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,12 +76,16 @@ constexpr int NS = 2;    // K/V stages in shared memory
 constexpr float NEG_INF = -1e30f;
 
 // One 64-column half of a tile: `rows` rows of 128 bytes.  A tile of Dh
-// columns is Dh / 64 such halves one after another.
+// columns is ceil(Dh / 64) such halves one after another; at Dh 80 and 96
+// the second half holds only 16 or 32 columns, and its other columns are
+// never written or read.
 __host__ __device__ constexpr int half_bytes(int rows) { return rows * 128; }
+template <int DH>
+__host__ __device__ constexpr int halves() { return (DH + 63) / 64; }
 template <int DH>
 __host__ __device__ constexpr int smem_bytes() {
   // q tile, NS stages of K and of V, 1 KB to align the base to 1024 bytes
-  return (DH / 64) * (half_bytes(BQ) + 2 * NS * half_bytes(BK)) + 1024;
+  return halves<DH>() * (half_bytes(BQ) + 2 * NS * half_bytes(BK)) + 1024;
 }
 
 // Rows [r0, r0 + ROWS) of a (T, DH) bf16 matrix with row stride `ld`
@@ -79,9 +97,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g,
                                           long long ld, int r0, int T,
                                           int tid) {
   constexpr int CPR = DH / 8;  // chunks per row
+  constexpr int TOTAL = ROWS * CPR;
 #pragma unroll
-  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+  for (int i = 0; i < (TOTAL + NT - 1) / NT; ++i) {
     const int e = tid + i * NT;
+    if (TOTAL % NT != 0 && e >= TOTAL) break;
     const int r = e / CPR, c = e % CPR;
     const int t = r0 + r;
     const bool in = t < T;
@@ -98,38 +118,35 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// O += P . V over 16 keys: one product of N = Dh columns.
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db, 1);
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 64)
+    wgmma_rs_n64(o, a, db, 1);
+  else if constexpr (DH == 80)
+    wgmma_rs_n80(o, a, db, 1);
+  else if constexpr (DH == 96)
+    wgmma_rs_n96(o, a, db, 1);
+  else
+    wgmma_rs_n128(o, a, db, 1);
 }
 
 // Fragment layout of a 64 x N wgmma accumulator: warp w of the warpgroup
 // holds rows 16 w + lane / 4 (registers 4 j, 4 j + 1) and 16 w + lane / 4 + 8
 // (4 j + 2, 4 j + 3), at columns 8 j + 2 (lane % 4) and the next one.
 template <int DH>
-__global__ void __launch_bounds__(NT, DH == 64 ? 2 : 1)
+__global__ void __launch_bounds__(NT, DH == 128 ? 1 : 2)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out, int Tq,
                     int Tk, int H, int Hkv, long long sqb, long long sqt,
                     long long sqh, long long skb, long long skt, long long skh,
                     long long svb, long long svt, long long svh,
                     float scale_log2, int causal) {
-  constexpr int HALVES = DH / 64;
-  constexpr int KV_BYTES = HALVES * half_bytes(BK);  // one K or V stage
+  constexpr int KV_BYTES = halves<DH>() * half_bytes(BK);  // one K or V stage
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + HALVES * half_bytes(BQ);
+  const uint32_t sK = sQ + halves<DH>() * half_bytes(BQ);
   const uint32_t sV = sK + NS * KV_BYTES;
 
   // blockIdx.x walks batch.head fastest; the longest causal q tiles first
@@ -177,7 +194,8 @@ __global__ void __launch_bounds__(NT, DH == 64 ? 2 : 1)
       const uint32_t kst = sK + (it % NS) * KV_BYTES;
       const uint32_t vst = sV + (it % NS) * KV_BYTES;
 
-      // S = Q . K^T: K = Dh in steps of 16 (32 bytes within a swizzled row)
+      // S = Q . K^T: K = Dh in steps of 16 (32 bytes within a swizzled
+      // row), only the steps that hold data (5 at Dh 80, 6 at Dh 96)
       float s[BK / 2];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
@@ -240,7 +258,9 @@ __global__ void __launch_bounds__(NT, DH == 64 ? 2 : 1)
         for (int r = 0; r < 4; ++r)
           p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-      // O += P . V: K = 16 keys per step (2 KB of V rows); V is N-major
+      // O += P . V: K = 16 keys per step (2 KB of V rows); V is N-major,
+      // one product of N = Dh over its halves (at Dh 80 / 96 the second
+      // half's first 16 / 32 columns)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
@@ -294,8 +314,8 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
 // q: (B, Tq, H, Dh), k / v: (B, Tk, Hkv, Dh), all bf16, unit stride along
 // Dh, the (batch, position, head) strides sq / sk / sv in elements, each a
 // multiple of 8, base pointers 16-byte aligned.  out: (B, Tq, H, Dh)
-// contiguous bf16.  Needs Dh in {64, 128} and H % Hkv == 0 (the wrapper's
-// flash_route checks all of it).  Returns the launch's cudaError_t.
+// contiguous bf16.  Needs Dh in {64, 80, 96, 128} and H % Hkv == 0 (the
+// wrapper's flash_route checks all of it).  Returns the launch's cudaError_t.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Tq,
     int Tk, int H, int Hkv, int Dh, long long sqb, long long sqt,
@@ -304,11 +324,20 @@ extern "C" int flash_attention_tc_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long sq[3] = {sqb, sqt, sqh}, sk[3] = {skb, skt, skh},
                   sv[3] = {svb, svt, svh};
-  if (Dh == 64)
-    return (int)launch_t<64>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                             scale, causal, s);
-  if (Dh == 128)
-    return (int)launch_t<128>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                              scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  switch (Dh) {
+    case 64:
+      return (int)launch_t<64>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                               scale, causal, s);
+    case 80:
+      return (int)launch_t<80>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                               scale, causal, s);
+    case 96:
+      return (int)launch_t<96>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                               scale, causal, s);
+    case 128:
+      return (int)launch_t<128>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
+                                scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

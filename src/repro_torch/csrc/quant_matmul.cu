@@ -3,8 +3,10 @@
 // `qmm_route` in kernels/quant_matmul/kernel.py: the thin-M kernel for M <=
 // 16 (decode) with N % 4 == 0; the tensor-core kernel for bf16 x past 16
 // rows (full-sequence forwards, wide prefill chunks) with K % 64 == 0,
-// N % 128 == 0 and 16-byte aligned operands; and the tiled kernel, the
-// first design on the CUDA cores, for everything else (f32 x, odd widths).
+// N % 16 == 0 (the codes' row pitch, which TMA needs in 16-byte steps; the
+// last 128-column tile may be ragged) and 16-byte aligned operands; and the
+// tiled kernel, the first design on the CUDA cores, for everything else
+// (f32 x, odd widths).
 //
 // Replaces the Pallas kernel repro/kernels/quant_matmul/kernel.py:125
 // (`quant_matmul`; bodies `_kernel` :42 and `_kernel_packed_db` :68).
@@ -432,7 +434,9 @@ cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
 
 // ------------------------------------------------------- tensor-core route
 
-// One CTA per (128-column tile, m_tile-row tile, K split): the split's steps
+// One CTA per (128-column tile, m_tile-row tile, K split; the last column
+// tile ragged when N % 128 != 0: its missing code columns arrive as zeros
+// and its missing outputs are not written): the split's steps
 // of 64 codes through tc_matmul.cuh's pipeline, then either the emit
 // act(acc * s + b) in bf16 (one split) or the raw f32 partial, which the
 // reduce pass scales, biases and activates.  tmx / tmc: the tensor maps of
@@ -478,7 +482,7 @@ cudaError_t tc_t(const void* x, int M, int K, const void* w, int N,
                  const float* bias, float* ws, void* out, int act, float tau,
                  cudaStream_t stream) {
   const int steps = K / tcm::BK;
-  if (K % tcm::BK != 0 || N % tcm::BN != 0 || k_splits < 1 ||
+  if (K % tcm::BK != 0 || N % 16 != 0 || k_splits < 1 ||
       steps_per_split < 1 || (k_splits - 1) * steps_per_split >= steps ||
       k_splits * steps_per_split < steps || (k_splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
@@ -491,7 +495,7 @@ cudaError_t tc_t(const void* x, int M, int K, const void* w, int N,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(N / tcm::BN, (M + BM - 1) / BM, k_splits);
+  const dim3 grid((N + tcm::BN - 1) / tcm::BN, (M + BM - 1) / BM, k_splits);
   kern<<<grid, tcm::NT, bytes, stream>>>(
       tmx, tmc, M, K, N, steps_per_split, scales, bias,
       k_splits > 1 ? ws : nullptr, static_cast<__nv_bfloat16*>(out), act,
@@ -557,7 +561,8 @@ extern "C" int qmm_thin_launch(const void* x, int x_bf16, int M, int K,
 }
 
 // The tensor-core route: bf16 x (M, K) at a 16-byte aligned address, K % 64
-// == 0, N % 128 == 0, w 16-byte aligned.  m_tile: rows per CTA (64 or 128).
+// == 0, N % 16 == 0 (ceil(N / 128) column tiles), w 16-byte aligned.
+// m_tile: rows per CTA (64 or 128).
 // The K / 64 steps are cut into k_splits ranges of steps_per_split (the
 // last may be shorter); ws: (k_splits, M, N) f32 scratch, unused when
 // k_splits == 1.  out: (M, N) bf16.  Other arguments as qmm_launch.

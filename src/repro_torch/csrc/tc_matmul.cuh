@@ -253,11 +253,11 @@ __device__ __forceinline__ void consume(const uint8_t* smem, uint32_t sbase,
 // n0 + col + e (col: the lane's first column, as in mainloop) of row
 // m0 + 8 j + 2 (lane % 4) + h.  With `ws` null: out = act(acc * s + b) in
 // bf16 (s and b may be null); else ws = acc * s (s may be null) in f32,
-// for a reduce pass.  Rows >= M are not written; `ldo` is the row stride
-// of out / ws.
+// for a reduce pass.  Rows >= M and columns >= N (the ragged last column
+// tile; N is even) are not written; N is also the row stride of out / ws.
 template <int BM>
 __device__ __forceinline__ void emit(const float (&acc)[BM / 2], int m0,
-                                     int M, int n0, int ldo,
+                                     int M, int n0, int N,
                                      const float* __restrict__ scales,
                                      const float* __restrict__ bias,
                                      float* __restrict__ ws,
@@ -266,6 +266,7 @@ __device__ __forceinline__ void emit(const float (&acc)[BM / 2], int m0,
   const int tid = threadIdx.x, lane = tid & 31;
   const int n =
       n0 + 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + 2 * (lane >> 2);
+  if (n >= N) return;
   const float s0 = scales != nullptr ? scales[n] : 1.f;
   const float s1 = scales != nullptr ? scales[n + 1] : 1.f;
   const float b0 = bias != nullptr && ws == nullptr ? bias[n] : 0.f;
@@ -278,10 +279,10 @@ __device__ __forceinline__ void emit(const float (&acc)[BM / 2], int m0,
       if (m >= M) continue;
       const float v0 = acc[4 * j + h] * s0, v1 = acc[4 * j + 2 + h] * s1;
       if (ws != nullptr) {
-        *reinterpret_cast<float2*>(ws + (size_t)m * ldo + n) =
+        *reinterpret_cast<float2*>(ws + (size_t)m * N + n) =
             make_float2(v0, v1);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * ldo + n) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
             __floats2bfloat162_rn(rt::apply_act(v0 + b0, act, tau),
                                   rt::apply_act(v1 + b1, act, tau));
       }
@@ -346,8 +347,9 @@ inline cudaError_t reduce(const float* ws, int M, int N, int parts,
 }
 
 // A 2-D tensor map over a row-major (rows, cols) array of `elem`-byte
-// elements (a row of `pitch` bytes), with boxes of box_rows x box_cols and
-// the 128-byte swizzle; out-of-range rows read as zeros.  The encoder,
+// elements (a row of `pitch` bytes, a multiple of 16), with boxes of
+// box_rows x box_cols and the 128-byte swizzle; out-of-range rows and
+// columns read as zeros.  The encoder,
 // cuTensorMapEncodeTiled, is fetched through the runtime's entry-point
 // query, so libcuda need not be linked.
 // Returns false if it cannot be encoded.
@@ -379,7 +381,9 @@ inline bool tensor_map(CUtensorMap* map, const void* base,
 }
 
 // The maps of x (M, K) bf16 in BM-row x 64-column boxes and of a code
-// array (rows, cols) uint8 in (64 / R)-row x 128-column boxes.
+// array (rows, cols) uint8 in (64 / R)-row x 128-column boxes (cols a
+// multiple of 16, the map's row pitch; the columns of a last box past
+// cols arrive as zeros and count in its bytes).
 template <int BM, int WK>
 inline bool tile_maps(CUtensorMap* tmx, CUtensorMap* tmc, const void* x,
                       int M, int K, const void* codes, uint64_t rows,

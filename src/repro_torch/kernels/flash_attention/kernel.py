@@ -5,9 +5,9 @@
   flash_attention``: causal or not, GQA, bf16 or f32, any ``Tq`` / ``Tk``,
   ``Dh`` up to 256; q, k and v are read through their strides.
   :func:`flash_route` picks the kernel from the shapes: ``"tensor_core"``
-  (``csrc/flash_attention_tc.cu``, wgmma) for bf16 with Dh 64 or 128 and
-  16-byte-aligned rows, ``"cuda_core"`` (``csrc/flash_attention.cu``, f32
-  FMAs) for everything else.  CPU tensors take the plain version.
+  (``csrc/flash_attention_tc.cu``, wgmma) for bf16 with Dh 64, 80, 96 or
+  128 and 16-byte-aligned rows, ``"cuda_core"``
+  (``csrc/flash_attention.cu``, f32 FMAs) for everything else.  CPU tensors take the plain version.
 * :func:`flash_attention_plain` — the plain PyTorch version of what the
   kernel computes: ``q.float() * scale``, an online softmax over
   :data:`BK`-key tiles with the finite mask value :data:`NEG_INF`, causal
@@ -29,7 +29,7 @@ __all__ = ["BK", "NEG_INF", "flash_attention_fwd", "flash_attention_plain",
 NEG_INF = -1e30
 BK = 64          # keys per tile of the kernel's online softmax
 MAX_DH = 256
-TC_DH = (64, 128)   # head dims of the tensor-core kernel
+TC_DH = (64, 80, 96, 128)   # head dims of the tensor-core kernel
 TC_BQ = 128         # q rows per CTA of the tensor-core kernel
 CC_BQ = 64          # q rows per CTA of the CUDA-core kernel
 

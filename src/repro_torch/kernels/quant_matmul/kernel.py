@@ -74,6 +74,8 @@ THIN_COLS = 128      # output columns per CTA of the thin-M kernel
 THIN_KCAP = 512      # codes of K per split, at most (the kernel's x stage)
 THIN_MIN_ROWS = 8    # byte rows per split, at least: two per warp
 CTA_TARGET = 2 * 132  # CTAs the thin-M route aims for: two per H100 SM
+TC_N_ALIGN = 16      # N of the tensor-core route: the codes' row pitch in
+                     # whole 16-byte steps (1-byte containers)
 
 
 class QmmPlan(NamedTuple):
@@ -119,12 +121,13 @@ def qmm_tc_plan(M: int, K: int, N: int, m_tile: Optional[int] = None,
                 cuts: Optional[int] = None) -> QmmTcPlan:
     """The tensor-core kernel's tiles and K splits: the K / :data:`TC_K_STEP`
     steps cut into :func:`tc_cuts` even splits (none when the ``ceil(M /
-    m_tile) * N / TC_COLS`` tiles alone reach about one wave of the card),
+    m_tile) * ceil(N / TC_COLS)`` tiles alone reach about one wave of the
+    card; the last column tile may be ragged),
     each of at least :data:`TC_MIN_STEPS` steps when K has that many;
     ``m_tile`` (64 or 128) by :func:`tc_m_tile` and the cuts by
     :func:`tc_cuts` unless given."""
     steps = K // TC_K_STEP
-    n_tiles = N // TC_COLS
+    n_tiles = -(-N // TC_COLS)
 
     def plan(m):
         c = tc_cuts(-(-M // m) * n_tiles) if cuts is None else cuts
@@ -144,9 +147,11 @@ def qmm_route(M: int, K: int, N: int, ratio: int, x_bf16: bool,
     ``("thin_m", QmmPlan)`` when :func:`qmm_plan` gives a plan (M <= 16);
     else ``("tensor_core", QmmTcPlan)`` when x is bf16, ``K`` is a multiple
     of :data:`TC_K_STEP` (whole steps, and x rows in 16-byte copies), ``N``
-    a multiple of :data:`TC_COLS` (whole column tiles) and both ``x_ptr``
-    and ``w_ptr`` are 16-byte aligned; else ``("tiled", None)``, the
-    CUDA-core kernel (f32 x, odd widths).  Every container is 1-byte
+    a multiple of :data:`TC_N_ALIGN` (the codes' row pitch in whole 16-byte
+    steps, as TMA reads them; the last of the ``ceil(N / TC_COLS)`` column
+    tiles may be ragged) and both ``x_ptr`` and ``w_ptr`` are 16-byte
+    aligned; else ``("tiled", None)``, the CUDA-core kernel (f32 x, odd
+    widths).  Every container is 1-byte
     (int8, int4x2, int2x4), which the tensor-core kernel takes."""
     plan = qmm_plan(M, K, N, ratio, w_ptr)
     if plan is not None:
@@ -162,9 +167,9 @@ def _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) -> Optional[str]:
         return "the tensor-core route needs bf16 x"
     if M <= THIN_M_MAX:
         return f"the tensor-core route needs M > {THIN_M_MAX}, got {M}"
-    if K % TC_K_STEP or N % TC_COLS:
+    if K % TC_K_STEP or N % TC_N_ALIGN:
         return (f"the tensor-core route needs K % {TC_K_STEP} == 0 and "
-                f"N % {TC_COLS} == 0, got K={K}, N={N}")
+                f"N % {TC_N_ALIGN} == 0, got K={K}, N={N}")
     if w_ptr % 16 or x_ptr % 16:
         return "the tensor-core route needs 16-byte aligned x and codes"
     return None
@@ -233,7 +238,7 @@ def qmm_candidates(M: int, K: int, N: int, ratio: int, x_bf16: bool,
             add("thin_m", qmm_plan(M, K, N, ratio, w_ptr, target))
     elif _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) is None:
         for m in (64, 128):
-            c = tc_cuts(-(-M // m) * (N // TC_COLS))
+            c = tc_cuts(-(-M // m) * -(-N // TC_COLS))
             for cuts in (1, c, 2 * c):
                 add("tensor_core", qmm_tc_plan(M, K, N, m_tile=m, cuts=cuts))
     add("tiled", None)

@@ -184,14 +184,18 @@ def _route_case(case):
     B, T, H, Hkv = 2, 24, 4, 2
     dt = torch.float32 if case == "f32" else torch.float16 \
         if case == "f16" else torch.bfloat16
-    Dh = {"dh16": 16, "dh40": 40, "dh128": 128, "dh256": 256}.get(case, 64)
+    Dh = {"dh16": 16, "dh40": 40, "dh80": 80, "dh96": 96, "dh128": 128,
+          "dh256": 256, "dh80_f32": 80, "dh96_rows_of_97": 96}.get(case, 64)
+    if case == "dh80_f32":
+        dt = torch.float32
     g = torch.Generator().manual_seed(0)
     q = torch.randn((B, T, H, Dh), generator=g).to(dt)
     k = torch.randn((B, T, Hkv, Dh), generator=g).to(dt)
     v = torch.randn((B, T, Hkv, Dh), generator=g).to(dt)
     if case == "q_head_slice":       # q read through a view over heads
         q = torch.randn((B, T, 2 * H, Dh), generator=g).to(dt)[:, :, H:]
-    elif case == "rows_of_65":       # rows are not whole 16-byte copies
+    elif case in ("rows_of_65", "dh96_rows_of_97"):
+        # rows are not whole 16-byte copies
         q = torch.randn((B, T, H, Dh + 1), generator=g).to(dt)[..., :Dh]
     elif case == "base_off_by_one":  # a base pointer 2 bytes past alignment
         q = torch.empty(q.numel() + 8, dtype=dt)[1:1 + q.numel()].view(
@@ -207,7 +211,9 @@ def _route_case(case):
 
 
 @pytest.mark.parametrize("case,route", [
-    ("dh64", "tensor_core"), ("dh128", "tensor_core"),
+    ("dh64", "tensor_core"), ("dh80", "tensor_core"), ("dh96", "tensor_core"),
+    ("dh128", "tensor_core"), ("dh80_f32", "cuda_core"),
+    ("dh96_rows_of_97", "cuda_core"),
     ("q_head_slice", "tensor_core"), ("odd_batch_stride_b1", "tensor_core"),
     ("f32", "cuda_core"), ("f16", "cuda_core"), ("k_f32", "cuda_core"),
     ("dh16", "cuda_core"), ("dh40", "cuda_core"), ("dh256", "cuda_core"),
@@ -238,6 +244,48 @@ def test_training_path_takes_the_tensor_core_route(monkeypatch):
     assert len(seen) == cfg.n_layers
     assert all(r == "tensor_core" and dt == torch.bfloat16 and s[-1] == 64
                for r, dt, s in seen), seen
+
+
+# The reduced configs at their full-width head dims (hubert-xlarge and
+# zamba2-2.7b Dh 80, phi-3-vision-4.2b Dh 96), bf16, and each one's batch.
+def _frames(cfg, rng):
+    return {"frame_embeds": torch.as_tensor(rng.standard_normal(
+        (2, 32, cfg.d_model)), dtype=torch.bfloat16)}
+
+
+def _tokens(cfg, rng):
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32)),
+                                      dtype=torch.int32)}
+
+
+def _prefixed(cfg, rng):
+    return {**_tokens(cfg, rng), "prefix_embeds": torch.as_tensor(
+        rng.standard_normal((2, 8, cfg.d_model)), dtype=torch.bfloat16)}
+
+
+@pytest.mark.parametrize("arch,head_dim,batch", [
+    ("hubert-xlarge", 80, _frames), ("zamba2-2.7b", 80, _tokens),
+    ("phi-3-vision-4.2b", 96, _prefixed)])
+def test_dh80_and_dh96_forwards_take_the_tensor_core_route(
+        monkeypatch, arch, head_dim, batch):
+    """The q, k and v that the bf16 forwards of the encoder, the hybrid and
+    the VLM hand the attention at their head dims go to the tensor cores,
+    one call a layer (the hybrid: one a super-block)."""
+    cfg = dataclasses.replace(t_reduced(arch), head_dim=head_dim,
+                              param_dtype="bfloat16")
+    seen = []
+    full = tblocks.attn_full_dispatch
+
+    def spy(q, k, v, **kw):
+        seen.append((tk.flash_route(q, k, v), q.dtype, tuple(q.shape)))
+        return full(q, k, v, **kw)
+
+    monkeypatch.setattr(tblocks, "attn_full_dispatch", spy)
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    tm.forward(params, cfg, batch(cfg, np.random.default_rng(0)))
+    assert len(seen) == tm.n_superblocks(cfg)
+    assert all(r == "tensor_core" and dt == torch.bfloat16
+               and s[-1] == head_dim for r, dt, s in seen), seen
 
 
 def test_cpu_calls_count_no_route():

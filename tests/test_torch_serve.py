@@ -1,4 +1,8 @@
-"""Port transformer steps and serving engine vs the JAX reference.
+"""Port transformer layers, cache layout, the serving engine's lifecycle
+and the int4 / int4x2 cache contract vs the JAX reference.  The steps and
+the engine's tokens against the reference's live in
+``test_torch_serve_steps.py`` and ``test_torch_serve_engine.py``; the
+shared cases and tolerances in ``tests/_serve.py``.
 
 Logits: f32 ``rtol=1e-5, atol=1e-5`` (the two packages sum matmul products
 in different orders).  Integer cache containers (packed codes) must be
@@ -11,113 +15,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _serve import (  # noqa: E402,F401
+    POLICIES, TOL, check_caches, one_thread, pair, serve, tiny)
 from repro.configs import reduced_config as j_reduced  # noqa: E402
-from repro.core import compile_sparse as jc  # noqa: E402
 from repro.models import model as jm  # noqa: E402
-from repro.models.config import ArchConfig as JCfg  # noqa: E402
-from repro.serve.engine import Request as JReq, ServeEngine as JEng  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import reduced_config as t_reduced  # noqa: E402
 from repro_torch.core import compile_sparse as tc  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_packed as tdp  # noqa: E402
-from repro_torch.kernels.quant_matmul import kernel as tqk  # noqa: E402
 from repro_torch.kernels.sparse_matmul import kernel as tsk  # noqa: E402
 from repro_torch.models import blocks as tb  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
-from repro_torch.models.config import ArchConfig as TCfg  # noqa: E402
 from repro_torch.serve.engine import Request as TReq, ServeEngine as TEng  # noqa: E402
 
-TOL = dict(rtol=1e-5, atol=1e-5)
-POLICIES = {"wq": "quant", "wk": "quant", "wv": "quant", "wo": "quant",
-            "wg": "sparse", "wu": "sparse", "wd": "sparse"}
-
-
-def _pair(**over):
-    kw = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
-              n_kv_heads=2, head_dim=16, d_ff=128, vocab=96,
-              param_dtype="float32", tie_embeddings=True)
-    kw.update(over)
-    jcfg, tcfg = JCfg(**kw), TCfg(**kw)
-    jp = jm.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
-                                   "cpu")
-    return jcfg, tcfg, jp, tp
-
-
-def _compile(jcfg, tcfg, jp, tp, block):
-    kw = dict(block=block, block_density=0.5, in_block_density=0.5,
-              min_weight_elems=0, quant_bits=4, policies=POLICIES)
-    jcm = jc.compile_model(jp, jcfg, rules=jc.CompileRules(**kw))
-    tcm = tc.compile_model(tp, tcfg, rules=tc.CompileRules(**kw),
-                           device="cpu")
-    return jcm, tcm
-
-
-@pytest.fixture(scope="module")
-def tiny():
-    jcfg, tcfg, jp, tp = _pair()
-    jcm, tcm = _compile(jcfg, tcfg, jp, tp, (32, 32))
-    return jcfg, tcfg, jp, tp, jcm, tcm
-
-
-def _cache_np(cache):
-    return {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
-            for k, v in cache.items()}
-
-
-def _check_caches(jcache, tcache):
-    j, t = _cache_np(jcache), _cache_np(tcache)
-    assert sorted(j) == sorted(t)
-    for k in j:
-        if j[k].dtype.kind == "f":
-            np.testing.assert_allclose(t[k], j[k], **TOL, err_msg=k)
-        else:
-            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
-
-
-KV_READS = [("float", "fused"), ("int4", "fused"), ("int4", "unpack"),
-            ("int4x2", "fused"), ("int4x2", "unpack"), ("float", "unpack")]
-
-
-@pytest.mark.parametrize("compiled", [False, True])
-@pytest.mark.parametrize("kv,read", KV_READS)
-def test_prefill_and_decode_steps_match_reference(tiny, kv, read, compiled):
-    """Every container under both reads (the float cache ignores the read)
-    against the reference: codes exact, scales and logits within TOL."""
-    jcfg, tcfg, jp, tp, jcm, tcm = tiny
-    jparams, tparams = (jcm.params, tcm.params) if compiled else (jp, tp)
-    jpat, tpat = (jcm.patterns, tcm.patterns) if compiled else (None, None)
-    B, T = 3, 16
-    jcache = jm.init_cache(jcfg, B, T, kv_cache=kv)
-    tcache = tm.init_cache(tcfg, B, T, kv_cache=kv, device="cpu")
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, 96, size=(B, 8)).astype(np.int32)
-    nv = np.array([8, 5, 0], np.int32)
-    jl, jcache = jm.prefill_step(jparams, jcfg, jcache, jnp.asarray(toks),
-                                 patterns=jpat, dispatch="jnp",
-                                 n_valid=jnp.asarray(nv), t_bound=16, bt=8,
-                                 packed_read=read)
-    tl, tcache = tm.prefill_step(tparams, tcfg, tcache, torch.from_numpy(toks),
-                                 patterns=tpat, n_valid=torch.from_numpy(nv),
-                                 t_bound=16, bt=8, packed_read=read)
-    for b in range(B):
-        np.testing.assert_allclose(tl[b, :nv[b]].numpy(),
-                                   np.asarray(jl)[b, :nv[b]], **TOL)
-    _check_caches(jcache, tcache)
-    for step in range(3):
-        tok = rng.integers(0, 96, size=(B, 1)).astype(np.int32)
-        act = np.array([1, 1, step % 2], np.int32)
-        jl, jcache = jm.decode_step(jparams, jcfg, jcache, jnp.asarray(tok),
-                                    patterns=jpat, dispatch="jnp",
-                                    active=jnp.asarray(act), t_bound=16, bt=8,
-                                    packed_read=read)
-        tl, tcache = tm.decode_step(tparams, tcfg, tcache,
-                                    torch.from_numpy(tok), patterns=tpat,
-                                    active=torch.from_numpy(act), t_bound=16,
-                                    bt=8, packed_read=read)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-        _check_caches(jcache, tcache)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("kv", ["float", "int4", "int4x2"])
@@ -142,7 +54,7 @@ def test_kv_insert_clamps_a_full_slot_like_the_reference(tiny, kv):
     tl, tcache = tm.decode_step(tp, tcfg, tcache, torch.from_numpy(tok),
                                 active=torch.from_numpy(act), bt=8)
     np.testing.assert_allclose(tl[1].numpy(), np.asarray(jl)[1], **TOL)
-    _check_caches(jcache, tcache)
+    check_caches(jcache, tcache)
     # the clamp in isolation: rows land at [T - C, T)
     c = torch.zeros((1, 4, 1))
     tb._kv_insert(c, torch.ones((1, 2, 1)), torch.tensor([4]))
@@ -192,7 +104,7 @@ def test_layers_match_reference(dtype):
 
 
 def test_init_shapes_and_cache_axes_match_reference():
-    jcfg, tcfg, jp, tp = _pair()
+    jcfg, tcfg, jp, tp = pair()
     ours = tm.init_params(tcfg, seed=3, device="cpu")
     flat = lambda t, p=(): [x for k, v in t.items() for x in (
         flat(v, p + (k,)) if isinstance(v, dict) else [(p + (k,), v)])]
@@ -229,53 +141,8 @@ def test_init_shapes_and_cache_axes_match_reference():
     assert get_config("llama3_2_1b") is cfg
 
 
-def _serve(engine_cls, req_cls, params, cfg, prompts, **kw):
-    eng = engine_cls(params, cfg, **kw)
-    for i, p in enumerate(prompts):
-        eng.submit(req_cls(uid=i, prompt=p, max_new_tokens=6))
-    done = eng.run()
-    return eng, [r.out for r in sorted(done, key=lambda r: r.uid)]
-
-
-@pytest.fixture(scope="module")
-def serve_pair():
-    jcfg, tcfg, jp, tp = _pair(d_model=256, n_heads=4, n_kv_heads=2,
-                               head_dim=64, d_ff=512, vocab=512)
-    return (jcfg, tcfg, jp, tp), _compile(jcfg, tcfg, jp, tp, (128, 128))
-
-
-@pytest.mark.parametrize("compiled", [False, True])
-@pytest.mark.parametrize("kv,read", KV_READS[:5])
-def test_serve_engine_tokens_match_reference(serve_pair, compiled, kv, read):
-    """The engine's tokens, step counts and cache bytes against the
-    reference engine, for every container under both reads."""
-    (jcfg, tcfg, jp, tp), (jcm, tcm) = serve_pair
-    jparams, tparams = (jcm, tcm) if compiled else (jp, tp)
-    rng = np.random.default_rng(1)
-    # the 50-token prompt's 16-row chunk schedule (64 rows) overruns the
-    # 60-row cache, so it is dripped token by token
-    prompts = [rng.integers(0, 512, size=int(n)).astype(np.int32)
-               for n in (3, 17, 40, 9, 50, 33)]
-    kw = dict(batch_slots=3, max_len=60, prefill_chunk=16, kv_cache=kv,
-              packed_read=read)
-    jeng, jout = _serve(JEng, JReq, jparams, jcfg, prompts, dispatch="jnp",
-                        **kw)
-    for mod in (tsk, tqk, tdp):
-        mod.launches = 0
-    teng, tout = _serve(TEng, TReq, tparams, tcfg, prompts, device="cpu", **kw)
-    assert tout == jout
-    assert (tsk.launches, tqk.launches, tdp.launches) == (0, 0, 0)
-    assert teng.cache_bytes() == jeng.cache_bytes()
-    js, ts_ = jeng.stats(), teng.stats()
-    for k in ("prefill_steps", "decode_steps", "prefill_tokens",
-              "decode_tokens"):
-        assert ts_[k] == js[k], k
-    assert teng.tokens_processed() == jeng.tokens_processed()
-    assert ts_["prefill_tokens"] == sum(len(p) for p in prompts) - 50
-
-
 def test_serve_engine_lifecycle():
-    jcfg, tcfg, jp, tp = _pair()
+    jcfg, tcfg, jp, tp = pair()
     eng = TEng(tp, tcfg, batch_slots=2, max_len=16, device="cpu")
     with pytest.raises(ValueError, match="empty prompt"):
         eng.submit(TReq(uid=0, prompt=np.zeros(0, np.int32)))
@@ -373,7 +240,7 @@ def cuda_device():
 def test_captured_engine_matches_eager_on_the_card(cuda_device):
     """Captured and eager engines serve the same tokens and launch the same
     kernels; one graph per phase and bucket."""
-    jcfg, tcfg, jp, tp = _pair(d_model=256, n_heads=4, n_kv_heads=2,
+    jcfg, tcfg, jp, tp = pair(d_model=256, n_heads=4, n_kv_heads=2,
                                head_dim=64, d_ff=512, vocab=512,
                                param_dtype="bfloat16")
     tcm = tc.compile_model(interop.params_from_numpy(
@@ -388,7 +255,7 @@ def test_captured_engine_matches_eager_on_the_card(cuda_device):
     outs, launches = {}, {}
     for capture in (True, False):
         before = tdp.launches
-        eng, outs[capture] = _serve(
+        eng, outs[capture] = serve(
             TEng, TReq, tcm, tcfg, prompts, device=cuda_device,
             batch_slots=3, max_len=64, kv_cache="int4x2", capture=capture)
         launches[capture] = tdp.launches - before

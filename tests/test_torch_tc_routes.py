@@ -44,7 +44,11 @@ def _t(a):
     (512, 2048, 512, True, 256, 4096, "tensor_core"),
     (17, 2048, 2048, False, 0, 0, "tiled"),       # f32 x
     (512, 2080, 2048, True, 0, 0, "tiled"),       # K not whole 64-code steps
-    (512, 2048, 320, True, 0, 0, "tiled"),        # N not whole 128-col tiles
+    (512, 2048, 320, True, 0, 0, "tensor_core"),  # a ragged last column tile
+    (1088, 3072, 32064, True, 0, 0, "tensor_core"),  # phi-3-vision's head
+    (24, 1024, 48, True, 0, 0, "tensor_core"),    # one ragged column tile
+    (4096, 1280, 504, True, 0, 0, "tiled"),       # N not a 16-byte code pitch
+    (512, 2048, 328, True, 0, 0, "tiled"),        # nor here (hubert: 504)
     (512, 2048, 2048, True, 4, 0, "tiled"),       # codes not 16-byte aligned
     (512, 2048, 2048, True, 0, 8, "tiled"),       # x not 16-byte aligned
 ])
@@ -89,7 +93,8 @@ def _split_steps(plan, steps):
 
 @pytest.mark.parametrize("M,K,N", [
     (17, 2048, 512), (40, 64, 128), (128, 2048, 2048), (512, 2048, 512),
-    (512, 8192, 2048), (512, 2048, 8192), (1024, 128, 384)])
+    (512, 8192, 2048), (512, 2048, 8192), (1024, 128, 384),
+    (128, 512, 320), (64, 8192, 320), (24, 1024, 48), (1088, 3072, 32064)])
 def test_qmm_tc_plan_splits_cover_k_once(M, K, N):
     plan = tqk.qmm_tc_plan(M, K, N)
     spans = _split_steps(plan, K // tqk.TC_K_STEP)
@@ -100,6 +105,35 @@ def test_qmm_tc_plan_splits_cover_k_once(M, K, N):
     assert plan.steps_per_split >= min(tqk.TC_MIN_STEPS, steps)
     assert plan.m_tile in (64, 128) and (M > 64 or plan.m_tile == 64)
     assert plan.n_tile == tqk.TC_COLS
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (128, 512, 320), (64, 8192, 320), (24, 1024, 48), (1088, 3072, 32064),
+    (40, 2048, 4112)])
+def test_qmm_tc_plan_tiles_a_ragged_n_as_its_whole_tiles(M, K, N):
+    """A ragged N runs ceil(N / 128) column tiles, the last one partly
+    empty: the plan (tiles, K splits) is the one of N rounded up to whole
+    tiles, and its tiles cover N with less than one tile to spare."""
+    plan = tqk.qmm_tc_plan(M, K, N)
+    whole = -(-N // tqk.TC_COLS) * tqk.TC_COLS
+    assert plan == tqk.qmm_tc_plan(M, K, whole)
+    assert whole - plan.n_tile < N <= whole
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+def test_qmm_candidates_at_the_phi3_head_pass_the_plan_check(ratio):
+    """Every candidate the autotuner would time at phi-3-vision-4.2b's head
+    (3072 x 32,064, its forward's 1088 rows) passes ``qmm_plan_error``; the
+    rule's own is first, on the tensor-core route, and the tiled route is
+    among them."""
+    args = (1088, 3072, 32064, ratio, True, 256, 512)
+    cands = tqk.qmm_candidates(*args)
+    assert cands[0] == tqk.qmm_route(*args)
+    assert cands[0][0] == "tensor_core"
+    assert ("tiled", None) in cands
+    assert sum(r == "tensor_core" for r, _ in cands) > 1
+    for route, plan in cands:
+        assert tqk.qmm_plan_error(route, plan, *args) is None, (route, plan)
 
 
 def _ranges(sched, per):
@@ -238,25 +272,30 @@ def _case(rng, container, shape):
     return codes, w
 
 
-@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("layer", [0, 1, 2])
 @pytest.mark.parametrize("container", ["int8", "int4x2", "int2x4"])
 def test_quant_tc_order_matches_the_reference(layer, container):
+    """Layer 2: N = 192, a ragged last column tile (its missing code
+    columns read as zeros, its missing outputs not written)."""
     rng = np.random.default_rng(10 * layer + RATIO[container])
-    M, K, N = (24, 512, 256) if layer == 0 else (40, 512, 384)
+    M, K, N = ((24, 512, 256), (40, 512, 384), (40, 512, 192))[layer]
     codes, w = _case(rng, container, (K, N))
     dec = decode_tc(container, w)
     assert torch.equal(dec.float(), _t(codes).float())    # exact in bf16
     scales = (rng.random(N) / (QMAX[container] * 4)).astype(np.float32)
     bias = rng.normal(size=N).astype(np.float32) if layer else None
-    act = ("silu", None)[layer]
+    act = ("silu", None, "gelu")[layer]
     x = _t(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
-    plan = tqk.qmm_tc_plan(M, K, N)
-    assert plan.k_splits > 1                        # partials and a reduce
-    acc = torch.zeros((M, N))
+    route, plan = tqk.qmm_route(M, K, N, RATIO[container], True)
+    assert route == "tensor_core" and plan.k_splits > 1  # partials, a reduce
+    # whole column tiles, the columns past N zero codes (as TMA fills them)
+    tiles = -(-N // plan.n_tile)
+    dec = torch.nn.functional.pad(dec, (0, tiles * plan.n_tile - N))
+    acc = torch.zeros((M, tiles * plan.n_tile))
     for lo, hi in _split_steps(plan, K // tqk.TC_K_STEP):
         ks = slice(lo * tqk.TC_K_STEP, hi * tqk.TC_K_STEP)
         acc = acc + x[:, ks].float() @ dec[ks].float()
-    y = acc * _t(scales)                            # scale at emit
+    y = acc[:, :N] * _t(scales)                     # scale at emit
     if bias is not None:
         y = y + _t(bias)
     y = tsk.apply_activation(y, act).to(torch.bfloat16)
