@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    container, row count and activation, on every route of
    ``block_sparse_matmul`` and ``quant_matmul`` (thin-M, M <= 16;
    tensor-core, bf16 x past 16 rows, bitwise equal across two calls; and
-   tiled), of ``packed_decode_attention`` (split across the cache, and the
+   tiled; f32 and bf16 blocks on the thin-M and tensor-core routes too,
+   and quant codes of N % 16 == 8 columns, copied by cp.async), of ``packed_decode_attention`` (split across the cache, and the
    single kernel: C in {1, 16}, G in {1, 4}, Dh in {64, 128}, dead, ragged
    and full slots, bitwise equal across extents and calls) and of the flash
    kernel (tensor cores for bf16 Dh 64/80/96/128, CUDA cores for the rest:
@@ -26,9 +27,12 @@ Phases, each fatal on failure:
    to take the route its shape rule names;
    then time kernel, plain version and a one-call PyTorch yardstick at the
    shapes the main paths give it, beside the least time the card could take
-   (``bound_ms``) and the first version of each redesigned kernel, and
-   the widened tensor-core routes (ragged quant column tiles, flash at Dh
-   80 / 96) beside their first designs at shapes off the main paths;
+   (``bound_ms``) and the first version of each redesigned kernel; the
+   tensor-core routes' f32 sums against the plain version (f32 blocks
+   among them); and the widened routes (ragged quant column tiles,
+   hubert-xlarge's 504-column head, flash at Dh 80 / 96, actsparse's f32
+   blocks at M = 8 and 512) beside their first designs, bounds and
+   one-call library times;
 4. serve   — compile llama3.2-1b at full width (random weights from a seed)
    to int4x2 quant/block-sparse leaves; serve 16 requests through
    ``ServeEngine`` with the int4x2 KV cache, each step a CUDA graph per
@@ -81,7 +85,8 @@ Phases, each fatal on failure:
    held against the twin path (a prefill chunk and 4 decode steps) and
    serving 4 requests captured and eager with identical tokens, every
    matmul launch on the route its rule names (the H100_SXM picks printed
-   as an estimate); then LeNet-5 with no policies and with 2-bit quant
+   as an estimate; the family map's actsparse leaves never tiled, its
+   captured decode step profiled with block_sparse_matmul's share); then LeNet-5 with no policies and with 2-bit quant
    convs, the fused forward against the twin with its launches, and
    ``run_dse`` / ``balanced_folding_baseline`` at the Table-I budget on
    both HWSpecs (estimates);
@@ -105,7 +110,8 @@ Phases, each fatal on failure:
    from seed 0), each compiled with ``zoo_rules`` (the head left to the
    cost model), each path's counts set to 0 just before it and read just
    after: hubert-xlarge's compiled forward on 4 x 1024 frame embeddings
-   (non-causal; every matmul on its rule's route, 48 flash calls on the
+   (non-causal; every matmul on its rule's route, all tensor-core routes,
+   the 504-column head's codes copied by cp.async, 48 flash calls on the
    tensor-core route at Dh 80), held against the twin within
    ``TWIN_TOL["float"]``; phi-3-vision-4.2b (cut to 16 of 32 layers,
    ``VLM_LAYERS``): its twin check, its 16 requests
@@ -121,8 +127,8 @@ Phases, each fatal on failure:
    96 (tensor cores, and the CUDA-core first design) and the single
    packed read at Dh 96 timed beside their bounds, plain versions and
    SDPA, and the MLP leaves and the heads at their forwards' rows (phi-3-
-   vision-4.2b's on the tensor cores beside the tiled first design,
-   hubert-xlarge's tiled) beside theirs and ``x @ W``;
+   vision-4.2b's and hubert-xlarge's on the tensor cores beside the tiled
+   first design) beside theirs and ``x @ W``;
 7c. ssm_hybrid — xlstm-1.3b (raw parameters, its mLSTM projections int8
    leaves: ``linear_mode="int8"``) and zamba2-2.7b (compiled with
    ``zoo_rules``: the shared attention and the head) at full width and
@@ -350,8 +356,11 @@ def sweep_sparse(rng, dev):
     {17, 40, 128, 512}, the three byte containers, K up to 8192, N in {512,
     2048, 8192}, an absent column block, empty patterns, 64-row and
     256-column blocks, bias or not, over the activations; each bitwise
-    equal on a second call); each call must take the route the rule
-    names."""
+    equal on a second call), and f32 and bf16 blocks (actsparse, the
+    float sparse path) on both: thin-M at M in {1, 8, 16} (f32 and bf16
+    x) and the tensor cores at bf16 M in {17, 128, 512}, an absent column
+    block, empty patterns and columns cut into ranges; each call must take
+    the route the rule names."""
     from repro_torch.kernels.sparse_matmul import kernel as K_
     from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
 
@@ -394,6 +403,23 @@ def sweep_sparse(rng, dev):
                        bf16),
                       (container, M, 128, 4, True, mi + ci + 2, 4, 128,
                        bf16)]
+    # f32 and bf16 blocks: thin-M rows (K = 8192 cut into ranges, K = 1536,
+    # an empty pattern), then the tensor cores (K = 8192 in ranges, a wide
+    # N, 64-row and 256-column blocks, an empty pattern)
+    for ci, container in enumerate(("f32", "bf16")):
+        for mi, M in enumerate((1, 8, 16)):
+            for xi, xdt in enumerate((torch.float32, bf16)):
+                a = ci + mi + xi
+                cases += [(container, M, 128, 64, False, a, 3, 128, xdt),
+                          (container, M, 128, 12, False, a + 1, 3, 128, xdt),
+                          (container, M, 128, 4, True, a + 2, 3, 128, xdt)]
+        for mi, M in enumerate((17, 128, 512)):
+            a = ci + mi
+            cases += [(container, M, 128, 64, False, a, 4, 128, bf16),
+                      (container, M, 128, 16, False, a + 1, 16, 128, bf16),
+                      (container, M, 64, 24, False, a + 2, 8, 128, bf16),
+                      (container, M, 128, 8, False, a + 3, 4, 256, bf16),
+                      (container, M, 128, 4, True, a + 4, 4, 128, bf16)]
     for container, M, bk, nR, empty, ai, nC, bn, xdt in cases:
         act = ACTS[ai % len(ACTS)]
         if xdt is None:
@@ -407,10 +433,10 @@ def sweep_sparse(rng, dev):
         route, _ = K_.bsm_route(
             M, bk, bn, ratio, nC, sched.max_blocks_per_col, xdt == bf16,
             blocks.data_ptr(), blocks.element_size(), x.data_ptr())
-        byte = blocks.element_size() == 1
-        want = "thin_m" if M <= 16 and byte \
+        # every container here is 1-byte codes or f32 / bf16 blocks
+        want = "thin_m" if M <= 16 \
             and bk * K_.rows_per_cta(M) <= K_.THIN_XCAP else \
-            "tensor_core" if M > 16 and byte and xdt == bf16 \
+            "tensor_core" if M > 16 and xdt == bf16 \
             and bk % 64 == 0 and bn % 128 == 0 else "tiled"
         require(route == want, f"bsm_route sent {container} M={M} bk={bk} "
                                f"bn={bn} {xdt} to the {route} route, not "
@@ -459,9 +485,10 @@ def sweep_quant(rng, dev):
     in {2048, 8192}, N in {512, 2048, 8192}; ragged last column tiles at N
     in {48, 320, 32064} (phi-3-vision-4.2b's head at its forward's 1088
     rows), one of them cut along K; each bitwise equal on a second call),
-    hubert-xlarge's 504-column head (no 16-byte code pitch: tiled), every
-    container, with and without bias, over the activations; each call must
-    take the route ``qmm_route`` names."""
+    and N % 16 == 8, whose codes no TMA map takes (cp.async: hubert-xlarge's
+    504-column head at its forward's 4096 rows, N in {40, 328, 504}, one
+    of them cut along K), every container, with and without bias, over the
+    activations; each call must take the route ``qmm_route`` names."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
@@ -484,8 +511,11 @@ def sweep_quant(rng, dev):
     ragged = [(512, 320, 128, bf16), (8192, 320, 64, bf16),
               (1024, 48, 24, bf16), (3072, 32064, 1088, bf16),
               (1280, 504, 4096, bf16)]
-    shapes += ragged
-    split_ragged = 0
+    # N % 16 == 8: the codes by cp.async (the head above among them)
+    pitch8 = [(2048, 328, 512, bf16), (1024, 40, 24, bf16),
+              (8192, 504, 64, bf16)]
+    shapes += ragged + pitch8
+    split_ragged = split_pitch8 = 0
     cases = 0
     for ci, container in enumerate(("int8", "int4x2", "int2x4")):
         for mi, (K, N, M, xdt) in enumerate(shapes):
@@ -507,9 +537,10 @@ def sweep_quant(rng, dev):
                                        w.data_ptr(), x.data_ptr())
             want = "thin_m" if M <= 16 and N % 4 == 0 else \
                 "tensor_core" if M > 16 and xdt == bf16 and K % 64 == 0 \
-                and N % 16 == 0 else "tiled"
+                and N % 8 == 0 else "tiled"
             if route == "tensor_core" and N % 128:
                 split_ragged += plan.k_splits > 1
+                split_pitch8 += plan.k_splits > 1 and N % 16 == 8
             require(route == want, f"qmm_route sent {container} M={M} K={K} "
                                    f"N={N} {xdt} to the {route} route, not "
                                    f"{want}")
@@ -533,55 +564,138 @@ def sweep_quant(rng, dev):
                 require(torch.equal(y, call()),
                         f"{label}: a second call gave other bits")
             cases += 1
-    require(split_ragged > 0, "no ragged tensor-core case was cut along K")
+    require(split_ragged > 0 and split_pitch8 > 0,
+            "no ragged (or N % 16 == 8) tensor-core case was cut along K")
     return cases
 
 
-# Shapes the widened tensor-core rules now take besides the main paths'
-# (those are timed in their phases' rows): the quant sweep's ragged column
-# tiles (M, K, N; int4x2) and small flash calls at Dh 80 / 96 (B, T, H,
-# Hkv, Dh, causal).
+# Shapes the widened routes take besides the main paths' (those are timed
+# in their phases' rows): the quant sweep's ragged column tiles (M, K, N;
+# int4x2), hubert-xlarge's 504-column head at its forward's rows (codes by
+# cp.async), small flash calls at Dh 80 / 96 (B, T, H, Hkv, Dh, causal) and
+# the actsparse leaves of FAMILY_SHAPES (f32 blocks, the fused trelu) at
+# decode and forward rows (leaf, M; bf16 x).
 RAGGED_QMM = ((128, 512, 320), (64, 8192, 320), (24, 1024, 48),
-              (40, 2048, 4112))
+              (40, 2048, 4112), (4096, 1280, 504))
 SMALL_FLASH = ((1, 257, 8, 2, 80, False), (3, 100, 8, 2, 96, True),
                (1, 2048, 8, 2, 96, False))
+ACTSPARSE_PAIRS = (("mlp/wg", 8), ("mlp/wd", 8), ("mlp/wg", 512),
+                   ("mlp/wd", 512))
 
 
 def route_pairs(dev):
     """The new routes beside the first designs they replace at
-    ``RAGGED_QMM`` and ``SMALL_FLASH``: device ms of each (inputs outside
-    L2 for the matmuls), the rule's route first."""
+    ``RAGGED_QMM``, ``SMALL_FLASH`` and ``ACTSPARSE_PAIRS``: device ms of
+    each (inputs outside L2 for the matmuls), the rule's route first, with
+    the bound, the plain version's time and the one-call library time
+    (``x @ W``, W dense bf16; SDPA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import payload_registry
+    from repro_torch.core.compile_sparse import CompileRules, compile_conv
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+    from repro_torch.kernels.sparse_matmul.ops import schedule_for
+    from repro_torch.kernels.sparse_matmul.ref import block_sparse_matmul_ref
     rows = []
     for M, K, N in RAGGED_QMM:
-        w = pack_codes(torch.randint(-7, 8, (K, N), device=dev).to(
-            torch.int8), axis=0, bits=4)
+        codes = torch.randint(-7, 8, (K, N), device=dev).to(torch.int8)
+        w = pack_codes(codes, axis=0, bits=4)
         x = torch.randn((M, K), device=dev).to(torch.bfloat16)
         s = torch.rand((N,), device=dev) / 100
         route, plan = qk.qmm_route(M, K, N, 2, True, w.data_ptr(),
                                    x.data_ptr())
         ws = copies(w, n_copies(nbytes(w)))
+        dense = (codes.float() * s).to(torch.bfloat16)
+        ds = copies(dense, n_copies(nbytes(dense), 16))
+        b, by = bound(nbytes(x, w, s) + 2 * M * N, 2.0 * M * K * N, "bf16")
         row = {"kernel": "quant_matmul", "shape": f"M={M} K={K} N={N} "
-               f"int4x2", "route": route, "plan": list(plan)}
+               f"int4x2", "route": route, "plan": list(plan),
+               "bound_ms": b, "bound_by": by,
+               "plain_ms": device_ms(lambda i: lambda: quant_matmul_ref(
+                   x, codes, s, out_dtype=torch.bfloat16), 2),
+               "library_ms": device_ms(lambda i: lambda: x @ ds[i], len(ds))}
         for r, p_ in ((route, plan), ("tiled", None)):
             row[f"{r}_ms"] = device_ms(
                 lambda i, r=r, p_=p_: lambda: qk._launch(
                     x, ws[i], s, None, None, 2, r, p_), len(ws))
         rows.append(row)
+        del codes, dense, ds
     for B, T, H, Hkv, Dh, causal in SMALL_FLASH:
         ins = [[torch.randn(s_, device=dev).to(torch.bfloat16)
                 for s_ in ((B, T, H, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
                for _ in range(4)]
         route = fk.flash_route(*ins[0])
+        pairs = T * (T + 1) / 2 if causal else T * T
+        b, by = bound(nbytes(*ins[0]) + nbytes(ins[0][0]),
+                      4.0 * B * H * Dh * pairs, "bf16")
+        heads = [[t.permute(0, 2, 1, 3) for t in qkv] for qkv in ins]
         row = {"kernel": "flash_attention", "shape": f"B={B} T={T} H={H} "
                f"Hkv={Hkv} Dh={Dh} {'causal' if causal else 'non-causal'}",
-               "route": route}
+               "route": route, "bound_ms": b, "bound_by": by,
+               "plain_ms": device_ms(lambda i: lambda: fk.flash_attention_plain(
+                   *ins[i], causal=causal), 2),
+               "library_ms": device_ms(
+                   lambda i: lambda: F.scaled_dot_product_attention(
+                       *heads[i], is_causal=causal, enable_gqa=True), 4)}
         for r in (route, "cuda_core"):
             row[f"{r}_ms"] = device_ms(lambda i, r=r: lambda: fk._launch(
                 *ins[i], causal, r), 4)
         rows.append(row)
+    rng = np.random.default_rng(27)
+    act = ("trelu", FAMILY_TAU)
+    for leaf in dict(ACTSPARSE_PAIRS):
+        K, N = FAMILY_SHAPES[leaf]
+        w = (rng.standard_normal((K, N), dtype=np.float32) / math.sqrt(K))
+        p = compile_conv(w.reshape(1, 1, K, N), policy="actsparse",
+                         rules=CompileRules(**FAMILY_RULES, quant_bits=8),
+                         name=leaf, device=dev)[0].payload
+        blocks, pat = p.cl.blocks, p.cl.pattern
+        sched = schedule_for(pat, dev)
+        dense = payload_registry.family_of_payload(p).payload_dense(p).to(
+            torch.bfloat16)
+        for leaf_m, M in ACTSPARSE_PAIRS:
+            if leaf_m != leaf:
+                continue
+            x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+            ops = family_operands(p, x)
+            route, plan = family_route(ops, M, x)
+            # trelu: on the tensor cores either side within the band
+            pre = block_sparse_matmul_ref(
+                x, blocks, pat.block_rows, pat.block_cols,
+                n_row_blocks=pat.bitmap.shape[0],
+                n_col_blocks=pat.bitmap.shape[1], out_dtype=torch.float32)
+            t = time_family(ops, dense, M, act,
+                            pre if route == "tensor_core" else None)
+            require(t["max_abs_err"] <= t["tol"],
+                    f"route_pairs actsparse {leaf} M={M} {route}: max abs "
+                    f"err {t['max_abs_err']}")
+            bs = copies(blocks, n_copies(nbytes(blocks)))
+            row = {"kernel": "block_sparse_matmul", "shape": f"actsparse "
+                   f"{leaf} M={M} K={K} N={N} f32 blocks "
+                   f"{pat.n_blocks_present}/{pat.n_blocks_total} of "
+                   f"{pat.block}", "route": route,
+                   "plan": None if plan is None else list(plan),
+                   f"{route}_ms": t["ms"], **{k: t[k] for k in (
+                       "bound_ms", "bound_by", "library_ms", "plain_ms",
+                       "max_abs_err", "tol")},
+                   "tiled_ms": device_ms(lambda i: lambda: sk._launch(
+                       x, bs[i], sched, None, None, act, 1, "tiled"),
+                       len(bs))}
+            if route == "tensor_core":  # the rule's alternative m tile
+                alt = sk.bsm_tc_plan(M, *pat.block, pat.bitmap.shape[1],
+                                     sched.max_blocks_per_col,
+                                     m_tile=192 - plan.m_tile)
+                row["other_m_tile"] = {"plan": list(alt), "ms": device_ms(
+                    lambda i: lambda: sk._launch(
+                        x, bs[i], sched, None, None, act, 1, "tensor_core",
+                        alt), len(bs))}
+            rows.append(row)
+        del p, blocks, dense
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -590,7 +704,9 @@ def tc_sum_error(dev):
     pre-activation, as a share of its largest magnitude: both kernels, the
     three containers, K = 8192 and M = 512, read from the f32 partials of a
     plan cut in two (K splits; ranges of each column's blocks), added as the
-    reduce pass adds them.  Must stay within half of TC_FLIP_BAND."""
+    reduce pass adds them; then block_sparse_matmul's f32 blocks (each
+    weight three bf16 terms) and bf16 blocks the same way.  Must stay
+    within half of TC_FLIP_BAND."""
     from repro_torch.core.quant import pack_codes
     from repro_torch.kernels.quant_matmul import kernel as qk
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
@@ -629,6 +745,23 @@ def tc_sum_error(dev):
             pre = block_sparse_matmul_ref(
                 x, vals, rows, cols, n_row_blocks=K // 128, n_col_blocks=nC,
                 scales=scales)
+            got = ws[0]
+            for r in range(1, ranges):
+                got = got + ws[r]
+            worst[f"block_sparse_matmul {container}"] = float(
+                (got - pre).abs().max()) / float(pre.abs().max())
+        for container in ("f32", "bf16"):
+            x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+            blocks, vals, _, _, sched, rows, cols, nC = sparse_case(
+                rng, dev, container, 128, K // 128, nC=16)
+            per = -(-sched.max_blocks_per_col // 2)
+            ranges = -(-sched.max_blocks_per_col // per)
+            ws = torch.zeros((ranges, M, nC * 128), device=dev)
+            K_._launch(x, blocks, sched, None, None, None, 1, "tensor_core",
+                       K_.BsmTcPlan(64, 128, per, ranges), ws=ws)
+            pre = block_sparse_matmul_ref(x, vals, rows, cols,
+                                          n_row_blocks=K // 128,
+                                          n_col_blocks=nC)
             got = ws[0]
             for r in range(1, ranges):
                 got = got + ws[r]
@@ -1780,14 +1913,15 @@ def read_divergences(cm, cfg, dev, prompts, ref_tokens, tokens,
 
 
 def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
-                 **kw):
+                 share=(), **kw):
     """Where a serving step's time goes: the engine's step at 8 slots of
     200 cached rows (int4x2 cache, bucket 256; a prefill chunk of 16 rows
     into slot 0; the SSM family's one bucket, its states as they run), each
     ending as the engine's does with its logits' argmax
     on the host: wall-clock per step beside the device time of the kernels
     it launches, from torch.profiler (CUPTI); captured or eager.  ``kw``
-    goes to the engine (``autotune=table``)."""
+    goes to the engine (``autotune=table``); ``share``: name parts whose
+    kernels' share of the device busy time is reported as well."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = serve_engine(cm, cfg, dev, capture=capture, **kw)
@@ -1825,11 +1959,16 @@ def profile_step(cm, cfg, dev, phase: str, capture: bool, steps: int = 5,
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[e.key] = e.self_device_time_total / steps
     busy_ms = sum(dev_us.values()) / 1e3
-    return {"captured": eng.capture, "graphs": eng.stats()["graphs"],
-            "wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": busy_ms if dev_us else None,
-            "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
-            "top_device_us_per_step": top_device_us(dev_us)}
+    out = {"captured": eng.capture, "graphs": eng.stats()["graphs"],
+           "wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy_ms if dev_us else None,
+           "device_idle_share": 1 - busy_ms / wall_ms if dev_us else None,
+           "top_device_us_per_step": top_device_us(dev_us)}
+    for part in share:
+        us = sum(v for k, v in dev_us.items() if part in k)
+        out[f"{part}_device_us_per_step"] = us
+        out[f"{part}_share"] = us / 1e3 / busy_ms if dev_us else None
+    return out
 
 
 def pdl_edges(cm, cfg, dev):
@@ -2965,9 +3104,11 @@ def unpacked(ops):
     return unpack_codes(w, ops[5].block[0], axis=1, bits=8 // ratio)
 
 
-def time_family(ops, dense_bf16, M, act):
+def time_family(ops, dense_bf16, M, act, pre=None):
     """Kernel, plain and one-call library times of one leaf's operands at M
-    rows (bf16), its inputs outside L2, beside its bound."""
+    rows (bf16), its inputs outside L2, beside its bound; the kernel's
+    largest gap from the plain version by ``act_err`` (``pre``: the plain
+    version's f32 pre-activation, where a trelu may flip)."""
     w = ops[2]
     y = family_kernel_call(ops, w, act)()
     ref = family_plain_call(ops, unpacked(ops), act)()
@@ -2990,7 +3131,7 @@ def time_family(ops, dense_bf16, M, act):
             0 if ops[3] is None else nbytes(ops[3])) + 12 * pat.n_blocks_present
         ops_n = 2.0 * M * pat.n_blocks_present * pat.block[0] * pat.block[1]
     b, by = bound(moved, ops_n, "bf16")
-    return {"max_abs_err": float((y.float() - ref.float()).abs().max()),
+    return {"max_abs_err": act_err(y, ref, act, pre),
             "tol": tol_for(y.dtype, ref.float()),
             "ms": device_ms(lambda i: family_kernel_call(ops, ws[i], act), n),
             "plain_ms": device_ms(
@@ -3054,7 +3195,8 @@ def families_leaves(dev):
                 if (M, dt) not in FAMILY_TIMED:
                     continue
                 t = time_family(ops, dense_bf16, M,
-                                ("trelu", FAMILY_TAU) if act else None)
+                                ("trelu", FAMILY_TAU) if act else None,
+                                pre if route == "tensor_core" else None)
                 row = {"family": fam, "leaf": leaf, "label": label,
                        "shape": f"M={M} K={K} N={N}", "route": route,
                        "container": ops[4] or str(ops[2].dtype).split(
@@ -3205,6 +3347,10 @@ def families_models(dev):
                     for t in cap["tokens"]),
                 f"families {name}: a request got a bad answer")
         counts = cap["counts"]
+        if name == "family_map":  # actsparse's wg / wu / wd: never tiled
+            require(want[BSM_TILED] == 0 and counts[BSM_TILED] == 0,
+                    f"families {name}: tiled block_sparse_matmul launches "
+                    f"{want[BSM_TILED]} due, {counts[BSM_TILED]} served")
         for kernel, routes in (("quant_matmul", (QMM_THIN, QMM_TC,
                                                  QMM_TILED)),
                                ("block_sparse_matmul", (BSM_THIN, BSM_TC,
@@ -3224,6 +3370,11 @@ def families_models(dev):
             "twin_check": {k: tw[k] for k in ("max_rel_err", "tol")},
             "served_launches": {k: v for k, v in counts.items() if v},
             "graphs": cap["graphs"]}
+        if name == "family_map":
+            # the captured decode step, and the share of its device time in
+            # block_sparse_matmul's kernels: the actsparse leaves alone
+            out[name]["decode_profile"] = profile_step(
+                cm, cfg, dev, "decode", True, share=("bsm",))
         del cm
         torch.cuda.empty_cache()
     return out
@@ -3945,14 +4096,18 @@ def flash_row(dev, cfg, B, T, causal):
 
 def encoder_path(dev):
     """hubert-xlarge at full width: the compiled forward on 4 x 1024 frame
-    embeddings, non-causal; every linear on its rule's route, the
-    attention on the flash kernel's tensor-core route (Dh 80)."""
+    embeddings, non-causal; every linear on its rule's route, all of them
+    tensor-core routes (the 504-column head too: its codes by cp.async),
+    the attention on the flash kernel's tensor-core route (Dh 80)."""
     cm, cfg, out = family_model(ENCODER_ARCH, dev)
     B, T = ENCODER_BATCH
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randn((B, T, cfg.d_model), generator=gen,
                          device=dev).to(torch.bfloat16)
     want = decode_want(cm, cfg, dev, B * T)
+    require(want[QMM_TILED] == 0 and want[BSM_TILED] == 0,
+            f"{cfg.name}: the rules send forward linears to the tiled "
+            f"routes: {want}")
     want.update({FLASH_TC: cfg.n_layers, FLASH_CC: 0})
     out["forward"] = forward_check(cm, cfg, dev, {"frame_embeds": frames},
                                    want)
@@ -3960,10 +4115,15 @@ def encoder_path(dev):
     print(f"{cfg.name}: forward {json.dumps(out['forward'])}", flush=True)
     del frames
     # the forward's MLP leaf and its head (the 128-block does not tile
-    # 504 columns, nor do 504 one-byte codes make a 16-byte row pitch: the
-    # tiled quant route) at the forward's rows
+    # 504 columns: the cost model's quant; 504 one-byte codes make no
+    # 16-byte row pitch, so the tensor-core route copies them by cp.async)
+    # at the forward's rows, the head beside the tiled first design
     rows = zoo_leaf_rows(cm, cfg, dev, [("blocks/mlp/wu", B * T),
                                         ("head", B * T)])
+    head = rows["quant_matmul"][-1]
+    require(head["leaf"] == "head" and head["route"] == "tensor_core",
+            f"{cfg.name}: the head at M={B * T} took the {head['route']} "
+            f"route")
     del cm
     torch.cuda.empty_cache()
     rows["flash_attention"] = [flash_row(dev, cfg, B, T, False)]
@@ -4741,6 +4901,10 @@ def main() -> int:
             for phase in ("encoder_vlm_moe", "ssm_hybrid", "train_families"):
                 if k["name"] in report[f"{phase}_rows"]:
                     k[phase] = report[f"{phase}_rows"][k["name"]]
+            pairs = [r for r in report["route_pairs"]
+                     if r["kernel"] == k["name"]]
+            if pairs:
+                k["route_pairs"] = pairs
         report["kernels"] = kernels
     finally:
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,12 +1,13 @@
 // Engine-free static block-sparse matmul: y = act(x @ W + b) over a
 // block-compacted W.  Three kernels, one per route of `bsm_route` in
 // kernels/sparse_matmul/kernel.py: the thin-M kernel for decode rows
-// (M <= 16, 1-byte containers: int8, int4x2, int2x4); the tensor-core kernel
-// for bf16 x past 16 rows (the compiled full-sequence forward, wide prefill
-// chunks) over 1-byte containers with bk % 64 == 0, bn % 128 == 0 and
-// 16-byte aligned operands; and the tiled kernel, the first design on the
-// CUDA cores, for everything else (f32 x, f32 / bf16 blocks, LeNet's small
-// blocks).
+// (M <= 16; 1-byte containers: int8, int4x2, int2x4; and f32 and bf16
+// blocks, as actsparse and the float sparse path store them); the
+// tensor-core kernel for bf16 x past 16 rows (the compiled full-sequence
+// forward, wide prefill chunks) over the same containers with bk % 64 ==
+// 0, bn % 128 == 0 and 16-byte aligned operands; and the tiled kernel, the
+// first design on the CUDA cores, for everything else (f32 x past 16 rows,
+// LeNet's small blocks).
 //
 // Replaces the Pallas kernel repro/kernels/sparse_matmul/kernel.py
 // (`_call` / `_kernel` / `_kernel_packed_db`, reached through
@@ -40,9 +41,10 @@
 // entries is cut into ranges of `blocks_per_range` blocks (one, unless the
 // grid would pass 8 x 132 CTAs); a CTA owns one range and 128 columns and
 // first copies the range's block indices into shared memory, so no weight
-// load waits on an index load.  Each lane loads 4 bytes (4 columns) of a
-// block's byte row, so a warp reads a 128-byte line; its 4 warps take
-// interleaved byte rows of the range, 16 loads in flight per lane (the
+// load waits on an index load.  Each lane loads its 4 columns of a block's
+// stored row in one load (4 bytes of a 1-byte container, 8 of bf16, 16 of
+// f32 blocks), so a warp reads a 128-, 256- or 512-byte line; its 4 warps
+// take interleaved stored rows of the range, 16 loads in flight per lane (the
 // first batch while the range's x rows are staged in shared memory with
 // 16-byte loads, as [k][m], so one 16-byte shared load feeds 16 FMAs).
 // Each CTA sums its warps in shared memory and writes an f32 partial per
@@ -56,16 +58,22 @@
 // output column block per CTA, each block bk / 64 steps whose x tile is the
 // rectangle at (m0, row block * bk), the codes decoded to exact bf16 in
 // registers as wgmma's A operand of the transposed product, f32
-// accumulators.  When the tiles alone are far from one wave of the card
-// (one CTA per SM), each column's blocks are cut into ranges, whose scaled
-// f32 partials `tcm::reduce_kernel` adds in range order.
+// accumulators.  bf16 blocks are their own A operand; f32 blocks come as
+// four 32-column TMA boxes a step (a 32 KB code tile), each weight split
+// into two bf16 terms whose products add into the same accumulators (the
+// weight to 2^-16: kernels/sparse_matmul/ref.py `split_bf16`), the sum
+// promoted to registers every step; one CTA an SM with 4 stages (bf16: two
+// CTAs, 4 or 3 stages).  f32 blocks take 128-row tiles past 64 rows.  When the tiles alone
+// are far from one wave of the card (one CTA per SM), each column's blocks
+// are cut into ranges, whose scaled f32 partials `tcm::reduce_kernel` adds
+// in range order.
 //
 // The tiled kernel (`bsm_kernel`) owns one (m-tile, 32-column slice of an
 // output column block) per CTA; its eight warps split the rows of every
-// block, one byte per lane per load, and the partial sums are reduced once
-// through shared memory.  The x rows of several of the column's blocks are
-// staged in shared memory per round (32 KB).  Its FMAs run on the CUDA
-// cores, with no wgmma, TMA or software pipeline yet.
+// block, one element per lane per load, and the partial sums are reduced
+// once through shared memory.  The x rows of several of the column's
+// blocks are staged in shared memory per round (32 KB).  Its FMAs run on
+// the CUDA cores, with no wgmma, TMA or software pipeline yet.
 #include "common.cuh"
 #include "tc_matmul.cuh"
 
@@ -252,15 +260,53 @@ __device__ __forceinline__ void codes4(uint32_t word, int t, float (&c)[4]) {
            (8388608.f + (float)SIGN);
 }
 
+// A lane's 4 columns of one stored row: 4 bytes of a 1-byte container, 8
+// of bf16 blocks, 16 of f32 blocks.
+template <int WK>
+struct Row4 {
+  using T = uint32_t;
+};
+template <>
+struct Row4<rt::W_BF16> {
+  using T = uint2;
+};
+template <>
+struct Row4<rt::W_F32> {
+  using T = uint4;
+};
+
+// Weight `t` of each of the lane's 4 columns, as floats: decoded codes, or
+// the f32 / bf16 weights themselves (t = 0).
+template <int WK>
+__device__ __forceinline__ void weights4(const typename Row4<WK>::T& v, int t,
+                                         float (&c)[4]) {
+  if constexpr (WK == rt::W_F32) {
+    c[0] = __uint_as_float(v.x);
+    c[1] = __uint_as_float(v.y);
+    c[2] = __uint_as_float(v.z);
+    c[3] = __uint_as_float(v.w);
+  } else if constexpr (WK == rt::W_BF16) {
+    c[0] = __uint_as_float(v.x << 16);
+    c[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    c[2] = __uint_as_float(v.y << 16);
+    c[3] = __uint_as_float(v.y & 0xFFFF0000u);
+  } else {
+    codes4<8 / rt::WTraits<WK>::R>(v, t, c);
+  }
+}
+
 // 4-byte slots of a range's block metadata, rounded to keep x 16-byte aligned
 __host__ __device__ inline int meta_floats(int per_range) {
   return (2 * per_range + 3) & ~3;
 }
 
 // Registers: at TM <= 8 the kernel may take what it needs (116 at TM 8,
-// no spills); at TM 16 it is held to 128 so that four CTAs share an SM.
+// no spills); at TM 16 it is held to 128 so that four CTAs share an SM, or
+// for f32 / bf16 blocks (2 or 4 times the bytes in flight) to 255, two
+// CTAs an SM.
 template <typename XT, int WK, int TM>
-__global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
+__global__ void __launch_bounds__(
+    TN_NT, TM >= 16 ? (sizeof(typename Row4<WK>::T) > 4 ? 2 : 4) : 1)
     bsm_thin_kernel(const XT* __restrict__ x, int M, int K,
                     const uint8_t* __restrict__ blocks, int bk, int bn,
                     const float* __restrict__ scales,
@@ -269,7 +315,8 @@ __global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
                     int n_sub, int per_range, int xvec, float* __restrict__ ws,
                     int N) {
   constexpr int R = rt::WTraits<WK>::R;
-  constexpr int BITS = 8 / R;
+  constexpr int E = (int)sizeof(typename rt::WTraits<WK>::T);
+  using V = typename Row4<WK>::T;
   // meta: the range's packed-block indices, then their row blocks; then
   // xs[(b * bk + k) * TM + m] for the range's blocks, reused for the warps'
   // reduction
@@ -304,21 +351,22 @@ __global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
   constexpr int STEP = TN_WARPS * TN_U;  // byte rows of one batch of a CTA
   __syncthreads();  // meta
 
-  // this lane's byte rows r + TN_WARPS * u of one batch, as words; byte
-  // row rr is row br of the range's block b
-  auto load = [&](uint32_t(&word)[TN_U], int r) {
+  // this lane's stored rows r + TN_WARPS * u of one batch, as words (its 4
+  // columns: 4, 8 or 16 bytes); stored row rr is row br of the range's
+  // block b
+  auto load = [&](V(&word)[TN_U], int r) {
     int b = r / bkp, br = r - b * bkp;
 #pragma unroll
     for (int u = 0; u < TN_U; ++u) {
-      uint32_t v = 0u;
+      V v{};
       if (r + u * TN_WARPS < total && jv)
-        v = __ldg(reinterpret_cast<const uint32_t*>(
-            blocks + ((size_t)meta[b] * bkp + br) * bn + j));
+        v = __ldg(reinterpret_cast<const V*>(
+            blocks + (((size_t)meta[b] * bkp + br) * bn + j) * E));
       word[u] = v;
       for (br += TN_WARPS; br >= bkp; br -= bkp) ++b;
     }
   };
-  uint32_t next[TN_U];
+  V next[TN_U];
   load(next, warp);  // the first batch flies while x is staged
 
   // x rows of the range's blocks -> xs, rows M .. TM - 1 zero; neighbouring
@@ -361,7 +409,7 @@ __global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
     for (int mm = 0; mm < TM; ++mm) acc[i][mm] = 0.f;
 
   for (int r = warp; r < total; r += STEP) {
-    uint32_t word[TN_U];
+    V word[TN_U];
 #pragma unroll
     for (int u = 0; u < TN_U; ++u) word[u] = next[u];
     if (r + STEP < total) load(next, r + STEP);  // the next batch flies now
@@ -390,7 +438,7 @@ __global__ void __launch_bounds__(TN_NT, TM >= 16 ? 4 : 1)
             for (int mm = 0; mm < TM; ++mm) xv[mm] = xk[t * TM + mm];
           }
           float code[4];
-          codes4<BITS>(word[u], t, code);
+          weights4<WK>(word[u], t, code);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float w = code[i] * sj[i];  // dequant before the dot
@@ -527,6 +575,8 @@ cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
                             col_ptr, rows, pidx, n_col_blocks, ranges,         \
                             per_range, ws, out, act, tau, s);
   switch (wkind) {
+    RT_W(rt::W_F32)
+    RT_W(rt::W_BF16)
     RT_W(rt::W_I8)
     RT_W(rt::W_U4)
     RT_W(rt::W_U2)
@@ -581,13 +631,14 @@ __global__ void __launch_bounds__(tcm::NT)
   tcm::init_stages<BM, WK>(sbase);  // also publishes meta
   const int spb = bk / tcm::BK;  // steps per block
   if (threadIdx.x >= tcm::NTC) {
-    tcm::produce<BM, WK>(sbase, &tmx, &tmb, m0, jbase, nb * spb,
-                         [&](int s, int& kx, int& crow) {
-                           const int b = s / spb;
-                           const int kk = (s - b * spb) * tcm::BK;
-                           kx = meta[b] + kk;
-                           crow = meta[per_range + b] + kk / R;
-                         });
+    tcm::produce<BM, WK, false>(sbase, &tmx, &tmb, nullptr, 0, 0, m0,
+                                jbase, nb * spb,
+                                [&](int s, int& kx, int& crow) {
+                                  const int b = s / spb;
+                                  const int kk = (s - b * spb) * tcm::BK;
+                                  kx = meta[b] + kk;
+                                  crow = meta[per_range + b] + kk / R;
+                                });
     return;
   }
   float acc[BM / 2];
@@ -678,8 +729,8 @@ extern "C" int bsm_launch(const void* x, int x_bf16, int M, int K,
 }
 
 // The thin-M route: M <= 16 (tm = 1, 8 or 16 rows per CTA), a 1-byte
-// container (int8, int4x2, int2x4) with bn % 4 == 0 at a 4-byte aligned
-// address.  Column block c's schedule entries col_ptr[c] : col_ptr[c + 1]
+// container (int8, int4x2, int2x4) or f32 / bf16 blocks with bn % 4 == 0,
+// at an address aligned to 4 of its elements.  Column block c's schedule entries col_ptr[c] : col_ptr[c + 1]
 // are cut into ranges of per_range blocks; `ranges` is the most any column
 // has (0: no block at all, only the emit runs).  ws: (ranges, M, N) f32
 // scratch.  Other arguments as bsm_launch.  Returns the launches'
@@ -703,8 +754,8 @@ extern "C" int bsm_thin_launch(const void* x, int x_bf16, int M, int K,
 }
 
 // The tensor-core route: bf16 x (M, K) at a 16-byte aligned address, a
-// 1-byte container (int8, int4x2, int2x4) of n_blocks blocks at a 16-byte
-// aligned address, bk % 64 == 0, bn % 128 == 0.  m_tile: rows per CTA (64
+// 1-byte container (int8, int4x2, int2x4) or f32 / bf16 blocks, n_blocks
+// of them at a 16-byte aligned address, bk % 64 == 0, bn % 128 == 0.  m_tile: rows per CTA (64
 // or 128).  Column block c's schedule entries are cut into ranges of
 // per_range blocks, `ranges` of them for the fullest column (at least 1);
 // with ranges > 1, ws: (ranges, M, N) f32 scratch and a reduce pass.  out:
@@ -727,6 +778,8 @@ extern "C" int bsm_tc_launch(const void* x, int M, int K, const void* blocks,
                            n_col_blocks, ranges, per_range, ws, out, act,     \
                            tau, s);
   switch (wkind) {
+    RT_W(rt::W_F32)
+    RT_W(rt::W_BF16)
     RT_W(rt::W_I8)
     RT_W(rt::W_U4)
     RT_W(rt::W_U2)

@@ -3,10 +3,10 @@
 // `qmm_route` in kernels/quant_matmul/kernel.py: the thin-M kernel for M <=
 // 16 (decode) with N % 4 == 0; the tensor-core kernel for bf16 x past 16
 // rows (full-sequence forwards, wide prefill chunks) with K % 64 == 0,
-// N % 16 == 0 (the codes' row pitch, which TMA needs in 16-byte steps; the
-// last 128-column tile may be ragged) and 16-byte aligned operands; and the
-// tiled kernel, the first design on the CUDA cores, for everything else
-// (f32 x, odd widths).
+// N % 8 == 0 (the last 128-column tile may be ragged) and 16-byte aligned
+// x and codes (8-byte aligned codes when N % 16 == 8); and the tiled
+// kernel, the first design on the CUDA cores, for everything else (f32 x,
+// odd widths).
 //
 // Replaces the Pallas kernel repro/kernels/quant_matmul/kernel.py:125
 // (`quant_matmul`; bodies `_kernel` :42 and `_kernel_packed_db` :68).
@@ -30,10 +30,14 @@
 // 64 or 128 rows by 128 columns per CTA, 64-code K steps of x and packed
 // codes copied ahead by TMA from a producer warp, the codes decoded to
 // exact bf16 in registers as wgmma's A operand of the transposed product,
-// x read from shared memory, f32 accumulators.  A grid whose tiles alone
-// are far from one wave of the card (one CTA per SM) is cut along K into
-// splits whose f32 partials `tcm::reduce_kernel` adds in split order,
-// then scales, biases and activates.
+// x read from shared memory, f32 accumulators.  TMA needs a row pitch in
+// whole 16 bytes; codes of N % 16 == 8 columns (hubert-xlarge's 504-column
+// head) are copied by the producer warp's lanes with cp.async in 8-byte
+// pieces instead, into the same swizzled stage, x still by TMA: a template
+// variant chosen by N, the decode and products unchanged.  A grid whose
+// tiles alone are far from one wave of the card (one CTA per SM) is cut
+// along K into splits whose f32 partials `tcm::reduce_kernel` adds in
+// split order, then scales, biases and activates.
 //
 // The thin-M kernel (`qmm_thin_kernel`) is built to keep enough bytes in
 // flight to approach the byte floor.  Each lane loads 4 bytes (4 columns) of a
@@ -440,12 +444,14 @@ cudaError_t thin_w(int wkind, int tm, const void* x, int M, int K,
 // of 64 codes through tc_matmul.cuh's pipeline, then either the emit
 // act(acc * s + b) in bf16 (one split) or the raw f32 partial, which the
 // reduce pass scales, biases and activates.  tmx / tmc: the tensor maps of
-// x and of the codes (tcm::tile_maps).
-template <int BM, int WK>
+// x and of the codes (tcm::tile_maps); with CP (N % 16 == 8: a code row
+// pitch TMA cannot map) the codes `w` are copied by cp.async instead.
+template <int BM, int WK, bool CP>
 __global__ void __launch_bounds__(tcm::NT)
     qmm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
-                  const __grid_constant__ CUtensorMap tmc, int M, int K,
-                  int N, int steps_per_split, const float* __restrict__ scales,
+                  const __grid_constant__ CUtensorMap tmc,
+                  const uint8_t* __restrict__ w, int M, int K, int N,
+                  int steps_per_split, const float* __restrict__ scales,
                   const float* __restrict__ bias, float* __restrict__ ws,
                   __nv_bfloat16* __restrict__ out, int act, float tau) {
   constexpr int R = rt::WTraits<WK>::R;
@@ -458,13 +464,13 @@ __global__ void __launch_bounds__(tcm::NT)
   const int split = blockIdx.z;
   const int s0 = split * steps_per_split;
   const int nsteps = min(steps_per_split, K / tcm::BK - s0);
-  tcm::init_stages<BM, WK>(sbase);
+  tcm::init_stages<BM, WK, CP>(sbase);
   if (threadIdx.x >= tcm::NTC) {
-    tcm::produce<BM, WK>(sbase, &tmx, &tmc, m0, n0, nsteps,
-                         [&](int s, int& kx, int& crow) {
-                           kx = (s0 + s) * tcm::BK;
-                           crow = kx / R;
-                         });
+    tcm::produce<BM, WK, CP>(sbase, &tmx, &tmc, w, N, N, m0, n0, nsteps,
+                             [&](int s, int& kx, int& crow) {
+                               kx = (s0 + s) * tcm::BK;
+                               crow = kx / R;
+                             });
     return;
   }
   float acc[BM / 2];
@@ -476,34 +482,47 @@ __global__ void __launch_bounds__(tcm::NT)
     tcm::emit<BM>(acc, m0, M, n0, N, scales, bias, nullptr, out, act, tau);
 }
 
-template <int BM, int WK>
+template <int BM, int WK, bool CP>
 cudaError_t tc_t(const void* x, int M, int K, const void* w, int N,
                  int k_splits, int steps_per_split, const float* scales,
                  const float* bias, float* ws, void* out, int act, float tau,
                  cudaStream_t stream) {
   const int steps = K / tcm::BK;
-  if (K % tcm::BK != 0 || N % 16 != 0 || k_splits < 1 ||
+  if (K % tcm::BK != 0 || N % (CP ? 8 : 16) != 0 || k_splits < 1 ||
       steps_per_split < 1 || (k_splits - 1) * steps_per_split >= steps ||
       k_splits * steps_per_split < steps || (k_splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap tmx, tmc;
-  if (!tcm::tile_maps<BM, WK>(&tmx, &tmc, x, M, K, w,
-                              K / rt::WTraits<WK>::R, N))
+  if (!tcm::tile_maps<BM, WK, CP>(&tmx, &tmc, x, M, K, w,
+                                  K / rt::WTraits<WK>::R, N))
     return cudaErrorInvalidValue;
   constexpr int bytes = tcm::smem_bytes<BM, WK>(0);
-  auto kern = qmm_tc_kernel<BM, WK>;
+  auto kern = qmm_tc_kernel<BM, WK, CP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + tcm::BN - 1) / tcm::BN, (M + BM - 1) / BM, k_splits);
   kern<<<grid, tcm::NT, bytes, stream>>>(
-      tmx, tmc, M, K, N, steps_per_split, scales, bias,
-      k_splits > 1 ? ws : nullptr, static_cast<__nv_bfloat16*>(out), act,
-      tau);
+      tmx, tmc, static_cast<const uint8_t*>(w), M, K, N, steps_per_split,
+      scales, bias, k_splits > 1 ? ws : nullptr,
+      static_cast<__nv_bfloat16*>(out), act, tau);
   err = cudaGetLastError();
   if (err != cudaSuccess || k_splits == 1) return err;
   return tcm::reduce(ws, M, N, k_splits, nullptr, 0, 1, scales, bias, out,
                      act, tau, stream);
+}
+
+// The code load by N: TMA for a 16-byte row pitch, cp.async for N % 16 == 8.
+template <int BM, int WK>
+cudaError_t tc_n(const void* x, int M, int K, const void* w, int N,
+                 int k_splits, int steps_per_split, const float* scales,
+                 const float* bias, float* ws, void* out, int act, float tau,
+                 cudaStream_t s) {
+  if (N % 16 == 0)
+    return tc_t<BM, WK, false>(x, M, K, w, N, k_splits, steps_per_split,
+                               scales, bias, ws, out, act, tau, s);
+  return tc_t<BM, WK, true>(x, M, K, w, N, k_splits, steps_per_split, scales,
+                            bias, ws, out, act, tau, s);
 }
 
 template <int WK>
@@ -513,11 +532,11 @@ cudaError_t tc_m(int m_tile, const void* x, int M, int K, const void* w,
                  int act, float tau, cudaStream_t s) {
   switch (m_tile) {
     case 64:
-      return tc_t<64, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
-                         bias, ws, out, act, tau, s);
+      return tc_n<64, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
+                          bias, ws, out, act, tau, s);
     case 128:
-      return tc_t<128, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
-                         bias, ws, out, act, tau, s);
+      return tc_n<128, WK>(x, M, K, w, N, k_splits, steps_per_split, scales,
+                           bias, ws, out, act, tau, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -561,7 +580,8 @@ extern "C" int qmm_thin_launch(const void* x, int x_bf16, int M, int K,
 }
 
 // The tensor-core route: bf16 x (M, K) at a 16-byte aligned address, K % 64
-// == 0, N % 16 == 0 (ceil(N / 128) column tiles), w 16-byte aligned.
+// == 0, N % 8 == 0 (ceil(N / 128) column tiles), w 16-byte aligned (8-byte
+// when N % 16 == 8: its codes are copied by cp.async, not TMA).
 // m_tile: rows per CTA (64 or 128).
 // The K / 64 steps are cut into k_splits ranges of steps_per_split (the
 // last may be shorter); ws: (k_splits, M, N) f32 scratch, unused when

@@ -1,13 +1,26 @@
-// The tensor-core tile shared by the quantised matmuls' `tensor_core` routes
+// The tensor-core tile shared by the matmuls' `tensor_core` routes
 // (quant_matmul.cu `qmm_tc_kernel`, block_sparse_matmul.cu `bsm_tc_kernel`):
-// bf16 x against 1-byte code containers (int8, int4x2, int2x4) on wgmma.
+// bf16 x against 1-byte code containers (int8, int4x2, int2x4) or, for
+// block_sparse_matmul, f32 and bf16 blocks, on wgmma.
 //
 // A CTA owns BN = 128 output columns by BM rows of x (64 or 128) and walks a
 // list of K steps of BK = 64 codes; the caller's step function names each
 // step's x columns and its code rows.  Every code is an integer of at most
 // 8 bits, so it is exact in bf16, and a bf16 x bf16 product is exact in
 // f32: the f32 accumulators hold the plain version's f32 dot up to
-// summation order.  Scales are applied by the caller at emit.
+// summation order.  A bf16 weight is its own A operand, exact too.  An f32
+// weight w is split into F32_TERMS = 2 bf16 terms, hi = bf16(w) and lo =
+// bf16(w - hi), which hold w to 2^-16 of itself, and the step's products
+// are issued once over each term into the same accumulators; x is exact in
+// bf16.  For float weights the tensor cores' f32 sum is promoted into
+// registers every step (64 codes) and started again from zero: the tensor
+// cores do not round their f32 sums to nearest, and on the H100 their
+// error grew with the number of products added into one sum (at K = 8192,
+// M = 512: 3.1e-6 of the largest magnitude for int8 codes, 6.5e-6 with two
+// terms, 9.2e-6 with three, unpromoted; promoted, two terms 2.4e-6 and
+// three 1.3e-6, chip_smoke.py `tc_sum_error`, against the 5e-6 that the
+// activation threshold's band allows).  Scales are applied by the caller
+// at emit.
 //
 // The product is computed transposed, out^T = W^T . x^T: the decoded codes
 // are wgmma's A operand, in registers, and x is B, from shared memory, so
@@ -15,24 +28,38 @@
 // warpgroups owns 64 of the CTA's columns as A's 64 rows; a lane's A
 // fragment pairs consecutive k, so one int4x2 byte is exactly one bf16x2
 // register.  Fragment rows r and r + 8 of a lane are mapped to adjacent
-// columns n and n + 1, so each code load is 2 bytes and each store of the
-// (transposed) accumulator writes two adjacent outputs of one row.
+// columns n and n + 1, so each code load is 2 bytes (4 of bf16, 8 of f32
+// weights) and each store of the (transposed) accumulator writes two
+// adjacent outputs of one row.
 //
 // The pipeline, warp-specialized: a producer warp copies each step's x
-// tile (BM rows x 128 bytes) and packed code tile (BK / R byte rows x 128
-// bytes) by TMA into a ring of NS stages, both in the 128-byte swizzle
-// (16-byte chunk c of row r at c ^ (r % 8)), which wgmma reads for x and
-// which keeps the code loads free of bank conflicts; a stage's "full"
-// mbarrier counts its bytes in.  The two consumer warpgroups wait on it,
-// decode their A fragments (16 registers a thread) from the code tile by an
-// exponent trick, issue their 4 wgmma m64nBMk16 as one chain, wait for them
-// and release the stage on its "empty" mbarrier, which the producer waits
-// on before refilling it.  A warpgroup waits for its products before it
-// decodes the next step: ptxas serializes every product of a warpgroup
-// whose A (or descriptor) registers are written while one is in flight, so
-// the tensor cores overlap one warpgroup's decode with the products of the
-// SM's other warpgroups (two per CTA, two CTAs per SM) instead; only the
-// stage barriers order the warpgroups.
+// tile (BM rows x 128 bytes) and code tile (BK / R rows of BN elements) by
+// TMA into a ring of stages, both in the 128-byte swizzle (16-byte chunk c
+// of row r at c ^ (r % 8)), which wgmma reads for x and which keeps the
+// code loads free of bank conflicts; a TMA box under that swizzle is at
+// most 128 bytes wide, so a code tile of 2- or 4-byte elements arrives as
+// 2 or 4 boxes of 64 or 32 columns, one after the other.  Codes whose row
+// pitch is not a multiple of 16 bytes, which TMA cannot map (a quant
+// matmul with N % 16 == 8, such as hubert-xlarge's 504-column head), are
+// copied instead by the producer warp's 32 lanes with `cp.async` in 8-byte
+// pieces into the same swizzled layout, columns past N zero-filled as TMA
+// fills them; a stage's "full" mbarrier counts x's bytes and, in that
+// variant, the lanes' `cp.async.mbarrier.arrive.noinc` too.  The two
+// consumer warpgroups wait on it, decode their A fragments (16 registers
+// a thread; 32 for f32 weights: two terms) from the code tile by an
+// exponent trick, issue their 4 (f32: 8) wgmma m64nBMk16 as one chain, wait
+// for them and release the stage on its "empty" mbarrier, which the
+// producer waits on before refilling it.  A warpgroup waits for its
+// products before it decodes the next step: ptxas serializes every product
+// of a warpgroup whose A (or descriptor) registers are written while one
+// is in flight, so the tensor cores overlap one warpgroup's decode with the
+// products of the SM's other warpgroups (two per CTA, two CTAs per SM)
+// instead; only the stage barriers order the warpgroups.  The ring holds as
+// many stages (at most 4) as keep a CTA's stages within 96 KB, so two CTAs
+// share an SM: 4 for every 1-byte container, 4 and 3 for bf16 blocks at
+// 64- and 128-row tiles; f32 blocks (a 32 KB code tile a step) take 4
+// stages in up to 192 KB, one CTA an SM (registers: 108 a thread at 64
+// rows, 168 at 128, with 20 bytes of spill stores).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
@@ -48,20 +75,60 @@ constexpr int BK = 64;       // codes of K per step: one 128-byte row of x
 constexpr int BN = 128;      // output columns per CTA: two warpgroups of 64
 constexpr int NTC = 256;     // consumer threads: warps 0..7
 constexpr int NT = NTC + 32;  // and the producer warp
-constexpr int NS = 4;        // stages of x and codes in shared memory
+constexpr int F32_TERMS = 2;  // bf16 terms of an f32 weight
 
+template <int WK>
+__host__ __device__ constexpr int elem_bytes() {
+  return (int)sizeof(typename rt::WTraits<WK>::T);
+}
+// f32 or bf16 weights (no codes: no decode, no scale)
+template <int WK>
+__host__ __device__ constexpr bool is_float() {
+  return WK == rt::W_F32 || WK == rt::W_BF16;
+}
+// bf16 terms of one weight: F32_TERMS for f32 blocks, else 1
+template <int WK>
+__host__ __device__ constexpr int terms() {
+  return WK == rt::W_F32 ? F32_TERMS : 1;
+}
 template <int BM>
 __host__ __device__ constexpr int x_bytes() { return BM * 128; }
+// A step's code tile: BK / R rows of BN elements, as boxes of 128-byte
+// rows (one box for 1-byte containers, 2 for bf16, 4 for f32)
+template <int WK>
+__host__ __device__ constexpr int c_rows() {
+  return BK / rt::WTraits<WK>::R;
+}
+template <int WK>
+__host__ __device__ constexpr int c_boxes() {
+  return elem_bytes<WK>() * BN / 128;
+}
 template <int WK>
 __host__ __device__ constexpr int c_bytes() {
-  return BK / rt::WTraits<WK>::R * BN;
+  return c_boxes<WK>() * c_rows<WK>() * 128;
+}
+// Bytes of stages a CTA, at most: 96 KB keeps two CTAs an SM; f32 blocks
+// (a 32 KB code tile a step) take one CTA an SM and four stages, which
+// measured faster on the H100 than two CTAs of two stages in a one-off
+// comparison (their 128-row tiles need 168 registers a thread, one CTA an
+// SM, anyway).
+template <int WK>
+__host__ __device__ constexpr int stage_cap() {
+  return WK == rt::W_F32 ? 192 * 1024 : 96 * 1024;
+}
+// Stages of the ring: as many as fit stage_cap, at most 4.
+template <int BM, int WK>
+__host__ __device__ constexpr int stages() {
+  return stage_cap<WK>() / (x_bytes<BM>() + c_bytes<WK>()) < 4
+             ? stage_cap<WK>() / (x_bytes<BM>() + c_bytes<WK>())
+             : 4;
 }
 // Shared memory of the pipeline: the stages, then a full and an empty
 // mbarrier per stage.  A caller's own data starts at this offset from the
 // aligned base.
 template <int BM, int WK>
 __host__ __device__ constexpr int tile_bytes() {
-  return NS * (x_bytes<BM>() + c_bytes<WK>()) + 2 * NS * 8;
+  return stages<BM, WK>() * (x_bytes<BM>() + c_bytes<WK>() + 16);
 }
 // Dynamic shared memory of a CTA: the pipeline's, the caller's `meta` bytes
 // after it, and 1 KB to align the base.
@@ -105,6 +172,22 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// 8 bytes global -> shared by cp.async; with `in` false nothing is read
+// and the 8 bytes are zero-filled.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+// An arrival on `bar` once every cp.async this thread issued before it has
+// landed; the barrier's count must include it (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 // Bytes `col`, `col + 1` of byte row `r` of a swizzled code tile.
@@ -168,6 +251,67 @@ __device__ __forceinline__ void decode(const uint8_t* cs, int col, int t,
   }
 }
 
+// Elements `col`, `col + 1` of row `k` of a float code tile: c_boxes boxes
+// of 64 rows x 128 bytes (128 / E columns each), each swizzled.
+template <int WK>
+__device__ __forceinline__ const uint8_t* felem(const uint8_t* cs, int k,
+                                                int col) {
+  constexpr int E = elem_bytes<WK>(), BOXC = 128 / E;
+  const int b = (col % BOXC) * E;  // byte of the pair in its box row
+  return cs + (col / BOXC) * (BK * 128) + k * 128 +
+         (((b >> 4) ^ (k & 7)) << 4) + (b & 15);
+}
+
+// The bf16 terms of two f32 weights, each pair as one bf16x2 register (w0
+// low): t[0] = bf16(w), then each term the bf16 of what the earlier ones
+// leave, every remainder exact in f32 (kernels/sparse_matmul/ref.py
+// `split_bf16`).
+template <int T>
+__device__ __forceinline__ void split(float w0, float w1, uint32_t (&t)[T]) {
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    t[i] = tc::pack_bf16(w0, w1);
+    w0 -= __uint_as_float(t[i] << 16);
+    w1 -= __uint_as_float(t[i] & 0xFFFF0000u);
+  }
+}
+
+// The lane's A fragments of one step of float weights, in the order of
+// decode(): bf16 weights into a[0]; f32 weights split, their bf16 terms
+// into a[0], a[1], ...
+template <int WK>
+__device__ __forceinline__ void decode_float(
+    const uint8_t* cs, int col, int t, uint32_t (&a)[terms<WK>()][BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 8 * kk + t + 4 * h;  // k pair: rows 2p, 2p + 1
+      if constexpr (WK == rt::W_BF16) {
+        const uint32_t r0 =
+            *reinterpret_cast<const uint32_t*>(felem<WK>(cs, 2 * p, col));
+        const uint32_t r1 =
+            *reinterpret_cast<const uint32_t*>(felem<WK>(cs, 2 * p + 1, col));
+        a[0][kk][2 * h] = __byte_perm(r0, r1, 0x5410);      // column col
+        a[0][kk][2 * h + 1] = __byte_perm(r0, r1, 0x7632);  // column col + 1
+      } else {
+        const float2 r0 =
+            *reinterpret_cast<const float2*>(felem<WK>(cs, 2 * p, col));
+        const float2 r1 =
+            *reinterpret_cast<const float2*>(felem<WK>(cs, 2 * p + 1, col));
+        uint32_t c0[terms<WK>()], c1[terms<WK>()];
+        split(r0.x, r1.x, c0);
+        split(r0.y, r1.y, c1);
+#pragma unroll
+        for (int i = 0; i < terms<WK>(); ++i) {
+          a[i][kk][2 * h] = c0[i];
+          a[i][kk][2 * h + 1] = c1[i];
+        }
+      }
+    }
+  }
+}
+
 // The four products of one step: acc += W^T . x^T over its 64 codes.
 template <int BM>
 __device__ __forceinline__ void mma(float (&acc)[BM / 2],
@@ -181,13 +325,15 @@ __device__ __forceinline__ void mma(float (&acc)[BM / 2],
 }
 
 // Sets up the stage barriers; every thread of the CTA calls it, and it
-// ends in a CTA barrier.
-template <int BM, int WK>
+// ends in a CTA barrier.  With CP (codes by cp.async) a stage's "full"
+// barrier also waits for the producer warp's 32 lanes.
+template <int BM, int WK, bool CP = false>
 __device__ __forceinline__ void init_stages(uint32_t sbase) {
+  constexpr int NS = stages<BM, WK>();
   constexpr int B0 = NS * (x_bytes<BM>() + c_bytes<WK>());
   if (threadIdx.x == 0) {
     for (int st = 0; st < NS; ++st) {
-      mbar_init(sbase + B0 + 8 * st, 1);              // full: the producer
+      mbar_init(sbase + B0 + 8 * st, CP ? 33 : 1);  // full: the producer
       mbar_init(sbase + B0 + 8 * (NS + st), NTC / 32);  // empty: 8 warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -196,26 +342,55 @@ __device__ __forceinline__ void init_stages(uint32_t sbase) {
 }
 
 // The producer warp: step s's x tile (x columns kx.., rows m0..; rows >= M
-// arrive as zeros) and code tile (code columns ccol.., byte rows crow..),
+// arrive as zeros) and code tile (code columns ccol.., rows crow..),
 // step(s, kx, crow) naming each step, into stage s % NS once the consumers
-// have released it.
-template <int BM, int WK, typename Step>
+// have released it.  The codes come by TMA through `tmc` or, with CP, from
+// `codes` (row pitch `pitch` bytes, a multiple of 8; columns past `ncols`
+// zero-filled) by cp.async, 8 bytes a lane at a time, into the swizzled
+// layout TMA would give.
+template <int BM, int WK, bool CP, typename Step>
 __device__ __forceinline__ void produce(uint32_t sbase, const CUtensorMap* tmx,
-                                        const CUtensorMap* tmc, int m0,
-                                        int ccol, int nsteps, Step step) {
+                                        const CUtensorMap* tmc,
+                                        const uint8_t* codes, int pitch,
+                                        int ncols, int m0, int ccol,
+                                        int nsteps, Step step) {
   constexpr int XB = x_bytes<BM>(), CB = c_bytes<WK>();
+  constexpr int NS = stages<BM, WK>();
   constexpr int C0 = NS * XB, B0 = NS * (XB + CB);
-  if ((threadIdx.x & 31) != 0) return;
+  constexpr int BOX = c_rows<WK>() * 128, BOXC = 128 / elem_bytes<WK>();
+  static_assert(!CP || elem_bytes<WK>() == 1, "cp.async codes are 1-byte");
+  const int lane = threadIdx.x & 31;
+  if (!CP && lane != 0) return;
   for (int s = 0; s < nsteps; ++s) {
     const int st = s % NS;
     if (s >= NS) mbar_wait(sbase + B0 + 8 * (NS + st), ((s / NS) + 1) & 1);
     int kx, crow;
     step(s, kx, crow);
-    const uint32_t full = sbase + B0 + 8 * st;
-    mbar_expect_tx(full, XB + CB);
-    tma_2d(sbase + st * XB, tmx, kx, m0, full);
-    tma_2d(sbase + C0 + st * CB, tmc, ccol, crow, full);
+    const uint32_t full = sbase + B0 + 8 * st, cdst = sbase + C0 + st * CB;
+    if (lane == 0) {
+      mbar_expect_tx(full, CP ? XB : XB + CB);
+      tma_2d(sbase + st * XB, tmx, kx, m0, full);
+      if constexpr (!CP) {
+#pragma unroll
+        for (int q = 0; q < c_boxes<WK>(); ++q)
+          tma_2d(cdst + q * BOX, tmc, ccol + q * BOXC, crow, full);
+      }
+    }
+    if constexpr (CP) {
+      // piece i: row i / 16, bytes 8 (i % 16) .. of its 128; 16-byte chunk
+      // (i % 16) / 2 swizzled, each half kept in its chunk
+#pragma unroll
+      for (int i = lane; i < c_rows<WK>() * 16; i += 32) {
+        const int r = i >> 4, q = i & 15, col = ccol + 8 * q;
+        const bool in = col < ncols;
+        cp_async8(cdst + r * 128 + ((((q >> 1) ^ (r & 7)) << 4) |
+                                    ((q & 1) << 3)),
+                  codes + (size_t)(crow + r) * pitch + (in ? col : 0), in);
+      }
+      cp_async_arrive(full);
+    }
   }
+  if constexpr (CP) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // A consumer warpgroup: acc (the transposed fragment: its 64 columns x BM
@@ -226,6 +401,7 @@ template <int BM, int WK>
 __device__ __forceinline__ void consume(const uint8_t* smem, uint32_t sbase,
                                         int nsteps, float (&acc)[BM / 2]) {
   constexpr int XB = x_bytes<BM>(), CB = c_bytes<WK>();
+  constexpr int NS = stages<BM, WK>();
   constexpr int C0 = NS * XB, B0 = NS * (XB + CB);
   const int tid = threadIdx.x, lane = tid & 31;
   // this lane's columns col, col + 1 of the CTA's 128
@@ -233,6 +409,32 @@ __device__ __forceinline__ void consume(const uint8_t* smem, uint32_t sbase,
   const int t = lane & 3;
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  if constexpr (is_float<WK>()) {
+    // the products' sum promoted to `acc` every step: the tensor cores'
+    // own f32 sums drift with the number of products added into them
+    float part[BM / 2];
+    uint32_t a[terms<WK>()][BK / 16][4];
+    for (int i = 0; i < nsteps; ++i) {
+      const int st = i % NS;
+      mbar_wait(sbase + B0 + 8 * st, (i / NS) & 1);  // step i has landed
+      decode_float<WK>(smem + C0 + st * CB, col, t, a);
+#pragma unroll
+      for (int j = 0; j < BM / 2; ++j) part[j] = 0.f;
+      tc::fence_regs(part);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int term = 0; term < terms<WK>(); ++term)
+        mma<BM>(part, a[term], sbase + st * XB);
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sbase + B0 + 8 * (NS + st));  // release
+#pragma unroll
+      for (int j = 0; j < BM / 2; ++j) acc[j] += part[j];
+    }
+    return;
+  }
   uint32_t a[BK / 16][4];
   for (int i = 0; i < nsteps; ++i) {
     const int st = i % NS;
@@ -381,20 +583,25 @@ inline bool tensor_map(CUtensorMap* map, const void* base,
 }
 
 // The maps of x (M, K) bf16 in BM-row x 64-column boxes and of a code
-// array (rows, cols) uint8 in (64 / R)-row x 128-column boxes (cols a
-// multiple of 16, the map's row pitch; the columns of a last box past
-// cols arrive as zeros and count in its bytes).
-template <int BM, int WK>
+// array (rows, cols) of the container's elements in c_rows-row boxes of
+// 128 bytes (cols * elem_bytes a multiple of 16, the map's row pitch; the
+// columns of a last box past cols arrive as zeros and count in its bytes).
+// With CP the codes are read by cp.async, and only x's map is made.
+template <int BM, int WK, bool CP = false>
 inline bool tile_maps(CUtensorMap* tmx, CUtensorMap* tmc, const void* x,
                       int M, int K, const void* codes, uint64_t rows,
                       int cols) {
-  constexpr int R = rt::WTraits<WK>::R;
+  constexpr int E = elem_bytes<WK>();
+  constexpr CUtensorMapDataType T =
+      E == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+             : E == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   *tmc = CUtensorMap{};
   return tensor_map(tmx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K,
                     2ull * K, BM, BK) &&
-         (rows == 0 ||  // nothing to read: an empty pattern
-          tensor_map(tmc, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, rows, cols,
-                     cols, BK / R, BN));
+         (CP || rows == 0 ||  // nothing to read: an empty pattern
+          tensor_map(tmc, codes, T, rows, cols, (uint64_t)cols * E,
+                     c_rows<WK>(), 128 / E));
 }
 
 // The 1024-aligned base of a kernel's dynamic shared memory.

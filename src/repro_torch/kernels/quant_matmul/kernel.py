@@ -74,8 +74,9 @@ THIN_COLS = 128      # output columns per CTA of the thin-M kernel
 THIN_KCAP = 512      # codes of K per split, at most (the kernel's x stage)
 THIN_MIN_ROWS = 8    # byte rows per split, at least: two per warp
 CTA_TARGET = 2 * 132  # CTAs the thin-M route aims for: two per H100 SM
-TC_N_ALIGN = 16      # N of the tensor-core route: the codes' row pitch in
-                     # whole 16-byte steps (1-byte containers)
+TC_N_ALIGN = 8       # N of the tensor-core route: the codes' row pitch in
+                     # whole 8-byte pieces (1-byte containers); TMA copies
+                     # rows of whole 16 bytes, cp.async those of N % 16 == 8
 
 
 class QmmPlan(NamedTuple):
@@ -147,12 +148,13 @@ def qmm_route(M: int, K: int, N: int, ratio: int, x_bf16: bool,
     ``("thin_m", QmmPlan)`` when :func:`qmm_plan` gives a plan (M <= 16);
     else ``("tensor_core", QmmTcPlan)`` when x is bf16, ``K`` is a multiple
     of :data:`TC_K_STEP` (whole steps, and x rows in 16-byte copies), ``N``
-    a multiple of :data:`TC_N_ALIGN` (the codes' row pitch in whole 16-byte
-    steps, as TMA reads them; the last of the ``ceil(N / TC_COLS)`` column
-    tiles may be ragged) and both ``x_ptr`` and ``w_ptr`` are 16-byte
-    aligned; else ``("tiled", None)``, the CUDA-core kernel (f32 x, odd
-    widths).  Every container is 1-byte
-    (int8, int4x2, int2x4), which the tensor-core kernel takes."""
+    a multiple of :data:`TC_N_ALIGN` (the codes' row pitch in whole 8-byte
+    pieces: TMA reads a pitch of whole 16 bytes, cp.async one of N % 16 ==
+    8; the last of the ``ceil(N / TC_COLS)`` column tiles may be ragged),
+    ``x_ptr`` is 16-byte aligned and ``w_ptr`` 16-byte aligned (8-byte when
+    N % 16 == 8); else ``("tiled", None)``, the CUDA-core kernel (f32 x,
+    odd widths).  Every container is 1-byte (int8, int4x2, int2x4), which
+    the tensor-core kernel takes."""
     plan = qmm_plan(M, K, N, ratio, w_ptr)
     if plan is not None:
         return "thin_m", plan
@@ -170,8 +172,9 @@ def _qmm_tc_error(M, K, N, x_bf16, w_ptr, x_ptr) -> Optional[str]:
     if K % TC_K_STEP or N % TC_N_ALIGN:
         return (f"the tensor-core route needs K % {TC_K_STEP} == 0 and "
                 f"N % {TC_N_ALIGN} == 0, got K={K}, N={N}")
-    if w_ptr % 16 or x_ptr % 16:
-        return "the tensor-core route needs 16-byte aligned x and codes"
+    if x_ptr % 16 or w_ptr % (16 if N % 16 == 0 else 8):
+        return ("the tensor-core route needs 16-byte aligned x and codes "
+                "(8-byte aligned codes when N % 16 == 8)")
     return None
 
 

@@ -11,13 +11,13 @@ present (bk, bn) blocks exist, enumerated by a static schedule.  The kernel
 
 :func:`bsm_route` picks the matmul's route from the shapes: the thin-M
 kernel (:func:`bsm_plan`: each column's blocks split across CTAs, a
-deterministic second pass) for decode rows of 1-byte containers; the
-tensor-core kernel (:func:`bsm_tc_plan`: wgmma tiles over each column's
-present blocks, columns cut into ranges when the tiles alone are far from
-one wave of the card) for bf16 rows past 16 over 1-byte containers at
-aligned block shapes; the tiled kernel, the first design on the CUDA cores,
-for the rest.  :func:`conv_route` picks the conv's route, for this kernel
-and ``quant_conv`` alike: the register-tiled kernel (:class:`ConvPlan`:
+deterministic second pass) for decode rows; the tensor-core kernel
+(:func:`bsm_tc_plan`: wgmma tiles over each column's present blocks,
+columns cut into ranges when the tiles alone are far from one wave of the
+card) for bf16 rows past 16 at aligned block shapes; both over 1-byte
+containers and f32 / bf16 blocks; the tiled kernel, the first design on the
+CUDA cores, for the rest.  :func:`conv_route` picks the conv's route, for
+this kernel and ``quant_conv`` alike: the register-tiled kernel (:class:`ConvPlan`:
 accumulators, pool and epilogue in registers, K split across the warps of
 a CTA to fill the card) where its plan fits, else the band kernel, the
 first design.
@@ -240,12 +240,13 @@ def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
              elem_bytes: int = 1,
              blocks_per_range: Optional[int] = None) -> Optional[BsmPlan]:
     """The route of a block-sparse matmul, as a shape rule: the thin-M plan
-    when ``M <= THIN_M_MAX``, the container has 1-byte elements (int8,
-    int4x2, int2x4: ``elem_bytes`` 1; f32 and bf16 blocks keep the tiled
-    kernel), ``bn % 4 == 0`` and the container's address ``w_ptr`` is 4-byte
-    aligned (each lane loads 4 bytes of a byte row), ``bk`` is a multiple
-    of 8 (x rows staged in 16-byte loads) and one block's x rows fit the
-    stage; ``None`` — the tiled kernel — otherwise.
+    when ``M <= THIN_M_MAX``, the container is 1-byte (int8, int4x2, int2x4:
+    ``elem_bytes`` 1) or unpacked f32 / bf16 blocks (``elem_bytes`` 4 or 2,
+    ``ratio`` 1), ``bn % 4 == 0`` and the container's address ``w_ptr`` is
+    aligned to 4 elements (each lane loads its 4 columns of a stored row in
+    one 4-, 8- or 16-byte load), ``bk`` is a multiple of 8 (x rows staged
+    in 16-byte loads) and one block's x rows fit the stage; ``None`` — the
+    tiled kernel — otherwise.
 
     The plan cuts each column's blocks into ranges of whole blocks: one
     block per range, so the grid of column slices times the fullest
@@ -254,8 +255,8 @@ def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
     most as many blocks as :data:`THIN_XCAP` staged x floats allow
     (:func:`thin_block_cap`).  ``blocks_per_range`` sets the blocks of a
     range instead (None when the cap does not allow it)."""
-    if M > THIN_M_MAX or elem_bytes != 1 or bn % 4 or w_ptr % 4 or bk % 8 \
-            or bk % ratio:
+    if M > THIN_M_MAX or not _container_ok(ratio, elem_bytes) or bn % 4 \
+            or w_ptr % (4 * elem_bytes) or bk % 8 or bk % ratio:
         return None
     cap = thin_block_cap(M, bk)
     if cap < 1:
@@ -271,6 +272,13 @@ def bsm_plan(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
         per = -(-max_blocks_per_col * n_col_blocks * slices // THIN_CTA_CAP)
         per = max(1, min(per, cap))
     return BsmPlan(per, -(-max_blocks_per_col // per), slices)
+
+
+def _container_ok(ratio: int, elem_bytes: int) -> bool:
+    """A container the thin-M and tensor-core kernels take: 1-byte codes
+    (int8, or int4x2 / int2x4 packed along bk), or unpacked f32 / bf16
+    blocks."""
+    return elem_bytes == 1 or (elem_bytes in (2, 4) and ratio == 1)
 
 
 def thin_block_cap(M: int, bk: int) -> int:
@@ -313,14 +321,18 @@ class BsmTcPlan(NamedTuple):
 
 def bsm_tc_plan(M: int, bk: int, bn: int, n_col_blocks: int,
                 max_blocks_per_col: int, m_tile: Optional[int] = None,
-                cuts: Optional[int] = None) -> BsmTcPlan:
+                cuts: Optional[int] = None,
+                elem_bytes: int = 1) -> BsmTcPlan:
     """The tensor-core kernel's tiles and ranges: the fullest column's
     blocks cut into :func:`tc_cuts` ranges of whole blocks (one range, a
     whole column per CTA emitted in place, when the ``ceil(M / m_tile) *
     n_col_blocks * bn / TC_COLS`` tiles alone reach about one wave), each of
     at least :data:`TC_MIN_STEPS` steps, their partials added by a reduce
-    pass; ``m_tile`` (64 or 128) by :func:`tc_m_tile` and the cuts by
-    :func:`tc_cuts` unless given."""
+    pass; ``m_tile`` (64 or 128) by :func:`tc_m_tile` — 128 for f32 blocks
+    (``elem_bytes`` 4) past 64 rows: their 32 KB code tile a step is
+    decoded into two bf16 terms, and a 128-row tile halves the tiles that
+    read and decode it (``chip_smoke.py`` ``route_pairs`` times both at the
+    actsparse leaves) — and the cuts by :func:`tc_cuts` unless given."""
     n_tiles = n_col_blocks * (bn // TC_COLS)
     spb = bk // TC_K_STEP    # steps per block
 
@@ -331,6 +343,8 @@ def bsm_tc_plan(M: int, bk: int, bn: int, n_col_blocks: int,
         return BsmTcPlan(m, TC_COLS, per,
                          max(-(-max_blocks_per_col // per), 1))
 
+    if m_tile is None and elem_bytes == 4 and M > 64:
+        m_tile = 128
     if m_tile is None:
         m_tile = tc_m_tile(M, n_tiles, plan(128).blocks_per_range * spb)
     return plan(m_tile)
@@ -342,12 +356,13 @@ def bsm_route(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
     """``(route, plan)`` of a block-sparse matmul, as a shape rule.
 
     ``("thin_m", BsmPlan)`` when :func:`bsm_plan` gives a plan (M <= 16);
-    else ``("tensor_core", BsmTcPlan)`` when x is bf16, the container has
-    1-byte elements (int8, int4x2, int2x4), ``bk`` is a multiple of
-    :data:`TC_K_STEP` (whole steps; x rows in 16-byte copies), ``bn`` a
-    multiple of :data:`TC_COLS` (whole column tiles) and both ``x_ptr`` and
-    ``w_ptr`` are 16-byte aligned; else ``("tiled", None)``, the CUDA-core
-    kernel (f32 x, f32 / bf16 blocks, small blocks such as LeNet's)."""
+    else ``("tensor_core", BsmTcPlan)`` when x is bf16, the container is
+    1-byte (int8, int4x2, int2x4) or f32 / bf16 blocks (f32 weights split
+    into two bf16 terms), ``bk`` is a multiple of :data:`TC_K_STEP` (whole
+    steps; x rows in 16-byte copies), ``bn`` a multiple of :data:`TC_COLS`
+    (whole column tiles) and both ``x_ptr`` and ``w_ptr`` are 16-byte
+    aligned; else ``("tiled", None)``, the CUDA-core kernel (f32 x past 16
+    rows, small blocks such as LeNet's)."""
     plan = bsm_plan(M, bk, bn, ratio, n_col_blocks, max_blocks_per_col,
                     w_ptr, elem_bytes)
     if plan is not None:
@@ -355,7 +370,8 @@ def bsm_route(M: int, bk: int, bn: int, ratio: int, n_col_blocks: int,
     if _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
                      x_ptr) is None:
         return "tensor_core", bsm_tc_plan(M, bk, bn, n_col_blocks,
-                                          max_blocks_per_col)
+                                          max_blocks_per_col,
+                                          elem_bytes=elem_bytes)
     return "tiled", None
 
 
@@ -366,8 +382,9 @@ def _bsm_tc_error(M, bk, bn, ratio, x_bf16, w_ptr, elem_bytes,
         return "the tensor-core route needs bf16 x"
     if M <= THIN_M_MAX:
         return f"the tensor-core route needs M > {THIN_M_MAX}, got {M}"
-    if elem_bytes != 1:
-        return "the tensor-core route needs a 1-byte container"
+    if not _container_ok(ratio, elem_bytes):
+        return ("the tensor-core route needs 1-byte codes or unpacked "
+                "f32 / bf16 blocks")
     if bk % TC_K_STEP or bk % ratio or bn % TC_COLS:
         return (f"the tensor-core route needs bk % {TC_K_STEP} == 0 and "
                 f"bn % {TC_COLS} == 0, got block ({bk}, {bn})")
@@ -400,9 +417,11 @@ def bsm_plan_error(route: str, plan, M: int, bk: int, bn: int, ratio: int,
     if route == "thin_m":
         if bsm_plan(M, bk, bn, ratio, n_col_blocks, max_blocks_per_col,
                     w_ptr, elem_bytes) is None:
-            return (f"the thin-M route needs M <= {THIN_M_MAX}, a 1-byte "
-                    f"container, bn % 4 == 0, bk % 8 == 0 and 4-byte aligned "
-                    f"blocks, got M={M}, block ({bk}, {bn})")
+            return (f"the thin-M route needs M <= {THIN_M_MAX}, 1-byte "
+                    f"codes or unpacked f32 / bf16 blocks, bn % 4 == 0, "
+                    f"bk % 8 == 0 and blocks aligned to 4 elements, got "
+                    f"M={M}, block ({bk}, {bn}), {ratio} codes and "
+                    f"{elem_bytes} bytes an element")
         t = _int_plan(plan, 3, "the thin-M route")
         if isinstance(t, str):
             return t

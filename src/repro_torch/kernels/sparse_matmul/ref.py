@@ -47,6 +47,17 @@ def block_sparse_matmul_ref(
     return y.to(out_dtype)
 
 
+def split_bf16(w: torch.Tensor):
+    """``(hi, lo)``: ``hi = bf16(w)`` and ``lo = bf16(w - hi)``, both
+    rounded to nearest even, as the tensor-core route splits f32 blocks
+    (``csrc/tc_matmul.cuh`` ``split``) to run them as two bf16 products of
+    the same f32 sum.  ``w - hi`` is exact in f32; ``hi + lo`` holds ``w``
+    to 2^-16 of its magnitude."""
+    w = w.to(torch.float32)
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.to(torch.float32)).to(torch.bfloat16)
+
+
 def block_sparse_conv_ref(
     x: torch.Tensor,
     blocks: torch.Tensor,

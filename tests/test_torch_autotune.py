@@ -327,7 +327,8 @@ def test_bsm_candidates_pass_check_plan(shape):
             assert route != "tensor_core"
         if route == "thin_m" and (route, plan) != cands[0]:
             check_plan("block_sparse_matmul", route, plan, (16,) + args[1:])
-    if eb != 1 or (not bf16 and M > tsk.THIN_M_MAX):
+    # packed codes must be 1-byte; f32 x past 16 rows is the tiled route's
+    if (eb != 1 and ratio != 1) or (not bf16 and M > tsk.THIN_M_MAX):
         assert cands == [("tiled", None)]
 
 
@@ -370,7 +371,7 @@ ILLEGAL = [
     ("block_sparse_matmul", "thin_m", (64, 1, 1),
      (16, 128, 128, 2, 64, 64, True, 0, 1, 0), "stage"),
     ("block_sparse_matmul", "thin_m", (1, 8, 1),
-     (8, 128, 128, 2, 64, 8, True, 0, 4, 0), "1-byte"),
+     (8, 128, 128, 2, 64, 8, True, 0, 4, 0), "unpacked f32 / bf16"),
     ("block_sparse_matmul", "thin_m", (2, 3, 1),
      (8, 128, 128, 2, 64, 8, True, 0, 1, 0), "cover"),
     ("block_sparse_matmul", "tensor_core", (64, 128, 1, 8),
@@ -394,6 +395,24 @@ def test_check_plan_rejects_an_illegal_plan(kernel, route, plan, shape,
     assert said in str(e.value)
 
 
+# float blocks (f32: 4 bytes an element, bf16: 2), unpacked: the thin-M
+# route at decode rows, the tensor-core route for bf16 x past 16 rows
+LEGAL_FLOAT = [
+    ("thin_m", (1, 8, 1), (8, 128, 128, 1, 64, 8, True, 256, 4, 0)),
+    ("thin_m", (2, 4, 1), (16, 128, 128, 1, 64, 8, False, 8, 2, 0)),
+    ("tensor_core", (64, 128, 2, 4), (512, 128, 128, 1, 64, 8, True, 256, 4,
+                                      512)),
+    ("tensor_core", (128, 128, 4, 2), (512, 128, 128, 1, 64, 8, True, 256,
+                                       2, 512)),
+]
+
+
+@pytest.mark.parametrize("route,plan,shape", LEGAL_FLOAT)
+def test_check_plan_accepts_a_float_block_plan(route, plan, shape):
+    check_plan("block_sparse_matmul", route, plan, shape, name="leaf7")
+    assert tsk.bsm_plan_error(route, plan, *shape) is None
+
+
 def test_wrappers_raise_on_an_illegal_plan_and_fall_back_when_tuned():
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.normal(size=(8, 64)), dtype=torch.float32)
@@ -415,8 +434,16 @@ def test_wrappers_raise_on_an_illegal_plan_and_fall_back_when_tuned():
     blocks = torch.as_tensor(rng.normal(size=(pat.n_blocks_present, 32, 32)),
                              dtype=torch.float32)
     with pytest.raises(ValueError, match="leaf9"):
-        tsk.block_sparse_matmul(x, blocks, sched, plan=("thin_m", (1, 1, 1)),
+        tsk.block_sparse_matmul(x, blocks, sched,
+                                plan=("tensor_core", (64, 128, 1, 1)),
                                 name="leaf9")
+    # f32 blocks take the thin-M route at decode rows: its plan is legal
+    rule = tsk.bsm_candidates(8, 32, 32, 1, sched.n_col_blocks,
+                              sched.max_blocks_per_col, False, 256, 4, 256)
+    assert rule[0][0] == "thin_m"
+    torch.testing.assert_close(
+        tsk.block_sparse_matmul(x, blocks, sched, plan=rule[0], name="leaf9"),
+        tsk.block_sparse_matmul(x, blocks, sched), rtol=0, atol=0)
 
 
 # --------------------------------------------------- policy="autotune"

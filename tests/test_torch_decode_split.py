@@ -125,8 +125,11 @@ def test_llama_mlp_leaves_fill_the_card_on_the_thin_route():
     (17, 128, 128, 2, 0, 1, "tiled"), (128, 128, 128, 2, 0, 1, "tiled"),
     (512, 128, 128, 2, 0, 1, "tiled"),
     (8, 128, 128, 2, 2, 1, "tiled"),      # container not 4-byte aligned
-    (8, 128, 128, 1, 0, 4, "tiled"),      # f32 blocks
-    (8, 128, 128, 1, 0, 2, "tiled"),      # bf16 blocks
+    (8, 128, 128, 1, 0, 4, "thin"),       # f32 blocks: 16-byte rows
+    (8, 128, 128, 1, 0, 2, "thin"),       # bf16 blocks: 8-byte rows
+    (8, 128, 128, 1, 8, 4, "tiled"),      # f32 blocks not 16-byte aligned
+    (8, 128, 128, 1, 4, 2, "tiled"),      # bf16 blocks not 8-byte aligned
+    (8, 128, 128, 2, 0, 4, "tiled"),      # packed codes of 4-byte elements
     (8, 128, 90, 1, 0, 1, "tiled"),       # bn not a multiple of 4
     (8, 12, 128, 1, 0, 1, "tiled"),       # x rows not 16-byte loads
     (16, 2048, 128, 2, 0, 1, "tiled"),    # one block's x rows overflow

@@ -47,10 +47,15 @@ def _t(a):
     (512, 2048, 320, True, 0, 0, "tensor_core"),  # a ragged last column tile
     (1088, 3072, 32064, True, 0, 0, "tensor_core"),  # phi-3-vision's head
     (24, 1024, 48, True, 0, 0, "tensor_core"),    # one ragged column tile
-    (4096, 1280, 504, True, 0, 0, "tiled"),       # N not a 16-byte code pitch
-    (512, 2048, 328, True, 0, 0, "tiled"),        # nor here (hubert: 504)
+    (4096, 1280, 504, True, 0, 0, "tensor_core"),  # hubert's head: codes
+    (512, 2048, 328, True, 0, 0, "tensor_core"),  # by cp.async (N % 16 == 8)
     (512, 2048, 2048, True, 4, 0, "tiled"),       # codes not 16-byte aligned
     (512, 2048, 2048, True, 0, 8, "tiled"),       # x not 16-byte aligned
+    (512, 2048, 328, True, 8, 0, "tensor_core"),  # N % 16 == 8: 8-byte codes
+    (512, 2048, 328, True, 4, 0, "tiled"),        # codes not 8-byte aligned
+    (512, 2048, 504, True, 0, 8, "tiled"),        # x not 16-byte aligned
+    (512, 2048, 324, True, 0, 0, "tiled"),        # N % 8 != 0
+    (40, 1024, 40, True, 0, 0, "tensor_core"),    # one ragged tile, N 40
 ])
 def test_qmm_route_rule(M, K, N, x_bf16, w_ptr, x_ptr, route):
     got, plan = tqk.qmm_route(M, K, N, 2, x_bf16, w_ptr, x_ptr)
@@ -66,14 +71,25 @@ def test_qmm_route_rule(M, K, N, x_bf16, w_ptr, x_ptr, route):
     (512, 64, 256, 4, 1, True, 16, 32, "tensor_core"),
     (512, 128, 128, 1, 1, True, 0, 0, "tensor_core"),  # int8 blocks
     (17, 128, 128, 2, 1, False, 0, 0, "tiled"),       # f32 x
-    (512, 128, 128, 1, 2, True, 0, 0, "tiled"),       # bf16 blocks
-    (512, 128, 128, 1, 4, True, 0, 0, "tiled"),       # f32 blocks
+    (512, 128, 128, 1, 2, True, 0, 0, "tensor_core"),  # bf16 blocks
+    (512, 128, 128, 1, 4, True, 0, 0, "tensor_core"),  # f32 blocks
     (256, 5, 2, 1, 1, True, 0, 0, "tiled"),           # LeNet conv1 blocks
     (256, 10, 4, 2, 1, True, 0, 0, "tiled"),          # LeNet conv2 blocks
     (512, 32, 128, 2, 1, True, 0, 0, "tiled"),        # bk not whole steps
     (512, 128, 64, 2, 1, True, 0, 0, "tiled"),        # bn not a 128 tile
     (512, 128, 128, 2, 1, True, 8, 0, "tiled"),       # codes misaligned
     (512, 128, 128, 2, 1, True, 0, 8, "tiled"),       # x misaligned
+    (17, 128, 128, 1, 4, True, 16, 32, "tensor_core"),  # f32 blocks past 16
+    (17, 128, 128, 1, 4, False, 0, 0, "tiled"),       # f32 x past 16 rows
+    (64, 128, 128, 1, 2, False, 0, 0, "tiled"),       # (bf16 blocks too)
+    (512, 128, 128, 1, 4, True, 8, 0, "tiled"),       # f32 blocks misaligned
+    (1, 128, 128, 1, 4, False, 0, 0, "thin_m"),       # f32 blocks, decode
+    (8, 128, 128, 1, 4, True, 16, 0, "thin_m"),
+    (16, 128, 128, 1, 2, True, 8, 0, "thin_m"),       # bf16: 8-byte rows
+    (8, 128, 128, 1, 4, True, 8, 0, "tiled"),         # f32 rows of 16 bytes
+    (8, 128, 128, 1, 2, False, 4, 0, "tiled"),        # bf16 rows of 8 bytes
+    (8, 128, 128, 2, 4, True, 0, 0, "tiled"),         # packed, not 1-byte
+    (8, 10, 4, 1, 4, False, 0, 0, "tiled"),           # LeNet conv2 blocks
 ])
 def test_bsm_route_rule(M, bk, bn, ratio, elem, x_bf16, w_ptr, x_ptr, route):
     got, plan = tsk.bsm_route(M, bk, bn, ratio, 16, 8, x_bf16, w_ptr, elem,
@@ -94,7 +110,8 @@ def _split_steps(plan, steps):
 @pytest.mark.parametrize("M,K,N", [
     (17, 2048, 512), (40, 64, 128), (128, 2048, 2048), (512, 2048, 512),
     (512, 8192, 2048), (512, 2048, 8192), (1024, 128, 384),
-    (128, 512, 320), (64, 8192, 320), (24, 1024, 48), (1088, 3072, 32064)])
+    (128, 512, 320), (64, 8192, 320), (24, 1024, 48), (1088, 3072, 32064),
+    (4096, 1280, 504), (64, 8192, 504), (512, 2048, 328)])
 def test_qmm_tc_plan_splits_cover_k_once(M, K, N):
     plan = tqk.qmm_tc_plan(M, K, N)
     spans = _split_steps(plan, K // tqk.TC_K_STEP)
@@ -118,6 +135,25 @@ def test_qmm_tc_plan_tiles_a_ragged_n_as_its_whole_tiles(M, K, N):
     whole = -(-N // tqk.TC_COLS) * tqk.TC_COLS
     assert plan == tqk.qmm_tc_plan(M, K, whole)
     assert whole - plan.n_tile < N <= whole
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+def test_qmm_candidates_at_the_hubert_head_pass_the_plan_check(ratio):
+    """hubert-xlarge's head (1280 x 504 at its forward's 4096 rows): every
+    candidate passes ``qmm_plan_error``; the rule's own is first, on the
+    tensor-core route with 4 column tiles, the last 120 columns wide, and
+    8-byte aligned codes are enough."""
+    args = (4096, 1280, 504, ratio, True, 8, 512)
+    cands = tqk.qmm_candidates(*args)
+    assert cands[0] == tqk.qmm_route(*args)
+    route, plan = cands[0]
+    assert route == "tensor_core"
+    assert -(-504 // plan.n_tile) == 4 and 504 - 3 * plan.n_tile == 120
+    assert ("tiled", None) in cands
+    for route, plan in cands:
+        assert tqk.qmm_plan_error(route, plan, *args) is None, (route, plan)
+    assert tqk.qmm_plan_error(*cands[0], 4096, 1280, 504, ratio, True, 4,
+                              512) is not None
 
 
 @pytest.mark.parametrize("ratio", [1, 2, 4])
@@ -234,6 +270,21 @@ def test_bsm_tc_plan_at_llama_shapes(leaf, M, m_tile, per, ranges):
         m_tile, per, ranges)
 
 
+@pytest.mark.parametrize("leaf,M,eb,m_tile", [
+    ("wg", 512, 4, 128), ("wd", 512, 4, 128), ("wg", 128, 4, 128),
+    ("wg", 40, 4, 64),            # one 64-row tile holds M
+    ("wg", 512, 2, 64), ("wd", 512, 2, 128),   # bf16: the 1-byte rule's
+])
+def test_bsm_tc_plan_takes_128_rows_for_f32_blocks(leaf, M, eb, m_tile):
+    """f32 blocks past 64 rows take 128-row tiles (half the tiles decode
+    each 32 KB code tile); bf16 blocks keep the 1-byte containers' rule.
+    The ranges follow the chosen tile as for every container."""
+    nC, max_col = {"wg": (64, 11), "wd": (16, 22)}[leaf]
+    route, plan = tsk.bsm_route(M, 128, 128, 1, nC, max_col, True, 0, eb)
+    assert route == "tensor_core" and plan.m_tile == m_tile
+    assert plan == tsk.bsm_tc_plan(M, 128, 128, nC, max_col, m_tile=m_tile)
+
+
 # ----------------------------------------------------- the arithmetic order
 
 
@@ -272,19 +323,22 @@ def _case(rng, container, shape):
     return codes, w
 
 
-@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("layer", [0, 1, 2, 3])
 @pytest.mark.parametrize("container", ["int8", "int4x2", "int2x4"])
 def test_quant_tc_order_matches_the_reference(layer, container):
     """Layer 2: N = 192, a ragged last column tile (its missing code
-    columns read as zeros, its missing outputs not written)."""
+    columns read as zeros, its missing outputs not written); layer 3: N =
+    216, N % 16 == 8, the codes copied by cp.async, the columns past N
+    zero-filled the same way."""
     rng = np.random.default_rng(10 * layer + RATIO[container])
-    M, K, N = ((24, 512, 256), (40, 512, 384), (40, 512, 192))[layer]
+    M, K, N = ((24, 512, 256), (40, 512, 384), (40, 512, 192),
+               (40, 512, 216))[layer]
     codes, w = _case(rng, container, (K, N))
     dec = decode_tc(container, w)
     assert torch.equal(dec.float(), _t(codes).float())    # exact in bf16
     scales = (rng.random(N) / (QMAX[container] * 4)).astype(np.float32)
     bias = rng.normal(size=N).astype(np.float32) if layer else None
-    act = ("silu", None, "gelu")[layer]
+    act = ("silu", None, "gelu", ("trelu", 0.05))[layer]
     x = _t(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
     route, plan = tqk.qmm_route(M, K, N, RATIO[container], True)
     assert route == "tensor_core" and plan.k_splits > 1  # partials, a reduce
