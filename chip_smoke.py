@@ -14,9 +14,10 @@ Phases, each fatal on failure:
    ``block_sparse_matmul`` and ``quant_matmul`` (thin-M, M <= 16;
    tensor-core, bf16 x past 16 rows, bitwise equal across two calls; and
    tiled; f32 and bf16 blocks on the thin-M and tensor-core routes too,
-   and quant codes of N % 16 == 8 columns, copied by cp.async), of ``packed_decode_attention`` (split across the cache, and the
-   single kernel: C in {1, 16}, G in {1, 4}, Dh in {64, 128}, dead, ragged
-   and full slots, bitwise equal across extents and calls) and of the flash
+   and quant codes of N % 16 == 8 columns, copied by cp.async), of ``packed_decode_attention`` (split across the cache and its query
+   rows in groups of 8, C in {1, 16}, G in {1, 4, 9}, Dh in {64, 80, 96,
+   128}; and the single kernel for shapes outside the split build: dead,
+   ragged and full slots, bitwise equal across extents and calls) and of the flash
    kernel (tensor cores for bf16 Dh 64/80/96/128, CUDA cores for the rest:
    causal or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
    gradient) and of the fused convs (register-tiled at LeNet's shapes,
@@ -98,8 +99,9 @@ Phases, each fatal on failure:
    (a prefill chunk and 4 decode steps; the float cache within
    ``TWIN_TOL``, the int4x2 cache within ``ZOO_TWIN_TOL``); the serve
    phase's 16 requests captured, every matmul and packed attention read on the
-   route its shape rule names (starcoder2's 16-row prefill chunks: 144
-   query rows a kv head, the single kernel), and eagerly with the same
+   route its shape rule names (every packed read split: starcoder2's
+   16-row prefill chunks, 144 query rows a kv head, in 18 row groups; no
+   single-kernel launch), and eagerly with the same
    tokens; captured decode and prefill profiles; their leaves (``wq``,
    ``wk``, the MLP, the head) and attention reads at M = 8 held against
    the plain versions and timed; then the acceptance matrix on the
@@ -115,8 +117,8 @@ Phases, each fatal on failure:
    tensor-core route at Dh 80), held against the twin within
    ``TWIN_TOL["float"]``; phi-3-vision-4.2b (cut to 16 of 32 layers,
    ``VLM_LAYERS``): its twin check, its 16 requests
-   served captured (every launch on its rule's route, the Dh 96 reads on
-   the single kernel) with the capture check, its captured step profiles
+   served captured (every launch on its rule's route, the Dh 96 reads
+   split) with the capture check, its captured step profiles
    and the compiled forward over 576 prefix embeddings and 512 tokens;
    olmoe-1b-7b and qwen2-moe-a2.7b (cut to 8 of 16 and 4 of 24 layers)
    through the
@@ -124,8 +126,9 @@ Phases, each fatal on failure:
    differ (``MOE_TWIN_TOL``), 16 and 4 requests served captured per bucket
    with every launch on its rule's route and the bitwise capture check,
    and the captured drip step's profile; the flash kernel at Dh 80 and
-   96 (tensor cores, and the CUDA-core first design) and the single
-   packed read at Dh 96 timed beside their bounds, plain versions and
+   96 (tensor cores, and the CUDA-core first design) and the split
+   packed reads at Dh 96 (and the single kernel, the first design) timed
+   beside their bounds, plain versions and
    SDPA, and the MLP leaves and the heads at their forwards' rows (phi-3-
    vision-4.2b's and hubert-xlarge's on the tensor cores beside the tiled
    first design) beside theirs and ``x @ W``;
@@ -139,7 +142,7 @@ Phases, each fatal on failure:
    captured token drip (xlstm-1.3b one graph, 168 thin-M ``quant_matmul``
    launches a step; zamba2-2.7b a graph a bucket, 36 thin-M
    ``quant_matmul``, 27 + the head's thin-M ``block_sparse_matmul`` and 9
-   single packed reads a step) with the bitwise capture check, the 4
+   split packed reads a step, Dh 80) with the bitwise capture check, the 4
    shortest served eagerly with the same tokens, the captured drip step's
    profile, the resident
    state bytes of a slot and the memory peaks; the full-sequence forward
@@ -787,34 +790,63 @@ def random_cache(B, T, Hkv, Dh, dev):
             codes_k, codes_v)
 
 
+def at_offset(t, off):
+    """A dense copy of the 1-byte tensor ``t`` whose data starts ``off``
+    bytes past an allocation's (aligned) start."""
+    if not off:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def sweep_attention(rng, dev):
     """packed_decode_attention against its plain version on both routes:
-    C in {1, 16}, G in {1, 4} (and starcoder2-7b's 9 at Dh 128), Dh in
-    {64, 128}, bt 64 (and 16: several tiles per split), slots whose rows
-    are all dead (length 0), start at length 1, end mid-tile and reach the
-    extent; C·G = 128 and 144, over the split plan's cap, on the single
-    kernel; f32 and bf16 q.  Each call must take
-    the route ``pda_plan`` names, give the same bits on a second call, and
-    the same bits at the full extent and at a bounded one (lengths <= 128).
-    Every case runs again over the same codes as int8 (the int4 container,
-    ``packed=False``): the same route, and the same bits as the int4x2 call.
-    Tolerance: ``flash_tol`` (one bf16 step, or 1e-5 of the largest value in
-    f32; the split route reorders the online softmax's rescaling)."""
+    C in {1, 16}, G in {1, 4}, Dh in {64, 80, 96, 128}, bt 64 (and 16, 32,
+    128: several tiles per split, or several splits a tile), slots whose
+    rows are all dead (length 0), start at length 1, end mid-tile and reach
+    the extent; C·G = 128 and starcoder2-7b's 144 (G 9, Dh 128) in row
+    groups on the split kernel; f32 and bf16 q.  The single kernel keeps a
+    case for each reason a shape stays there: a Dh (48) or a bt (Dh 128 at
+    128, Dh 80 at 32) with no split build, and codes that lack the build's
+    alignment (Dh 64 at 8 bytes, Dh 80 int4x2 at 4; Dh 80's 40-byte int4x2
+    rows at 8 bytes take the split kernel's 8-byte copies).  Each call must
+    take the route ``pda_plan`` names -- split for every built (Dh, bt)
+    whose codes have ``split_code_align`` -- give the same bits on a second
+    call, and the same bits at the full extent and at a bounded one
+    (lengths <= 128).  Every case runs again over the same codes as int8
+    (the int4 container, ``packed=False``, at the offset given): the same
+    route, and the same bits as the int4x2 call.  Tolerance: ``flash_tol``
+    (one bf16 step, or 1e-5 of the largest value in f32; the split route
+    reorders the online softmax's rescaling)."""
     from repro_torch.kernels.flash_attention import decode_packed as dp
 
     routes = {"split": "launches_split", "single": "launches_single"}
     B, T, Hkv = 4, 200, 2
-    shapes = [(C, G, Dh, 64) for C in (1, 16) for G in (1, 4)
-              for Dh in (64, 128)]
-    shapes += [(1, 4, 64, 16), (16, 4, 128, 16), (4, 2, 64, 32),
-               (16, 8, 64, 64)]
-    # starcoder2-7b's GQA (G = 9, Dh 128): a decode read (split) and a
-    # 16-row prefill chunk (144 query rows a kv head: the single kernel)
-    shapes += [(1, 9, 128, 64), (16, 9, 128, 64)]
+    # (C, G, Dh, bt, byte offset of the int4x2 codes, of the int8 codes)
+    shapes = [(C, G, Dh, 64, 0, 0) for C in (1, 16) for G in (1, 4)
+              for Dh in (64, 80, 96, 128)]
+    shapes += [(1, 4, 64, 16, 0, 0), (16, 4, 128, 16, 0, 0),
+               (4, 2, 64, 32, 0, 0), (16, 8, 64, 64, 0, 0),
+               (1, 4, 80, 128, 0, 0), (16, 1, 96, 32, 0, 0),
+               (16, 4, 96, 128, 0, 0)]
+    # starcoder2-7b's GQA (G = 9, Dh 128): a decode read and a 16-row
+    # prefill chunk (144 query rows a kv head: three groups of 48)
+    shapes += [(1, 9, 128, 64, 0, 0), (16, 9, 128, 64, 0, 0)]
+    # the single kernel: no split build, then codes the build cannot copy
+    shapes += [(16, 4, 48, 64, 0, 0), (1, 4, 128, 128, 0, 0),
+               (16, 1, 80, 32, 0, 0), (1, 4, 64, 64, 8, 8),
+               (16, 1, 80, 64, 4, 4)]
+    # Dh 80 int4x2 codes 8-byte aligned: split by 8-byte copies (the int8
+    # codes, 80-byte rows, aligned to 16)
+    shapes += [(16, 4, 80, 64, 8, 0)]
     cases = 0
-    for C, G, Dh, bt in shapes:
+    for C, G, Dh, bt, off4, off8 in shapes:
         H = Hkv * G
         k_p, v_p, k_s, v_s, k_q, v_q = random_cache(B, T, Hkv, Dh, dev)
+        k_p, v_p = at_offset(k_p, off4), at_offset(v_p, off4)
+        k_q, v_q = at_offset(k_q, off8), at_offset(v_q, off8)
         base = np.array([0, 0, 69, T - C])
         lens = base[:, None] + np.arange(1, C + 1)[None, :]
         lens[0] = 0                       # a slot with every tile dead
@@ -822,9 +854,14 @@ def sweep_attention(rng, dev):
         plan = dp.pda_plan(B, C, H, Hkv, Dh, T, bt, k_p.data_ptr()
                            | v_p.data_ptr() | int(k_p.stride(0)))
         route = "single" if plan is None else "split"
-        want = "single" if C * G > dp.SPLIT_MAX_QROWS else "split"
+        want = "split" if (Dh, bt) in dp.SPLIT_SHAPES \
+            and off4 % dp.split_code_align(Dh) == 0 else "single"
         require(route == want, f"pda_plan sent C={C} G={G} Dh={Dh} bt={bt} "
-                               f"to the {route} route, not {want}")
+                               f"codes at +{off4} to the {route} route, not "
+                               f"{want}")
+        require(plan is None or plan.n_groups
+                == -(-C * G // dp.SPLIT_MAX_QROWS),
+                f"pda_plan cut C·G = {C * G} rows into {plan}")
         plan8 = dp.pda_plan(B, C, H, Hkv, Dh, T, bt, k_q.data_ptr()
                             | v_q.data_ptr() | int(k_q.stride(0)),
                             packed=False)
@@ -840,7 +877,7 @@ def sweep_attention(rng, dev):
                                       q, *ext, ln, bt=bt))
 
             tag = f"packed_decode_attention {route} C={C} G={G} Dh={Dh} " \
-                  f"bt={bt} {qdt}"
+                  f"bt={bt} +{off4} {qdt}"
             y = call(lengths)
             ref = dp.tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths,
                                             bt=bt)
@@ -3716,11 +3753,17 @@ def twin_layers(cm, cfg, dev, prompt):
 
 
 def pda_route(cfg, B, C, bt):
-    """The route ``pda_plan`` names for a read of C rows of B slots."""
+    """The route ``pda_plan`` names for a serving read of C rows of B
+    slots: the split kernel, for every config and read the serving paths
+    run (the single kernel is for shapes outside the split build), so
+    every count checked against it holds ``launches_single`` to 0."""
     from repro_torch.kernels.flash_attention import decode_packed as dp
     plan = dp.pda_plan(B, C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 512,
                        bt)
-    return PDA_SINGLE if plan is None else PDA_SPLIT
+    require(plan is not None,
+            f"{cfg.name}: pda_plan sends a serving read of C={C} rows of "
+            f"B={B} slots (Dh {cfg.head_dim}, bt {bt}) to the single kernel")
+    return PDA_SPLIT
 
 
 def serve_want(cm, cfg, dev, decode_steps, prefill_steps):
@@ -3801,7 +3844,11 @@ def zoo_attention_row(cfg, dev, B, C, lens, T=512, bt=64):
     """packed_decode_attention over B slots of a T-row int4x2 cache, C query
     rows a slot (``lens`` (B, C): live rows of each), on the route
     ``pda_plan`` names, held against its plain version and timed beside its
-    bound and SDPA on the dequantised bf16 cache."""
+    bound, SDPA on the dequantised bf16 cache and the first design (the
+    single kernel, ``first_version_ms``).  Where other caps on a row group
+    (4, 8, 16, 32, 64 rows) cut the C·G rows otherwise than the rule, the
+    split read is timed again with each (``group_cap_ms``), held to the
+    rule's bits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import decode_packed as dp
@@ -3854,8 +3901,21 @@ def zoo_attention_row(cfg, dev, B, C, lens, T=512, bt=64):
            "library_ms": device_ms(
                lambda i: lambda: F.scaled_dot_product_attention(
                    qh, *kvd[i], attn_mask=mask), 4)}
+    row["first_version_ms"] = device_ms(lambda i: lambda: dp._launch(
+        q, *caches[i], lengths, bt, None), 16)
     if plan is not None:
         row["plan"] = list(plan)
+        row["group_cap_ms"] = {}
+        for cap in (4, 8, 16, 32, 64):
+            alt = plan._replace(**dict(zip(
+                ("n_groups", "group_rows"), dp.split_row_groups(C * G, cap))))
+            if alt == plan:
+                continue
+            require(torch.equal(dp._launch(q, *caches[0], lengths, bt, alt),
+                                y), f"{label}: row groups {alt} changed bits")
+            row["group_cap_ms"][cap] = device_ms(
+                lambda i: lambda: dp._launch(q, *caches[i], lengths, bt, alt),
+                16)
     return row
 
 
@@ -4133,7 +4193,7 @@ def encoder_path(dev):
 def vlm_path(dev):
     """phi-3-vision-4.2b at full width: the twin check, the 16 requests
     served captured with every launch on its rule's route (the Dh 96 reads
-    on the single kernel) and the capture check, the captured step
+    split) and the capture check, the captured step
     profiles, then the compiled forward over 576 prefix embeddings and 512
     tokens."""
     cm, cfg, out = family_model(VLM_ARCH, dev, VLM_LAYERS)

@@ -32,24 +32,31 @@
 // latency: how many bytes are in flight at once, and how long the chains of
 // dependent operations are.
 //
-// The split kernel is built for that.  Its grid is (slot, kv head, split):
-// a split is `tiles_per_split` whole bt tiles counted from cache row 0, a
-// number fixed by bt alone, so the extent T sets only how many splits exist
-// and never where one ends.  One CTA serves all C·G query rows of its slot
-// and kv head, so a prefill chunk reads each tile once, not C times.  A
-// split at or past every row's length returns at once.  Tiles arrive through
-// a two-stage cp.async ring (16-byte copies of the codes; each row's two
-// scales once), the next tile in flight while the current one is used.  Dh
-// and bt are compile-time, so every index is a shift.  A tile costs three
-// barriers: (1) each lane decodes its slice of one K row into registers and
-// sums its part of that key's score for every query row, the 128 / bt lanes
-// of a key combining by shuffles, while the V tile is decoded to f32 in
-// shared memory; (2) one warp per query row updates the online softmax;
-// (3) P·V, four output columns per lane in two independent partial sums
-// (split over even and odd keys by a shuffle while there are few rows).
-// Each split writes f32 (m, l, acc) per query row; the combine pass
-// (`pda_combine_kernel`, a programmatic dependent launch) rescales the live
-// splits by exp(m_s - m) and adds them in split order, then divides by
+// The split kernel is built for that.  Its grid is (slot, kv head, split ×
+// row group): a split is `tiles_per_split` whole bt tiles counted from cache
+// row 0, a number fixed by bt alone, so the extent T sets only how many
+// splits exist and never where one ends.  The R = C·G query rows of a slot
+// and kv head fall into `n_groups` groups of `group_rows` (the plan's: at
+// most 8, as equal as can be; the kernel takes up to 64); one CTA serves one
+// group, so a prefill chunk reads each tile once a group, not C times, the
+// groups of a split sharing it through L2.  A row's arithmetic does not
+// depend on its group or on how many there are.  A split at or past every
+// length of its group returns at once.  Tiles arrive through a two-stage
+// cp.async ring (the codes in 16-byte copies, or 8-byte ones where a row's
+// code bytes are not a multiple of 16, as Dh 80's 40 int4x2 bytes; each
+// row's two scales once), the next tile in flight while the current one is
+// used.  Dh and bt are compile-time, so every index is a constant or a
+// shift.  A tile costs three barriers: (1) each lane decodes its slice of one
+// K row (Dh · bt / 128 codes: whole 4-byte words, read in the widest loads
+// the slice's alignment allows) into registers and sums its part of that
+// key's score for every query row, the 128 / bt lanes of a key combining by
+// shuffles, while the V tile is decoded to f32 in shared memory (a row
+// stride ≡ 16 floats mod 32, `v_ld`); (2) one warp per query row updates the
+// online softmax; (3) P·V, four output columns per lane in two independent
+// partial sums (split over even and odd keys by a shuffle while there are
+// few rows).  Each split writes f32 (m, l, acc) per query row; the combine
+// pass (`pda_combine_kernel`, a programmatic dependent launch) rescales the
+// live splits by exp(m_s - m) and adds them in split order, then divides by
 // max(l, 1e-30): no atomics, the same bits on every run and at every extent
 // that holds the live rows.  q is read in its own dtype and scaled in f32
 // inside the kernel.
@@ -246,23 +253,38 @@ namespace {
 
 constexpr int SP_NT = 128;          // threads per split CTA
 constexpr int SP_NW = SP_NT / 32;
-constexpr int SP_MAX_ROWS = 64;     // query rows (C·G) per CTA, at most
+constexpr int SP_MAX_ROWS = 64;     // query rows of a row group, at most
 constexpr size_t SP_SMEM_MAX = 232448;
 
 __host__ __device__ constexpr size_t align16(size_t v) {
   return (v + 15) & ~(size_t)15;
 }
 
-// Row stride of the decoded V tile in floats: DH + 16, so the two key
-// halves P·V reads at once (rows t and t + 1) fall in different banks.
+// Row stride of the decoded V tile in floats: the least value >= DH that
+// is 16 mod 32 (80 at Dh 64 and 80, 112 at 96, 144 at 128), so the two
+// keys P·V reads at once (rows t and t + 1) fall in different banks.
 template <int DH>
-__host__ __device__ constexpr int v_ld() { return DH + 16; }
+__host__ __device__ constexpr int v_ld() { return DH + ((16 - DH) % 32 + 32) % 32; }
+static_assert(v_ld<64>() == 80 && v_ld<80>() == 80 && v_ld<96>() == 112 &&
+                  v_ld<128>() == 144, "v_ld");
+
+// Bytes of one cp.async piece of a cache row's codes: 16 where the row's
+// code bytes are a multiple of 16, else 8 (the codes must then be 8-byte
+// aligned, not 16).
+template <int CB>
+__host__ __device__ constexpr int code_piece() { return CB % 16 == 0 ? 16 : 8; }
+
+// Bytes of the widest load `load_words<W>` makes: 16, 8 or 4.
+template <int W>
+__host__ __device__ constexpr int word_load_bytes() {
+  return W % 4 == 0 ? 16 : W % 2 == 0 ? 8 : 4;
+}
 
 // Shared memory of a split CTA, in bytes from the base: two ring stages of
 // [k codes (BT, CB)][v codes][k scales (BT)][v scales], CB the code bytes
-// of a row (DH / 2 int4x2, DH int8), then the f32 V tile (BT, DH + 16), q
-// rows and acc (R, DH), scores (R, BT), m / l / corr (R), and the rows'
-// lengths (R ints).
+// of a row (DH / 2 int4x2, DH int8), then the f32 V tile (BT, v_ld<DH>),
+// q rows and acc (R, DH), scores (R, BT), m / l / corr (R), and the rows'
+// lengths (R ints); R the rows of a group.
 template <int DH, int BT, int CB>
 struct SplitSmem {
   static constexpr size_t codes = align16((size_t)2 * BT * CB);
@@ -283,6 +305,12 @@ struct SplitSmem {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                    (uint32_t)__cvta_generic_to_shared(dst)),
                "l"(src)
                : "memory");
@@ -362,24 +390,34 @@ __global__ void __launch_bounds__(SP_NT, 1)
                      const float* __restrict__ vs,
                      const int* __restrict__ lengths, float* __restrict__ ws,
                      int C, int H, int Hkv, int T, int tiles_per_split,
-                     int n_split, long long kv_bstride, long long s_bstride) {
+                     int n_split, int n_groups, int group_rows,
+                     long long kv_bstride, long long s_bstride) {
   constexpr int PER = Codes<PACKED>::PER;  // codes of a 4-byte word
   constexpr int DHP = DH * 4 / PER;        // code bytes of a row
   constexpr int DP = SP_NT / BT;           // lanes that sum one score
   constexpr int SL = DH / DP;              // d values per lane
+  constexpr int SW = SL / PER;             // 4-byte words per lane
   constexpr int VLD = v_ld<DH>();
+  constexpr int CP = code_piece<DHP>();    // bytes of a cp.async piece
   static_assert(SP_NT % BT == 0 && SL % 8 == 0, "one lane holds whole words");
-  static_assert(DHP % 16 == 0, "rows copy in whole 16-byte chunks");
+  static_assert(DHP % CP == 0, "rows copy in whole pieces");
+  static_assert(DHP % word_load_bytes<SW>() == 0 &&
+                    (SW * 4) % word_load_bytes<SW>() == 0,
+                "a lane's K slice is aligned to its loads");
   using Smem = SplitSmem<DH, BT, DHP>;
   // the combine pass may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(16) uint8_t smem[];
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv, R = C * G;
+  const int s = blockIdx.x / n_groups, grp = blockIdx.x % n_groups;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv, R_all = C * G;
+  // this CTA's query rows: [r0, r0 + R) of the slot and kv head's C·G
+  const int r0 = grp * group_rows, R = min(group_rows, R_all - r0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   int lmax = 0;
-  for (int c = 0; c < C; ++c) lmax = max(lmax, lengths[b * C + c]);
+  for (int c = r0 / G; c <= (r0 + R - 1) / G; ++c)
+    lmax = max(lmax, lengths[b * C + c]);
   const int n_t = (T + BT - 1) / BT;
   const int tile_lo = s * tiles_per_split;
   const int tile_hi =
@@ -402,9 +440,9 @@ __global__ void __launch_bounds__(SP_NT, 1)
   const float* ksb = ks + (size_t)b * s_bstride;
   const float* vsb = vs + (size_t)b * s_bstride;
 
-  // tile `tile` -> ring stage `st`: 16-byte copies of the codes, 4-byte
+  // tile `tile` -> ring stage `st`: CP-byte copies of the codes, 4-byte
   // copies of the scales, zeros past row_end
-  constexpr int CH = DHP / 16;  // 16-byte chunks of a row
+  constexpr int CH = DHP / CP;  // pieces of a row
   uint8_t* const ring = smem;
   auto issue = [&](int tile, int st) {
     uint8_t* base = ring + st * Smem::stage;
@@ -415,12 +453,20 @@ __global__ void __launch_bounds__(SP_NT, 1)
     for (int e = tid; e < 2 * BT * CH; e += SP_NT) {
       const int kv = e / (BT * CH), rem = e % (BT * CH);
       const int t = rem / CH, ch = rem % CH;
-      uint8_t* dst = base + (kv * BT + t) * DHP + ch * 16;
-      if (t < live)
-        cp_async16(dst, (kv ? vpb : kpb) + ((size_t)(t0 + t) * Hkv + h) * DHP +
-                            ch * 16);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      uint8_t* dst = base + (kv * BT + t) * DHP + ch * CP;
+      const uint8_t* src =
+          (kv ? vpb : kpb) + ((size_t)(t0 + t) * Hkv + h) * DHP + ch * CP;
+      if constexpr (CP == 16) {
+        if (t < live)
+          cp_async16(dst, src);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        if (t < live)
+          cp_async8(dst, src);
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      }
     }
     for (int e = tid; e < 2 * BT; e += SP_NT) {
       const int kv = e / BT, t = e % BT;
@@ -433,27 +479,40 @@ __global__ void __launch_bounds__(SP_NT, 1)
   };
   issue(tile_lo, 0);  // the first tile flies while q and the state are set
 
-  for (int e = tid; e < R * DH; e += SP_NT) {
-    const int r = e / DH, d = e % DH;
-    const int c = r / G, g = r - c * G;
+  // q: four values a load (16 bytes f32, 8 bf16; the wrapper aligns q)
+  for (int e = tid; e < R * DH / 4; e += SP_NT) {
+    const int r = e / (DH / 4), d = 4 * (e % (DH / 4));
+    const int c = (r0 + r) / G, g = (r0 + r) - c * G;
     const size_t qi = ((size_t)(b * C + c) * H + h * G + g) * DH + d;
-    const float qv = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi])
-                            : static_cast<const float*>(q)[qi];
-    qs[e] = qv * q_scale;  // q.astype(f32) * (1 / sqrt(Dh)), as the reference
-    acc[e] = 0.f;
+    float4 qv;
+    if (q_bf16) {
+      const uint2 raw =
+          *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(q) + qi);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+      qv = make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                       __high2float(hi));
+    } else {
+      qv = *reinterpret_cast<const float4*>(static_cast<const float*>(q) + qi);
+    }
+    // q.astype(f32) * (1 / sqrt(Dh)), as the reference
+    reinterpret_cast<float4*>(qs)[e] = make_float4(
+        qv.x * q_scale, qv.y * q_scale, qv.z * q_scale, qv.w * q_scale);
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int r = tid; r < R; r += SP_NT) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
-    lens[r] = lengths[b * C + r / G];
+    lens[r] = lengths[b * C + (r0 + r) / G];
   }
 
   // scores: lane (key kt, part) holds SL decoded values of K row kt
   const int kt = tid / DP, part = tid % DP;
   // P·V: output items (row, 4 columns); two lanes per item (even and odd
-  // keys) while there are few items
+  // keys) while the slot and kv head have few items -- counted over all
+  // C·G rows, so a row's sum order does not depend on its group
   const int items = R * (DH / 4);
-  const int KS = items * 2 <= SP_NT ? 2 : 1;
+  const int KS = R_all * (DH / 4) * 2 <= SP_NT ? 2 : 1;
   const int n_live = tile_hi - tile_lo;
   for (int i = 0; i < n_live; ++i) {
     if (i + 1 < n_live) {
@@ -484,11 +543,11 @@ __global__ void __launch_bounds__(SP_NT, 1)
     // K: this lane's slice of row kt, dequantised in registers
     float kr[SL];
     {
-      uint32_t words[SL / PER];
-      load_words<SL / PER>(base + kt * DHP + part * (SL * 4 / PER), words);
+      uint32_t words[SW];
+      load_words<SW>(base + kt * DHP + part * (SW * 4), words);
       const float scl = sc[kt];
 #pragma unroll
-      for (int w = 0; w < SL / PER; ++w) dequant_word<PACKED>(words[w], scl, kr + PER * w);
+      for (int w = 0; w < SW; ++w) dequant_word<PACKED>(words[w], scl, kr + PER * w);
     }
     // scores of every query row against key kt: SL products per lane in
     // four independent sums, then the DP lanes of the key by shuffles
@@ -582,12 +641,12 @@ __global__ void __launch_bounds__(SP_NT, 1)
   }
   __syncthreads();
 
-  // this split's (m, l, acc) per query row
-  const size_t row0 = ((size_t)(b * Hkv + h) * n_split + s) * R;
+  // this split's (m, l, acc) per query row of the group
+  const size_t row0 = ((size_t)(b * Hkv + h) * n_split + s) * R_all + r0;
   float4* ws_acc = reinterpret_cast<float4*>(ws + row0 * DH);
   for (int e = tid; e < R * DH / 4; e += SP_NT)
     ws_acc[e] = reinterpret_cast<const float4*>(acc)[e];
-  float* ws_ml = ws + (size_t)gridDim.z * Hkv * n_split * R * DH + 2 * row0;
+  float* ws_ml = ws + (size_t)gridDim.z * Hkv * n_split * R_all * DH + 2 * row0;
   for (int r = tid; r < R; r += SP_NT) {
     ws_ml[2 * r] = m_s[r];
     ws_ml[2 * r + 1] = l_s[r];
@@ -636,20 +695,25 @@ cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
                     const uint8_t* vp, const float* ks, const float* vs,
                     const int* lengths, float* ws, void* out, int B, int C,
                     int H, int Hkv, int T, int tiles_per_split, int n_split,
-                    long long kv_bstride, long long s_bstride,
-                    cudaStream_t stream) {
+                    int n_groups, int group_rows, long long kv_bstride,
+                    long long s_bstride, cudaStream_t stream) {
+  constexpr int CB = PACKED ? DH / 2 : DH;
   const int R = C * (H / Hkv);
-  const SplitSmem<DH, BT, PACKED ? DH / 2 : DH> L(R);
-  if (R > SP_MAX_ROWS || L.total > SP_SMEM_MAX || tiles_per_split < 1 ||
+  const SplitSmem<DH, BT, CB> L(group_rows);
+  const uintptr_t addr = (uintptr_t)kp | (uintptr_t)vp | (uintptr_t)kv_bstride;
+  if (group_rows < 1 || group_rows > SP_MAX_ROWS || n_groups < 1 ||
+      (long long)n_groups * group_rows < R ||
+      (long long)(n_groups - 1) * group_rows >= R || L.total > SP_SMEM_MAX ||
+      addr % code_piece<CB>() || (uintptr_t)q % 16 || tiles_per_split < 1 ||
       n_split != ((T + BT - 1) / BT + tiles_per_split - 1) / tiles_per_split)
     return cudaErrorInvalidValue;
   auto kern = pda_split_kernel<DH, BT, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(n_split, Hkv, B), SP_NT, L.total, stream>>>(
+  kern<<<dim3(n_split * n_groups, Hkv, B), SP_NT, L.total, stream>>>(
       q, q_bf16, q_scale, kp, vp, ks, vs, lengths, ws, C, H, Hkv, T,
-      tiles_per_split, n_split, kv_bstride, s_bstride);
+      tiles_per_split, n_split, n_groups, group_rows, kv_bstride, s_bstride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n_out = (size_t)B * C * H * DH;
@@ -674,18 +738,25 @@ cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
                         float q_scale, const uint8_t* kp, const uint8_t* vp,
                         const float* ks, const float* vs, const int* lengths,
                         float* ws, void* out, int B, int C, int H, int Hkv,
-                        int T, int tiles_per_split, int n_split,
-                        long long kv_bstride, long long s_bstride,
-                        cudaStream_t s) {
+                        int T, int tiles_per_split, int n_split, int n_groups,
+                        int group_rows, long long kv_bstride,
+                        long long s_bstride, cudaStream_t s) {
 #define RT_SPLIT(DH, BT)                                                      \
   if (Dh == DH && bt == BT)                                                   \
-    return split_t<DH, BT, PACKED, OT>(q, q_bf16, q_scale, kp, vp, ks, vs, lengths,   \
-                               ws, out, B, C, H, Hkv, T, tiles_per_split,     \
-                               n_split, kv_bstride, s_bstride, s);
+    return split_t<DH, BT, PACKED, OT>(q, q_bf16, q_scale, kp, vp, ks, vs,    \
+                                       lengths, ws, out, B, C, H, Hkv, T,     \
+                                       tiles_per_split, n_split, n_groups,    \
+                                       group_rows, kv_bstride, s_bstride, s);
+  // the (Dh, bt) builds: SPLIT_SHAPES in decode_packed.py names these
   RT_SPLIT(64, 16)
   RT_SPLIT(64, 32)
   RT_SPLIT(64, 64)
   RT_SPLIT(64, 128)
+  RT_SPLIT(80, 64)
+  RT_SPLIT(80, 128)
+  RT_SPLIT(96, 32)
+  RT_SPLIT(96, 64)
+  RT_SPLIT(96, 128)
   RT_SPLIT(128, 16)
   RT_SPLIT(128, 32)
   RT_SPLIT(128, 64)
@@ -695,30 +766,34 @@ cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
 
 }  // namespace
 
-// The split route: (Dh, bt) in {64} x {16, 32, 64, 128} or {128} x {16, 32,
-// 64}, C·(H / Hkv) <= 64 query rows per CTA, kp / vp and their slot
-// stride 16-byte aligned; kp / vp hold int4x2 (packed = 1) or int8 codes
-// (packed = 0) as pda_launch's.  q: (B, C, H, Dh) f32 (q_bf16 = 0) or bf16,
-// contiguous, not yet scaled; the kernel multiplies it by q_scale in f32.
-// The cache is cut into n_split = ceil(ceil(T / bt) / tiles_per_split)
-// splits of tiles_per_split bt-row tiles from row 0.  ws: f32 scratch of
-// B·Hkv·n_split·C·(H / Hkv)·(Dh + 2) floats.  out: q's dtype.  Other
-// arguments as pda_launch.  Returns the launches' cudaError_t (0 on
-// success).
+// The split route: (Dh, bt) in {64} x {16, 32, 64, 128}, {80} x {64, 128},
+// {96} x {32, 64, 128} or {128} x {16, 32, 64}; kp / vp and their slot
+// stride aligned to the build's copy piece (16 bytes, 8 where a row's code
+// bytes are not a multiple of 16: Dh 80 int4x2); kp / vp hold int4x2 (packed
+// = 1) or int8 codes (packed = 0) as pda_launch's.  q: (B, C, H, Dh) f32
+// (q_bf16 = 0) or bf16, contiguous, 16-byte aligned, not yet scaled; the
+// kernel multiplies it by q_scale in f32.  The cache is cut into n_split =
+// ceil(ceil(T / bt) / tiles_per_split) splits of tiles_per_split bt-row
+// tiles from row 0; the R = C·(H / Hkv) query rows of a (slot, kv head) into
+// n_groups groups of group_rows (<= 64; the last may hold fewer, none is
+// empty), one CTA each, a row's arithmetic the same in any group.  ws: f32
+// scratch of B·Hkv·n_split·R·(Dh + 2) floats.  out: q's dtype.  Other
+// arguments as pda_launch.  Returns the launches' cudaError_t (0 on success).
 extern "C" int pda_split_launch(const void* q, int q_bf16, float q_scale,
                                 const uint8_t* kp, const uint8_t* vp,
                                 const float* ks, const float* vs,
                                 const int* lengths, float* ws, void* out,
                                 int packed, int B, int C, int H, int Hkv,
                                 int Dh, int T, int bt, int tiles_per_split,
-                                int n_split, long long kv_bstride,
-                                long long s_bstride, void* stream) {
+                                int n_split, int n_groups, int group_rows,
+                                long long kv_bstride, long long s_bstride,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_SPLIT_T(OT, P)                                                      \
   return (int)split_shape<OT, P>(Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs,  \
                                  lengths, ws, out, B, C, H, Hkv, T,           \
-                                 tiles_per_split, n_split, kv_bstride,        \
-                                 s_bstride, s);
+                                 tiles_per_split, n_split, n_groups,          \
+                                 group_rows, kv_bstride, s_bstride, s);
   if (q_bf16) {
     if (packed) RT_SPLIT_T(__nv_bfloat16, true)
     RT_SPLIT_T(__nv_bfloat16, false)

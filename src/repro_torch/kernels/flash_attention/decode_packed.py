@@ -13,8 +13,9 @@ not depend on the cache extent at a fixed ``bt``.
   ``repro.kernels.flash_attention.decode_packed``), for decode (C = 1) and
   prefill chunks (C > 1), over either container.  :func:`pda_plan` picks
   the route from the shapes: the split kernel (the cache cut into fixed
-  runs of whole tiles across CTAs, then a combine pass) or the single
-  kernel (the first design).  CPU tensors take the plain version.
+  runs of whole tiles across CTAs, the query rows of a kv head into groups
+  of at most 8, then a combine pass) or the single kernel (the first
+  design).  CPU tensors take the plain version.
 * :func:`tiled_packed_attention` — the plain PyTorch version, the same tile
   walk, masking and final ``acc / max(l, 1e-30)`` division.
 """
@@ -42,63 +43,101 @@ launches_split = 0
 launches_single = 0
 
 SPLIT_ROWS = 64          # cache rows per split, rounded to whole bt tiles
-SPLIT_MAX_QROWS = 64     # query rows C·G one split CTA serves, at most
-# (Dh, bt) the split kernel is built for: a lane holds whole 4-byte words
-# of one K row (of either container), 128 lanes per tile
-SPLIT_SHAPES = {(64, 16), (64, 32), (64, 64), (64, 128), (128, 16),
+# query rows of one row group (one CTA), at most: on the H100 groups of 8
+# beat those of 4, 16, 32 and 64 at the serving paths' 16-row chunks
+# (scripts/pda_split_shapes.py), more CTAs sharing each tile through L2
+SPLIT_MAX_QROWS = 8
+# (Dh, bt) the split kernel is built for (`RT_SPLIT` in the source): a lane
+# holds whole 4-byte words of one K row (of either container), 128 lanes
+# per tile, and the CTA fits at a group's most rows
+SPLIT_SHAPES = {(64, 16), (64, 32), (64, 64), (64, 128), (80, 64),
+                (80, 128), (96, 32), (96, 64), (96, 128), (128, 16),
                 (128, 32), (128, 64)}
 SMEM_MAX = 232448        # shared memory a CTA may take on the H100
-# kv tiles the autotuner tries (every Dh 64 one has a split build)
+# kv tiles the autotuner tries: each has a split build at Dh 64; at Dh 80,
+# 96 and 128 those of SPLIT_SHAPES do, the rest take the single kernel
 ATTN_BT_CANDIDATES = (16, 32, 64, 128)
 
 
 class PdaPlan(NamedTuple):
     """The split kernel's grid: ``n_splits`` runs of ``tiles_per_split``
     whole ``bt``-row tiles from cache row 0 (the last run may be shorter),
-    times the kv heads, times the slots."""
+    times ``n_groups`` groups of ``group_rows`` query rows of a kv head
+    (the last may hold fewer), times the kv heads, times the slots."""
     tiles_per_split: int
     n_splits: int
+    n_groups: int
+    group_rows: int
 
 
 def _align16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
+def split_v_ld(Dh: int) -> int:
+    """Row stride in floats of the split kernel's f32 V tile (``v_ld`` in
+    the source): the least value >= Dh that is 16 mod 32, so P·V's reads of
+    rows t and t + 1 fall in different banks."""
+    return Dh + (16 - Dh) % 32
+
+
+def split_code_align(Dh: int, packed: bool = True) -> int:
+    """Byte alignment the split kernel needs of the code leaves and their
+    slot stride (``code_piece`` in the source): its cp.async pieces are 16
+    bytes where a row's code bytes (Dh / 2 int4x2, Dh int8) are a multiple
+    of 16, else 8 (Dh 80 int4x2: 40-byte rows)."""
+    return 16 if (Dh // 2 if packed else Dh) % 16 == 0 else 8
+
+
+def split_row_groups(rows: int, cap: int = SPLIT_MAX_QROWS) -> tuple:
+    """``(n_groups, group_rows)``: the ``rows`` = C·G query rows of a kv
+    head in the fewest groups of at most ``cap`` (the rule's:
+    :data:`SPLIT_MAX_QROWS`), as equal as they can be (144 -> 18 of 8, 100
+    -> 13 of 8, 9 -> 2 of 5; the last group may hold fewer)."""
+    n = max(1, -(-rows // cap))
+    per = -(-rows // n)
+    return -(-rows // per), per
+
+
 def split_smem_bytes(bt: int, Dh: int, rows: int, packed: bool = True) -> int:
-    """Shared memory of one split CTA (``SplitSmem`` in the source): two
-    ring stages of K and V codes (a row: Dh / 2 bytes int4x2, Dh int8)
-    and scales, the f32 V tile (rows of Dh + 16), q rows, acc, scores,
-    m / l / corr and lengths."""
+    """Shared memory of one split CTA serving ``rows`` query rows
+    (``SplitSmem`` in the source): two ring stages of K and V codes (a
+    row: Dh / 2 bytes int4x2, Dh int8) and scales, the f32 V tile (rows of
+    :func:`split_v_ld` floats), q rows, acc, scores, m / l / corr and
+    lengths."""
     row = Dh // 2 if packed else Dh
     stage = _align16(2 * bt * row) + _align16(8 * bt)
-    return (2 * stage + 4 * bt * (Dh + 16) + 8 * rows * Dh
+    return (2 * stage + 4 * bt * split_v_ld(Dh) + 8 * rows * Dh
             + _align16(4 * rows * bt) + 4 * _align16(4 * rows))
 
 
 def pda_plan(B: int, C: int, H: int, Hkv: int, Dh: int, T: int, bt: int,
              kv_addr: int = 0, packed: bool = True) -> Optional[PdaPlan]:
     """The route of a packed attention read, as a shape rule: the split
-    plan when ``(Dh, bt)`` is one of :data:`SPLIT_SHAPES`, the ``C·H/Hkv``
-    query rows of a (slot, kv head) number at most
-    :data:`SPLIT_MAX_QROWS`, a CTA's shared memory fits, and ``kv_addr``
-    (the code leaves' addresses and slot stride in bytes, OR-ed) is 16-byte
-    aligned; ``None`` — the single kernel — otherwise.  ``packed`` names
-    the container (int4x2, else int8 codes), which sets the bytes a row's
-    codes take in shared memory.
+    plan when ``(Dh, bt)`` is one of :data:`SPLIT_SHAPES`, ``kv_addr`` (the
+    code leaves' addresses and slot stride in bytes, OR-ed) has the
+    build's alignment (:func:`split_code_align`: 16 bytes, 8 for Dh 80's
+    40-byte int4x2 rows) and a CTA's shared memory fits at a group's rows;
+    ``None`` — the single kernel — otherwise.  ``packed`` names the
+    container (int4x2, else int8 codes), which sets the bytes a row's codes
+    take.
 
     A split is ``max(1, SPLIT_ROWS // bt)`` tiles: it depends on ``bt``
     alone, never on the extent ``T``, which only sets how many splits the
-    grid has.  So a row's result does not depend on ``T``, as long as ``T``
-    holds its live rows."""
+    grid has.  The ``C·H/Hkv`` query rows of a (slot, kv head) fall into
+    :func:`split_row_groups`, one CTA a group, and a row's arithmetic does
+    not depend on its group.  So a row's result does not depend on ``T``,
+    as long as ``T`` holds its live rows."""
     rows = C * (H // Hkv)
-    if (Dh, bt) not in SPLIT_SHAPES or rows > SPLIT_MAX_QROWS \
-            or kv_addr % 16:
+    if (Dh, bt) not in SPLIT_SHAPES or rows < 1 \
+            or kv_addr % split_code_align(Dh, packed):
         return None
-    if split_smem_bytes(bt, Dh, rows, packed) > SMEM_MAX:
+    n_groups, group_rows = split_row_groups(rows)
+    if split_smem_bytes(bt, Dh, group_rows, packed) > SMEM_MAX:
         return None
     per = max(1, SPLIT_ROWS // bt)
     n_t = max(1, -(-T // bt))
-    return PdaPlan(per, -(-n_t // per))
+    return PdaPlan(per, -(-n_t // per), n_groups, group_rows)
 
 
 def pda_plan_error(route: str, plan, B: int, C: int, H: int, Hkv: int,
@@ -117,9 +156,10 @@ def pda_plan_error(route: str, plan, B: int, C: int, H: int, Hkv: int,
     if route == "split":
         if pda_plan(B, C, H, Hkv, Dh, T, bt, kv_addr, packed) is None:
             return (f"the split route needs (Dh, bt) in {sorted(SPLIT_SHAPES)}"
-                    f", at most {SPLIT_MAX_QROWS} query rows a kv head, the "
-                    f"shared memory and 16-byte aligned codes; got Dh={Dh}, "
-                    f"bt={bt}, {C * (H // Hkv)} rows")
+                    f", the shared memory and codes aligned to "
+                    f"{split_code_align(Dh, packed)} bytes; got Dh={Dh}, "
+                    f"bt={bt}, {C * (H // Hkv)} query rows a kv head, "
+                    f"codes at {kv_addr}")
         return None
     return f"unknown route {route!r}"
 
@@ -141,7 +181,7 @@ def _lib(route: str):
         if fn.argtypes is None:
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn.argtypes = [P, I, ctypes.c_float, P, P, P, P, P, P, P, I, I,
-                           I, I, I, I, I, I, I, I, L, L, P]
+                           I, I, I, I, I, I, I, I, I, I, L, L, P]
             fn.restype = ctypes.c_int
         return fn
     fn = lib.pda_launch
@@ -260,14 +300,18 @@ def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
                              packed, B, C, H, Hkv, Dh, T, bt, kv_stride,
                              s_stride, stream)
     else:
-        # the kernel reads q in its dtype and scales it in f32 itself
+        # the kernel reads q in its dtype, four values a load, and scales it
+        # in f32 itself
         qc = q.contiguous()
+        if qc.data_ptr() % 16:
+            qc = qc.clone()
         ws = torch.empty(B * Hkv * plan.n_splits * C * (H // Hkv) * (Dh + 2),
                          dtype=torch.float32, device=q.device)
         err = _lib("split")(qc.data_ptr(), out_bf16, 1.0 / math.sqrt(Dh),
                             *cache, ws.data_ptr(), out.data_ptr(), packed,
                             B, C, H, Hkv, Dh, T, bt, plan.tiles_per_split,
-                            plan.n_splits, kv_stride, s_stride, stream)
+                            plan.n_splits, plan.n_groups, plan.group_rows,
+                            kv_stride, s_stride, stream)
     build.check(err, name)
     return out
 

@@ -333,7 +333,8 @@ def test_bsm_candidates_pass_check_plan(shape):
 
 
 @pytest.mark.parametrize("C,G,Dh", [(1, 4, 64), (16, 4, 64), (1, 9, 128),
-                                    (16, 9, 128), (1, 1, 96)])
+                                    (16, 9, 128), (1, 1, 96), (1, 1, 80),
+                                    (16, 1, 96)])
 def test_pda_candidates_pass_check_plan(C, G, Dh):
     B, Hkv, T = 8, 4, 512
     H = Hkv * G
@@ -345,8 +346,8 @@ def test_pda_candidates_pass_check_plan(C, G, Dh):
     for route, bt in cands:
         check_plan("packed_decode_attention", route, None,
                    (B, C, H, Hkv, Dh, T, bt, 0, True))
-        assert (route == "split") == ((Dh, bt) in tdp.SPLIT_SHAPES
-                                      and C * G <= tdp.SPLIT_MAX_QROWS)
+        # every built (Dh, bt) splits, at any C·G (in row groups)
+        assert (route == "split") == ((Dh, bt) in tdp.SPLIT_SHAPES)
 
 
 ILLEGAL = [
@@ -378,10 +379,12 @@ ILLEGAL = [
      (512, 128, 128, 2, 64, 8, True, 0, 1, 0), "steps"),
     ("block_sparse_matmul", "tensor_core", (64, 128, 8, 1),
      (512, 8, 4, 1, 6, 2, True, 0, 1, 0), "bk"),
+    # 144 query rows split in row groups, but not over 8-byte aligned
+    # codes at Dh 128; Dh 96 has no bt 16 build
     ("packed_decode_attention", "split", None,
-     (1, 16, 144, 16, 128, 512, 64, 0, True), "query rows"),
+     (1, 16, 144, 16, 128, 512, 64, 8, True), "query rows"),
     ("packed_decode_attention", "split", None,
-     (8, 1, 32, 8, 96, 512, 64, 0, True), "Dh"),
+     (8, 1, 32, 8, 96, 512, 16, 0, True), "Dh"),
     ("packed_decode_attention", "single", (1, 8),
      (8, 1, 32, 8, 64, 512, 64, 0, True), "no plan"),
 ]

@@ -229,7 +229,7 @@ def test_pda_plan_fills_the_card_at_the_decode_step():
     (1, 32, 8, 64, 256, 64, 0, "split"), (16, 32, 8, 64, 512, 64, 0, "split"),
     (1, 8, 8, 128, 100, 16, 4096, "split"), (4, 16, 2, 128, 64, 32, 0, "split"),
     (2, 4, 4, 64, 1000, 128, 0, "split"),
-    (16, 16, 2, 64, 512, 64, 0, "single"),   # C·G = 128 query rows
+    (16, 16, 2, 64, 512, 64, 0, "split"),    # C·G = 128 rows: 16 row groups
     (1, 8, 2, 32, 100, 64, 0, "single"),     # a Dh the kernel is not built for
     (1, 8, 2, 256, 100, 64, 0, "single"),
     (1, 8, 2, 128, 100, 128, 0, "single"),   # a bt it is not built for
@@ -455,7 +455,8 @@ def test_int8_codes_give_the_packed_bits_on_both_routes(cuda_device):
     codes, within one bf16 step of the plain version."""
     from repro_torch.core.quant import unpack_int4
     dev = cuda_device
-    for C, H in ((1, 8), (16, 16)):      # split, then C·G = 128: single
+    # the rule's split (C·G = 128: in row groups), and the single kernel
+    for C, H, route in ((1, 8, None), (16, 16, None), (16, 16, "single")):
         q, k_p, v_p, k_s, v_s = _attn_case(2, C, 200, H, 2, 64, seed=13)
         lengths = _t((np.array([[30], [120]]) + np.arange(C))
                      .astype(np.int32)).to(dev)
@@ -463,9 +464,9 @@ def test_int8_codes_give_the_packed_bits_on_both_routes(cuda_device):
         k_p, v_p, k_s, v_s = (_t(a).to(dev) for a in (k_p, v_p, k_s, v_s))
         k_q, v_q = (unpack_int4(a, 64, axis=-1) for a in (k_p, v_p))
         y8 = tdp.packed_decode_attention(q, k_q, v_q, k_s, v_s, lengths,
-                                         bt=64, packed=False)
+                                         bt=64, packed=False, route=route)
         y4 = tdp.packed_decode_attention(q, k_p, v_p, k_s, v_s, lengths,
-                                         bt=64)
+                                         bt=64, route=route)
         assert torch.equal(y8, y4)
         ref = tdp.tiled_packed_attention(q, k_q, v_q, k_s, v_s, lengths,
                                          bt=64, packed=False).float()
