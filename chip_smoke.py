@@ -56,6 +56,24 @@ Phases, each fatal on failure:
    tensor-core routes) and the flash kernel (tensor-core route), held
    against the twin path, with its wall time, device busy time and idle
    share;
+4a. sharding — on NCCL at world size 1 (a file store in a temporary
+   directory; no fallback), the (1, 1) ``("data", "model")`` mesh: the
+   train phase's llama3.2-1b step (4 x 2048, 2 micro-batches, frozen MLP
+   masks) for 2 steps through ``TrainRunner``, unplaced and then with
+   parameters, ZeRO moments, masks and batch placed by the sharding rules
+   (losses within 2^-8 and grad norms within 2%, 64 tensor-core flash
+   launches a placed step); the serve phase's compile through a 16-row
+   prefill chunk of 8 slots and 4 decode steps with the int4x2 cache,
+   unplaced and placed by ``cache_specs`` (logits bit for bit); both
+   steps timed (DTensor's host cost); then, in one process, each rank's
+   local kernel call at model axes 2 and 4 — every compiled leaf class of
+   a layer at M = 8 and 128 (``wq``/``wk``/``wv`` column-parallel, ``wo``
+   row-parallel, the MLP's blocks replicated where their pattern does not
+   partition, a crafted partitioning ``wg`` on local schedules), the tied
+   head vocab-sharded, the packed reads (C = 1, 16) and the training
+   flash call with its op's backward on local heads — combined as the
+   collective would and held within one bf16 step of the unsharded call,
+   each kernel call on the route its shape rule names;
 4b. autotune — on the serve phase's compile: ``autotune_model`` at M = 8
    and 512 into a new table under ``chiprun_out/``, every candidate plan
    held against its plain version before it is timed (CUDA events, leaves
@@ -197,7 +215,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch  # noqa: E402,F401  (fails outside a checkout)
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor core / fp32
@@ -1636,6 +1654,377 @@ def serve(dev, report):
     report["pdl_edges"] = pdl_edges(cm, cfg, dev)
     report["compiled_forward"] = compiled_forward(cm, cfg, dev)
     return cm, cfg, counts, tokens
+
+
+# ---------------------------------------------------------------- sharding
+
+# the placed (DTensor) steps at world 1 against the unplaced ones
+SHARD_TRAIN_STEPS = 2
+SHARD_DECODE_STEPS = 4
+# model axes of the shard-local kernel calls, simulated in one process
+SHARD_MODEL_AXES = (2, 4)
+# the rows of the shard-local linear calls: a decode step's 8 slots and a
+# 16-row prefill chunk of them
+SHARD_ROWS = (8, 128)
+
+
+def start_nccl(dev, store_dir):
+    """NCCL at world size 1 from a file store, and the (1, 1) mesh.  A
+    failure is fatal: there is no gloo fallback on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store",
+                            rank=0, world_size=1)
+    require(dist.get_backend() == "nccl",
+            f"the process group started {dist.get_backend()}, not nccl")
+    return make_mesh((1, 1), ("data", "model"), dev.type)
+
+
+def sharding_train(cfg, dev, mesh):
+    """(a) chip_smoke's llama3.2-1b train step (4 x 2048, 2 micro-batches,
+    frozen MLP masks) through ``TrainRunner``, unplaced then placed by the
+    sharding rules on the (1, 1) mesh, from the same state; the placed
+    run's counts are set to 0 just before it and read just after."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.runtime import RunnerConfig, TrainRunner
+    from repro_torch.train.trainer import make_train_step
+
+    params = init_params(cfg, seed=0, device=dev)
+    masks = {"blocks": {"mlp": {}}}
+    for name in ("wg", "wu", "wd"):
+        w = params["blocks"]["mlp"][name]["w"]
+        mt = prune_slices(w)
+        w.mul_(mt.to(w.dtype))
+        masks["blocks"]["mlp"][name] = {"w": mt}
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    opt = adamw_init(params, opt_cfg)
+    toks, labels = token_batch(0, TRAIN["batch"], TRAIN["seq"], cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    rc = RunnerConfig(total_steps=SHARD_TRAIN_STEPS, ckpt_every=0,
+                      log_every=1)
+    out = {}
+    runner = TrainRunner(make_train_step(cfg, opt_cfg, TRAIN["n_micro"],
+                                         masks), lambda i: batch, rc)
+    runner.run(params, opt)
+    out["unplaced"] = runner.metrics_log
+    del runner
+
+    placed, _, _ = sh.shard_params(params, cfg, mesh)
+    popt = sh.shard_opt_state(opt, params, cfg, mesh)
+    pmasks = sh.shard_masks(masks, placed)
+    pbatch = sh.shard_batch(batch, cfg, mesh)
+    runner = TrainRunner(make_train_step(cfg, opt_cfg, TRAIN["n_micro"],
+                                         pmasks), lambda i: pbatch, rc)
+    torch.cuda.synchronize()
+    reset_counts()
+    new_params, _ = runner.run(placed, popt)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out["placed"] = runner.metrics_log
+    for name, m in masks["blocks"]["mlp"].items():
+        w = new_params["blocks"]["mlp"][name]["w"].to_local()
+        require(bool((w[~m["w"]] == 0).all()),
+                f"sharding: pruned {name} weights are not exactly zero")
+    for a, b in zip(out["unplaced"], out["placed"]):
+        for k, tol in TRAIN_TWIN_TOL.items():
+            rel = abs(a[k] - b[k]) / abs(a[k])
+            require(math.isfinite(b[k]) and rel <= tol,
+                    f"sharding: placed train step {k} {b[k]} vs unplaced "
+                    f"{a[k]}: rel err {rel} > {tol}")
+    want = cfg.n_layers * 2 * TRAIN["n_micro"]
+    require(counts[FLASH_TC] == want * SHARD_TRAIN_STEPS
+            and counts[FLASH_CC] == 0,
+            f"sharding: {counts[FLASH_TC]} tensor-core and {counts[FLASH_CC]}"
+            f" CUDA-core flash launches in {SHARD_TRAIN_STEPS} placed steps, "
+            f"expected {want} a step on the tensor cores")
+    return {
+        "losses": {k: [m["loss"] for m in v] for k, v in out.items()},
+        "grad_norms": {k: [m["grad_norm"] for m in v]
+                       for k, v in out.items()},
+        "step_ms": {k: [m["step_s"] * 1e3 for m in v]
+                    for k, v in out.items()},
+        "flash_tc_launches_per_step": counts[FLASH_TC] / SHARD_TRAIN_STEPS,
+        "tol": TRAIN_TWIN_TOL}
+
+
+def sharding_decode(cm, cfg, dev, mesh):
+    """(b) a 16-row prefill chunk of 8 slots, then decode steps, with the
+    int4x2 cache: unplaced, and placed (parameters by the compiled rules,
+    the cache by ``cache_specs``); the logits must be equal bit for bit.
+    Then both steps timed eagerly (wall, synchronised)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as tm
+
+    prompts = serve_prompts(cfg)
+    chunk = torch.from_numpy(np.stack([p[:16] for p in prompts[:8]])).to(dev)
+    placed, specs, _ = sh.shard_params(cm.params, cfg, mesh, cm.patterns)
+
+    def run(p, place):
+        cache = tm.init_cache(cfg, 8, 256, "int4x2", device=dev)
+        if place:
+            cache = sh.shard_cache(cache, cfg, mesh, "int4x2")
+        put = (lambda t: sh.shard_batch({"tokens": t}, cfg, mesh)["tokens"]) \
+            if place else (lambda t: t)
+        logits, cache = tm.prefill_step(p, cfg, cache, put(chunk),
+                                        patterns=cm.patterns)
+        out = [logits]
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        for _ in range(SHARD_DECODE_STEPS):
+            tok = nxt.full_tensor() if place else nxt
+            logits, cache = tm.decode_step(p, cfg, cache, put(tok),
+                                           patterns=cm.patterns)
+            out.append(logits)
+            nxt = logits.argmax(-1).to(torch.int32)
+        step = lambda: tm.decode_step(p, cfg, cache, put(tok),   # noqa: E731
+                                      patterns=cm.patterns)
+        return [o.full_tensor() if place else o for o in out], step
+
+    ref, step_u = run(cm.params, False)
+    got, step_p = run(placed, True)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        require(torch.equal(a, b),
+                f"sharding: placed step {i} logits differ from the unplaced "
+                f"step's by {float((a.float() - b.float()).abs().max())}")
+    ms = {}
+    for name, fn in (("unplaced", step_u), ("placed", step_p),
+                     ("placed_again", step_p), ("unplaced_again", step_u)):
+        ms[name] = host_ms(fn, iters=10)
+    return {"steps": len(ref), "bitwise": True, "decode_step_ms": ms}
+
+
+def local_linear_calls(fam, leaf, specs, x, pattern, n):
+    """Each of ``n`` model ranks' local call of one compiled linear (a
+    layer's leaves ``leaf``, their sharding specs ``specs``) on the card,
+    combined as the collective would (columns concatenated; row- and
+    pattern-parallel partial sums added in rank order in f32); returns
+    (combined, mode, [route of each call])."""
+    from repro_torch.core import sharded
+    from repro_torch.core.dispatch import linear_dispatch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.sparse_matmul import kernel as sk
+
+    m1 = ((n,), ("model",))
+    key = fam.key_leaf
+    pl = {k: sh.placements(specs[k], m1)[0] for k in leaf}
+    mode = sharded.linear_mode(fam, pl[key], leaf[key].ndim, n)
+    lay = sharded.linear_layout(fam, {k: t.ndim for k, t in leaf.items()},
+                                mode, x.ndim)
+    outs, routes = [], []
+    for r in range(n):
+        loc = {k: sharded.local_shard(t, [lay[k]], (n,), (r,)).contiguous()
+               for k, t in leaf.items()}
+        xl = sharded.local_shard(x, [lay["x"]], (n,), (r,)).contiguous()
+        pat = sharded.local_pattern(pattern, n, r) if mode == "pattern" \
+            else pattern
+        ops = ("sparse", xl, loc[key], loc.get("w_s"), "int4x2", pat) \
+            if fam.name == "sparse_packed" else \
+            ("quant", xl, loc[key], loc.get("w_s"), "int4x2")
+        route, _ = family_route(ops, int(xl.shape[0]), xl)
+        mod = sk if ops[0] == "sparse" else qk
+        outs.append(took_route(
+            mod, {"thin_m": "launches_thin", "tensor_core": "launches_tc",
+                  "tiled": "launches_tiled"}, route,
+            lambda: linear_dispatch(loc, xl, pattern=pat)))
+        routes.append(route)
+    if mode == "column":
+        y = torch.cat(outs, dim=-1)
+    elif mode == "replicated":
+        require(all(torch.equal(o, outs[0]) for o in outs),
+                f"{fam.name}: replicated ranks' outputs differ")
+        y = outs[0]
+    else:
+        y = sum(o.float() for o in outs).to(outs[0].dtype)
+    return y, mode, routes
+
+
+def crafted_mlp_leaf(cfg, dev, rng):
+    """An int4x2 block-sparse ``wg`` leaf at llama's full width whose
+    pattern (alternate 128 x 128 blocks of each block-row, half the blocks)
+    partitions by block-rows 2 and 4 ways: the pattern-parallel rule's local
+    schedules on the card."""
+    from repro_torch.core.quant import pack_codes
+    from repro_torch.core.sparsity import pattern_from_bitmap
+
+    K, N, b = cfg.d_model, cfg.d_ff, 128
+    bitmap = np.add.outer(np.arange(K // b), np.arange(N // b)) % 2 == 0
+    pat = pattern_from_bitmap((K, N), (b, b), bitmap)
+    P = pat.n_blocks_present
+    codes = torch.randint(-7, 8, (P, b, b), device=dev).to(torch.int8)
+    leaf = {"w_blkp": pack_codes(codes, axis=1, bits=4),
+            "w_s": torch.rand((N,), device=dev) / 112}
+    return leaf, pat
+
+
+def sharding_kernels(cm, cfg, dev):
+    """(c) the shard-local kernel calls at model axes 2 and 4, simulated in
+    one process: every compiled leaf class of layer 0 (``wq``/``wk``/``wv``
+    column-parallel, ``wo`` row-parallel, the MLP's blocks local where the
+    pattern partitions and replicated where it does not, and a crafted
+    partitioning ``wg`` besides) at a decode step's and a prefill chunk's
+    rows, the tied head vocab-sharded, and the packed attention reads
+    (decode and 16-row chunk) and the training flash forward and its op's
+    backward on each rank's local heads; each combined output within one
+    bf16 step of max|ref| of the unsharded call, each kernel call on the
+    route its shape rule names."""
+    from repro_torch.core import payload_registry
+    from repro_torch.core.dispatch import linear_dispatch
+    from repro_torch.kernels.flash_attention import decode_packed as dp
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import sharding as sh
+
+    rng = np.random.default_rng(0)
+    out = {}
+    shape_of = {r.name: r.shape for r in cm.report}
+    crafted, crafted_pat = crafted_mlp_leaf(cfg, dev, rng)
+    for n in SHARD_MODEL_AXES:
+        mesh = ((1, n), ("data", "model"))
+        specs = sh.sanitize_specs(sh.param_specs(cm.params, cfg, mesh,
+                                                 patterns=cm.patterns),
+                                  cm.params, mesh)
+        row = {"sparse_leaves_sharded": sum(
+            1 for path, s in tree_items(specs)
+            if path[-1] == "w_blkp" and "model" in s),
+            "sparse_leaves": sum(1 for path, _ in tree_items(specs)
+                                 if path[-1] == "w_blkp"),
+            "leaves": {}}
+        cases = [(path, leaf,
+                  {k: s[1:] for k, s in tree_get(
+                      specs, path.split("/")).items()},
+                  cm.patterns.get(shape_of[path]))
+                 for path, leaf in compiled_leaves(cm) if path != "head"]
+        cases.append(("crafted/wg", crafted,
+                      {"w_blkp": ("model", None, None), "w_s": (None,)},
+                      crafted_pat))
+        for path, leaf, lspecs, pat in cases:
+            fam = payload_registry.family_for_leaves(leaf)
+            K = int(shape_of.get(path, crafted_pat.shape)[0])
+            for M in SHARD_ROWS:
+                x = (torch.randn((M, K), device=dev) / 8).to(torch.bfloat16)
+                ref = linear_dispatch(leaf, x, pattern=pat)
+                y, mode, routes = local_linear_calls(fam, leaf, lspecs, x,
+                                                     pat, n)
+                err = float((y.float() - ref.float()).abs().max())
+                tol = tol_for(torch.bfloat16, ref.float())
+                require(err <= tol,
+                        f"sharding: {path} at model {n}, M {M} ({mode}): "
+                        f"{err} > one bf16 step {tol}")
+                row["leaves"][f"{path}@{M}"] = {"mode": mode,
+                                                "routes": routes, "err": err}
+        # the tied head, vocab-sharded: h @ W_r.T per rank, concatenated
+        w = cm.params["embed"]["w"]
+        h = (torch.randn((8, cfg.d_model), device=dev) / 8).to(w.dtype)
+        ref = h @ w.T
+        y = torch.cat([h @ t.T for t in w.chunk(n, dim=0)], dim=-1)
+        require(float((y.float() - ref.float()).abs().max())
+                <= tol_for(torch.bfloat16, ref.float()),
+                f"sharding: head at model {n}")
+        row["head"] = {"mode": "column (vocab)", "route": "torch.matmul",
+                       "err": float((y.float() - ref.float()).abs().max())}
+        row["attention"] = sharding_attention(cfg, dev, n, dp)
+        row["flash"] = sharding_flash(cfg, dev, n, fk, flash_attention)
+        out[f"model_{n}"] = row
+    return out
+
+
+def sharding_attention(cfg, dev, n, dp):
+    """The packed reads of a decode step (C = 1) and a 16-row prefill chunk
+    of 8 slots over a 512-row int4x2 cache, each rank on its H / n q heads
+    and Hkv / n kv heads, concatenated against the all-heads read."""
+    H, Hkv, Dh, B, T, bt = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8,
+                            512, 64)
+    k_p, v_p, k_s, v_s, _, _ = random_cache(B, T, Hkv, Dh, dev)
+    res = {}
+    for C in (1, 16):
+        q = (torch.randn((B, C, H, Dh), device=dev) / 4).to(torch.bfloat16)
+        lens = torch.randint(1, T - C, (B, 1), device=dev, dtype=torch.int32) \
+            + torch.arange(1, C + 1, device=dev, dtype=torch.int32)[None]
+        ref = dp.packed_decode_attention(q, k_p, v_p, k_s, v_s, lens, bt=bt)
+        outs, routes = [], []
+        h, g = H // n, Hkv // n
+        for r in range(n):
+            args = [t[:, :, r * g:(r + 1) * g].contiguous()
+                    for t in (k_p, v_p, k_s, v_s)]
+            ql = q[:, :, r * h:(r + 1) * h].contiguous()
+            plan = dp.pda_plan(B, C, h, g, Dh, T, bt)
+            route = "split" if plan is not None else "single"
+            outs.append(took_route(
+                dp, {"split": "launches_split", "single": "launches_single"},
+                route, lambda: dp.packed_decode_attention(ql, *args, lens,
+                                                          bt=bt)))
+            routes.append(route)
+        y = torch.cat(outs, dim=2)
+        err = float((y.float() - ref.float()).abs().max())
+        require(err <= tol_for(torch.bfloat16, ref.float()),
+                f"sharding: packed read C={C} at model {n}: {err}")
+        res[f"C{C}"] = {"routes": routes, "err": err}
+    return res
+
+
+def sharding_flash(cfg, dev, n, fk, flash_attention):
+    """The training flash call (one micro-batch: 2 x 2048, causal) on each
+    rank's H / n q heads and Hkv / n kv heads, forward and the op's
+    backward, concatenated against the all-heads call."""
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, T = TRAIN["batch"] // TRAIN["n_micro"], TRAIN["seq"]
+    q, k, v = ((torch.randn((B, T, h_, Dh), device=dev) / 2).to(torch.bfloat16)
+               for h_ in (H, Hkv, Hkv))
+    g = (torch.randn((B, T, H, Dh), device=dev) / 2).to(torch.bfloat16)
+
+    def fwd_bwd(q_, k_, v_, g_):
+        q_, k_, v_ = (t.detach().requires_grad_() for t in (q_, k_, v_))
+        o = flash_attention(q_, k_, v_, True)
+        dq, dk, dv = torch.autograd.grad(o, (q_, k_, v_), g_)
+        return o.detach(), dq, dk, dv
+
+    ref = fwd_bwd(q, k, v, g)
+    parts, routes = [], []
+    h, kv = H // n, Hkv // n
+    for r in range(n):
+        sl = lambda t, w: t[:, :, r * w:(r + 1) * w].contiguous()  # noqa
+        args = (sl(q, h), sl(k, kv), sl(v, kv), sl(g, h))
+        route = fk.flash_route(*args[:3])
+        parts.append(took_route(fk, {"tensor_core": "launches_tc",
+                                     "cuda_core": "launches_cc"}, route,
+                                lambda: fwd_bwd(*args)))
+        routes.append(route)
+    errs = {}
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        y = torch.cat([p[i] for p in parts], dim=2)
+        errs[name] = float((y.float() - ref[i].float()).abs().max())
+        require(errs[name] <= tol_for(torch.bfloat16, ref[i].float()),
+                f"sharding: flash {name} at model {n}: {errs[name]}")
+    return {"routes": routes, "err": errs}
+
+
+def sharding(cm, cfg, dev, report):
+    """The sharding phase: (a) the placed train step and (b) the placed
+    compiled decode step on NCCL at world 1, (c) the shard-local kernel
+    calls at model axes 2 and 4, (d) DTensor's host cost in the step
+    times."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        mesh = start_nccl(dev, store)
+        try:
+            res = {"train": sharding_train(cfg, dev, mesh),
+                   "decode": sharding_decode(cm, cfg, dev, mesh)}
+        finally:
+            dist.destroy_process_group()
+    res["kernels"] = sharding_kernels(cm, cfg, dev)
+    res["seconds"] = time.perf_counter() - t0
+    report["sharding"] = res
+    return res
 
 
 # ---------------------------------------------------------------- autotune
@@ -4856,6 +5245,12 @@ def main() -> int:
               flush=True)
         print(f"compiled forward: {json.dumps(report['compiled_forward'])}",
               flush=True)
+        sh = sharding(cm, cfg, dev, report)
+        print(f"sharding ({sh['seconds']:.1f} s) on {report['card']}: "
+              + json.dumps({k: sh[k] for k in ("train", "decode")}),
+              flush=True)
+        print("sharding shard-local kernels (model axes 2 and 4): "
+              + json.dumps(sh["kernels"]), flush=True)
         tune = autotune(cm, cfg, dev, report, tokens)
         print("autotune (rule plan / tuned plan, us; NVIDIA card above): "
               + json.dumps({k: {f: r[f] for f in ("rule", "tuned",

@@ -81,7 +81,7 @@ from ..kernels.sparse_matmul.kernel import (
     valid_out_hw,
 )
 from ..kernels.sparse_matmul.ops import sparse_linear
-from . import payload_registry
+from . import payload_registry, sharded
 from .sparsity import BlockSparsePattern
 
 __all__ = [
@@ -277,6 +277,10 @@ def linear_dispatch(
     fuse into the kernels' epilogue.  ``leaf`` names the layer in errors
     and in per-leaf tuned lookups; ``op`` ("linear" | "conv") tags the
     tuned key, so an im2col'd conv never shares a linear's entries.
+
+    Placed (DTensor) leaves and input run the same call on each rank's
+    local shards, column-parallel, row-parallel or replicated by the key
+    leaf's placement (:func:`repro_torch.core.sharded.linear`).
     """
     _check_activation(activation)
     if op not in ("linear", "conv"):
@@ -284,12 +288,21 @@ def linear_dispatch(
     cfg = resolve(dispatch)
     if compute_dtype is None:
         compute_dtype = x.dtype
+    tag = "conv_" if op == "conv" else ""
+    if sharded.any_dtensor(x, *p.values()):
+        fam = payload_registry.family_for_leaves(p)
+        if fam is None or fam.apply is None:
+            raise ValueError(f"unknown linear leaves {list(p)}")
+        return sharded.linear(fam, p, x, pattern=pattern, cfg=cfg,
+                              activation=activation,
+                              compute_dtype=compute_dtype, leaf=leaf,
+                              tag=tag, validate=payload_registry.validate_leaves)
     fam = payload_registry.validate_leaves(p, pattern)
     if fam is None or fam.apply is None:
         raise ValueError(f"unknown linear leaves {list(p)}")
     return fam.apply(p, x, pattern=pattern, cfg=cfg, bias=p.get("b"),
                      activation=activation, compute_dtype=compute_dtype,
-                     leaf=leaf, tag="conv_" if op == "conv" else "")
+                     leaf=leaf, tag=tag)
 
 
 def payload_dispatch(
@@ -346,8 +359,15 @@ def attn_packed_dispatch(
     (``packed_decode_attention``); ``twin`` takes
     :func:`tiled_packed_attention`.  ``bt`` comes from the caller, else
     the tuned ``attn_packed`` entry, else :data:`ATTN_BT_DEFAULT` (the
-    serving engine pins it for the cache's lifetime)."""
+    serving engine pins it for the cache's lifetime).  On a placed cache
+    (DTensors) the read runs on each rank's slots and kv heads
+    (:func:`repro_torch.core.sharded.attn_packed`)."""
     cfg = resolve(dispatch)
+    if sharded.any_dtensor(q, k_c, v_c, k_s, v_s, lengths):
+        return sharded.attn_packed(
+            q, k_c, v_c, k_s, v_s, lengths,
+            run=lambda *a: attn_packed_dispatch(
+                *a, packed=packed, dispatch=cfg, bt=bt, leaf=leaf))
     name = leaf or "attn.kv"
     if bt is None:
         B, _, H, Dh = q.shape
@@ -383,15 +403,30 @@ def attn_full_dispatch(
     takes the ``flash_attention`` op under ``auto`` and ``kernel`` (a shape
     the kernel cannot take raises); ``twin``, and ``auto`` on the CPU, take
     :func:`repro_torch.models.layers.chunked_attention`, which is also what
-    the op's backward recomputes."""
+    the op's backward recomputes.  Placed (DTensor) q, k, v run on each
+    rank's local heads, or its local query rows when q is
+    sequence-sharded (:func:`repro_torch.core.sharded.attn_full`)."""
     # imported here: models.layers imports this module
     from ..kernels.flash_attention.ops import flash_attention
     from ..models.layers import chunked_attention
 
     cfg = resolve(dispatch)
-    if use_kernel(cfg, q, leaf or "attn.full") and q.is_cuda:
-        return flash_attention(q, k, v, causal)
-    return chunked_attention(q, k, v, causal=causal)
+    name = leaf or "attn.full"
+
+    def run(q, k, v, q_offset=0):
+        if use_kernel(cfg, q, name) and q.is_cuda:
+            if q_offset:
+                raise NotImplementedError(
+                    f"{name}: the flash kernel aligns causal positions at 0 "
+                    f"and takes no query offset ({q_offset}): "
+                    "sequence-sharded attention over more than one rank "
+                    "does not run on the card yet")
+            return flash_attention(q, k, v, causal)
+        return chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+    if sharded.any_dtensor(q, k, v):
+        return sharded.attn_full(q, k, v, causal=causal, run=run)
+    return run(q, k, v)
 
 
 # ------------------------------------------------ family-specific pieces

@@ -190,6 +190,8 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_ndim={"w_ablk": 3, "w_atau": 0},
     # stored verbatim: a checkpoint refuses to widen the block container
     container_leaves=("w_ablk",),
+    shard_tails={"w_ablk": "pattern", "w_atau": "replicate"},
+    legacy_tp=("model", None, None),
     sample=_sample,
     validate=_validate_blocks("actsparse", "w_ablk"),
 ))

@@ -181,6 +181,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_ndim={"w_bfp": 2, "w_bfpe": 1},
     # int8 mantissas: stored verbatim, never widened by the checkpointer
     container_leaves=("w_bfp",),
+    shard_tails={"w_bfp": "replicate", "w_bfpe": "replicate"},
     sample=_sample,
     validate=_validate,
     init_modes={"bfp8": _init_bfp8},

@@ -170,6 +170,7 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_ndim={"w_pc": 2, "w_pcs": 1},
     # int8 codes: stored verbatim, never widened by the checkpointer
     container_leaves=("w_pc",),
+    shard_tails={"w_pc": "replicate", "w_pcs": "replicate"},
     sample=_sample,
     validate=_validate,
     init_modes={"perchannel_int8": _init_perchannel_int8},

@@ -390,6 +390,8 @@ PACKED_FAMILY = _reg.register(_reg.PayloadFamily(
     tune_prepare=_tune_prepare,
     leaf_ndim={"w_blkp": 3, "w_s": 1},
     container_leaves=("w_blkp",),
+    shard_tails={"w_blkp": "pattern"},
+    legacy_tp=("model", None, None),
     sample=_sample_packed,
     validate=_validate_blocks("sparse_packed", "w_blkp"),
 ))
@@ -429,6 +431,8 @@ FAMILY = _reg.register(_reg.PayloadFamily(
     leaf_ndim={"w_blk": 3, "w_s": 1},
     # float blocks on the unquantised path, int8 codes with w_s scales
     leaf_dtype_kinds={"w_blk": "fi"},
+    shard_tails={"w_blk": "pattern"},
+    legacy_tp=("model", None, None),
     sample=_sample,
     validate=_validate_blocks("sparse", "w_blk"),
     init_modes={"sparse": _init_sparse, "sparse_int8": _init_sparse_int8},

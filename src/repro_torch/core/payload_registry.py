@@ -38,6 +38,7 @@ __all__ = [
     "register",
     "register_policy",
     "representative_leaves",
+    "shard_info",
     "tunable_kinds",
     "unwrap_payload",
     "validate_leaves",
@@ -70,6 +71,12 @@ class PayloadFamily:
       prefixed with the family name.
     * ``container_leaves`` — leaf names whose buffers are bit-exact storage
       containers, which the checkpointer must never widen.
+    * ``shard_tails`` — leaf name -> "pattern" (pattern-aware tensor
+      parallelism over the packed block axis) or "replicate"; leaves not
+      listed follow the path-based rules of
+      :mod:`repro_torch.launch.sharding`.  ``legacy_tp`` — the blind
+      trailing spec applied to ``key_leaf`` when no pattern side-table is
+      given.
     * ``kind`` — the datapath family of the reference's tune keys
       ("sparse" / "quant"; None: not tuned); ``container`` — the storage
       container tag ("int4x2", "int2x4"; None: unpacked); ``code_leaf`` —
@@ -109,6 +116,8 @@ class PayloadFamily:
     leaf_dtype_kinds: Mapping[str, str] = dataclasses.field(
         default_factory=dict)
     container_leaves: Tuple[str, ...] = ()
+    shard_tails: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    legacy_tp: Optional[Tuple] = None
     tune_prepare: Optional[Callable] = None
     tune_candidates: Optional[Callable] = None
     tune_runner: Optional[Callable] = None
@@ -343,6 +352,17 @@ def container_leaf_names() -> Tuple[str, ...]:
     """Leaf names whose buffers are bit-exact storage containers (the
     checkpointer must never widen them)."""
     return tuple(n for fam in all_families() for n in fam.container_leaves)
+
+
+def shard_info(leaf_name: str) -> Tuple[Optional[str], bool]:
+    """(shard mode, packed) for a leaf name: mode is "pattern" /
+    "replicate" / None (= follow the path-based rules); packed marks a
+    bit-packed container whose block axis holds nibble pairs."""
+    for fam in all_families():
+        mode = fam.shard_tails.get(leaf_name)
+        if mode is not None:
+            return mode, fam.container is not None
+    return None, False
 
 
 def pattern_leaf(p: Mapping[str, Any]) -> bool:

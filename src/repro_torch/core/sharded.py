@@ -1,0 +1,628 @@
+"""The DTensor legs of the dispatch: compiled linears, attention reads, the
+vocab-sharded embedding, head and loss on each rank's local shards.
+
+A parameter placed by :mod:`repro_torch.launch.sharding` is a ``DTensor``
+on a ``DeviceMesh`` whose axes carry the reference's names (``pod`` /
+``data`` / ``model``).  Every function here runs the same kernel (on the
+CPU its plain version) that the unsharded call runs, through
+``torch.distributed.tensor.experimental.local_map`` on the local shards,
+and says with its output placements what the collective has to do:
+
+* **column-parallel** (a key leaf sharded on its last axis over ``model``):
+  x replicated over ``model`` gives a ``Shard(-1)`` output;
+* **row-parallel** (``wo`` / ``wd`` / ``wout``: the key leaf sharded on its
+  K axis; and the block axis of a pattern-sharded ``w_blk`` / ``w_blkp``,
+  whose rank-local schedule :func:`local_pattern` cuts): x's local K slice
+  gives a ``Partial`` output, all-reduced; the bias and the activation are
+  applied once, after the reduction, never in each rank's epilogue;
+* **replicated** (no ``model`` sharding, or a ``model`` axis of one rank):
+  the whole call on every rank, epilogue fused as in the unsharded call.
+
+Data-parallel axes carry the batch; a weight sharded over them (FSDP) is
+gathered first, and its gradient comes back as ``Partial`` over them (the
+redistribution's backward reduce-scatters it).  Each local function
+declares the placements of its inputs' gradients (``in_grad_placements``):
+a replicated input whose local use sees only part of the output
+(x of a column-parallel call, a gathered kv head) gets a ``Partial``
+gradient.
+"""
+from __future__ import annotations
+
+import weakref
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+__all__ = ["any_dtensor", "attn_full", "attn_packed", "cross_entropy",
+           "embed", "is_dtensor", "linear", "linear_layout", "linear_mode",
+           "local_apply",
+           "local_pattern",
+           "local_shard", "merge_heads", "model_coord", "place",
+           "schedule_shardable", "split_heads", "tied_head", "unshard_dim",
+           "upcast"]
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def any_dtensor(*ts) -> bool:
+    return any(is_dtensor(t) for t in ts)
+
+
+def _pl():
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return Partial, Replicate, Shard
+
+
+def _model_dim(mesh) -> Optional[int]:
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def model_coord(mesh) -> Tuple[int, int]:
+    """(ranks along ``model``, this rank's coordinate there); (1, 0)
+    without a ``model`` axis."""
+    md = _model_dim(mesh)
+    if md is None:
+        return 1, 0
+    return int(mesh.size(md)), int(mesh.get_local_rank(md))
+
+
+def _set(placements, i: Optional[int], p) -> list:
+    out = list(placements)
+    if i is not None:
+        out[i] = p
+    return out
+
+
+def _to(t, placements):
+    placements = list(placements)
+    if list(t.placements) == placements:
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _norm_dim(p, ndim: int):
+    _, _, Shard = _pl()
+    if isinstance(p, Shard) and p.dim < 0:
+        return Shard(p.dim + ndim)
+    return p
+
+
+# ------------------------------------------------------------- placement
+
+
+def local_shard(t: torch.Tensor, placements, mesh_shape: Sequence[int],
+                coords: Sequence[int]) -> torch.Tensor:
+    """The even shard of the full tensor ``t`` that the rank at ``coords``
+    holds under ``placements`` (a view): each ``Shard(d)`` mesh dim, in mesh
+    order, cuts its tensor dim into ``mesh_shape[i]`` equal pieces."""
+    _, _, Shard = _pl()
+    for p, n, c in zip(placements, mesh_shape, coords):
+        if isinstance(p, Shard) and n > 1:
+            d = p.dim % t.ndim
+            if t.shape[d] % n:
+                raise ValueError(
+                    f"dim {d} of {tuple(t.shape)} does not split {n} ways")
+            step = t.shape[d] // n
+            t = t.narrow(d, c * step, step)
+    return t
+
+
+def place(t: torch.Tensor, mesh, placements):
+    """``t`` (the same full tensor on every rank, as one seed draws it) as a
+    DTensor on ``mesh``: each rank keeps its own shard, with no
+    communication."""
+    from torch.distributed.tensor import DTensor
+
+    coords = [int(mesh.get_local_rank(i)) for i in range(mesh.ndim)]
+    loc = local_shard(t, placements, tuple(mesh.shape), coords).contiguous()
+    return DTensor.from_local(loc, mesh, list(placements), run_check=False,
+                              shape=t.shape, stride=t.contiguous().stride())
+
+
+def local_apply(fn: Callable, out_placements, *args,
+                in_grad_placements=None):
+    """``fn`` on the local shards of ``args`` (DTensors pass their local
+    tensor, anything else passes as is), its outputs wrapped with
+    ``out_placements`` — ``local_map`` with the mesh of the first DTensor
+    argument.  ``in_grad_placements`` (one entry an argument, None: the
+    argument's own placements) are the placements of the gradients that
+    ``fn``'s backward gives the local inputs."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    if in_grad_placements is not None:
+        # a DTensor input given no gradient placements keeps its own
+        in_grad_placements = tuple(
+            list(a.placements) if g is None and is_dtensor(a) else g
+            for a, g in zip(args, in_grad_placements))
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=None,
+                     in_grad_placements=in_grad_placements,
+                     device_mesh=mesh)(*args)
+
+
+def _grad_for_weight(w_placements, x_placements, md) -> list:
+    """A weight's gradient placements: ``Partial`` on every non-``model``
+    mesh dim where x is sharded (each rank saw part of the batch), else
+    the weight's own."""
+    Partial, _, Shard = _pl()
+    return [p if i == md else (Partial() if isinstance(x_placements[i], Shard)
+                               else p)
+            for i, p in enumerate(w_placements)]
+
+
+def _unshard_data(t):
+    """Gather a DTensor over every mesh dim but ``model`` (FSDP)."""
+    _, Replicate, _ = _pl()
+    md = _model_dim(t.device_mesh)
+    return _to(t, [p if i == md else Replicate()
+                   for i, p in enumerate(t.placements)])
+
+
+def unshard_dim(t, d: int):
+    """Gather a DTensor over every mesh dim that shards its tensor dim
+    ``d``."""
+    _, Replicate, Shard = _pl()
+    want = [Replicate() if isinstance(p, Shard) and p.dim % t.ndim == d % t.ndim
+            else p for p in t.placements]
+    return _to(t, want)
+
+
+class _Upcast(torch.autograd.Function):
+    """``p.to(dtype)`` whose gradient is reduced to ``p``'s placements in
+    ``dtype`` before it is cast back to ``p``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        ctx.placements, ctx.dtype = list(p.placements), p.dtype
+        return p.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to(g, ctx.placements).to(ctx.dtype), None
+
+
+def upcast(p, dtype):
+    """A placed parameter (a bf16 norm gain) cast to the compute dtype, its
+    gradient summed over the ranks in that dtype (f32) and only then
+    rounded to the parameter's: the one-process rounding, where casting
+    each rank's partial sum first would round every part."""
+    if p.dtype == dtype:
+        return p
+    return _Upcast.apply(p, dtype)
+
+
+# ------------------------------------------------- pattern-sharded blocks
+
+def schedule_shardable(pattern, n_shards: int) -> bool:
+    """Can this shared static schedule be row-parallel partitioned n ways?
+
+    The packed ``w_blk`` axis is ordered row-major (block-rows, then
+    block-columns, from the bitmap), so splitting it into ``n_shards``
+    equal contiguous chunks is a valid tensor-parallel partition exactly
+    when every chunk covers a whole group of block-rows: each shard owns
+    K / n input rows and its own sub-schedule, and the partial outputs are
+    summed (the row-parallel contract of ``wo`` / ``wd``).  That holds iff
+    the block-row count divides and each contiguous row group holds an
+    equal share of the present blocks.  Anything else would split a block
+    between shards or misalign the side-table against the shard-local
+    packed index: those patterns stay replicated.
+    """
+    if n_shards <= 1:
+        return True
+    P = pattern.n_blocks_present
+    nR = pattern.bitmap.shape[0]
+    if P == 0 or P % n_shards or nR % n_shards:
+        return False
+    per_row = pattern.bitmap.sum(axis=1)
+    groups = per_row.reshape(n_shards, nR // n_shards).sum(axis=1)
+    return bool((groups == P // n_shards).all())
+
+
+# pattern -> {(n, r): the rank-local pattern}; dropped with the pattern
+_LOCAL: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def local_pattern(pattern, n: int, r: int):
+    """Rank ``r`` of ``n``'s side-table for a pattern-sharded block leaf:
+    the block-rows ``r·nR/n .. (r+1)·nR/n - 1`` of the bitmap over K / n
+    input rows, whose packed blocks are chunk ``r`` of ``w_blk`` /
+    ``w_blkp`` — what ``schedule_shardable`` guarantees.  Made once per
+    (pattern, n, r)."""
+    from .sparsity import pattern_from_bitmap
+
+    if n == 1:
+        return pattern
+    per = _LOCAL.setdefault(pattern, {})
+    got = per.get((n, r))
+    if got is None:
+        if not schedule_shardable(pattern, n):
+            raise ValueError(
+                f"pattern {pattern.shape} block {pattern.block} does not "
+                f"partition {n} ways by block-rows: its leaf stays "
+                "replicated (schedule_shardable)")
+        nR = pattern.bitmap.shape[0]
+        rows = pattern.bitmap[r * nR // n:(r + 1) * nR // n]
+        K, N = pattern.shape
+        got = per[(n, r)] = pattern_from_bitmap((K // n, N), pattern.block,
+                                                rows)
+    return got
+
+
+# -------------------------------------------------------------- linears
+
+
+def linear_mode(fam, placement, ndim: int, n: int) -> str:
+    """"column" / "row" / "pattern" / "replicated": how a linear runs whose
+    ``ndim``-D key leaf has ``placement`` on a ``model`` axis of ``n``
+    ranks (one rank, or no ``model`` axis: pass ``n`` = 1)."""
+    _, Replicate, Shard = _pl()
+    p = _norm_dim(placement, ndim)
+    if n == 1 or isinstance(p, Replicate):
+        return "replicated"
+    if isinstance(p, Shard):
+        if p.dim == ndim - 1 and not fam.needs_pattern:
+            return "column"
+        if p.dim == 0 and ndim == 2 and not fam.needs_pattern:
+            return "row"
+        if p.dim == 0 and ndim == 3 and fam.needs_pattern:
+            return "pattern"
+    raise ValueError(
+        f"{fam.name} leaf {fam.key_leaf} placed {placement} on a {ndim}-D "
+        "leaf: no tensor-parallel rule runs it (column: last axis; row: K "
+        "axis; pattern: the block axis)")
+
+
+def linear_layout(fam, ndims: Dict[str, int], mode: str,
+                  x_ndim: int) -> Dict[str, Any]:
+    """The ``model``-axis placement of each operand of a linear run in
+    ``mode`` (:func:`linear_mode`): ``"x"``, ``"out"`` and each leaf name of
+    ``ndims`` (leaf name -> its ndim; ``"b"`` the bias).  Column-parallel:
+    the key leaf's last axis and every vector (the (N,) scales and bias) are
+    sharded, x replicated, the output sharded on its last axis.  Row- and
+    pattern-parallel: the key leaf's first axis and x's last are sharded,
+    the rest replicated, the output ``Partial``.  Replicated: all whole."""
+    Partial, Replicate, Shard = _pl()
+    if mode == "replicated":
+        lay = {k: Replicate() for k in ndims}
+        lay.update(x=Replicate(), out=Replicate())
+        return lay
+    if mode == "column":
+        lay = {k: Shard(0) if nd == 1 else Replicate()
+               for k, nd in ndims.items()}
+        lay[fam.key_leaf] = Shard(ndims[fam.key_leaf] - 1)
+        lay.update(x=Replicate(), out=Shard(x_ndim - 1))
+        return lay
+    lay = {k: Replicate() for k in ndims}
+    lay[fam.key_leaf] = Shard(0)
+    lay.update(x=Shard(x_ndim - 1), out=Partial())
+    return lay
+
+
+def linear(fam, p: Dict[str, Any], x, *, pattern, cfg, activation,
+           compute_dtype, leaf: Optional[str], tag: str,
+           validate: Callable):
+    """One compiled linear on DTensors (see the module docstring); ``x``
+    (..., K) sharded over the data axes along its leading dims."""
+    from .dispatch import _epilogue
+
+    Partial, Replicate, _ = _pl()
+    if not is_dtensor(x):
+        raise ValueError(
+            f"{leaf or fam.name}: placed (DTensor) leaves need a DTensor "
+            "input — place the batch with repro_torch.launch.sharding")
+    w = p[fam.key_leaf]
+    if not is_dtensor(w):
+        raise ValueError(f"{leaf or fam.name}: a DTensor input needs placed "
+                         "leaves")
+    mesh = w.device_mesh
+    md = _model_dim(mesh)
+    n, r = model_coord(mesh)
+    mode = linear_mode(fam, w.placements[md] if md is not None else None,
+                       w.ndim, n)
+    names = sorted(k for k in p if k != "b" and p[k] is not None)
+    bias = p.get("b")
+    lay = linear_layout(fam, {k: p[k].ndim for k in p if p[k] is not None},
+                        mode, x.ndim)
+
+    def placed(t, k):
+        t = _unshard_data(t)
+        return _to(t, _set(t.placements, md, lay[k]))
+
+    leaves = {k: placed(p[k], k) if is_dtensor(p[k]) else p[k]
+              for k in names}
+    bias = placed(bias, "b") if is_dtensor(bias) else bias
+    x = _to(x, _set(x.placements, md, lay["x"]))
+    out_pl = _set(x.placements, md, lay["out"])
+    x_grad = _set(x.placements, md, Partial()) if mode == "column" \
+        else list(x.placements)
+    pat = local_pattern(pattern, n, r) if mode == "pattern" else pattern
+    fused = mode in ("column", "replicated")
+
+    def run(x_l, b_l, *leaf_l):
+        pl_ = dict(zip(names, leaf_l))
+        validate(pl_, pat)
+        return fam.apply(pl_, x_l, pattern=pat, cfg=cfg,
+                         bias=b_l if fused else None,
+                         activation=activation if fused else None,
+                         compute_dtype=compute_dtype, leaf=leaf, tag=tag)
+
+    args = [leaves[k] for k in names]
+    b_arg = bias if fused else None
+    grads = [x_grad, _grad_for_weight(b_arg.placements, x.placements, md)
+             if is_dtensor(b_arg) else None]
+    grads += [_grad_for_weight(a.placements, x.placements, md)
+              if is_dtensor(a) else None for a in args]
+    y = local_apply(run, out_pl, x, b_arg, *args,
+                    in_grad_placements=tuple(grads))
+    if fused:
+        return y
+    y = _to(y, _set(y.placements, md, Replicate()))    # the all-reduce
+    if bias is None and activation is None:
+        return y
+    return _epilogue(y, bias, activation, y.dtype)
+
+
+# ------------------------------------------------------ heads and rope
+
+
+def split_heads(t, H: int, Dh: int):
+    """(B, T, H·Dh) -> (B, T, H, Dh) on the local shard: a ``model`` shard
+    of whole heads stays ``Shard(2)``; one that cuts a head is gathered
+    first (GQA's kv at a ``model`` axis past its kv heads)."""
+    _, Replicate, Shard = _pl()
+    md = _model_dim(t.device_mesh)
+    n, _ = model_coord(t.device_mesh)
+    if md is not None and n > 1:
+        p = _norm_dim(t.placements[md], t.ndim)
+        if isinstance(p, Shard) and p.dim == 2 and H % n:
+            t = _to(t, _set(t.placements, md, Replicate()))
+    return local_apply(lambda a: a.reshape(*a.shape[:2], -1, Dh),
+                       list(t.placements), t)
+
+
+def merge_heads(t):
+    """(B, T, H, Dh) -> (B, T, H·Dh) on the local shard."""
+    return local_apply(lambda a: a.reshape(*a.shape[:2], -1),
+                       list(t.placements), t)
+
+
+def rope(x, positions, theta: float, fn: Callable):
+    """``fn(x, positions, theta)`` (the plain RoPE) on the local shards;
+    ``positions`` (B, T) placed like x's leading dims."""
+    return local_apply(lambda a, p: fn(a, p, theta), list(x.placements), x,
+                       positions)
+
+
+# ------------------------------------------------------------ attention
+
+
+def _kv_for_heads(q, k, v):
+    """k, v laid out for q's local heads: local kv heads when the ``model``
+    axis shards both evenly (a q head block stays with its kv heads), else
+    gathered over ``model``; returns (k, v, kv_local) where ``kv_local``
+    False means each rank slices its q heads' kv heads."""
+    _, Replicate, Shard = _pl()
+    md = _model_dim(q.device_mesh)
+    n, _ = model_coord(q.device_mesh)
+    qp = _norm_dim(q.placements[md], 4) if md is not None else Replicate()
+    Hkv = k.shape[2]
+    want = list(q.placements)
+    if isinstance(qp, Shard) and qp.dim == 2 and Hkv % n == 0:
+        return _to(k, want), _to(v, want), True
+    want = _set(want, md, Replicate())
+    return _to(k, want), _to(v, want), False
+
+
+def _q_heads_kv(H: int, Hkv: int, n: int, r: int) -> Tuple[int, int]:
+    """The kv heads [lo, hi) that rank r's q heads read when kv is
+    gathered (q heads h -> kv head h // G, G = H / Hkv)."""
+    G = H // Hkv
+    Hl = H // n
+    if Hl % G and G % Hl:
+        raise ValueError(
+            f"{H} q heads over {Hkv} kv heads do not split {n} ways into "
+            "whole kv groups")
+    lo = r * Hl // G
+    return lo, lo + max(1, Hl // G)
+
+
+def attn_full(q, k, v, *, causal: bool, run: Callable):
+    """Full-sequence attention on DTensors: ``run(q, k, v, q_offset)`` (the
+    flash op on the card, ``chunked_attention`` on the CPU) over the rank's
+    local heads, or — q sequence-sharded over ``model`` (``seq_shard``) —
+    over its local query rows against the gathered k, v."""
+    Partial, Replicate, Shard = _pl()
+    mesh = q.device_mesh
+    md = _model_dim(mesh)
+    n, r = model_coord(mesh)
+    H, Hkv = q.shape[2], k.shape[2]
+    qp = _norm_dim(q.placements[md], 4) if md is not None else Replicate()
+    for i, p in enumerate(q.placements):
+        if i != md and isinstance(p, Shard) and p.dim != 0:
+            raise ValueError(f"attention: q placed {q.placements}: only the "
+                             "batch may shard over the data axes")
+    if n > 1 and isinstance(qp, Shard) and qp.dim == 1:       # seq-sharded
+        want = _set(q.placements, md, Replicate())
+        k, v = _to(k, want), _to(v, want)
+        off = r * (q.shape[1] // n)
+        kv_grad = _set(k.placements, md, Partial())
+        fn = lambda q_, k_, v_: run(q_, k_, v_, off)       # noqa: E731
+    elif n > 1 and isinstance(qp, Shard) and qp.dim == 2:     # head-sharded
+        k, v, kv_local = _kv_for_heads(q, k, v)
+        if kv_local:
+            kv_grad = list(k.placements)
+            fn = lambda q_, k_, v_: run(q_, k_, v_, 0)     # noqa: E731
+        else:
+            lo, hi = _q_heads_kv(H, Hkv, n, r)
+            kv_grad = _set(k.placements, md, Partial())
+            fn = lambda q_, k_, v_: run(                    # noqa: E731
+                q_, k_[:, :, lo:hi], v_[:, :, lo:hi], 0)
+    else:
+        if md is not None:
+            q = _to(q, _set(q.placements, md, Replicate()))
+        k, v = _to(k, list(q.placements)), _to(v, list(q.placements))
+        kv_grad = list(k.placements)
+        fn = lambda q_, k_, v_: run(q_, k_, v_, 0)         # noqa: E731
+    return local_apply(fn, list(q.placements), q, k, v,
+                       in_grad_placements=(list(q.placements), kv_grad,
+                                           kv_grad))
+
+
+def attn_packed(q, k_c, v_c, k_s, v_s, lengths, *, run: Callable):
+    """The quantised cache read on DTensors: ``run`` (the packed attention
+    kernel's dispatch) on the rank's slots and kv heads.  The cache must
+    shard its heads like q (``cache_specs`` at a ``model`` axis dividing
+    the kv heads); a sequence-sharded cache raises."""
+    _, Replicate, Shard = _pl()
+    mesh = q.device_mesh
+    md = _model_dim(mesh)
+    n, _ = model_coord(mesh)
+    for t in (k_c, v_c, k_s, v_s):
+        for p in t.placements:
+            if isinstance(p, Shard) and p.dim % t.ndim == 1:
+                raise ValueError(
+                    "packed attention over a sequence-sharded KV cache needs "
+                    "a partial-softmax combine across ranks, which the port "
+                    "does not have yet")
+    if md is not None and n > 1 and isinstance(
+            _norm_dim(k_c.placements[md], k_c.ndim), Shard):
+        q = _to(q, _set(q.placements, md, Shard(2)))
+    elif md is not None:
+        q = _to(q, _set(q.placements, md, Replicate()))
+    lengths = _to(lengths, _set(lengths.placements, md, Replicate())) \
+        if md is not None else lengths
+    return local_apply(run, list(q.placements), q, k_c, v_c, k_s, v_s,
+                       lengths)
+
+
+# ------------------------------------------ embedding, tied head and loss
+
+
+def embed(w, tokens):
+    """``w[tokens]`` with ``w`` (V, D) vocab-sharded over ``model`` (the
+    ``"embed"`` rule): each rank looks up the tokens of its vocab range,
+    zeros elsewhere, and the ``Partial`` rows are all-reduced."""
+    Partial, Replicate, Shard = _pl()
+    if not is_dtensor(tokens):
+        raise ValueError("a placed embedding needs placed tokens")
+    w = _unshard_data(w)
+    mesh = w.device_mesh
+    md = _model_dim(mesh)
+    n, r = model_coord(mesh)
+    tok_pl = list(tokens.placements)
+    wp = _norm_dim(w.placements[md], 2) if md is not None else Replicate()
+    if n > 1 and isinstance(wp, Shard) and wp.dim == 0:
+        lo = r * (w.shape[0] // n)
+
+        def run(w_l, t_l):
+            t = t_l.to(torch.int64) - lo
+            hit = (t >= 0) & (t < w_l.shape[0])
+            rows = w_l[torch.where(hit, t, torch.zeros_like(t))]
+            return torch.where(hit[..., None], rows,
+                               torch.zeros((), dtype=rows.dtype,
+                                           device=rows.device))
+
+        y = local_apply(run, _set(tok_pl, md, Partial()), w, tokens,
+                        in_grad_placements=(
+                            _grad_for_weight(w.placements, tok_pl, md), None))
+        return _to(y, _set(tok_pl, md, Replicate()))
+    w = _to(w, _set(w.placements, md, Replicate())) if md is not None else w
+    return local_apply(lambda w_l, t_l: w_l[t_l.to(torch.int64)], tok_pl,
+                       w, tokens, in_grad_placements=(
+                           _grad_for_weight(w.placements, tok_pl, md), None))
+
+
+def tied_head(h, w):
+    """``h @ w.T`` for the tied embedding ``w`` (V, D): column-parallel over
+    its vocab shard, the logits ``Shard(-1)`` over ``model``."""
+    Partial, Replicate, Shard = _pl()
+    w = _unshard_data(w)
+    mesh = w.device_mesh
+    md = _model_dim(mesh)
+    n, _ = model_coord(mesh)
+    h = _to(h, _set(h.placements, md, Replicate())) if md is not None else h
+    wp = _norm_dim(w.placements[md], 2) if md is not None else Replicate()
+    if n > 1 and isinstance(wp, Shard) and wp.dim == 0:
+        out_pl = _set(h.placements, md, Shard(h.ndim - 1))
+        h_grad = _set(h.placements, md, Partial())
+    else:
+        if md is not None:
+            w = _to(w, _set(w.placements, md, Replicate()))
+        out_pl, h_grad = list(h.placements), list(h.placements)
+    return local_apply(lambda h_l, w_l: h_l @ w_l.T.to(h_l.dtype), out_pl,
+                       h, w, in_grad_placements=(
+                           h_grad, _grad_for_weight(w.placements,
+                                                    h.placements, md)))
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` over a vocab shard:
+    the max, the sum of exponentials and the picked logit all-reduced
+    over ``group``; the gradient (softmax - one-hot) stays local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        import torch.distributed as dist
+
+        x = logits.to(torch.float32)
+        m = x.amax(dim=-1)
+        if group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        s = e.sum(dim=-1)
+        t = labels.to(torch.int64).clamp_min(0) - lo
+        hit = (t >= 0) & (t < x.shape[-1])
+        picked = torch.where(hit, torch.gather(
+            x, -1, torch.where(hit, t, torch.zeros_like(t))[..., None])[..., 0],
+            torch.zeros((), dtype=x.dtype, device=x.device))
+        if group is not None:
+            dist.all_reduce(s, group=group)
+            dist.all_reduce(picked, group=group)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(x, lse, t, hit)
+        ctx.in_dtype = logits.dtype
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, t, hit = ctx.saved_tensors
+        p = torch.exp(x - lse[..., None])
+        onehot = torch.zeros_like(p).scatter_(
+            -1, torch.where(hit, t, torch.zeros_like(t))[..., None],
+            hit[..., None].to(p.dtype))
+        return ((p - onehot) * g[..., None]).to(ctx.in_dtype), None, None, \
+            None
+
+
+def cross_entropy(logits, labels):
+    """Mean next-token cross-entropy over ``labels >= 0`` from logits
+    (B, T, V) vocab-sharded over ``model`` (the head's ``Shard(-1)``),
+    without gathering the vocab: the loss ``repro_torch.models.model.
+    loss_fn`` computes; ``labels`` placed like the batch."""
+    _, Replicate, Shard = _pl()
+    if not is_dtensor(labels):
+        raise ValueError("placed logits need placed labels (shard_batch)")
+    mesh = logits.device_mesh
+    md = _model_dim(mesh)
+    n, r = model_coord(mesh)
+    lp = _norm_dim(logits.placements[md], 3) if md is not None else Replicate()
+    if not (n > 1 and isinstance(lp, Shard) and lp.dim == 2):
+        if md is not None:
+            logits = _to(logits, _set(logits.placements, md, Replicate()))
+        group, lo = None, 0
+    else:
+        group, lo = mesh.get_group(md), r * (logits.shape[-1] // n)
+    # the per-token loss: the logits' batch placements, no vocab axis
+    tok_pl = _set(logits.placements, md, Replicate())
+    labels = _to(labels, tok_pl)
+    per_tok = local_apply(
+        lambda x_l, y_l: _VocabParallelXent.apply(x_l, y_l, lo, group),
+        tok_pl, logits, labels, in_grad_placements=(
+            list(logits.placements), None))
+    mask = (labels >= 0).to(torch.float32)
+    return (per_tok * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -34,6 +34,21 @@ PLAN_ERRORS = {
 }
 
 
+def refuse_dtensor(name: str, *operands) -> None:
+    """Raise TypeError for a DTensor operand: a kernel takes one rank's
+    local shards, which the dispatch's DTensor legs
+    (:mod:`repro_torch.core.sharded`) hand it through ``local_map``."""
+    from torch.distributed.tensor import DTensor
+
+    for t in operands:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name}: a DTensor reached the kernel wrapper — placed "
+                "tensors run through the dispatch (linear_dispatch, "
+                "attn_packed_dispatch, attn_full_dispatch), which calls the "
+                "kernel on each rank's local shards")
+
+
 def _module(name: str):
     return importlib.import_module(f"{__name__}.{name}")
 

@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import build
+from . import build, refuse_dtensor
 from .sparse_matmul.kernel import (
     X_DTYPES,
     _check_activation,
@@ -233,6 +233,7 @@ def fc_stack_matmul(
     or None; ``activations[i]`` an epilogue activation or None.
     """
     global launches, launches_staged, launches_stream
+    refuse_dtensor(name, x, *weights, *biases)
     dims = _check(x, weights, biases, activations)
     lead = x.shape[:-1]
     xm = x.reshape(-1, dims[0])

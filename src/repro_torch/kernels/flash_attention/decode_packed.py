@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import build
+from .. import build, refuse_dtensor
 from ...core.quant import unpack_int4
 
 __all__ = ["ATTN_BT_CANDIDATES", "PdaPlan", "launches", "launches_single",
@@ -221,6 +221,7 @@ def packed_decode_attention(
     replaces the rule's (:func:`pda_plan`) on CUDA tensors; one the read
     cannot take (:func:`pda_plan_error`) raises."""
     global launches, launches_split, launches_single
+    refuse_dtensor(name, q, k_p, v_p, k_s, v_s, lengths)
     if not q.is_cuda:
         return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt,
                                       packed=packed)

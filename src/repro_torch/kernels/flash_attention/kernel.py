@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .. import build
+from .. import build, refuse_dtensor
 
 __all__ = ["BK", "NEG_INF", "flash_attention_fwd", "flash_attention_plain",
            "flash_route", "launches", "launches_cc", "launches_tc"]
@@ -95,6 +95,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q (B, Tq, H, Dh) over k, v (B, Tk, Hkv, Dh) -> (B, Tq,
     H, Dh) in q's dtype."""
     global launches, launches_tc, launches_cc
+    refuse_dtensor(name, q, k, v)
     _check(q, k, v, name)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal)

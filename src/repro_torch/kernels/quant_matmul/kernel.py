@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import build
+from .. import build, refuse_dtensor
 from ..sparse_matmul.kernel import (
     TC_COLS,
     TC_K_STEP,
@@ -303,6 +303,7 @@ def quant_matmul(
     """
     global launches, launches_thin, launches_tc, launches_tiled, \
         tuned_hits, tuned_misses
+    refuse_dtensor(name, x, w_q, scales, bias)
     ratio = packed_ratio(packed)
     M, K = x.shape
     N = int(w_q.shape[1])
@@ -439,6 +440,7 @@ def quant_conv(
     ``pool=(mode, z)`` pools non-overlapping windows at emit.
     """
     global conv_launches, conv_launches_reg, conv_launches_band
+    refuse_dtensor(name, x, w_q, scales, bias)
     _check_activation(activation)
     strides = (int(strides[0]), int(strides[1]))
     dilation = (int(dilation[0]), int(dilation[1]))

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import build
+from .. import build, refuse_dtensor
 
 __all__ = ["ACTIVATIONS", "BsmPlan", "BsmTcPlan", "ConvPlan", "POOL_MODES",
            "Schedule", "apply_activation", "block_sparse_conv",
@@ -559,6 +559,7 @@ def block_sparse_matmul(
     """
     global launches, launches_thin, launches_tc, launches_tiled, \
         tuned_hits, tuned_misses
+    refuse_dtensor(name, x, blocks, scales, bias)
     ratio = packed_ratio(packed)
     P, bkp, bn = (int(d) for d in blocks.shape)
     bk = bkp * ratio
@@ -978,6 +979,7 @@ def block_sparse_conv(
     present block emits ``act(b)``; a fully empty pattern launches nothing.
     """
     global conv_launches, conv_launches_reg, conv_launches_band
+    refuse_dtensor(name, x, blocks, scales, bias)
     _check_activation(activation)
     strides = (int(strides[0]), int(strides[1]))
     dilation = (int(dilation[0]), int(dilation[1]))

@@ -1,1 +1,2 @@
-"""Launchers of the port (one card)."""
+"""Launchers of the port (training under ``torchrun`` too), its device
+meshes and its sharding rules."""

@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core import payload_registry
+from ..core import payload_registry, sharded
 from ..core.dispatch import (
     ConvPayload,
     attn_full_dispatch,
@@ -34,6 +34,7 @@ from .layers import (
     prefill_attention,
     rmsnorm,
 )
+from .shard_hints import hint
 
 # KV-cache containers of the port (attn_cache_init kv_cache=):
 #   "float"  — (B, T, Hkv, Dh) activations at cfg.param_dtype
@@ -183,6 +184,115 @@ def _extent(arr: torch.Tensor, t_bound: Optional[int]) -> torch.Tensor:
     return arr
 
 
+def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                 n_valid: Optional[torch.Tensor],
+                 t_bound: Optional[int]) -> torch.Tensor:
+    """Insert a step's K/V rows (B, T, Hkv, Dh) at each slot's ``length``,
+    quantise-packing them for the int4 / int4x2 containers, and advance
+    ``length`` by ``n_valid``, all IN PLACE; returns the per-row read
+    extents ``lengths`` (B, T)."""
+    B, T = k.shape[:2]
+    idx = cache["length"]
+    nv = torch.full((B,), T, dtype=torch.int32, device=k.device) \
+        if n_valid is None else n_valid.to(torch.int32)
+    row = torch.arange(T, dtype=torch.int32, device=k.device)
+    # row c attends to idx + c + 1 positions; garbage rows clamp to the
+    # last valid extent (>= 1, so no all-masked softmax row).  A slot whose
+    # length runs past the read extent (an idle slot of the token drip,
+    # which advances every step) reads the whole extent, never past it.
+    T_c = (cache["k"] if "k" in cache else cache["k_s"]).shape[1]
+    ext = T_c if t_bound is None else min(t_bound, T_c)
+    lengths = idx[:, None] + torch.minimum(row + 1, nv[:, None])
+    lengths = torch.clamp(lengths, 1, ext)
+    if "k" in cache:
+        _kv_insert(cache["k"], k, idx)
+        _kv_insert(cache["v"], v, idx)
+    else:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        _kv_insert(cache["k_s"], ks, idx)
+        _kv_insert(cache["v_s"], vs, idx)
+        if "k_p" in cache:   # int4x2: two codes per byte along Dh
+            _kv_insert(cache["k_p"], pack_int4(kq, axis=-1), idx)
+            _kv_insert(cache["v_p"], pack_int4(vq, axis=-1), idx)
+        else:                # int4: int8 container, the same codes
+            _kv_insert(cache["k_q"], kq, idx)
+            _kv_insert(cache["v_q"], vq, idx)
+    idx += nv
+    return lengths
+
+
+def _float_read(cfg: ArchConfig, q: torch.Tensor, cache: Dict,
+                lengths: torch.Tensor, t_bound: Optional[int]) -> torch.Tensor:
+    """The plain float read: the float cache bounded to ``t_bound``, or a
+    quantised container decoded whole to the compute dtype (the
+    reference's "unpack" baseline)."""
+    if "k" in cache:
+        kx, vx = _extent(cache["k"], t_bound), _extent(cache["v"], t_bound)
+    else:
+        packed = "k_p" in cache
+        k_st, v_st = (cache["k_p"], cache["v_p"]) if packed \
+            else (cache["k_q"], cache["v_q"])
+        Dh = q.shape[-1]
+        k_codes = unpack_int4(k_st, Dh, axis=-1) if packed else k_st
+        v_codes = unpack_int4(v_st, Dh, axis=-1) if packed else v_st
+        dt = _dtype(cfg)
+        kx = (k_codes.to(torch.float32) * cache["k_s"][..., None]).to(dt)
+        vx = (v_codes.to(torch.float32) * cache["v_s"][..., None]).to(dt)
+    if q.shape[1] == 1:
+        return decode_attention(q, kx, vx, lengths[:, 0])
+    return prefill_attention(q, kx, vx, lengths)
+
+
+def _cache_attend(cfg: ArchConfig, q, k, v, cache: Dict, n_valid, t_bound,
+                  bt, packed_read, dispatch):
+    """Write the step's K/V into ``cache`` and read it for q.  On DTensors
+    (a cache placed by ``cache_specs``) the write and the float read run on
+    each rank's slots and kv heads (``local_map``); the fused read goes
+    through :func:`attn_packed_dispatch`'s own DTensor leg."""
+    names = sorted(cache)
+    if sharded.is_dtensor(q):
+        if n_valid is not None and not sharded.is_dtensor(n_valid):
+            raise ValueError("a placed cache needs a placed n_valid / active "
+                             "mask")
+        leaves = [cache[n] for n in names]
+
+        def write(k_, v_, nv_, *leaves_):
+            return _cache_write(dict(zip(names, leaves_)), k_, v_, nv_,
+                                t_bound)
+
+        lengths = sharded.local_apply(
+            write, list(cache["length"].placements), k, v, n_valid, *leaves)
+    else:
+        lengths = _cache_write(cache, k, v, n_valid, t_bound)
+    if "k" in cache or packed_read == "unpack":
+        if not sharded.is_dtensor(q):
+            return _float_read(cfg, q, cache, lengths, t_bound)
+        return sharded.local_apply(
+            lambda q_, l_, *leaves_: _float_read(
+                cfg, q_, dict(zip(names, leaves_)), l_, t_bound),
+            list(q.placements), q, lengths, *[cache[n] for n in names])
+    packed = "k_p" in cache
+    k_st, v_st = (cache["k_p"], cache["v_p"]) if packed \
+        else (cache["k_q"], cache["v_q"])
+    return attn_packed_dispatch(
+        q, _extent(k_st, t_bound), _extent(v_st, t_bound),
+        _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
+        lengths, packed=packed, dispatch=dispatch, bt=bt, leaf="attn.kv")
+
+
+def _heads(t: torch.Tensor, H: int, Dh: int) -> torch.Tensor:
+    if sharded.is_dtensor(t):
+        return sharded.split_heads(t, H, Dh)
+    return t.reshape(*t.shape[:2], H, Dh)
+
+
+def _flat_heads(t: torch.Tensor) -> torch.Tensor:
+    if sharded.is_dtensor(t):
+        return sharded.merge_heads(t)
+    return t.reshape(*t.shape[:2], -1)
+
+
 def attn_apply(
     p: Params,
     cfg: ArchConfig,
@@ -201,8 +311,10 @@ def attn_apply(
 
     Without a cache (training and prefill forward) q, k and v of all T
     positions go through :func:`attn_full_dispatch` — the flash kernel
-    forward on the card — and the returned cache is None; the reference's
-    ``seq_shard`` hints are dropped, as the port runs on one card.
+    forward on the card — and the returned cache is None.  With
+    ``cfg.seq_shard`` on placed (DTensor) activations, q is sequence-sharded
+    over ``model`` and k, v replicated there (context parallelism), as the
+    reference hints them; on plain tensors the hints do nothing.
 
     With a cache, T == 1 is a decode row and T > 1 a prefill chunk.  Both
     insert their K/V at each slot's ``length`` and attend with a per-row
@@ -218,82 +330,36 @@ def attn_apply(
     (:func:`attn_packed_dispatch`), ``"unpack"`` decodes the whole
     container to the compute dtype and runs the plain float read.
     """
-    B, T, D = x.shape
+    D = x.shape[-1]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = lin_apply(cfg, p["wq"], x, D, H * Dh, patterns, dispatch,
-                  "attn/wq").reshape(B, T, H, Dh)
-    k = lin_apply(cfg, p["wk"], x, D, Hkv * Dh, patterns, dispatch,
-                  "attn/wk").reshape(B, T, Hkv, Dh)
-    v = lin_apply(cfg, p["wv"], x, D, Hkv * Dh, patterns, dispatch,
-                  "attn/wv").reshape(B, T, Hkv, Dh)
+    q = _heads(lin_apply(cfg, p["wq"], x, D, H * Dh, patterns, dispatch,
+                         "attn/wq"), H, Dh)
+    k = _heads(lin_apply(cfg, p["wk"], x, D, Hkv * Dh, patterns, dispatch,
+                         "attn/wk"), Hkv, Dh)
+    v = _heads(lin_apply(cfg, p["wv"], x, D, Hkv * Dh, patterns, dispatch,
+                         "attn/wv"), Hkv, Dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
+        if cfg.seq_shard:
+            # context parallelism: q sharded over T on 'model'; kv (small
+            # under GQA) replicated
+            q = hint(q, (None, "model", None, None))
+            k = hint(k, (None, None, None, None))
+            v = hint(v, (None, None, None, None))
         o = attn_full_dispatch(q, k, v, causal=cfg.causal, dispatch=dispatch,
                                leaf="attn.full")
-        return lin_apply(cfg, p["wo"], o.reshape(B, T, H * Dh), H * Dh, D,
-                         patterns, dispatch, "attn/wo"), None
+        return lin_apply(cfg, p["wo"], _flat_heads(o), H * Dh, D, patterns,
+                         dispatch, "attn/wo"), None
     if packed_read not in PACKED_READS:
         raise ValueError(
             f"unknown packed_read {packed_read!r} — 'fused' (tiled "
             "nibble-decode read) or 'unpack' (full-container decode "
             "baseline)")
-    idx = cache["length"]
-    nv = torch.full((B,), T, dtype=torch.int32, device=x.device) \
-        if n_valid is None else n_valid.to(torch.int32)
-    row = torch.arange(T, dtype=torch.int32, device=x.device)
-    # row c attends to idx + c + 1 positions; garbage rows clamp to the
-    # last valid extent (>= 1, so no all-masked softmax row).  A slot whose
-    # length runs past the read extent (an idle slot of the token drip,
-    # which advances every step) reads the whole extent, never past it.
-    T_c = (cache["k"] if "k" in cache else cache["k_s"]).shape[1]
-    ext = T_c if t_bound is None else min(t_bound, T_c)
-    lengths = idx[:, None] + torch.minimum(row + 1, nv[:, None])
-    lengths = torch.clamp(lengths, 1, ext)
-    if "k" in cache:
-        _kv_insert(cache["k"], k, idx)
-        _kv_insert(cache["v"], v, idx)
-        kx, vx = _extent(cache["k"], t_bound), _extent(cache["v"], t_bound)
-        if T == 1:
-            o = decode_attention(q, kx, vx, lengths[:, 0])
-        else:
-            o = prefill_attention(q, kx, vx, lengths)
-    else:
-        kq, ks = _kv_quant(k)
-        vq, vs = _kv_quant(v)
-        _kv_insert(cache["k_s"], ks, idx)
-        _kv_insert(cache["v_s"], vs, idx)
-        packed = "k_p" in cache
-        if packed:   # int4x2: two codes per byte along Dh
-            k_st, v_st = cache["k_p"], cache["v_p"]
-            _kv_insert(k_st, pack_int4(kq, axis=-1), idx)
-            _kv_insert(v_st, pack_int4(vq, axis=-1), idx)
-        else:        # int4: int8 container, the same codes
-            k_st, v_st = cache["k_q"], cache["v_q"]
-            _kv_insert(k_st, kq, idx)
-            _kv_insert(v_st, vq, idx)
-        if packed_read == "unpack":
-            # the whole container decoded to the compute dtype, then the
-            # plain float read (the reference's bench baseline)
-            k_codes = unpack_int4(k_st, Dh, axis=-1) if packed else k_st
-            v_codes = unpack_int4(v_st, Dh, axis=-1) if packed else v_st
-            dt = _dtype(cfg)
-            kx = (k_codes.to(torch.float32) * cache["k_s"][..., None]).to(dt)
-            vx = (v_codes.to(torch.float32) * cache["v_s"][..., None]).to(dt)
-            if T == 1:
-                o = decode_attention(q, kx, vx, lengths[:, 0])
-            else:
-                o = prefill_attention(q, kx, vx, lengths)
-        else:
-            o = attn_packed_dispatch(
-                q, _extent(k_st, t_bound), _extent(v_st, t_bound),
-                _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
-                lengths, packed=packed, dispatch=dispatch, bt=bt,
-                leaf="attn.kv")
-    idx += nv
-    o = o.reshape(B, T, H * Dh)
-    return lin_apply(cfg, p["wo"], o, H * Dh, D, patterns, dispatch,
-                     "attn/wo"), cache
+    o = _cache_attend(cfg, q, k, v, cache, n_valid, t_bound, bt, packed_read,
+                      dispatch)
+    return lin_apply(cfg, p["wo"], _flat_heads(o), H * Dh, D, patterns,
+                     dispatch, "attn/wo"), cache
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,

@@ -3,9 +3,7 @@ input shapes (``SHAPES``) the layer IR and the DSE are run at.
 
 The fields of ``repro.models.config.ArchConfig`` that the port's
 families (dense, encoder, VLM, MoE, SSM, hybrid) read, under the same
-names, so a configuration reads the same in both packages.  The
-reference's ``seq_shard`` (sequence sharding of activations) is left out:
-the port runs on one card.
+names, so a configuration reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -75,6 +73,7 @@ class ArchConfig:
     remat: bool = True        # forward recomputes each layer in backward
     opt_state_dtype: str = "float32"  # float32 | bfloat16 (405B uses bf16)
     param_dtype: str = "bfloat16"
+    seq_shard: bool = False           # SP: shard seq axis of activations
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core import payload_registry
+from ..core import payload_registry, sharded
 from ..core.dispatch import conv_dispatch, linear_dispatch
 from ..core.sparsity import BlockSparsePattern
 
@@ -67,10 +67,16 @@ def conv_apply(cp, x: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
 # --------------------------------------------------------------------- norms
 
 
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A norm parameter in the compute dtype (a placed one through
+    :func:`repro_torch.core.sharded.upcast`)."""
+    return sharded.upcast(t, dtype) if sharded.is_dtensor(t) else t.to(dtype)
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * r).to(x.dtype) * p["g"].to(x.dtype)
+    return (xf * r).to(x.dtype) * _as(p["g"], x.dtype)
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -78,7 +84,7 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return y.to(x.dtype) * p["g"].to(x.dtype) + p["b"].to(x.dtype)
+    return y.to(x.dtype) * _as(p["g"], x.dtype) + _as(p["b"], x.dtype)
 
 
 # ---------------------------------------------------------------------- rope
@@ -91,7 +97,10 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tens
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (..., T, H, Dh); positions: (..., T)."""
+    """x: (..., T, H, Dh); positions: (..., T).  Placed (DTensor) x and
+    positions rotate each rank's local shard."""
+    if sharded.is_dtensor(x):
+        return sharded.rope(x, positions, theta, apply_rope)
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, device=x.device)
     ang = positions[..., :, None, None].to(torch.float32) * freqs

@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import sharded
 from ..device import resolve_device
 from ..tree import tree_map
 from .blocks import (
@@ -49,6 +50,7 @@ from .blocks import (
 )
 from .config import ArchConfig
 from .layers import Params, linear_apply
+from .shard_hints import seq_shard_hint
 from .ssm import (
     mamba2_apply,
     mamba2_cache_init,
@@ -191,10 +193,37 @@ def cache_batch_axes(cfg: ArchConfig, kv_cache: str = "float") -> Dict:
 
 
 def _tree_index(tree, i: int):
-    """Layer ``i`` of a stacked tree (views)."""
+    """Layer ``i`` of a stacked tree (views).  A placed leaf whose layer
+    axis is sharded (a stacked vector under a row-parallel rule: the
+    reference's spec of ``wo``'s scales) is gathered along it first."""
     if isinstance(tree, dict):
         return {k: _tree_index(v, i) for k, v in tree.items()}
+    if sharded.is_dtensor(tree):
+        tree = sharded.unshard_dim(tree, 0)
     return tree[i]
+
+
+def _embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding rows ``w[tokens]``; a placed (vocab-sharded) table
+    looks up each rank's vocab range (:func:`repro_torch.core.sharded.
+    embed`)."""
+    if sharded.is_dtensor(w):
+        return sharded.embed(w, tokens)
+    return w[tokens.to(torch.int64)]
+
+
+def _positions(h: torch.Tensor, start=None) -> torch.Tensor:
+    """(B, T) positions of h's rows: ``start[:, None] + arange(T)`` (``start``
+    (B,) or None for 0), placed like h's leading dims when h is a
+    DTensor."""
+    def make(h_, s_):
+        B, T = h_.shape[:2]
+        pos = torch.arange(T, device=h_.device)[None].expand(B, T)
+        return pos if s_ is None else s_[:, None] + pos.to(s_.dtype)
+
+    if sharded.is_dtensor(h):
+        return sharded.local_apply(make, list(h.placements), h, start)
+    return make(h, start)
 
 
 def _ffn(p, cfg, h, patterns, dispatch):
@@ -218,7 +247,10 @@ def _head(params: Params, cfg: ArchConfig, h: torch.Tensor, patterns,
           dispatch) -> torch.Tensor:
     h = norm_apply(cfg, params["final_norm"], h)
     if cfg.tie_embeddings:
-        return h @ params["embed"]["w"].T.to(h.dtype)
+        w = params["embed"]["w"]
+        if sharded.is_dtensor(w):
+            return sharded.tied_head(h, w)
+        return h @ w.T.to(h.dtype)
     return linear_apply(params["head"], h, pattern=(patterns or {}).get(
         (cfg.d_model, cfg.vocab)), dispatch=dispatch, leaf="head")
 
@@ -238,15 +270,13 @@ def embed_inputs(params: Params, cfg: ArchConfig, batch: Dict, *,
         h = linear_apply(params["frontend_proj"], h, dispatch=dispatch,
                          leaf="frontend_proj")
     else:
-        h = params["embed"]["w"][batch["tokens"].to(torch.int64)]
+        h = _embed(params["embed"]["w"], batch["tokens"])
         if cfg.frontend == "patch" and "prefix_embeds" in batch:
             pre = batch["prefix_embeds"].to(h.dtype)
             pre = linear_apply(params["frontend_proj"], pre,
                                dispatch=dispatch, leaf="frontend_proj")
             h = torch.cat([pre, h], dim=1)
-    B, T = h.shape[:2]
-    pos = torch.arange(T, device=h.device)[None].expand(B, T)
-    return h, pos
+    return h, _positions(h)
 
 
 def _full_block(p, cfg, h, positions, patterns, dispatch):
@@ -321,17 +351,24 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict, *, patterns=None,
     activations are recomputed in the backward, as ``jax.checkpoint`` does
     in the reference.  ``patterns`` / ``dispatch`` as in
     :func:`decode_step`, for compiled parameter trees.
+
+    Placed (DTensor) parameters and batch (:mod:`repro_torch.launch.
+    sharding`) run the same forward on each rank's shards; with
+    ``cfg.seq_shard`` every layer's input and output are sequence-sharded
+    over ``model`` (:func:`repro_torch.models.shard_hints.seq_shard_hint`).
     """
     h, positions = embed_inputs(params, cfg, batch, dispatch=dispatch)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n_superblocks(cfg)):
         p_layer = _tree_index(params["blocks"], i)
+        h = seq_shard_hint(h, cfg.seq_shard)
         if remat:
             h = checkpoint(_block, p_layer, params, cfg, h, positions, None,
                            patterns, dispatch, use_reentrant=False)
         else:
             h = _block(p_layer, params, cfg, h, positions, None, patterns,
                        dispatch)
+        h = seq_shard_hint(h, cfg.seq_shard)
     return _head(params, cfg, h, patterns, dispatch)
 
 
@@ -344,6 +381,8 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
     labels = batch["labels"].to(torch.int64)
     if cfg.frontend == "patch" and "prefix_embeds" in batch:
         logits = logits[:, batch["prefix_embeds"].shape[1]:]
+    if sharded.is_dtensor(logits):
+        return sharded.cross_entropy(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
@@ -352,7 +391,7 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict, *,
 
 def _run(params, cfg, cache, tokens, positions, patterns, dispatch, n_valid,
          t_bound, bt, packed_read):
-    h = params["embed"]["w"][tokens.to(torch.int64)]
+    h = _embed(params["embed"]["w"], tokens)
     for i in range(n_superblocks(cfg)):
         h = _block(_tree_index(params["blocks"], i), params, cfg, h,
                    positions, _tree_index(cache, i), patterns, dispatch,
@@ -398,7 +437,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict,
     else:
         length = cache["attn"]["length"] if cfg.family == "hybrid" \
             else cache["length"]
-        positions = length[0][:, None].clone()
+        positions = _positions(tokens, length[0])
     nv = None if active is None else active.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
                 t_bound, bt, packed_read)
@@ -427,9 +466,7 @@ def prefill_step(params: Params, cfg: ArchConfig, cache: Dict,
             f"prefill_step supports the attention-only families "
             f"('dense', 'vlm'), not {cfg.family!r} — serve other families "
             "through per-token decode_step")
-    C = tokens.shape[1]
-    positions = cache["length"][0][:, None] \
-        + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+    positions = _positions(tokens, cache["length"][0])
     nv = None if n_valid is None else n_valid.to(torch.int32)
     return _run(params, cfg, cache, tokens, positions, patterns, dispatch, nv,
                 t_bound, bt, packed_read)

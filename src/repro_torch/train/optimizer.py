@@ -13,6 +13,13 @@ at a time into its new tensors, its mask applied slice by slice: every
 operation is elementwise, so the result is the same bit for bit, and the
 f32 temporaries stay a slice's size instead of several copies of the leaf
 (a stacked expert or Mamba2 leaf holds over a billion elements).
+
+Placed (DTensor) leaves update on each rank's shards of the moments' (ZeRO)
+placements: the gradient, parameter and mask are taken to them first (a
+local slice of a replicated tensor), the same elementwise arithmetic runs
+on the local shard, and the new parameter goes back to its own placements
+(the ZeRO all-gather).  The gradient norm sums each leaf's global sum of
+squares in leaf order.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..core.sharded import is_dtensor
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["UPDATE_CHUNK", "AdamWConfig", "adamw_init", "adamw_update",
@@ -63,24 +71,33 @@ def adamw_init(params: PyTree, cfg: AdamWConfig) -> PyTree:
     """Zero moments in ``cfg.state_dtype`` beside every leaf, and the step
     counter (int32, on the device of the first leaf)."""
     dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt) if is_dtensor(p) \
+        else torch.zeros(p.shape, dtype=dt, device=p.device)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _sumsq(x) -> torch.Tensor:
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    sq = [torch.sum(torch.square(x.to(torch.float32)))
-          for x in tree_leaves(tree)]
-    return torch.sqrt(sum(sq))
+    """sqrt of the sum of squares of every leaf, in f32 (a plain tensor;
+    a placed leaf contributes its global sum)."""
+    return torch.sqrt(sum(_sumsq(x) for x in tree_leaves(tree)))
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
 
 
 def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
                  cfg: AdamWConfig, masks: Optional[PyTree] = None):
     """Returns (new_params, new_state, metrics)."""
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     lr = schedule(cfg, step)
     gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gn, 1e-12), max=1.0) \
@@ -106,6 +123,8 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
     def upd(g, m, v, p, mk):
         if not p.is_floating_point():
             return p, m, v  # frozen integer storage (int8 weights)
+        if is_dtensor(p):
+            return upd_placed(g, m, v, p, mk)
         if p.numel() <= UPDATE_CHUNK:
             return upd_slice(g, m, v, p, mk)
         out = tuple(torch.empty(p.shape, dtype=t.dtype, device=t.device)
@@ -120,8 +139,28 @@ def adamw_update(grads: PyTree, state: PyTree, params: PyTree,
                 dst[sl] = src
         return out
 
+    def upd_placed(g, m, v, p, mk):
+        from torch.distributed.tensor import DTensor
+
+        mesh, at = m.device_mesh, list(m.placements)
+        to = lambda t: t if t is None or list(t.placements) == at \
+            else t.redistribute(mesh, at)                      # noqa: E731
+        new = upd(*(None if t is None else to(t).to_local()
+                    for t in (g, m, v, p, mk)))
+        wrap = lambda t, like: DTensor.from_local(             # noqa: E731
+            t, mesh, at, run_check=False, shape=like.shape,
+            stride=like.stride())
+        new_p = wrap(new[0], p)
+        if list(p.placements) != at:
+            new_p = new_p.redistribute(p.device_mesh, p.placements)
+        return new_p, wrap(new[1], m), wrap(new[2], v)
+
     flat = tree_map(upd, grads, state["m"], state["v"], params,
                     masks if masks is not None else {})
     pick = lambda i: tree_map(lambda t: t[i], flat)
+    if is_dtensor(state["step"]):
+        from torch.distributed.tensor import DTensor
+        step = DTensor.from_local(step, state["step"].device_mesh,
+                                  state["step"].placements, run_check=False)
     new_state = {"m": pick(1), "v": pick(2), "step": step}
     return pick(0), new_state, {"grad_norm": gn, "lr": lr}

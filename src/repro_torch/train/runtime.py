@@ -11,8 +11,11 @@ A port of ``repro.train.runtime``:
 * async checkpoints every ``ckpt_every`` steps and at the end.
 
 The reference's ``jax.block_until_ready`` becomes ``torch.cuda.synchronize``
-for a step whose results lie on the card; its re-sharding on restore has no
-one-card counterpart (restored tensors follow the template's devices).
+for a step whose results lie on the card.  Elastic re-mesh: on restore the
+state is placed again by ``placements`` (``{"params": ..., "opt": ...}``
+trees of ``(mesh, placements)``, the current mesh's; the checkpoint stores
+no mesh), and under a started process group every rank is a checkpoint
+host.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import Checkpointer
 from ..tree import tree_leaves
@@ -57,11 +61,15 @@ class TrainRunner:
     """Drives (params, opt_state) through train_step with FT semantics."""
 
     def __init__(self, train_step: Callable, data_fn: Callable[[int], Dict],
-                 cfg: RunnerConfig):
+                 cfg: RunnerConfig, *, placements: Optional[PyTree] = None):
         self.train_step = train_step
         self.data_fn = data_fn
         self.cfg = cfg
-        self.ckpt = Checkpointer(cfg.ckpt_dir)
+        self.placements = placements
+        host, hosts = 0, 1
+        if dist.is_available() and dist.is_initialized():
+            host, hosts = dist.get_rank(), dist.get_world_size()
+        self.ckpt = Checkpointer(cfg.ckpt_dir, host_id=host, n_hosts=hosts)
         self.metrics_log = []
         self.fault_injector: Optional[Callable[[int], None]] = None
 
@@ -82,7 +90,8 @@ class TrainRunner:
         step = start_step
         latest = self.ckpt.latest_step() if self._checkpointing() else None
         if latest is not None and latest > step:
-            state, manifest = self.ckpt.restore(state)
+            state, manifest = self.ckpt.restore(
+                state, placements=self.placements)
             step = manifest["step"]
             print(f"[runner] restored step {step} from {self.cfg.ckpt_dir}")
 
@@ -95,7 +104,8 @@ class TrainRunner:
                     if self._checkpointing() else None
                 if latest is not None:
                     self.ckpt.wait()
-                    state, manifest = self.ckpt.restore(state)
+                    state, manifest = self.ckpt.restore(
+                        state, placements=self.placements)
                     step = manifest["step"]
                     print(f"[runner] failure: rolled back to step {step}")
                     continue

@@ -7,6 +7,13 @@ dtype (bf16 at full width), as in ``repro.train.trainer``.  The reference's
 ``jax.jit`` / ``lax.scan`` become eager calls and a Python loop.
 
 ``make_prefill_step``: the full-sequence forward's last-position logits.
+
+Both take placed parameters too (DTensors from
+:func:`repro_torch.launch.sharding.shard_params`, a batch from
+``shard_batch``): the forward runs on each rank's shards, each gradient is
+redistributed to its parameter's placements (the data-parallel all-reduce,
+or reduce-scatter under FSDP), and AdamW updates each rank's shards of
+parameters and ZeRO-sharded moments.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..core.sharded import is_dtensor, place
 from ..models.config import ArchConfig
 from ..models.model import forward, loss_fn
 from .optimizer import AdamWConfig, adamw_update
@@ -52,6 +60,30 @@ def _merge(trainable: PyTree, frozen: PyTree) -> PyTree:
     return tree_map(lambda a, b: a if a is not None else b, trainable, frozen)
 
 
+def _like_param(g, p):
+    """A gradient in its parameter's placements (plain tensors as they
+    are)."""
+    if is_dtensor(p) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _micro_batches(batch: Dict, n_micro: int):
+    """``n_micro`` micro-batches of consecutive rows; a placed batch leaf is
+    gathered (tokens are small) and each micro-batch placed as it was, so
+    the split is the one-process split."""
+    def split(v):
+        full = v.full_tensor() if is_dtensor(v) else v
+        parts = full.reshape(n_micro, full.shape[0] // n_micro,
+                             *full.shape[1:])
+        if is_dtensor(v):
+            return [place(t, v.device_mesh, v.placements) for t in parts]
+        return list(parts)
+
+    cols = {k: split(v) for k, v in batch.items()}
+    return [{k: cols[k][i] for k in cols} for i in range(n_micro)]
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
                     masks: Optional[PyTree] = None, *, dispatch=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -67,8 +99,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
         # gets a zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        by_id = {id(t): g for t, g in zip(leaves, grads)}
-        return loss.detach(), tree_map(
+        by_id = {id(t): _like_param(g, t) for t, g in zip(leaves, grads)}
+        loss = loss.detach()
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+        return loss, tree_map(
             lambda t: None if t is None else by_id[id(t)], trainable)
 
     def train_step(params, opt_state, batch):
@@ -77,14 +112,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, n_micro: int = 1,
             loss, grads = value_and_grad(trainable, frozen, batch)
             losses = loss[None]
         else:
-            micro = {k: v.reshape(n_micro, v.shape[0] // n_micro,
-                                  *v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: None if p is None else torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), trainable)
+            grads = tree_map(lambda p: None if p is None else torch.zeros_like(
+                p, dtype=torch.float32), trainable)
             losses = []
-            for i in range(n_micro):
-                loss, g = value_and_grad(trainable, frozen,
-                                         {k: v[i] for k, v in micro.items()})
+            for mb in _micro_batches(batch, n_micro):
+                loss, g = value_and_grad(trainable, frozen, mb)
                 # the accumulator is this step's own: add in place (a bf16
                 # gradient widens element by element, with no f32 copy)
                 tree_map(lambda a, b: None if a is None else a.add_(b),
