@@ -74,6 +74,18 @@ Phases, each fatal on failure:
    flash call with its op's backward on local heads — combined as the
    collective would and held within one bf16 step of the unsharded call,
    each kernel call on the route its shape rule names;
+4a'. seq cache — the sequence-sharded KV cache: llama3.2-1b's packed
+   reads (int4x2 and int4, 8 slots over 512 rows, decode and the 16-row
+   chunk) cut into the ranges of model axes 2 and 4, each range's split
+   call (``return_lse``: its combine pass writes each row's log-sum-exp)
+   combined across ranges and held within one bf16 step of the whole split
+   read and of the plain version (lse within 1e-5), with rows whose range
+   holds no live key; each range call, the combine and the whole read
+   timed; then the dry-run of llama3.2-1b's ``decode_32k`` and
+   ``train_4k`` cells on the (16, 16) mesh (``python -m
+   repro_torch.launch.dryrun``, started after the build in processes of
+   their own that see no card), each required ``ok``, its per-rank bytes
+   and counts printed;
 4b. autotune — on the serve phase's compile: ``autotune_model`` at M = 8
    and 512 into a new table under ``chiprun_out/``, every candidate plan
    held against its plain version before it is timed (CUDA events, leaves
@@ -203,6 +215,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2024,6 +2037,189 @@ def sharding(cm, cfg, dev, report):
     res["kernels"] = sharding_kernels(cm, cfg, dev)
     res["seconds"] = time.perf_counter() - t0
     report["sharding"] = res
+    return res
+
+
+# ------------------------------------------- the sequence-sharded cache
+
+# llama3.2-1b's packed reads at 8 slots over a 512-row cache, a decode row
+# (C = 1) and the 16-row chunk, cut into the ranges of model axes 2 and 4
+SEQ_T = 512
+SEQ_CHUNKS = (1, 16)
+SEQ_TIME_CALLS = 8
+PDA_ROUTES = {"split": "launches_split", "single": "launches_single"}
+# the dry-run's cells on (16, 16), each in a process of its own
+DRYRUN_CELLS = ("decode_32k", "train_4k")
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun(out_dir):
+    """Start the dry-run of llama3.2-1b's decode and train cells on the
+    (16, 16) mesh: ``python -m repro_torch.launch.dryrun``, one process a
+    cell, with no card visible (the fake process group is process-global
+    and must not meet NCCL; it runs on meta tensors), at a lower CPU
+    priority than the card's phases, beside which it runs from the start;
+    :func:`seq_cache` joins it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for shape in DRYRUN_CELLS:
+        log = open(out_dir / f"dryrun_{shape}.log", "w")
+        procs[shape] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "llama3.2-1b", "--shape", shape, "--out",
+             str(out_dir / "dryrun_torch"), "--force"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10)), log)
+    return {"procs": procs, "t0": time.perf_counter(), "out": out_dir}
+
+
+def stop_dryrun(dry):
+    for proc, log in dry["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def join_dryrun(dry):
+    """Each cell's record; a cell that did not end ``ok`` fails."""
+    out = {}
+    for shape, (proc, log) in dry["procs"].items():
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - dry["t0"])
+        rc = proc.wait(timeout=max(left, 1))
+        log.close()
+        path = dry["out"] / "dryrun_torch" / f"llama3.2-1b__{shape}__pod1.json"
+        require(rc == 0 and path.exists(),
+                f"dry-run {shape}: exit {rc}, see {log.name}")
+        rec = json.loads(path.read_text())
+        require(rec["status"] == "ok",
+                f"dry-run {shape}: {rec['status']} {rec.get('error')}")
+        out[shape] = {k: rec.get(k) for k in (
+            "n_chips", "bytes_per_device", "n_micro", "flops_per_device",
+            "traffic_bytes_per_device", "collective_bytes_per_device",
+            "collectives", "collective_counts", "model_flops_ratio",
+            "t_place_s", "t_step_s")}
+    out["seconds"] = time.perf_counter() - dry["t0"]
+    out["torch"] = torch.__version__
+    return out
+
+
+def seq_combine_parts(parts):
+    """The ranges' partial reads, stacked, combined by
+    ``repro_torch.core.sharded.seq_combine`` (the ranks' combine, with a
+    reduction over the stack in place of the all-reduces)."""
+    from repro_torch.core.sharded import seq_combine
+
+    o = torch.stack([p[0].float() for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    return seq_combine(o, lse, lambda t, op: t.amax(dim=0) if op == "max"
+                       else t.sum(dim=0))
+
+
+def seq_read_case(dev, cfg, dp, kc, vc, k_s, v_s, codes, C, packed, n,
+                  bt=64):
+    """One read of the 8 slots, whole and cut into ``n`` ranges of the
+    cache: each range's split-kernel call with its local extents and
+    ``return_lse``, combined; held against the whole split read and the
+    plain version, with the times of each range's call, of the combine and
+    of the whole read (beside its bound, its plain version's time and
+    SDPA's on the dequantised bf16 cache, ``codes`` the int8 codes)."""
+    import torch.nn.functional as F
+
+    H, Dh, B, T = cfg.n_heads, cfg.head_dim, kc.shape[0], kc.shape[1]
+    Hkv = cfg.n_kv_heads
+    q = (torch.randn((B, C, H, Dh), device=dev) / 4).to(torch.bfloat16)
+    # every extent in the first 3/4 of the cache: at 4 ranges the last
+    # holds no live key, at 2 the second holds none of the shorter rows'
+    lens = torch.randint(1, T * 3 // 4 - C, (B, 1), device=dev,
+                         dtype=torch.int32) \
+        + torch.arange(1, C + 1, device=dev, dtype=torch.int32)[None]
+    kw = dict(bt=bt, packed=packed)
+    whole, whole_lse = took_route(
+        dp, PDA_ROUTES, "split", lambda: dp.packed_decode_attention(
+            q, kc, vc, k_s, v_s, lens, return_lse=True, **kw))
+    plain, plain_lse = dp.tiled_packed_attention(q, kc, vc, k_s, v_s, lens,
+                                                 return_lse=True, **kw)
+    t = T // n
+    calls, dead = [], 0
+    for r in range(n):
+        args = [x[:, r * t:(r + 1) * t].contiguous()
+                for x in (kc, vc, k_s, v_s)]
+        ext = torch.clamp(lens - r * t, 0, t)
+        dead += int((ext == 0).sum())
+        calls.append(lambda a=args, e=ext: dp.packed_decode_attention(
+            q.float(), *a, e, return_lse=True, **kw))
+    parts = [took_route(dp, PDA_ROUTES, "split", c) for c in calls]
+    o, lse = seq_combine_parts(parts)
+    require(bool(torch.isfinite(o).all()),
+            f"seq cache: a non-finite combined read at model {n}")
+    y = o.to(torch.bfloat16)
+    err = {"vs_split": float((y.float() - whole.float()).abs().max()),
+           "vs_plain": float((y.float() - plain.float()).abs().max()),
+           "lse_vs_split": float((lse - whole_lse).abs().max()),
+           "lse_vs_plain": float((lse - plain_lse).abs().max())}
+    for key, ref in (("vs_split", whole), ("vs_plain", plain)):
+        require(err[key] <= tol_for(torch.bfloat16, ref.float()),
+                f"seq cache: C={C} packed={packed} model {n} {key}: "
+                f"{err[key]}")
+    for key, ref in (("lse_vs_split", whole_lse), ("lse_vs_plain", plain_lse)):
+        require(err[key] <= 1e-5 * (float(ref.abs().max()) + 1),
+                f"seq cache: C={C} packed={packed} model {n} {key}: "
+                f"{err[key]}")
+    n_t = SEQ_TIME_CALLS
+    kd, vd = ((c.float() * sc[..., None]).to(torch.bfloat16).permute(
+        0, 2, 1, 3).repeat_interleave(H // Hkv, dim=1)
+        for c, sc in zip(codes, (k_s, v_s)))
+    mask = torch.arange(T, device=dev)[None, None, None, :] \
+        < lens[:, None, :, None]
+    qh = q.permute(0, 2, 1, 3)
+    # each live cache row read once a slot; 4·Dh operations a (query row,
+    # head, live key)
+    live = int(lens.amax(dim=1).sum())
+    code_bytes = Dh if packed else 2 * Dh
+    b_ms, b_by = bound(nbytes(q, whole, lens) + live * Hkv * (code_bytes + 8),
+                       4.0 * H * Dh * int(lens.sum()), "bf16")
+    times = {
+        "range_ms": [device_ms(lambda i, c=c: c, n_t) for c in calls],
+        "combine_ms": device_ms(lambda i: lambda: seq_combine_parts(parts),
+                                n_t),
+        "whole_ms": device_ms(lambda i: lambda: dp.packed_decode_attention(
+            q, kc, vc, k_s, v_s, lens, **kw), n_t),
+        "whole_bound_ms": b_ms, "whole_bound_by": b_by,
+        "whole_plain_ms": device_ms(lambda i: lambda: dp.tiled_packed_attention(
+            q, kc, vc, k_s, v_s, lens, **kw), 2),
+        "whole_library_ms": device_ms(
+            lambda i: lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=mask), n_t)}
+    return {"err": err, "rows_with_no_live_key_in_a_range": dead, **times}
+
+
+def seq_cache(dev, report, dry):
+    """The sequence-sharded cache on the card: (a) llama3.2-1b's packed
+    reads (int4x2 and int4, decode and the 16-row chunk) cut into the
+    ranges of model axes 2 and 4, each range's split call and the combine
+    against the whole split read and the plain version; (b) the dry-run's
+    decode and train cells, started at the beginning, joined here."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import decode_packed as dp
+
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-1b")
+    k_p, v_p, k_s, v_s, k_q, v_q = random_cache(8, SEQ_T, cfg.n_kv_heads,
+                                                cfg.head_dim, dev)
+    reads = {}
+    for packed, (kc, vc) in ((True, (k_p, v_p)), (False, (k_q, v_q))):
+        for C in SEQ_CHUNKS:
+            for n in SHARD_MODEL_AXES:
+                key = f"{'int4x2' if packed else 'int4'}/C{C}/model_{n}"
+                reads[key] = seq_read_case(dev, cfg, dp, kc, vc, k_s, v_s,
+                                           (k_q, v_q), C, packed, n)
+    res = {"reads": reads, "reads_timed": "device ms a call, CUDA graph of "
+           f"{SEQ_TIME_CALLS} calls on the same operands (L2-warm)",
+           "dryrun": join_dryrun(dry)}
+    res["seconds"] = time.perf_counter() - t0
+    report["seq_cache"] = res
     return res
 
 
@@ -5213,6 +5409,7 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    dry = start_dryrun(out_dir)
     try:
         rng = np.random.default_rng(0)
         torch.manual_seed(0)
@@ -5251,6 +5448,13 @@ def main() -> int:
               flush=True)
         print("sharding shard-local kernels (model axes 2 and 4): "
               + json.dumps(sh["kernels"]), flush=True)
+        sq = seq_cache(dev, report, dry)
+        print(f"seq cache reads, model axes 2 and 4 ({sq['seconds']:.1f} s) "
+              f"on {report['card']}: " + json.dumps(sq["reads"]), flush=True)
+        for shape in DRYRUN_CELLS:
+            print(f"dryrun llama3.2-1b {shape} on (16, 16), torch "
+                  f"{torch.__version__}: " + json.dumps(sq["dryrun"][shape]),
+                  flush=True)
         tune = autotune(cm, cfg, dev, report, tokens)
         print("autotune (rule plan / tuned plan, us; NVIDIA card above): "
               + json.dumps({k: {f: r[f] for f in ("rule", "tuned",
@@ -5362,6 +5566,7 @@ def main() -> int:
                 k["route_pairs"] = pairs
         report["kernels"] = kernels
     finally:
+        stop_dryrun(dry)
         (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

@@ -55,6 +55,7 @@ chain of linear payloads through one ``fc_stack_matmul`` launch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -164,6 +165,21 @@ def resolve(dispatch: Union[None, str, DispatchConfig] = None) -> DispatchConfig
         from .autotune import load_table
         return DispatchConfig(mode="auto", tuned=load_table())
     return DispatchConfig(mode=mode)
+
+
+# While a step's operations are counted (repro_torch.launch.op_costs), the
+# attention reads run inside named ranges, so that the count can tell their
+# traffic apart; off otherwise, so a profile of the card sees no extra
+# range.
+NAMED_RANGES = False
+
+
+def named_range(name: str):
+    """``torch.profiler.record_function(name)`` while :data:`NAMED_RANGES`
+    is on, else a no-op context."""
+    if NAMED_RANGES:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def use_kernel(cfg: DispatchConfig, x: torch.Tensor,
@@ -351,7 +367,8 @@ def attn_packed_dispatch(
     dispatch: Union[None, str, DispatchConfig] = None,
     bt: Optional[int] = None,
     leaf: Optional[str] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The quantised KV-cache attention read: codes -> attention output,
     without a dequantised copy of the cache.  ``packed`` names the
     container: int4x2 (two codes a byte) or int4 (int8 codes).  Decode
@@ -360,14 +377,24 @@ def attn_packed_dispatch(
     :func:`tiled_packed_attention`.  ``bt`` comes from the caller, else
     the tuned ``attn_packed`` entry, else :data:`ATTN_BT_DEFAULT` (the
     serving engine pins it for the cache's lifetime).  On a placed cache
-    (DTensors) the read runs on each rank's slots and kv heads
-    (:func:`repro_torch.core.sharded.attn_packed`)."""
-    cfg = resolve(dispatch)
+    (DTensors) the read runs on each rank's slots and kv heads, or on each
+    rank's range of a sequence-sharded cache, the ranks' parts combined
+    (:func:`repro_torch.core.sharded.attn_packed`).  ``return_lse`` returns
+    ``(out, lse)``, each row's log-sum-exp beside it (that combine's
+    input)."""
+    with named_range("attention.packed"):
+        return _attn_packed(q, k_c, v_c, k_s, v_s, lengths, packed=packed,
+                            cfg=resolve(dispatch), bt=bt, leaf=leaf,
+                            return_lse=return_lse)
+
+
+def _attn_packed(q, k_c, v_c, k_s, v_s, lengths, *, packed, cfg, bt, leaf,
+                 return_lse):
     if sharded.any_dtensor(q, k_c, v_c, k_s, v_s, lengths):
         return sharded.attn_packed(
             q, k_c, v_c, k_s, v_s, lengths,
-            run=lambda *a: attn_packed_dispatch(
-                *a, packed=packed, dispatch=cfg, bt=bt, leaf=leaf))
+            run=lambda *a, **kw: attn_packed_dispatch(
+                *a, packed=packed, dispatch=cfg, bt=bt, leaf=leaf, **kw))
     name = leaf or "attn.kv"
     if bt is None:
         B, _, H, Dh = q.shape
@@ -380,14 +407,15 @@ def attn_packed_dispatch(
     bt = int(bt)
     if not use_kernel(cfg, q, name):
         return tiled_packed_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
-                                      packed=packed)
+                                      packed=packed, return_lse=return_lse)
     if not attn_packed_eligible(q.shape[-1], bt, packed):
         raise ValueError(
             f"{name}: the packed attention kernel needs a positive tile and, "
             f"for int4x2 codes, an even head dim; got Dh={q.shape[-1]}, "
             f"bt={bt}")
     return packed_decode_attention(q, k_c, v_c, k_s, v_s, lengths, bt=bt,
-                                   packed=packed, name=name)
+                                   packed=packed, name=name,
+                                   return_lse=return_lse)
 
 
 def attn_full_dispatch(
@@ -424,9 +452,10 @@ def attn_full_dispatch(
             return flash_attention(q, k, v, causal)
         return chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
 
-    if sharded.any_dtensor(q, k, v):
-        return sharded.attn_full(q, k, v, causal=causal, run=run)
-    return run(q, k, v)
+    with named_range("attention.flash"):
+        if sharded.any_dtensor(q, k, v):
+            return sharded.attn_full(q, k, v, causal=causal, run=run)
+        return run(q, k, v)
 
 
 # ------------------------------------------------ family-specific pieces

@@ -18,6 +18,10 @@ and says with its output placements what the collective has to do:
 * **replicated** (no ``model`` sharding, or a ``model`` axis of one rank):
   the whole call on every rank, epilogue fused as in the unsharded call.
 
+A KV cache whose T axis is cut over ranks (sequence-sharded) is read on
+each rank's range, and the partial reads are combined by their
+log-sum-exps (:func:`seq_read`, :func:`seq_combine`).
+
 Data-parallel axes carry the batch; a weight sharded over them (FSDP) is
 gathered first, and its gradient comes back as ``Partial`` over them (the
 redistribution's backward reduce-scatters it).  Each local function
@@ -38,7 +42,8 @@ __all__ = ["any_dtensor", "attn_full", "attn_packed", "cross_entropy",
            "local_apply",
            "local_pattern",
            "local_shard", "merge_heads", "model_coord", "place",
-           "schedule_shardable", "split_heads", "tied_head", "unshard_dim",
+           "schedule_shardable", "seq_combine", "seq_dims", "seq_layout",
+           "seq_read", "split_heads", "tied_head", "unshard_dim",
            "upcast"]
 
 
@@ -473,22 +478,116 @@ def attn_full(q, k, v, *, causal: bool, run: Callable):
                                            kv_grad))
 
 
+# ------------------------------------------- a sequence-sharded KV cache
+
+
+def seq_dims(leaf) -> Tuple[int, ...]:
+    """The mesh dims that cut the T axis (dim 1) of a layer's cache leaf
+    (B, T, ...): ``model`` where it does not divide the kv heads, the data
+    axes too (or alone) at a batch they do not divide (``cache_specs``)."""
+    if not is_dtensor(leaf):
+        return ()
+    _, _, Shard = _pl()
+    return tuple(i for i, p in enumerate(leaf.placements)
+                 if isinstance(p, Shard) and p.dim % leaf.ndim == 1)
+
+
+def seq_layout(leaf):
+    """``(dims, placements, offset, t_local)`` of a sequence-sharded cache
+    leaf on this rank: the mesh dims that cut T, the placements of the
+    rows that read or write it — the leaf's, less its T axis (q and the new
+    k / v rows whole over those dims; batch and kv heads as the cache
+    shards them) — and the first row and row count of this rank's range
+    (the mesh dims nest in mesh order, as ``local_shard`` cuts)."""
+    _, Replicate, _ = _pl()
+    mesh = leaf.device_mesh
+    dims = seq_dims(leaf)
+    pl = [Replicate() if i in dims else p
+          for i, p in enumerate(leaf.placements)]
+    n, idx = 1, 0
+    for i in dims:
+        size = int(mesh.size(i))
+        n *= size
+        idx = idx * size + int(mesh.get_local_rank(i))
+    t_local = int(leaf.shape[1]) // n
+    return dims, pl, idx * t_local, t_local
+
+
+def seq_combine(o: torch.Tensor, lse: torch.Tensor, reduce: Callable
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole read from partial reads over ranges of the cache: ``o``
+    (..., Dh) and ``lse`` (...) in f32, one part a range, and ``reduce(t,
+    op)`` (op "max" or "sum") that reduces ``t`` over the parts — an
+    all-reduce over the process groups that cut T (:func:`seq_read`), or a
+    reduction over a stacked leading axis.  ``lse = logsumexp_r lse_r``
+    and ``o = Σ_r exp(lse_r − lse) · o_r``, computed as ``M = max_r lse_r``
+    (one reduction), then ``Σ_r w_r·o_r`` and ``Σ_r w_r`` with ``w_r =
+    exp(lse_r − M)`` in one sum: ``o = Σ w_r·o_r / Σ w_r``, ``lse = M + log
+    Σ w_r``.  A part with no live key of a row (``lse_r = -inf``, ``o_r =
+    0``) adds 0."""
+    m = reduce(lse, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)
+    both = reduce(torch.cat([o * w[..., None], w[..., None]], dim=-1), "sum")
+    den = both[..., -1]
+    return (both[..., :-1] / torch.clamp_min(den, 1e-30)[..., None],
+            m + torch.log(den))
+
+
+def _group_reduce(groups) -> Callable:
+    """``reduce(t, op)`` for :func:`seq_combine`: all-reduces over each of
+    ``groups`` in turn."""
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(t, op):
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+        return t
+
+    return reduce
+
+
+def seq_read(q, lengths, leaves: Sequence, read: Callable):
+    """An attention read over a sequence-sharded cache (``leaves``: the
+    layer's cache leaves, each (B, T, ...) with T cut over :func:`seq_dims`):
+    on each rank ``read(q, ext, *leaves)`` over the rank's range with its
+    local extents ``ext`` = each row's extent less the range's start,
+    clipped to ``[0, t_local]``, giving ``(o_r, lse_r)`` in f32; the ranks'
+    parts combined by :func:`seq_combine`.  Returns the read in q's dtype,
+    whole over the dims that cut T."""
+    _, Replicate, Shard = _pl()
+    mesh = leaves[0].device_mesh
+    dims, pl, off, t_local = seq_layout(leaves[0])
+    reduce = _group_reduce([mesh.get_group(i) for i in dims])
+    q = _to(q, pl)
+    lengths = _to(lengths, [p if isinstance(p, Shard) and p.dim == 0
+                            else Replicate() for p in pl])
+
+    def run(q_, l_, *leaves_):
+        ext = torch.clamp(l_.to(torch.int32) - off, 0, t_local)
+        o, lse = read(q_, ext, *leaves_)
+        o, _ = seq_combine(o.to(torch.float32), lse, reduce)
+        return o.to(q_.dtype)
+
+    return local_apply(run, pl, q, lengths, *leaves)
+
+
 def attn_packed(q, k_c, v_c, k_s, v_s, lengths, *, run: Callable):
     """The quantised cache read on DTensors: ``run`` (the packed attention
-    kernel's dispatch) on the rank's slots and kv heads.  The cache must
-    shard its heads like q (``cache_specs`` at a ``model`` axis dividing
-    the kv heads); a sequence-sharded cache raises."""
+    kernel's dispatch) on the rank's slots and kv heads, where the cache
+    shards its heads like q (``cache_specs`` at a ``model`` axis dividing
+    the kv heads).  A sequence-sharded cache is read on each rank's range
+    with ``run(..., return_lse=True)`` on f32 q (so the split kernel's
+    output is its f32 result, not yet rounded) and the ranks' parts are
+    combined (:func:`seq_read`)."""
     _, Replicate, Shard = _pl()
+    if seq_dims(k_c):
+        return seq_read(q, lengths, [k_c, v_c, k_s, v_s],
+                        lambda q_, ext, *c: run(q_.to(torch.float32), *c,
+                                                ext, return_lse=True))
     mesh = q.device_mesh
     md = _model_dim(mesh)
     n, _ = model_coord(mesh)
-    for t in (k_c, v_c, k_s, v_s):
-        for p in t.placements:
-            if isinstance(p, Shard) and p.dim % t.ndim == 1:
-                raise ValueError(
-                    "packed attention over a sequence-sharded KV cache needs "
-                    "a partial-softmax combine across ranks, which the port "
-                    "does not have yet")
     if md is not None and n > 1 and isinstance(
             _norm_dim(k_c.placements[md], k_c.ndim), Shard):
         q = _to(q, _set(q.placements, md, Shard(2)))

@@ -655,15 +655,19 @@ __global__ void __launch_bounds__(SP_NT, 1)
 
 // out[b, c, h, d] from the live splits of its query row, in split order:
 // m = max m_s, then acc = sum acc_s · exp(m_s - m) and l likewise, then
-// acc / max(l, 1e-30).  One thread per output element.  Launched as a
-// programmatic dependent of the split kernel: its CTAs may start early and
-// wait here for that grid's end.
+// acc / max(l, 1e-30).  One thread per output element.  Where `lse` is not
+// null, the d = 0 thread of a row also writes lse[b, c, h] = m + log l, the
+// log-sum-exp of the row's scaled scores: -inf for a row with no live key
+// (then no split is read, so no dead CTA's unwritten workspace either, and
+// out is 0).  A sequence-sharded cache combines ranks' partial reads by it.
+// Launched as a programmatic dependent of the split kernel: its CTAs may
+// start early and wait here for that grid's end.
 template <typename OT>
 __global__ void __launch_bounds__(256)
     pda_combine_kernel(const float* __restrict__ ws,
                        const int* __restrict__ lengths, OT* __restrict__ out,
-                       int B, int C, int H, int Hkv, int Dh, int n_split,
-                       int split_rows) {
+                       float* __restrict__ lse, int B, int C, int H, int Hkv,
+                       int Dh, int n_split, int split_rows) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)B * C * H * Dh) return;
@@ -688,13 +692,16 @@ __global__ void __launch_bounds__(256)
     l += ws_ml[2 * rs + 1] * w;
   }
   out[i] = rt::from_f32<OT>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0)  // -inf: no live key
+    lse[row] = l > 0.f ? m + logf(l) : __int_as_float(0xff800000);
 }
 
 template <int DH, int BT, bool PACKED, typename OT>
 cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
                     const uint8_t* vp, const float* ks, const float* vs,
-                    const int* lengths, float* ws, void* out, int B, int C,
-                    int H, int Hkv, int T, int tiles_per_split, int n_split,
+                    const int* lengths, float* ws, void* out, float* lse,
+                    int B, int C, int H, int Hkv, int T, int tiles_per_split,
+                    int n_split,
                     int n_groups, int group_rows, long long kv_bstride,
                     long long s_bstride, cudaStream_t stream) {
   constexpr int CB = PACKED ? DH / 2 : DH;
@@ -728,8 +735,8 @@ cudaError_t split_t(const void* q, int q_bf16, float q_scale, const uint8_t* kp,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, pda_combine_kernel<OT>,
                            static_cast<const float*>(ws), lengths,
-                           static_cast<OT*>(out), B, C, H, Hkv, DH, n_split,
-                           tiles_per_split * BT);
+                           static_cast<OT*>(out), lse, B, C, H, Hkv, DH,
+                           n_split, tiles_per_split * BT);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -737,14 +744,15 @@ template <typename OT, bool PACKED>
 cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
                         float q_scale, const uint8_t* kp, const uint8_t* vp,
                         const float* ks, const float* vs, const int* lengths,
-                        float* ws, void* out, int B, int C, int H, int Hkv,
+                        float* ws, void* out, float* lse, int B, int C, int H,
+                        int Hkv,
                         int T, int tiles_per_split, int n_split, int n_groups,
                         int group_rows, long long kv_bstride,
                         long long s_bstride, cudaStream_t s) {
 #define RT_SPLIT(DH, BT)                                                      \
   if (Dh == DH && bt == BT)                                                   \
     return split_t<DH, BT, PACKED, OT>(q, q_bf16, q_scale, kp, vp, ks, vs,    \
-                                       lengths, ws, out, B, C, H, Hkv, T,     \
+                                       lengths, ws, out, lse, B, C, H, Hkv, T,\
                                        tiles_per_split, n_split, n_groups,    \
                                        group_rows, kv_bstride, s_bstride, s);
   // the (Dh, bt) builds: SPLIT_SHAPES in decode_packed.py names these
@@ -777,13 +785,14 @@ cudaError_t split_shape(int Dh, int bt, const void* q, int q_bf16,
 // tiles from row 0; the R = C·(H / Hkv) query rows of a (slot, kv head) into
 // n_groups groups of group_rows (<= 64; the last may hold fewer, none is
 // empty), one CTA each, a row's arithmetic the same in any group.  ws: f32
-// scratch of B·Hkv·n_split·R·(Dh + 2) floats.  out: q's dtype.  Other
+// scratch of B·Hkv·n_split·R·(Dh + 2) floats.  out: q's dtype.  lse: null,
+// or f32 (B, C, H) for each row's log-sum-exp (pda_combine_kernel).  Other
 // arguments as pda_launch.  Returns the launches' cudaError_t (0 on success).
 extern "C" int pda_split_launch(const void* q, int q_bf16, float q_scale,
                                 const uint8_t* kp, const uint8_t* vp,
                                 const float* ks, const float* vs,
                                 const int* lengths, float* ws, void* out,
-                                int packed, int B, int C, int H, int Hkv,
+                                float* lse, int packed, int B, int C, int H, int Hkv,
                                 int Dh, int T, int bt, int tiles_per_split,
                                 int n_split, int n_groups, int group_rows,
                                 long long kv_bstride, long long s_bstride,
@@ -791,7 +800,7 @@ extern "C" int pda_split_launch(const void* q, int q_bf16, float q_scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_SPLIT_T(OT, P)                                                      \
   return (int)split_shape<OT, P>(Dh, bt, q, q_bf16, q_scale, kp, vp, ks, vs,  \
-                                 lengths, ws, out, B, C, H, Hkv, T,           \
+                                 lengths, ws, out, lse, B, C, H, Hkv, T,      \
                                  tiles_per_split, n_split, n_groups,          \
                                  group_rows, kv_bstride, s_bstride, s);
   if (q_bf16) {

@@ -18,6 +18,13 @@ not depend on the cache extent at a fixed ``bt``.
   design).  CPU tensors take the plain version.
 * :func:`tiled_packed_attention` — the plain PyTorch version, the same tile
   walk, masking and final ``acc / max(l, 1e-30)`` division.
+
+Both can also return each query row's log-sum-exp of its scaled scores
+(``return_lse``: ``m + log l``, -inf for a row with no live key, whose
+output is 0): a sequence-sharded cache reads each rank's range with it and
+combines the ranks' partial results (:func:`repro_torch.core.sharded.
+seq_combine`).  The split kernel writes it in its combine pass; the single
+kernel does not, and a read that asks for it there raises.
 """
 from __future__ import annotations
 
@@ -180,8 +187,8 @@ def _lib(route: str):
         fn = lib.pda_split_launch
         if fn.argtypes is None:
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [P, I, ctypes.c_float, P, P, P, P, P, P, P, I, I,
-                           I, I, I, I, I, I, I, I, I, I, L, L, P]
+            fn.argtypes = [P, I, ctypes.c_float, P, P, P, P, P, P, P, P, I,
+                           I, I, I, I, I, I, I, I, I, I, I, L, L, P]
             fn.restype = ctypes.c_int
         return fn
     fn = lib.pda_launch
@@ -214,23 +221,26 @@ def packed_decode_attention(
     packed: bool = True,
     name: str = "packed_decode_attention",
     route: Optional[str] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention of C query rows per slot over the quantised cache, in q's
     dtype.  Cache leaves may be views whose slot stride exceeds T rows
     (a bounded extent of a longer cache).  ``route`` ("split" / "single")
     replaces the rule's (:func:`pda_plan`) on CUDA tensors; one the read
-    cannot take (:func:`pda_plan_error`) raises."""
+    cannot take (:func:`pda_plan_error`) raises.  ``return_lse`` returns
+    ``(out, lse)`` with ``lse`` f32 (B, C, H), on the split route only."""
     global launches, launches_split, launches_single
     refuse_dtensor(name, q, k_p, v_p, k_s, v_s, lengths)
     if not q.is_cuda:
         return tiled_packed_attention(q, k_p, v_p, k_s, v_s, lengths, bt=bt,
-                                      packed=packed)
+                                      packed=packed, return_lse=return_lse)
     args = _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt, packed, name)
     if route is not None:
         from .. import check_plan
         check_plan("packed_decode_attention", route, None, args, name=name)
     plan = None if route == "single" else pda_plan(*args)
-    out = _launch(q, k_p, v_p, k_s, v_s, lengths, bt, plan, name)
+    out = _launch(q, k_p, v_p, k_s, v_s, lengths, bt, plan, name,
+                  return_lse)
     launches += 1
     if plan is None:
         launches_single += 1
@@ -280,11 +290,11 @@ def _plan_args(q, k_p, v_p, k_s, v_s, lengths, bt: int, packed: bool,
 
 
 def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
-            name: str = "packed_decode_attention") -> torch.Tensor:
+            name: str = "packed_decode_attention", return_lse: bool = False):
     """Launch the split kernel with ``plan``, or the single kernel when it
     is None, on CUDA operands that passed :func:`_plan_args` (uint8 codes
     are the int4x2 container, int8 the int4 one); counts nothing (the
-    wrapper counts)."""
+    wrapper counts).  ``return_lse`` (split only) returns ``(out, lse)``."""
     B, C, H, Dh = q.shape
     T, Hkv = int(k_p.shape[1]), int(k_p.shape[2])
     kv_stride, s_stride = int(k_p.stride(0)), int(k_s.stride(0))
@@ -296,6 +306,11 @@ def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
     cache = (k_p.data_ptr(), v_p.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
              lens.data_ptr())
     if plan is None:
+        if return_lse:
+            raise ValueError(
+                f"{name}: the log-sum-exp comes from the split route's "
+                f"combine pass, and this read takes the single kernel "
+                f"(Dh={Dh}, bt={bt}, {C * (H // Hkv)} query rows a kv head)")
         qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).contiguous()
         err = _lib("single")(qf.data_ptr(), *cache, out.data_ptr(), out_bf16,
                              packed, B, C, H, Hkv, Dh, T, bt, kv_stride,
@@ -308,13 +323,16 @@ def _launch(q, k_p, v_p, k_s, v_s, lengths, bt: int, plan: Optional[PdaPlan],
             qc = qc.clone()
         ws = torch.empty(B * Hkv * plan.n_splits * C * (H // Hkv) * (Dh + 2),
                          dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, C, H), dtype=torch.float32, device=q.device) \
+            if return_lse else None
         err = _lib("split")(qc.data_ptr(), out_bf16, 1.0 / math.sqrt(Dh),
-                            *cache, ws.data_ptr(), out.data_ptr(), packed,
+                            *cache, ws.data_ptr(), out.data_ptr(),
+                            None if lse is None else lse.data_ptr(), packed,
                             B, C, H, Hkv, Dh, T, bt, plan.tiles_per_split,
                             plan.n_splits, plan.n_groups, plan.group_rows,
                             kv_stride, s_stride, stream)
     build.check(err, name)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def tiled_packed_attention(
@@ -327,10 +345,13 @@ def tiled_packed_attention(
     *,
     bt: int = 64,
     packed: bool = True,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain version: tile-by-tile online softmax; a tile that is dead for
     a (b, c) row leaves that row's (m, l, acc) untouched.  Both containers
-    decode to the same codes, so they give the same bits."""
+    decode to the same codes, so they give the same bits.  ``return_lse``
+    returns ``(out, lse)``: ``m + log l`` per row, -inf where no key is
+    live (the kernel's combine pass)."""
     B, C, H, Dh = q.shape
     T, Hkv = k_c.shape[1], k_c.shape[2]
     G = H // Hkv
@@ -367,4 +388,9 @@ def tiled_packed_attention(
         l = torch.where(live, l_new, l)
         acc = torch.where(live[..., None], acc_new, acc)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, C, H, Dh).to(q.dtype)
+    out = out.reshape(B, C, H, Dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l),
+                      torch.full_like(l, float("-inf")))
+    return out, lse.reshape(B, C, H)

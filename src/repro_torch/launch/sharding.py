@@ -30,7 +30,7 @@ from ..tree import tree_map
 from .mesh import axis_names, data_axes, mesh_size
 
 __all__ = ["batch_specs", "cache_specs", "opt_specs", "opt_state_specs",
-           "param_specs",
+           "param_specs", "place_tree",
            "placements", "sanitize_specs", "schedule_shardable",
            "shard_batch", "shard_cache", "shard_masks", "shard_opt_state",
            "shard_params", "specs_placements"]
@@ -311,7 +311,9 @@ def specs_placements(spec_tree: PyTree, mesh) -> PyTree:
     return _map_specs(lambda s: (mesh, placements(s, mesh)), spec_tree)
 
 
-def _place_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+def place_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """``tree`` (the same full tree on every rank) as DTensors placed by the
+    spec tree ``specs``."""
     return _map_specs(lambda s, t: place(t, mesh, placements(s, mesh)),
                       specs, tree)
 
@@ -343,7 +345,7 @@ def shard_params(params: PyTree, cfg: ArchConfig, mesh, patterns=None):
 
     if patterns:
         _map_with_path(note, params)
-    return _place_tree(params, specs, mesh), specs, local
+    return place_tree(params, specs, mesh), specs, local
 
 
 def opt_specs(params: PyTree, cfg: ArchConfig, mesh, patterns=None) -> PyTree:
@@ -359,8 +361,8 @@ def shard_opt_state(opt_state: PyTree, params: PyTree, cfg: ArchConfig, mesh,
                     patterns=None) -> PyTree:
     """AdamW's moments placed by :func:`opt_specs` (ZeRO: the parameter
     specs, FSDP-extended) and its step replicated."""
-    return _place_tree(opt_state, opt_specs(params, cfg, mesh, patterns),
-                       mesh)
+    return place_tree(opt_state, opt_specs(params, cfg, mesh, patterns),
+                      mesh)
 
 
 def shard_batch(batch: Dict, cfg: ArchConfig, mesh) -> Dict:
@@ -368,31 +370,22 @@ def shard_batch(batch: Dict, cfg: ArchConfig, mesh) -> Dict:
     specs = sanitize_specs(
         {k: v for k, v in batch_specs(cfg, mesh).items() if k in batch},
         batch, mesh)
-    return _place_tree(batch, specs, mesh)
+    return place_tree(batch, specs, mesh)
 
 
 def shard_cache(cache: PyTree, cfg: ArchConfig, mesh,
                 kv_cache: str = "float") -> PyTree:
     """A decode cache placed by ``cache_specs``.  A sequence-sharded KV
-    placement (a ``model`` axis that does not divide ``n_kv_heads``) raises:
-    its read needs a partial-softmax combine across ranks, which the port
-    does not have yet."""
+    placement (a ``model`` axis that does not divide ``n_kv_heads``, or a
+    batch the data axes do not divide) is written and read on each rank's
+    range of T, the ranks' partial reads combined
+    (:func:`repro_torch.models.blocks._cache_attend`)."""
     attn = cache.get("attn", cache)
     B = int((attn["length"] if "length" in attn
              else cache["slstm"]["h"]).shape[1])
     specs = sanitize_specs(cache_specs(cfg, mesh, batch=B, kv_cache=kv_cache),
                            cache, mesh)
-    kv = specs.get("attn", specs)
-    for name, spec in kv.items():
-        if name != "length" and isinstance(spec, tuple) and len(spec) > 2 \
-                and spec[2] is not None:
-            raise ValueError(
-                f"cache leaf {name} would be sequence-sharded {spec} "
-                f"(n_kv_heads={cfg.n_kv_heads} over a model axis of "
-                f"{mesh_size(mesh, 'model')}, or a batch of {B} over the "
-                "data axes): its attention read needs a partial-softmax "
-                "combine across ranks, which the port does not have yet")
-    return _place_tree(cache, specs, mesh)
+    return place_tree(cache, specs, mesh)
 
 
 def shard_masks(masks: PyTree, params: PyTree) -> PyTree:

@@ -27,6 +27,7 @@ from .config import ArchConfig
 from .layers import (
     Params,
     apply_rope,
+    attention_lse,
     decode_attention,
     layernorm,
     linear_apply,
@@ -160,20 +161,38 @@ def _kv_quant(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _kv_insert(cache_kv: torch.Tensor, upd: torch.Tensor,
-               idx: torch.Tensor) -> torch.Tensor:
+               idx: torch.Tensor, seq: Optional[Tuple[int, int]] = None
+               ) -> torch.Tensor:
     """Write ``upd`` (B, C, ...) into ``cache_kv`` (B, T, ...) at rows
     ``idx[b] .. idx[b] + C - 1``, in place.
 
     The start row is clamped to ``[0, T - C]``, as ``dynamic_update_slice``
     clamps it in the reference: an idle slot whose length is T writes its
     garbage row at T - 1 instead of failing.
+
+    ``seq = (offset, T)``: ``cache_kv`` holds rows ``offset .. offset + t - 1``
+    of a sequence-sharded cache of T rows, and only the chunk rows that fall
+    in that range land here (a chunk may straddle ranks).  Shape-only, with
+    no data-dependent count: each chunk row's position is clamped into the
+    range, and the row there is written with the chunk row that owns it, or
+    with its own value where none does — so rows that clamp to one
+    position all write the same value.
     """
     B, T = cache_kv.shape[:2]
     C = upd.shape[1]
-    start = torch.clamp(idx.to(torch.int64), 0, T - C)
-    pos = start[:, None] + torch.arange(C, device=idx.device)[None, :]
     slot = torch.arange(B, device=idx.device)[:, None].expand(B, C)
-    cache_kv[slot, pos] = upd.to(cache_kv.dtype)
+    rows = torch.arange(C, device=idx.device)[None, :]
+    if seq is None:
+        start = torch.clamp(idx.to(torch.int64), 0, T - C)
+        cache_kv[slot, start[:, None] + rows] = upd.to(cache_kv.dtype)
+        return cache_kv
+    off, T_all = seq
+    start = torch.clamp(idx.to(torch.int64), 0, T_all - C)[:, None]
+    pos = torch.clamp(start + rows - off, 0, T - 1)
+    src = pos + off - start                    # the chunk row owning pos
+    own = ((src >= 0) & (src < C)).reshape(B, C, *(1,) * (upd.ndim - 2))
+    new = upd.to(cache_kv.dtype)[slot, torch.clamp(src, 0, C - 1)]
+    cache_kv[slot, pos] = torch.where(own, new, cache_kv[slot, pos])
     return cache_kv
 
 
@@ -186,11 +205,14 @@ def _extent(arr: torch.Tensor, t_bound: Optional[int]) -> torch.Tensor:
 
 def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
                  n_valid: Optional[torch.Tensor],
-                 t_bound: Optional[int]) -> torch.Tensor:
+                 t_bound: Optional[int],
+                 seq: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Insert a step's K/V rows (B, T, Hkv, Dh) at each slot's ``length``,
     quantise-packing them for the int4 / int4x2 containers, and advance
     ``length`` by ``n_valid``, all IN PLACE; returns the per-row read
-    extents ``lengths`` (B, T)."""
+    extents ``lengths`` (B, T).  ``seq`` = (offset, whole T): the leaves
+    are one rank's range of a sequence-sharded cache (:func:`_kv_insert`);
+    ``length`` and the extents stay whole."""
     B, T = k.shape[:2]
     idx = cache["length"]
     nv = torch.full((B,), T, dtype=torch.int32, device=k.device) \
@@ -200,33 +222,37 @@ def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     # last valid extent (>= 1, so no all-masked softmax row).  A slot whose
     # length runs past the read extent (an idle slot of the token drip,
     # which advances every step) reads the whole extent, never past it.
-    T_c = (cache["k"] if "k" in cache else cache["k_s"]).shape[1]
+    T_c = seq[1] if seq is not None else \
+        (cache["k"] if "k" in cache else cache["k_s"]).shape[1]
     ext = T_c if t_bound is None else min(t_bound, T_c)
     lengths = idx[:, None] + torch.minimum(row + 1, nv[:, None])
     lengths = torch.clamp(lengths, 1, ext)
     if "k" in cache:
-        _kv_insert(cache["k"], k, idx)
-        _kv_insert(cache["v"], v, idx)
+        _kv_insert(cache["k"], k, idx, seq)
+        _kv_insert(cache["v"], v, idx, seq)
     else:
         kq, ks = _kv_quant(k)
         vq, vs = _kv_quant(v)
-        _kv_insert(cache["k_s"], ks, idx)
-        _kv_insert(cache["v_s"], vs, idx)
+        _kv_insert(cache["k_s"], ks, idx, seq)
+        _kv_insert(cache["v_s"], vs, idx, seq)
         if "k_p" in cache:   # int4x2: two codes per byte along Dh
-            _kv_insert(cache["k_p"], pack_int4(kq, axis=-1), idx)
-            _kv_insert(cache["v_p"], pack_int4(vq, axis=-1), idx)
+            _kv_insert(cache["k_p"], pack_int4(kq, axis=-1), idx, seq)
+            _kv_insert(cache["v_p"], pack_int4(vq, axis=-1), idx, seq)
         else:                # int4: int8 container, the same codes
-            _kv_insert(cache["k_q"], kq, idx)
-            _kv_insert(cache["v_q"], vq, idx)
+            _kv_insert(cache["k_q"], kq, idx, seq)
+            _kv_insert(cache["v_q"], vq, idx, seq)
     idx += nv
     return lengths
 
 
 def _float_read(cfg: ArchConfig, q: torch.Tensor, cache: Dict,
-                lengths: torch.Tensor, t_bound: Optional[int]) -> torch.Tensor:
+                lengths: torch.Tensor, t_bound: Optional[int],
+                return_lse: bool = False):
     """The plain float read: the float cache bounded to ``t_bound``, or a
     quantised container decoded whole to the compute dtype (the
-    reference's "unpack" baseline)."""
+    reference's "unpack" baseline).  ``return_lse``: the f32 output and each
+    row's log-sum-exp (:func:`repro_torch.models.layers.attention_lse`; the
+    partial read of one rank's range of a sequence-sharded cache)."""
     if "k" in cache:
         kx, vx = _extent(cache["k"], t_bound), _extent(cache["v"], t_bound)
     else:
@@ -239,6 +265,8 @@ def _float_read(cfg: ArchConfig, q: torch.Tensor, cache: Dict,
         dt = _dtype(cfg)
         kx = (k_codes.to(torch.float32) * cache["k_s"][..., None]).to(dt)
         vx = (v_codes.to(torch.float32) * cache["v_s"][..., None]).to(dt)
+    if return_lse:
+        return attention_lse(q, kx, vx, lengths)
     if q.shape[1] == 1:
         return decode_attention(q, kx, vx, lengths[:, 0])
     return prefill_attention(q, kx, vx, lengths)
@@ -249,22 +277,43 @@ def _cache_attend(cfg: ArchConfig, q, k, v, cache: Dict, n_valid, t_bound,
     """Write the step's K/V into ``cache`` and read it for q.  On DTensors
     (a cache placed by ``cache_specs``) the write and the float read run on
     each rank's slots and kv heads (``local_map``); the fused read goes
-    through :func:`attn_packed_dispatch`'s own DTensor leg."""
+    through :func:`attn_packed_dispatch`'s own DTensor leg.
+
+    A sequence-sharded cache (T cut over ``model``, or over the data axes
+    at a batch they do not divide): each rank writes the rows of its range
+    (:func:`_kv_insert`), reads its range with local extents and the ranks'
+    partial reads are combined by their log-sum-exps
+    (:func:`repro_torch.core.sharded.seq_read`)."""
     names = sorted(cache)
+    kv_leaf = cache["k"] if "k" in cache else cache["k_s"]
+    seq = sharded.seq_dims(kv_leaf)
     if sharded.is_dtensor(q):
         if n_valid is not None and not sharded.is_dtensor(n_valid):
             raise ValueError("a placed cache needs a placed n_valid / active "
                              "mask")
         leaves = [cache[n] for n in names]
+        rows = None
+        if seq:
+            _, pl, off, _ = sharded.seq_layout(kv_leaf)
+            k = k.redistribute(k.device_mesh, pl)
+            v = v.redistribute(v.device_mesh, pl)
+            rows = (off, int(kv_leaf.shape[1]))
 
         def write(k_, v_, nv_, *leaves_):
             return _cache_write(dict(zip(names, leaves_)), k_, v_, nv_,
-                                t_bound)
+                                t_bound, rows)
 
         lengths = sharded.local_apply(
             write, list(cache["length"].placements), k, v, n_valid, *leaves)
     else:
         lengths = _cache_write(cache, k, v, n_valid, t_bound)
+    if seq and ("k" in cache or packed_read == "unpack"):
+        rest = [n for n in names if n != "length"]
+        return sharded.seq_read(
+            q, lengths, [cache[n] for n in rest],
+            lambda q_, ext, *leaves_: _float_read(
+                cfg, q_, dict(zip(rest, leaves_)), ext, None,
+                return_lse=True))
     if "k" in cache or packed_read == "unpack":
         if not sharded.is_dtensor(q):
             return _float_read(cfg, q, cache, lengths, t_bound)
@@ -275,9 +324,12 @@ def _cache_attend(cfg: ArchConfig, q, k, v, cache: Dict, n_valid, t_bound,
     packed = "k_p" in cache
     k_st, v_st = (cache["k_p"], cache["v_p"]) if packed \
         else (cache["k_q"], cache["v_q"])
+    # a sequence-sharded cache is read whole on each rank's range: its
+    # extents, not t_bound, bound the read
+    bound = None if seq else t_bound
     return attn_packed_dispatch(
-        q, _extent(k_st, t_bound), _extent(v_st, t_bound),
-        _extent(cache["k_s"], t_bound), _extent(cache["v_s"], t_bound),
+        q, _extent(k_st, bound), _extent(v_st, bound),
+        _extent(cache["k_s"], bound), _extent(cache["v_s"], bound),
         lengths, packed=packed, dispatch=dispatch, bt=bt, leaf="attn.kv")
 
 

@@ -181,6 +181,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def attention_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, lengths: torch.Tensor):
+    """C query rows per slot over a float cache with per-row extents
+    ``lengths`` (B, C), which may be 0: returns the f32 output (B, C, H, Dh)
+    and each row's log-sum-exp of its scaled scores (B, C, H), for a
+    partial read that is combined with others (a sequence-sharded cache,
+    :func:`repro_torch.core.sharded.seq_combine`).  A row with no live key
+    gives 0 and -inf, never NaN."""
+    B, C, H, Dh = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).reshape(
+        B, C, Hkv, G, Dh)
+    s = torch.einsum("bcHgd,btHd->bcHgt", qf, k_cache.to(torch.float32))
+    mask = torch.arange(T, device=q.device)[None, None, :] \
+        < lengths[:, :, None]
+    s = s.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bcHgt,btHd->bcHgd", p, v_cache.to(torch.float32))
+    o = o / torch.clamp_min(l, 1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l),
+                      torch.full_like(l, float("-inf")))
+    return o.reshape(B, C, H, Dh), lse.reshape(B, C, H)
+
+
 def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """:func:`decode_attention` batched over a chunk of C query rows with a

@@ -120,13 +120,25 @@ def _blocks_init(gen: torch.Generator, cfg: ArchConfig, dev) -> Params:
     return blocks
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that names ``meta`` as its device: the inits draw
+    on ``generator.device``, and meta has no generator of its own (a
+    draw on meta takes any generator and consumes nothing)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (CUDA unless ``device="cpu"``); linears in
-    ``cfg.linear_mode``."""
+    ``cfg.linear_mode``.  ``device="meta"`` gives the tree's shapes and
+    dtypes with nothing allocated (:mod:`repro_torch.launch.specs`)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = (_MetaGenerator(device="cpu") if dev.type == "meta"
+           else torch.Generator(device=dev)).manual_seed(int(seed))
     dt = _dtype(cfg)
     params: Params = {
         "embed": {"w": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
@@ -324,10 +336,27 @@ def _hybrid_superblock(p, shared, cfg, h, positions, cache, patterns,
     return h
 
 
+# the families whose layers have no DTensor leg yet: a placed step raises,
+# naming the leg it needs
+_UNPLACED_LEGS = {
+    "moe": "the MoE layer's (moe_apply: routing, capacity and the expert "
+           "products on DTensors)",
+    "ssm": "the xLSTM blocks' (slstm_apply / mlstm_apply and their "
+           "recurrent states on DTensors)",
+    "hybrid": "the Mamba2 blocks' (mamba2_apply and its states on "
+              "DTensors)",
+}
+
+
 def _block(p_layer, params, cfg, h, positions, cache, patterns, dispatch,
            n_valid=None, t_bound=None, bt=None, packed_read="fused"):
     """One layer (super-block) of any family; ``cache`` None for the full
     sequence."""
+    if cfg.family in _UNPLACED_LEGS and sharded.is_dtensor(h):
+        raise NotImplementedError(
+            f"{cfg.name}: a placed (DTensor) step needs "
+            f"{_UNPLACED_LEGS[cfg.family]} sharded leg, which the port does "
+            f"not have yet: the {cfg.family} family runs unplaced")
     if cfg.family == "ssm":
         return _ssm_superblock(p_layer, cfg, h, cache, dispatch)
     if cfg.family == "hybrid":

@@ -7,6 +7,7 @@ dtype (bf16 at full width), as in ``repro.train.trainer``.  The reference's
 ``jax.jit`` / ``lax.scan`` become eager calls and a Python loop.
 
 ``make_prefill_step``: the full-sequence forward's last-position logits.
+``make_serve_step``: one cached decode step (the dry-run's decode cells).
 
 Both take placed parameters too (DTensors from
 :func:`repro_torch.launch.sharding.shard_params`, a batch from
@@ -23,11 +24,12 @@ import torch
 
 from ..core.sharded import is_dtensor, place
 from ..models.config import ArchConfig
-from ..models.model import forward, loss_fn
+from ..models.model import decode_step, forward, loss_fn
 from .optimizer import AdamWConfig, adamw_update
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["make_prefill_step", "make_train_step", "pick_n_micro"]
+__all__ = ["make_prefill_step", "make_serve_step", "make_train_step",
+           "pick_n_micro"]
 
 PyTree = Any
 
@@ -146,3 +148,15 @@ def make_prefill_step(cfg: ArchConfig):
         return forward(params, cfg, batch)[:, -1]
 
     return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig):
+    """``serve_step(params, cache, tokens) -> (logits, cache)``: one decode
+    step, tokens (B, 1), the cache updated in place
+    (:func:`repro_torch.models.model.decode_step`), without autograd."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        return decode_step(params, cfg, cache, tokens)
+
+    return serve_step

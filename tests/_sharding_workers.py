@@ -18,11 +18,18 @@ magnitude of the one-process value (``rel``), over every leaf or output.
   bits; sparse MLP blocks under crafted stripe masks, so the pattern-aware
   rule shards their block axis over ``model`` and each rank runs its local
   schedule) through a 4-row prefill chunk and three decode steps, with the
-  float and int4x2 caches; a ``model`` axis that does not divide the 2 kv
-  heads must raise instead (a sequence-sharded cache).
+  float and int4x2 caches; at a ``model`` axis that does not divide the 2
+  kv heads the cache is sequence-sharded.
 * ``ckpt``: each rank a host (two or four), the placed parameters and
   moments saved and restored to placements.
 * ``refuse``: a DTensor handed to a kernel wrapper raises.
+
+The sequence-sharded cache (``tests/test_torch_seq_cache.py``, ``kind =
+"seq"``): :data:`SEQ_CASES` names, for each mesh, the (kv heads, batch) of
+reduced llama3.2-1b (f32) whose cache ``cache_specs`` cuts along T; each
+runs one decode step, a 16-row prefill chunk (straddling ranks) and three
+more decode steps on a 32-row cache, placed and in one process, for every
+container and read of :data:`SEQ_READS`.
 """
 import dataclasses
 import os
@@ -146,12 +153,8 @@ def _decode_cases(mesh, cfg):
     for kv in KV:
         ref, rc = run(cm.params, tm.init_cache(cfg, 4, 32, kv, device="cpu"),
                       False)
-        try:
-            cache = sh.shard_cache(tm.init_cache(cfg, 4, 32, kv, device="cpu"),
-                                   cfg, mesh, kv)
-        except ValueError as e:
-            out[f"{kv}/refused"] = str(e)
-            continue
+        cache = sh.shard_cache(tm.init_cache(cfg, 4, 32, kv, device="cpu"),
+                               cfg, mesh, kv)
         got, gc = run(placed, cache, True)
         out[f"{kv}/logits"] = max(_rel(a, b) for a, b in zip(ref, got))
         out[f"{kv}/cache"] = max(_rel(a, b) for (_, a), (_, b) in zip(
@@ -205,9 +208,75 @@ def _refuse_case(mesh):
     return None
 
 
-def run_rank(rank, world, shape, init, ckdir, q):
-    """One rank: every case of the ``shape`` mesh; puts ``(rank, results)``
-    or ``(rank, traceback)`` on ``q``."""
+# mesh -> the (n_kv_heads, batch) cases whose cache is cut along T there:
+# over model (kv heads it does not divide), over the data axes (a batch of
+# one), or over both
+SEQ_CASES = {(1, 2): [(1, 2)], (2, 1): [(2, 1)], (1, 4): [(2, 2), (2, 1)],
+             (2, 2): [(2, 1), (1, 1), (1, 2)]}
+# (container, read) of the sequence-sharded cases
+SEQ_READS = [("float", "fused"), ("int4", "fused"), ("int4x2", "fused"),
+             ("int4x2", "unpack")]
+SEQ_T = 32
+SEQ_CHUNKS = ((0, 1), (1, 17), (17, 18), (18, 19), (19, 20))
+
+
+def seq_config(hkv: int):
+    from repro_torch.configs import reduced_config
+
+    return dataclasses.replace(reduced_config("llama3.2-1b"), n_kv_heads=hkv)
+
+
+def seq_tokens(cfg, B: int):
+    rng = np.random.default_rng(5)
+    return rng.integers(0, cfg.vocab, (B, SEQ_CHUNKS[-1][1])).astype(np.int32)
+
+
+def _seq_cases(mesh):
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as tm
+    from repro_torch.tree import tree_items
+
+    out = {}
+    shape = tuple(int(s) for s in mesh.shape)
+    for hkv, B in SEQ_CASES[shape]:
+        cfg = seq_config(hkv)
+        params = tm.init_params(cfg, seed=0, device="cpu")
+        placed, _, _ = sh.shard_params(params, cfg, mesh)
+        toks = torch.from_numpy(seq_tokens(cfg, B))
+        for kv, read in SEQ_READS:
+            key = f"h{hkv}b{B}/{kv}/{read}"
+            one = tm.init_cache(cfg, B, SEQ_T, kv, device="cpu")
+            cache = sh.shard_cache(tm.init_cache(cfg, B, SEQ_T, kv,
+                                                 device="cpu"), cfg, mesh, kv)
+            leaf = cache["k" if kv == "float" else "k_s"]
+            out[f"{key}/t_dims"] = [
+                mesh.mesh_dim_names[i] for i, p in enumerate(leaf.placements)
+                if getattr(p, "dim", None) == 2]
+            ref, got = [], []
+            for lo, hi in SEQ_CHUNKS:
+                fn = tm.prefill_step if hi - lo > 1 else tm.decode_step
+                t = toks[:, lo:hi]
+                lg, one = fn(params, cfg, one, t, packed_read=read)
+                ref.append(lg)
+                tp = sh.shard_batch({"tokens": t}, cfg, mesh)["tokens"]
+                lg, cache = fn(placed, cfg, cache, tp, packed_read=read)
+                got.append(lg.full_tensor())
+            out[f"{key}/logits"] = [g.numpy() for g in got]
+            out[f"{key}/rel"] = max(_rel(a, b) for a, b in zip(ref, got))
+            out[f"{key}/finite"] = all(bool(torch.isfinite(g).all())
+                                       for g in got)
+            # the placed cache, gathered, against the one-process cache:
+            # each rank wrote its own rows and no other
+            out[f"{key}/cache"] = max(_rel(a, b) for (_, a), (_, b) in zip(
+                tree_items(one), tree_items(cache)))
+    return out
+
+
+def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
+    """One rank: every case of the ``shape`` mesh (``kind`` "apply": the
+    train, decode, refusal and checkpoint cases; "seq": the
+    sequence-sharded cache's); puts ``(rank, results)`` or ``(rank,
+    traceback)`` on ``q``."""
     import torch.distributed as dist
 
     try:
@@ -219,6 +288,9 @@ def run_rank(rank, world, shape, init, ckdir, q):
 
         sh._FSDP_MIN_ELEMS = 1024
         mesh = lm.make_mesh(shape, ("data", "model"), "cpu")
+        if kind == "seq":
+            q.put((rank, _seq_cases(mesh)))
+            return
         cfg = reduced_config("llama3.2-1b")
         res = {"train": _train_cases(mesh, cfg),
                "decode": _decode_cases(mesh, cfg),
@@ -232,10 +304,11 @@ def run_rank(rank, world, shape, init, ckdir, q):
             dist.destroy_process_group()
 
 
-def spawn_mesh(shape, timeout: float = 150.0):
-    """Run :func:`run_rank` on every rank of a ``shape`` mesh; returns the
-    rank-0 results.  Each rank joins within ``timeout`` seconds or is
-    killed, and the call fails rather than hangs."""
+def spawn_mesh(shape, timeout: float = 150.0, kind: str = "apply"):
+    """Run :func:`run_rank` (its ``kind`` of cases) on every rank of a
+    ``shape`` mesh; returns the rank-0 results.  Each rank joins within
+    ``timeout`` seconds or is killed, and the call fails rather than
+    hangs."""
     import torch.multiprocessing as mp
 
     world = int(np.prod(shape))
@@ -243,7 +316,8 @@ def spawn_mesh(shape, timeout: float = 150.0):
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as d:
         procs = [ctx.Process(target=run_rank, args=(
-            r, world, shape, f"file://{d}/store", os.path.join(d, "ck"), q))
+            r, world, shape, f"file://{d}/store", os.path.join(d, "ck"), q,
+            kind))
             for r in range(world)]
         for p in procs:
             p.start()

@@ -1,0 +1,188 @@
+"""The dry-run (``repro_torch.launch.dryrun``) and its counts
+(``repro_torch.launch.op_costs``) on the CPU.
+
+Each case runs in a process of its own: the fake process group is
+process-global.
+
+* Reduced llama3.2-1b (f32; train 4 × 16 tokens, prefill 4 × 16, decode 4
+  rows over a 32-row cache) on a fake (2, 2) ``("data", "model")`` mesh:
+  the train, prefill and decode steps end ``ok``, and the per-device
+  product FLOPs × 4 equal the unplaced step's one-process count (every
+  product of this config splits evenly over batch and heads / columns /
+  rows / vocab), ``mm`` and ``bmm`` each, exactly;
+* the double-count trap: a DTensor product counted by torch's own
+  ``FlopCounterMode`` gives the global count (or global plus local,
+  depending on the torch version), ``OpCosts`` the local one only;
+* the MoE, SSM and hybrid families' placed steps raise, naming the leg
+  they lack;
+* a full-size cell through the command line (llama3.2-1b ``decode_32k``
+  on (16, 16)) writes its record; an encoder's decode cell is skipped
+  with the reference's reason;
+* ``roofline_terms`` is the reference's arithmetic.
+"""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CELLS = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch.configs import reduced_config
+from repro_torch.launch import dryrun as d
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.op_costs import OpCosts
+from repro_torch.launch.specs import cache_shapes, input_specs, opt_shapes
+from repro_torch.launch.specs import param_shapes
+from repro_torch.models.config import ShapeSpec
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train import trainer
+
+cfg = reduced_config("llama3.2-1b")
+shapes = [ShapeSpec("t", 16, 4, "train"), ShapeSpec("p", 16, 4, "prefill"),
+          ShapeSpec("d", 32, 4, "decode")]
+out = {}
+with d.fake_group(4):
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    for s in shapes:
+        placed, per_rank = d.place_cell(cfg, s, mesh)
+        counts, n_micro = d.run_step(cfg, s, placed, mesh)
+        rec = d.analyse(counts, n_chips=4, cfg=cfg, shape=s)
+        with OpCosts() as one:
+            p, b = param_shapes(cfg), input_specs(cfg, s)
+            if s.kind == "train":
+                oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+                trainer.make_train_step(cfg, oc, n_micro)(
+                    p, opt_shapes(cfg, p, oc), b)
+            elif s.kind == "prefill":
+                trainer.make_prefill_step(cfg)(p, b)
+            else:
+                trainer.make_serve_step(cfg)(p, cache_shapes(cfg, s),
+                                             b["tokens"])
+        out[s.kind] = {"placed": rec, "one": one.record(),
+                       "bytes": per_rank, "n_micro": n_micro}
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils.flop_counter import FlopCounterMode
+    x = DTensor.from_local(torch.empty(64, 256, device="meta"), mesh,
+                           [Shard(0), Replicate()], run_check=False)
+    w = DTensor.from_local(torch.empty(256, 512, device="meta"), mesh,
+                           [Replicate(), Shard(1)], run_check=False)
+    with FlopCounterMode(display=False) as fc:
+        x @ w
+    with OpCosts() as oc:
+        x @ w
+    out["trap"] = {"torch": fc.get_total_flops(), "port": oc.flops,
+                   "global": 2 * 128 * 256 * 1024}
+    out["unplaced"] = {}
+    for arch in ("olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b"):
+        c = reduced_config(arch)
+        placed, per_rank = d.place_cell(c, shapes[2], mesh)
+        try:
+            d.run_step(c, shapes[2], placed, mesh)
+            out["unplaced"][arch] = None
+        except NotImplementedError as e:
+            out["unplaced"][arch] = [str(e), per_rank["cache"]]
+print(json.dumps(out))
+"""
+
+
+def _run(code, timeout=300):
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def cells():
+    return _run(_CELLS)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_reduced_cell_runs_and_splits_its_products_four_ways(cells, kind):
+    c = cells[kind]
+    placed, one = c["placed"], c["one"]
+    assert placed["flops_per_device"] > 0
+    assert set(placed["flops_by_op"]) == set(one["flops_by_op"])
+    for op, f in one["flops_by_op"].items():
+        assert placed["flops_by_op"][op] * 4 == f, (kind, op)
+    assert placed["flops_per_device"] * 4 == one["flops_per_device"]
+    assert placed["roofline"]["bound"] in ("compute", "memory", "collective")
+    assert c["bytes"]["params"] > 0 and c["bytes"]["batch"] > 0
+    assert (c["bytes"]["opt"] > 0) == (kind == "train")
+    assert (c["bytes"]["cache"] > 0) == (kind == "decode")
+    if kind != "decode":
+        # data-parallel gradients / the vocab-sharded loss all-reduce
+        assert sum(placed["collectives"].values()) > 0
+        assert placed["attention_traffic_bytes"] > 0
+
+
+def test_flop_counter_double_count_trap(cells):
+    """torch's ``FlopCounterMode`` counts a DTensor product at its global
+    shapes (plus, on some versions, the local call again); the port's
+    counter counts each rank's local call only."""
+    t = cells["trap"]
+    assert t["port"] == t["global"] // 4
+    assert t["torch"] in (t["global"], t["global"] + t["global"] // 4)
+
+
+def test_unported_families_name_their_missing_leg(cells):
+    """The MoE, SSM and hybrid families have no DTensor leg yet: their
+    placed step raises, naming it, after their per-rank bytes were
+    read."""
+    legs = {"olmoe-1b-7b": "moe_apply", "xlstm-1.3b": "mlstm_apply",
+            "zamba2-2.7b": "mamba2_apply"}
+    for arch, leg in legs.items():
+        msg, cache_bytes = cells["unplaced"][arch]
+        assert leg in msg and "sharded leg" in msg, msg
+        assert cache_bytes > 0
+
+
+def test_full_size_decode_cell_from_the_command_line(tmp_path):
+    code = ("import sys; sys.path.insert(0, 'src')\n"
+            "from repro_torch.launch import dryrun\n"
+            f"dryrun.main(['--arch', 'llama3.2-1b', '--shape', 'decode_32k',"
+            f" '--out', {str(tmp_path)!r}])\n"
+            "print('{}')\n")
+    _run(code)
+    rec = json.loads((tmp_path / "llama3.2-1b__decode_32k__pod1.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["n_chips"] == 256
+    # 8 kv heads over a model axis of 16: the cache is sequence-sharded,
+    # 128 slots over 16 data ranks, 32768 rows over 16 model ranks
+    assert rec["bytes_per_device"]["cache"] == \
+        16 * 2 * 8 * 2048 * 8 * 64 * 2 + 16 * 8 * 4
+    assert rec["collectives"]["all-reduce"] > 0
+    assert "not a measurement" in rec["roofline"]["estimate"]
+
+
+def test_encoder_decode_cell_is_skipped(tmp_path):
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("hubert-xlarge", "decode_32k", multi_pod=False,
+                          out_dir=tmp_path)
+    assert rec["status"] == "skipped"
+    assert rec["reason"] == "encoder-only: no decode step exists"
+    rec = dryrun.run_cell("llama3.2-1b", "long_500k", multi_pod=True,
+                          out_dir=tmp_path)
+    assert rec["reason"].startswith("full-attention arch")
+
+
+def test_roofline_terms_are_the_reference_arithmetic():
+    from repro.launch.hlo_analysis import roofline_terms as jr
+    from repro_torch.core.cost_model import H100_SXM
+    from repro_torch.launch.dryrun import roofline_terms as tr
+
+    for args in ((1e15, 3e12, 1e9), (1e12, 9e12, 0.0), (0.0, 1.0, 5e11)):
+        want = jr(*args, n_chips=256, peak_flops=H100_SXM.peak_flops_bf16,
+                  hbm_bw=H100_SXM.hbm_bw, ici_bw=H100_SXM.ici_bw)
+        got = tr(*args, n_chips=256)
+        assert {k: got[k] for k in want} == want

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing(tmp_path):
         "import sys; sys.path.insert(0, 'src')\n"
         "import repro_torch.serve.engine, repro_torch.interop, "
         "repro_torch.configs, repro_torch.launch.train, "
-        "repro_torch.train.checkpoint, repro_torch.core.pruning\n"
+        "repro_torch.train.checkpoint, repro_torch.core.pruning, "
+        "repro_torch.launch.specs, repro_torch.launch.dryrun, "
+        "repro_torch.launch.op_costs\n"
         "from repro_torch.kernels import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

@@ -39,11 +39,8 @@ def test_train_step_matches_one_process(ranks):
 def test_decode_step_matches_one_process(ranks):
     shape, res = ranks
     dec = res["decode"]
-    if shape[1] == 4:
-        # 2 kv heads over 4 model ranks: a sequence-sharded cache
-        for kv in KV:
-            assert "sequence-sharded" in dec[f"{kv}/refused"]
-        return
+    # at (1, 4) the 2 kv heads do not split over 4 model ranks: the cache is
+    # sequence-sharded, each rank's range read and the parts combined
     for kv in KV:
         assert dec[f"{kv}/logits"] <= REL, (shape, kv, dec)
         assert dec[f"{kv}/cache"] <= REL, (shape, kv, dec)
