@@ -82,10 +82,24 @@ Phases, each fatal on failure:
    read and of the plain version (lse within 1e-5), with rows whose range
    holds no live key; each range call, the combine and the whole read
    timed; then the dry-run of llama3.2-1b's ``decode_32k`` and
-   ``train_4k`` cells on the (16, 16) mesh (``python -m
-   repro_torch.launch.dryrun``, started after the build in processes of
-   their own that see no card), each required ``ok``, its per-rank bytes
-   and counts printed;
+   ``train_4k`` cells and olmoe-1b-7b's ``decode_32k`` on the (16, 16)
+   mesh (``python -m repro_torch.launch.dryrun``, started after the build
+   in processes of their own that see no card), each required ``ok``, its
+   per-rank bytes and counts printed;
+4a''. moe sharding — the MoE layer's placed leg on a new NCCL (1, 1)
+   mesh: olmoe-1b-7b at 2 of 16 layers (bf16, f32 AdamW moments, frozen
+   expert masks) for 2 steps of 2 x 1024 tokens in 2 micro-batches
+   through ``TrainRunner``, unplaced and placed from the same state
+   (losses and grad norms within 2^-8 / 2%, pruned weights exactly zero,
+   the same launches); qwen2-moe-a2.7b at 2 of 24 layers compiled as the
+   MoE serving path compiles it, 8 slots dripped 4 steps on the int4x2
+   cache, unplaced and placed (logits bit for bit, the same launches by
+   route, both steps' eager host ms); then, in one process, the leg's
+   local function of each rank of (data, model) (2, 2) and (1, 4) on
+   olmoe-1b-7b's full-width layer (8 drip tokens; the 2 x 1024 train
+   batch): the ranks' parts summed within one bf16 step of the unsharded
+   layer, every rank's keep mask the unsharded one, each rank's capacity
+   rows and ``Fe`` columns printed;
 4b. autotune — on the serve phase's compile: ``autotune_model`` at M = 8
    and 512 into a new table under ``chiprun_out/``, every candidate plan
    held against its plain version before it is timed (CUDA events, leaves
@@ -2049,25 +2063,25 @@ SEQ_CHUNKS = (1, 16)
 SEQ_TIME_CALLS = 8
 PDA_ROUTES = {"split": "launches_split", "single": "launches_single"}
 # the dry-run's cells on (16, 16), each in a process of its own
-DRYRUN_CELLS = ("decode_32k", "train_4k")
+DRYRUN_CELLS = (("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "train_4k"),
+                ("olmoe-1b-7b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 
 
 def start_dryrun(out_dir):
-    """Start the dry-run of llama3.2-1b's decode and train cells on the
-    (16, 16) mesh: ``python -m repro_torch.launch.dryrun``, one process a
-    cell, with no card visible (the fake process group is process-global
+    """Start the dry-run of :data:`DRYRUN_CELLS` on the (16, 16) mesh:
+    ``python -m repro_torch.launch.dryrun``, one process a cell, with no card visible (the fake process group is process-global
     and must not meet NCCL; it runs on meta tensors), at a lower CPU
     priority than the card's phases, beside which it runs from the start;
     :func:`seq_cache` joins it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     procs = {}
-    for shape in DRYRUN_CELLS:
-        log = open(out_dir / f"dryrun_{shape}.log", "w")
-        procs[shape] = (subprocess.Popen(
+    for arch, shape in DRYRUN_CELLS:
+        log = open(out_dir / f"dryrun_{arch}_{shape}.log", "w")
+        procs[f"{arch}/{shape}"] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "llama3.2-1b", "--shape", shape, "--out",
+             arch, "--shape", shape, "--out",
              str(out_dir / "dryrun_torch"), "--force"],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
             preexec_fn=lambda: os.nice(10)), log)
@@ -2085,17 +2099,18 @@ def stop_dryrun(dry):
 def join_dryrun(dry):
     """Each cell's record; a cell that did not end ``ok`` fails."""
     out = {}
-    for shape, (proc, log) in dry["procs"].items():
+    for cell, (proc, log) in dry["procs"].items():
         left = DRYRUN_TIMEOUT_S - (time.perf_counter() - dry["t0"])
         rc = proc.wait(timeout=max(left, 1))
         log.close()
-        path = dry["out"] / "dryrun_torch" / f"llama3.2-1b__{shape}__pod1.json"
+        arch, shape = cell.split("/")
+        path = dry["out"] / "dryrun_torch" / f"{arch}__{shape}__pod1.json"
         require(rc == 0 and path.exists(),
-                f"dry-run {shape}: exit {rc}, see {log.name}")
+                f"dry-run {cell}: exit {rc}, see {log.name}")
         rec = json.loads(path.read_text())
         require(rec["status"] == "ok",
-                f"dry-run {shape}: {rec['status']} {rec.get('error')}")
-        out[shape] = {k: rec.get(k) for k in (
+                f"dry-run {cell}: {rec['status']} {rec.get('error')}")
+        out[cell] = {k: rec.get(k) for k in (
             "n_chips", "bytes_per_device", "n_micro", "flops_per_device",
             "traffic_bytes_per_device", "collective_bytes_per_device",
             "collectives", "collective_counts", "model_flops_ratio",
@@ -2200,7 +2215,8 @@ def seq_cache(dev, report, dry):
     reads (int4x2 and int4, decode and the 16-row chunk) cut into the
     ranges of model axes 2 and 4, each range's split call and the combine
     against the whole split read and the plain version; (b) the dry-run's
-    decode and train cells, started at the beginning, joined here."""
+    cells (:data:`DRYRUN_CELLS`), started at the beginning, joined
+    here."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import decode_packed as dp
 
@@ -2220,6 +2236,243 @@ def seq_cache(dev, report, dry):
            "dryrun": join_dryrun(dry)}
     res["seconds"] = time.perf_counter() - t0
     report["seq_cache"] = res
+    return res
+
+
+# ------------------------------------------------------------ MoE sharding
+
+# the MoE leg's placed steps at world 1: olmoe-1b-7b's train step at 2 of
+# its 16 layers (2 steps of 2 x 1024 tokens in 2 micro-batches, frozen
+# expert masks) and qwen2-moe-a2.7b's drip at 2 of 24 (8 slots, 4 steps,
+# int4x2); its local function rank by rank at (data, model) (2, 2) and
+# (1, 4), on the 8-slot drip's tokens and on the train step's batch
+MOE_SHARD_TRAIN = dict(arch="olmoe-1b-7b", layers=2, batch=2, seq=1024,
+                       n_micro=2, steps=2)
+MOE_SHARD_DRIP = dict(arch="qwen2-moe-a2.7b", layers=2, slots=8, steps=4)
+MOE_SHARD_MESHES = ((2, 2), (1, 4))
+MOE_SHARD_ROWS = ((8, 1), (2, 1024))
+
+
+def moe_sharding_train(dev, mesh):
+    """(a) olmoe-1b-7b's train step through ``TrainRunner``, unplaced and
+    then placed from the same state, each run's counts set to 0 just
+    before it and read just after: losses and gradient norms within
+    ``TRAIN_TWIN_TOL`` (and whether bit for bit), pruned expert weights
+    exactly zero, the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.runtime import RunnerConfig, TrainRunner
+    from repro_torch.train.trainer import make_train_step
+
+    spec = MOE_SHARD_TRAIN
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    params = init_params(cfg, seed=0, device=dev)
+    moe = params["blocks"]["moe"]
+    masks = {"blocks": {"moe": {}}}
+    for name in ("eg", "eu", "ed"):
+        w = moe[name]["w"]
+        mt = prune_slices(w)
+        w.mul_(mt.to(w.dtype))
+        masks["blocks"]["moe"][name] = {"w": mt}
+    opt_cfg = AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+    opt = adamw_init(params, opt_cfg)
+    toks, labels = token_batch(0, spec["batch"], spec["seq"], cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    rc = RunnerConfig(total_steps=spec["steps"], ckpt_every=0, log_every=1)
+    placed, _, _ = sh.shard_params(params, cfg, mesh)
+    runs = {"unplaced": (params, opt, masks, batch),
+            "placed": (placed, sh.shard_opt_state(opt, params, cfg, mesh),
+                       sh.shard_masks(masks, placed),
+                       sh.shard_batch(batch, cfg, mesh))}
+    logs, counts = {}, {}
+    for name, (p, o, m, b) in runs.items():
+        runner = TrainRunner(make_train_step(cfg, opt_cfg, spec["n_micro"],
+                                             m), lambda i, b=b: b, rc)
+        torch.cuda.synchronize()
+        reset_counts()
+        new_params, _ = runner.run(p, o)
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        logs[name] = runner.metrics_log
+        for k, mk in masks["blocks"]["moe"].items():
+            w = new_params["blocks"]["moe"][k]["w"]
+            w = w.to_local() if hasattr(w, "to_local") else w
+            require(not bool(((w != 0) & ~mk["w"]).any()),
+                    f"moe sharding: {name} pruned {k} weights are not "
+                    "exactly zero")
+        del runner, new_params
+    bitwise = True
+    for a, b in zip(logs["unplaced"], logs["placed"]):
+        for k, tol in TRAIN_TWIN_TOL.items():
+            rel = abs(a[k] - b[k]) / abs(a[k])
+            bitwise &= a[k] == b[k]
+            require(math.isfinite(b[k]) and rel <= tol,
+                    f"moe sharding: placed train step {k} {b[k]} vs "
+                    f"unplaced {a[k]}: rel err {rel} > {tol}")
+    want = cfg.n_layers * 2 * spec["n_micro"] * spec["steps"]
+    require(counts["placed"] == counts["unplaced"]
+            and counts["placed"][FLASH_TC] == want
+            and counts["placed"][FLASH_CC] == 0,
+            f"moe sharding: train launches placed {counts['placed']} vs "
+            f"unplaced {counts['unplaced']}, expected {want} on the tensor "
+            "cores")
+    return {"layers": cfg.n_layers, **{k: spec[k] for k in (
+        "batch", "seq", "n_micro", "steps")},
+        "losses": {k: [m["loss"] for m in v] for k, v in logs.items()},
+        "grad_norms": {k: [m["grad_norm"] for m in v]
+                       for k, v in logs.items()},
+        "step_ms": {k: [m["step_s"] * 1e3 for m in v]
+                    for k, v in logs.items()},
+        "bitwise": bool(bitwise), "tol": TRAIN_TWIN_TOL,
+        "launches": {k: v for k, v in counts["placed"].items() if v}}
+
+
+def moe_sharding_drip(dev, mesh):
+    """(b) qwen2-moe-a2.7b compiled as ``moe_path`` compiles it, its drip
+    (each slot a prompt token a step) with the int4x2 cache, unplaced and
+    placed, each run's counts set to 0 just before it and read just
+    after: the logits equal bit for bit at every step, the same launches
+    by route; both steps' eager host ms in turns."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as tm
+
+    spec = MOE_SHARD_DRIP
+    cm, cfg, info = family_model(spec["arch"], dev, spec["layers"])
+    B = spec["slots"]
+    toks = torch.from_numpy(np.stack([p[:spec["steps"]] for p in
+                                      serve_prompts(cfg)[:B]])).to(dev)
+    placed, _, _ = sh.shard_params(cm.params, cfg, mesh, cm.patterns)
+
+    def run(p, place):
+        cache = tm.init_cache(cfg, B, 256, "int4x2", device=dev)
+        if place:
+            cache = sh.shard_cache(cache, cfg, mesh, "int4x2")
+        put = (lambda t: sh.shard_batch({"tokens": t}, cfg, mesh)["tokens"]) \
+            if place else (lambda t: t)
+        out = []
+        for i in range(spec["steps"]):
+            logits, cache = tm.decode_step(p, cfg, cache,
+                                           put(toks[:, i:i + 1]),
+                                           patterns=cm.patterns)
+            out.append(logits.full_tensor() if place else logits)
+        step = lambda: tm.decode_step(p, cfg, cache,   # noqa: E731
+                                      put(toks[:, -1:]), patterns=cm.patterns)
+        return out, step
+
+    logits, steps, counts = {}, {}, {}
+    for name, p in (("unplaced", cm.params), ("placed", placed)):
+        torch.cuda.synchronize()
+        reset_counts()
+        logits[name], steps[name] = run(p, name == "placed")
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+    for i, (a, b) in enumerate(zip(logits["unplaced"], logits["placed"])):
+        require(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+                f"moe sharding: placed drip step {i} logits differ from the "
+                f"unplaced step's by {float((a.float() - b.float()).abs().max())}")
+    require(counts["placed"] == counts["unplaced"]
+            and counts["placed"]["quant_matmul"] > 0
+            and counts["placed"]["packed_decode_attention"] > 0,
+            f"moe sharding: drip launches placed {counts['placed']} vs "
+            f"unplaced {counts['unplaced']}")
+    ms = {}
+    for name, key in (("unplaced", "unplaced"), ("placed", "placed"),
+                      ("placed_again", "placed"),
+                      ("unplaced_again", "unplaced")):
+        ms[name] = host_ms(steps[key], iters=10)
+    del cm, placed
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "slots": B, "steps": spec["steps"],
+            "bitwise": True, "compile_s": info["compile_s"],
+            "policies": info["policies"], "decode_step_ms": ms,
+            "launches": {k: v for k, v in counts["placed"].items() if v}}
+
+
+def moe_sharding_local(dev):
+    """(c) the leg's local function (``blocks.moe_slice``) of each rank of
+    (data, model) (2, 2) and (1, 4), in one process, on olmoe-1b-7b's
+    full-width layer: rank (i, j) routes all the tokens and runs capacity
+    rows ``sharded.moe_rows(C, d, i)`` of every expert on ``Fe`` columns
+    ``j·Fe/m ..``; the ranks' f32 parts summed in rank order, cast to bf16,
+    within one bf16 step of the unsharded ``moe_apply``, every rank's
+    keep mask the unsharded routing's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharded
+    from repro_torch.models import blocks
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config(MOE_SHARD_TRAIN["arch"]),
+                              n_layers=1)
+    p = tree_map(lambda t: t[0], init_params(cfg, seed=0, device=dev)[
+        "blocks"]["moe"])
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_expert
+    w = (p["router"]["w"], p["eg"]["w"], p["eu"]["w"], p["ed"]["w"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for B, T in MOE_SHARD_ROWS:
+        x = torch.randn((B, T, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        xt = x.reshape(B * T, D)
+        ref = blocks.moe_apply(p, cfg, x).reshape(B * T, D)
+        keep = blocks.moe_route(p, cfg, xt)[3]
+        C = blocks.moe_capacity(cfg, B * T)
+        for d, m in MOE_SHARD_MESHES:
+            f = Fe // m
+            total = torch.zeros((B * T, D), dtype=torch.float32, device=dev)
+            ranks = []
+            for i in range(d):
+                lo, rows = sharded.moe_rows(C, d, i)
+                for j in range(m):
+                    cols = slice(j * f, (j + 1) * f)
+                    y, k = blocks.moe_slice(
+                        cfg, xt, w[0], w[1][..., cols], w[2][..., cols],
+                        w[3][:, cols], lo, rows)
+                    require(torch.equal(k, keep),
+                            f"moe sharding: rank ({i}, {j}) of ({d}, {m}) "
+                            "kept other entries than the unsharded routing")
+                    total += y
+                    ranks.append({"rank": [i, j], "capacity_rows": [
+                        lo, min(C, lo + rows)], "product_rows": E * rows,
+                        "fe_columns": f})
+            got = total.to(torch.bfloat16)
+            err = float((got.float() - ref.float()).abs().max())
+            tol = tol_for(torch.bfloat16, ref.float())
+            require(err <= tol,
+                    f"moe sharding: ({d}, {m}) ranks' sum on {B} x {T} "
+                    f"tokens: {err} > one bf16 step {tol}")
+            out[f"{B}x{T}@{d}x{m}"] = {
+                "C": C, "err": err, "tol": tol, "keep_equal": True,
+                "dropped": int((~keep).sum()),
+                "bitwise": bool(torch.equal(got, ref)), "ranks": ranks}
+    return out
+
+
+def moe_sharding(dev, report, dryrun):
+    """The MoE sharding phase: (a) the placed train step and (b) the placed
+    drip on NCCL at world 1, (c) the leg's local function rank by rank,
+    (d) olmoe-1b-7b's ``decode_32k`` dry-run cell (run beside the earlier
+    phases, joined in ``seq_cache``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        mesh = start_nccl(dev, store)
+        try:
+            res = {"train": moe_sharding_train(dev, mesh),
+                   "drip": moe_sharding_drip(dev, mesh)}
+        finally:
+            dist.destroy_process_group()
+    res["local"] = moe_sharding_local(dev)
+    res["dryrun"] = dryrun["olmoe-1b-7b/decode_32k"]
+    res["seconds"] = time.perf_counter() - t0
+    report["moe_sharding"] = res
     return res
 
 
@@ -5451,10 +5704,16 @@ def main() -> int:
         sq = seq_cache(dev, report, dry)
         print(f"seq cache reads, model axes 2 and 4 ({sq['seconds']:.1f} s) "
               f"on {report['card']}: " + json.dumps(sq["reads"]), flush=True)
-        for shape in DRYRUN_CELLS:
-            print(f"dryrun llama3.2-1b {shape} on (16, 16), torch "
-                  f"{torch.__version__}: " + json.dumps(sq["dryrun"][shape]),
-                  flush=True)
+        for arch, shape in DRYRUN_CELLS:
+            print(f"dryrun {arch} {shape} on (16, 16), torch "
+                  f"{torch.__version__}: "
+                  + json.dumps(sq["dryrun"][f"{arch}/{shape}"]), flush=True)
+        ms = moe_sharding(dev, report, sq["dryrun"])
+        print(f"moe sharding ({ms['seconds']:.1f} s) on {report['card']}: "
+              + json.dumps({k: ms[k] for k in ("train", "drip")}),
+              flush=True)
+        print("moe sharding shard-local partials, (data, model) (2, 2) and "
+              "(1, 4): " + json.dumps(ms["local"]), flush=True)
         tune = autotune(cm, cfg, dev, report, tokens)
         print("autotune (rule plan / tuned plan, us; NVIDIA card above): "
               + json.dumps({k: {f: r[f] for f in ("rule", "tuned",

@@ -1,5 +1,6 @@
-"""The DTensor legs of the dispatch: compiled linears, attention reads, the
-vocab-sharded embedding, head and loss on each rank's local shards.
+"""The DTensor legs of the dispatch: compiled linears, the MoE layer's
+routed experts, attention reads, the vocab-sharded embedding, head and
+loss on each rank's local shards.
 
 A parameter placed by :mod:`repro_torch.launch.sharding` is a ``DTensor``
 on a ``DeviceMesh`` whose axes carry the reference's names (``pod`` /
@@ -41,7 +42,8 @@ __all__ = ["any_dtensor", "attn_full", "attn_packed", "cross_entropy",
            "embed", "is_dtensor", "linear", "linear_layout", "linear_mode",
            "local_apply",
            "local_pattern",
-           "local_shard", "merge_heads", "model_coord", "place",
+           "local_shard", "merge_heads", "model_coord", "moe", "moe_rows",
+           "place",
            "schedule_shardable", "seq_combine", "seq_dims", "seq_layout",
            "seq_read", "split_heads", "tied_head", "unshard_dim",
            "upcast"]
@@ -401,6 +403,90 @@ def rope(x, positions, theta: float, fn: Callable):
     ``positions`` (B, T) placed like x's leading dims."""
     return local_apply(lambda a, p: fn(a, p, theta), list(x.placements), x,
                        positions)
+
+
+# ------------------------------------------------------------------ MoE
+
+
+def moe_rows(C: int, d: int, r: int) -> Tuple[int, int]:
+    """``(lo, rows)``: the capacity rows ``[lo, lo + rows)`` of every
+    expert that rank ``r`` of ``d`` computes, ``rows = ceil(C / d)`` (past
+    ``C``: padding, never read back)."""
+    rows = -(-C // d)
+    return r * rows, rows
+
+
+def _moe_layout(mesh, C: int, fe_cut: bool) -> Tuple[Tuple[int, ...], int,
+                                                      int]:
+    """How :func:`moe` splits an MoE layer's routed experts on this rank:
+    ``(cut, lo, rows)``.  ``cut`` are the mesh dims of more than one rank
+    (each one splits the work, so the output is ``Partial`` over them);
+    the capacity is split (:func:`moe_rows`) over the ranks of the data
+    axes — and of ``model`` too where the experts are not sharded along
+    ``Fe`` there (``fe_cut`` False) — in mesh order."""
+    md = _model_dim(mesh)
+    cut = tuple(i for i in range(mesh.ndim) if int(mesh.size(i)) > 1)
+    d, r = 1, 0
+    for i in cut:
+        if i == md and fe_cut:
+            continue
+        n = int(mesh.size(i))
+        d, r = d * n, r * n + int(mesh.get_local_rank(i))
+    return (cut,) + moe_rows(C, d, r)
+
+
+def moe(x, router_w, eg, eu, ed, *, capacity: Callable, whole: Callable,
+        part: Callable):
+    """The routed experts of an MoE layer on DTensors: ``x`` (B, T, D)
+    placed like the batch (and T over ``model`` under ``seq_shard``), the
+    router (D, E), ``eg`` / ``eu`` (E, D, Fe) and ``ed`` (E, Fe, D) as the
+    rules place them (``Fe`` over ``model``, D over the data axes).
+    Returns the routed output placed like x, in x's dtype.
+
+    Every rank gathers all S = B·T tokens and the router and routes them
+    (``part`` runs the unplaced routing), so the capacity ``capacity(S)``
+    is the global batch's and every rank sees the entries one process
+    keeps.  Each rank then computes only its capacity rows of every expert
+    (:func:`moe_rows`) on its ``Fe`` columns (the experts gathered over
+    the data axes, FSDP): ``part(xt, router, eg, eu, ed, lo=, rows=)``
+    gives its f32 part of the weighted, (token, choice)-ordered output,
+    ``Partial`` over every cut mesh dim, reduced once (reduce-scatter over
+    the dims that cut x, all-reduce over the rest) in f32 and only then
+    cast.  No rank computes another's rows or columns.  With no cut dim
+    (one rank) ``whole(xt, router, eg, eu, ed)`` — the unplaced arithmetic
+    — runs on the local tensors as they are.
+
+    Gradients: x's and the router's are ``Partial`` over the cut dims
+    (each rank's gates and rows meet only its own entries), the experts'
+    over the cut dims where they are replicated (the data axes: FSDP's
+    reduce-scatter along D)."""
+    Partial, Replicate, Shard = _pl()
+    mesh = x.device_mesh
+    md = _model_dim(mesh)
+    B, T, D = x.shape
+    S = B * T
+    fe_cut = md is not None and isinstance(
+        _norm_dim(eg.placements[md], eg.ndim), Shard)
+    cut, lo, rows = _moe_layout(mesh, capacity(S), fe_cut)
+    if not cut:
+        return local_apply(
+            lambda x_, *w: whole(x_.reshape(S, D), *w).reshape(B, T, D),
+            list(x.placements), x, router_w, eg, eu, ed)
+    rep = [Replicate()] * mesh.ndim
+    part_pl = [Partial() if i in cut else Replicate()
+               for i in range(mesh.ndim)]
+    ws = [_unshard_data(t) if fe_cut else _to(t, rep) for t in (eg, eu, ed)]
+    grads = [part_pl, part_pl] + [
+        [Partial() if i in cut and isinstance(p, Replicate) else p
+         for i, p in enumerate(t.placements)] for t in ws]
+
+    def run(x_, r_, g_, u_, d_):
+        return part(x_.reshape(S, D), r_, g_, u_, d_, lo=lo,
+                    rows=rows).reshape(B, T, D)
+
+    y = local_apply(run, part_pl, _to(x, rep), _to(router_w, rep), *ws,
+                    in_grad_placements=tuple(grads))
+    return _to(y, list(x.placements)).to(x.dtype)
 
 
 # ------------------------------------------------------------ attention

@@ -525,45 +525,111 @@ def moe_route(p: Params, cfg: ArchConfig, xt: torch.Tensor, dispatch=None):
     return ids_k, gate_k, order, keep, dest
 
 
-def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, patterns=None,
-              dispatch=None) -> torch.Tensor:
-    """Sort-based top-k dispatch with static capacity (drop policy), as the
-    reference's ``_moe_apply``: every shape is static, so a step that
-    routes captures into a CUDA graph.
-
-    Each kept entry's token row is written to its own buffer row (the drop
-    slot ``E·C`` takes the rest and is discarded); the experts run as
+def _moe_routed(cfg: ArchConfig, xt: torch.Tensor, router_w, eg, eu, ed,
+                dispatch=None) -> torch.Tensor:
+    """The routed experts of S tokens ``xt`` (S, D), the reference's
+    arithmetic: each kept entry's token row written to its own buffer row
+    (the drop slot ``E·C`` takes the rest and is discarded); the experts as
     batched products, g and u in f32 and ``g·u`` cast to the activation
     dtype before ``ed``.  The K weighted outputs of a token are put back in
     (token, choice) order and summed over the choices — a fixed order, so
     the combine is deterministic on the card (a scatter-add would add them
-    in whatever order its atomics land).  The shared expert's MLP adds on
-    top."""
-    B, T, D = x.shape
+    in whatever order its atomics land)."""
+    S, D = xt.shape
     E, K = cfg.n_experts, cfg.top_k
-    S = B * T
-    xt = x.reshape(S, D)
-    _, gate_k, order, keep, dest = moe_route(p, cfg, xt, dispatch)
+    _, gate_k, order, keep, dest = moe_route({"router": {"w": router_w}},
+                                             cfg, xt, dispatch)
     C = moe_capacity(cfg, S)
     src_tok = order // K
     buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
     buf.index_add_(0, dest, xt[src_tok])
     eb = buf[:E * C].reshape(E, C, D)
     ebf = eb.to(torch.float32)
-    g = F.silu(torch.bmm(ebf, p["eg"]["w"].to(torch.float32)))
-    u = torch.bmm(ebf, p["eu"]["w"].to(torch.float32))
-    yo = torch.bmm((g * u).to(xt.dtype), p["ed"]["w"]).reshape(E * C, D)
+    g = F.silu(torch.bmm(ebf, eg.to(torch.float32)))
+    u = torch.bmm(ebf, eu.to(torch.float32))
+    yo = torch.bmm((g * u).to(xt.dtype), ed).reshape(E * C, D)
     gathered = torch.where(keep[:, None], yo[torch.clamp_max(dest, E * C - 1)],
                            torch.zeros((), dtype=yo.dtype, device=yo.device))
     w = gate_k.reshape(-1)[order]
     contrib = (gathered * w[:, None]).to(xt.dtype)
     y = torch.empty_like(contrib).index_copy_(0, order, contrib)
-    y = y.reshape(S, K, D).sum(dim=1)
+    return y.reshape(S, K, D).sum(dim=1)
+
+
+def moe_slice(cfg: ArchConfig, xt: torch.Tensor, router_w, eg, eu, ed,
+              lo: int, rows: int, dispatch=None):
+    """One rank's part of the routed experts (the placed leg,
+    :func:`repro_torch.core.sharded.moe`): the routing of all S tokens
+    ``xt`` (S, D), as :func:`moe_route` gives it, and of every expert only
+    the capacity rows ``[lo, lo + rows)`` (rows at or past ``C`` are zero
+    rows whose outputs are never read back), run on the ``Fe`` columns of
+    ``eg`` / ``eu`` / ``ed`` given (E, D, Fe') / (E, Fe', D).
+
+    The slice's buffer is gathered, not scattered: row ``j`` of expert
+    ``e`` holds the entry ranked ``lo + j`` in the expert's run of the
+    stably sorted choices, so an entry is kept exactly when one process
+    keeps it, on exactly one rank.  ``ed``'s product is kept in f32 (a
+    ``Fe`` shard's part of it), weighted by the gates in f32 and put in
+    (token, choice) order, then summed over the choices.  Returns ``(y,
+    keep)``: y (S, D) f32, this slice's part of the routed output, and the
+    routing's keep mask over the sorted S·K entries."""
+    S, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    ids_k, gate_k, order, keep, _ = moe_route({"router": {"w": router_w}},
+                                              cfg, xt, dispatch)
+    C = moe_capacity(cfg, S)
+    sorted_ids = ids_k.reshape(-1)[order]
+    experts = torch.arange(E, device=xt.device, dtype=sorted_ids.dtype)
+    start = torch.searchsorted(sorted_ids, experts)
+    end = torch.searchsorted(sorted_ids, experts, right=True)
+    pos = lo + torch.arange(rows, device=xt.device)
+    at = start[:, None] + pos[None]                       # (E, rows)
+    valid = ((pos[None] < C) & (at < end[:, None])).reshape(-1)
+    entry = order[torch.where(valid, at.reshape(-1), torch.zeros_like(
+        at.reshape(-1)))]                                 # token·K + choice
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    eb = torch.where(valid[:, None], xt[entry // K], zero)
+    ebf = eb.reshape(E, rows, D).to(torch.float32)
+    g = F.silu(torch.bmm(ebf, eg.to(torch.float32)))
+    u = torch.bmm(ebf, eu.to(torch.float32))
+    yo = torch.bmm((g * u).to(xt.dtype).to(torch.float32),
+                   ed.to(torch.float32)).reshape(E * rows, D)
+    # a zero row's output is 0: the padding adds nothing wherever it lands
+    contrib = yo * gate_k.reshape(-1)[entry][:, None]
+    y = torch.zeros((S * K + 1, D), dtype=torch.float32, device=xt.device)
+    y.index_copy_(0, torch.where(valid, entry, torch.full_like(entry, S * K)),
+                  contrib)
+    return y[:S * K].reshape(S, K, D).sum(dim=1), keep
+
+
+def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, patterns=None,
+              dispatch=None) -> torch.Tensor:
+    """Sort-based top-k dispatch with static capacity (drop policy), as the
+    reference's ``_moe_apply`` (:func:`_moe_routed`): every shape is
+    static, so a step that routes captures into a CUDA graph.  The shared
+    expert's MLP adds on top.
+
+    A placed (DTensor) ``x`` runs the routed experts through
+    :func:`repro_torch.core.sharded.moe` — every rank routes all the
+    tokens and computes its own capacity rows (:func:`moe_slice`) on its
+    ``Fe`` shard — and the shared expert through the linear legs: the
+    one-process result."""
+    B, T, D = x.shape
+    w = (p["router"]["w"], p["eg"]["w"], p["eu"]["w"], p["ed"]["w"])
+    if sharded.is_dtensor(x):
+        y = sharded.moe(
+            x, *w, capacity=lambda S: moe_capacity(cfg, S),
+            whole=lambda xt, *w_: _moe_routed(cfg, xt, *w_, dispatch),
+            part=lambda xt, *w_, lo, rows: moe_slice(
+                cfg, xt, *w_, lo, rows, dispatch)[0])
+    else:
+        y = _moe_routed(cfg, x.reshape(B * T, D), *w,
+                        dispatch).reshape(B, T, D)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], cfg, xt, patterns, dispatch,
+        y = y + mlp_apply(p["shared"], cfg, x, patterns, dispatch,
                           d_ff=cfg.d_expert * cfg.n_shared_experts,
                           name="moe/shared")
-    return y.reshape(B, T, D)
+    return y
 
 
 # --------------------------------------------------------- patch embedding

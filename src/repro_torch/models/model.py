@@ -339,8 +339,6 @@ def _hybrid_superblock(p, shared, cfg, h, positions, cache, patterns,
 # the families whose layers have no DTensor leg yet: a placed step raises,
 # naming the leg it needs
 _UNPLACED_LEGS = {
-    "moe": "the MoE layer's (moe_apply: routing, capacity and the expert "
-           "products on DTensors)",
     "ssm": "the xLSTM blocks' (slstm_apply / mlstm_apply and their "
            "recurrent states on DTensors)",
     "hybrid": "the Mamba2 blocks' (mamba2_apply and its states on "

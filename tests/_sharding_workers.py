@@ -24,6 +24,9 @@ magnitude of the one-process value (``rel``), over every leaf or output.
   moments saved and restored to placements.
 * ``refuse``: a DTensor handed to a kernel wrapper raises.
 
+The MoE family (``tests/test_torch_moe_sharding*.py``, ``kind =
+"moe_train"`` / ``"moe_serve"``): ``tests/_moe_workers.py``.
+
 The sequence-sharded cache (``tests/test_torch_seq_cache.py``, ``kind =
 "seq"``): :data:`SEQ_CASES` names, for each mesh, the (kv heads, batch) of
 reduced llama3.2-1b (f32) whose cache ``cache_specs`` cuts along T; each
@@ -68,7 +71,9 @@ def _grads(tm, cfg, params, batch):
     return loss, {p: g for (p, _), g in zip(items, grads)}
 
 
-def _train_cases(mesh, cfg0):
+def _train_cases(mesh, cfg0, prepare=None):
+    """The train cases on ``mesh``; ``prepare`` (a function of the
+    parameter tree) changes the seed-0 tree first."""
     from repro_torch.launch import sharding as sh
     from repro_torch.models import model as tm
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -84,6 +89,8 @@ def _train_cases(mesh, cfg0):
     for seq in (False, True):
         cfg = dataclasses.replace(cfg0, seq_shard=seq)
         params = tm.init_params(cfg, seed=0, device="cpu")
+        if prepare is not None:
+            params = prepare(params)
         placed, _, _ = sh.shard_params(params, cfg, mesh)
         pbatch = sh.shard_batch(batch, cfg, mesh)
         l1, g1 = _grads(tm, cfg, params, batch)
@@ -275,7 +282,8 @@ def _seq_cases(mesh):
 def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
     """One rank: every case of the ``shape`` mesh (``kind`` "apply": the
     train, decode, refusal and checkpoint cases; "seq": the
-    sequence-sharded cache's); puts ``(rank, results)`` or ``(rank,
+    sequence-sharded cache's; "moe_train" / "moe_serve": the MoE family's,
+    ``tests/_moe_workers.py``); puts ``(rank, results)`` or ``(rank,
     traceback)`` on ``q``."""
     import torch.distributed as dist
 
@@ -290,6 +298,10 @@ def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
         mesh = lm.make_mesh(shape, ("data", "model"), "cpu")
         if kind == "seq":
             q.put((rank, _seq_cases(mesh)))
+            return
+        if kind.startswith("moe"):
+            from _moe_workers import moe_cases
+            q.put((rank, moe_cases(mesh, kind)))
             return
         cfg = reduced_config("llama3.2-1b")
         res = {"train": _train_cases(mesh, cfg),

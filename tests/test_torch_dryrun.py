@@ -13,8 +13,11 @@ process-global.
 * the double-count trap: a DTensor product counted by torch's own
   ``FlopCounterMode`` gives the global count (or global plus local,
   depending on the torch version), ``OpCosts`` the local one only;
-* the MoE, SSM and hybrid families' placed steps raise, naming the leg
-  they lack;
+* reduced olmoe-1b-7b's train, prefill and decode cells on the same mesh
+  end ``ok``, their products (the MoE leg's experts among them) split four
+  ways; olmoe-1b-7b's full-size ``decode_32k`` cell from the command line;
+* the SSM and hybrid families' placed steps raise, naming the leg they
+  lack;
 * a full-size cell through the command line (llama3.2-1b ``decode_32k``
   on (16, 16)) writes its record; an encoder's decode cell is skipped
   with the reference's reason;
@@ -48,6 +51,23 @@ from repro_torch.train import trainer
 cfg = reduced_config("llama3.2-1b")
 shapes = [ShapeSpec("t", 16, 4, "train"), ShapeSpec("p", 16, 4, "prefill"),
           ShapeSpec("d", 32, 4, "decode")]
+
+
+def one_process(cfg, s, n_micro):
+    with OpCosts() as one:
+        p, b = param_shapes(cfg), input_specs(cfg, s)
+        if s.kind == "train":
+            oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+            trainer.make_train_step(cfg, oc, n_micro)(
+                p, opt_shapes(cfg, p, oc), b)
+        elif s.kind == "prefill":
+            trainer.make_prefill_step(cfg)(p, b)
+        else:
+            trainer.make_serve_step(cfg)(p, cache_shapes(cfg, s),
+                                         b["tokens"])
+    return one.record()
+
+
 out = {}
 with d.fake_group(4):
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
@@ -55,18 +75,7 @@ with d.fake_group(4):
         placed, per_rank = d.place_cell(cfg, s, mesh)
         counts, n_micro = d.run_step(cfg, s, placed, mesh)
         rec = d.analyse(counts, n_chips=4, cfg=cfg, shape=s)
-        with OpCosts() as one:
-            p, b = param_shapes(cfg), input_specs(cfg, s)
-            if s.kind == "train":
-                oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
-                trainer.make_train_step(cfg, oc, n_micro)(
-                    p, opt_shapes(cfg, p, oc), b)
-            elif s.kind == "prefill":
-                trainer.make_prefill_step(cfg)(p, b)
-            else:
-                trainer.make_serve_step(cfg)(p, cache_shapes(cfg, s),
-                                             b["tokens"])
-        out[s.kind] = {"placed": rec, "one": one.record(),
+        out[s.kind] = {"placed": rec, "one": one_process(cfg, s, n_micro),
                        "bytes": per_rank, "n_micro": n_micro}
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.utils.flop_counter import FlopCounterMode
@@ -80,8 +89,16 @@ with d.fake_group(4):
         x @ w
     out["trap"] = {"torch": fc.get_total_flops(), "port": oc.flops,
                    "global": 2 * 128 * 256 * 1024}
+    moe = reduced_config("olmoe-1b-7b")
+    out["moe"] = {}
+    for s in shapes:
+        placed, per_rank = d.place_cell(moe, s, mesh)
+        counts, n_micro = d.run_step(moe, s, placed, mesh)
+        out["moe"][s.kind] = {"placed": counts,
+                              "one": one_process(moe, s, n_micro),
+                              "bytes": per_rank}
     out["unplaced"] = {}
-    for arch in ("olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b"):
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
         c = reduced_config(arch)
         placed, per_rank = d.place_cell(c, shapes[2], mesh)
         try:
@@ -134,26 +151,58 @@ def test_flop_counter_double_count_trap(cells):
 
 
 def test_unported_families_name_their_missing_leg(cells):
-    """The MoE, SSM and hybrid families have no DTensor leg yet: their
-    placed step raises, naming it, after their per-rank bytes were
-    read."""
-    legs = {"olmoe-1b-7b": "moe_apply", "xlstm-1.3b": "mlstm_apply",
-            "zamba2-2.7b": "mamba2_apply"}
+    """The SSM and hybrid families have no DTensor leg yet: their placed
+    step raises, naming it, after their per-rank bytes were read."""
+    legs = {"xlstm-1.3b": "mlstm_apply", "zamba2-2.7b": "mamba2_apply"}
     for arch, leg in legs.items():
         msg, cache_bytes = cells["unplaced"][arch]
         assert leg in msg and "sharded leg" in msg, msg
         assert cache_bytes > 0
 
 
-def test_full_size_decode_cell_from_the_command_line(tmp_path):
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_reduced_moe_cell_runs_and_splits_its_products(cells, kind):
+    """Reduced olmoe-1b-7b on the fake (2, 2) mesh: the MoE leg's expert
+    products (and the attention's) split four ways exactly — each rank
+    runs half of every expert's capacity rows (C even here) on half of its
+    ``Fe`` columns — while every rank routes all the tokens (the router's
+    product is not split)."""
+    c = cells["moe"][kind]
+    placed, one = c["placed"], c["one"]
+    assert placed["flops_by_op"]["bmm"] * 4 == one["flops_by_op"]["bmm"]
+    assert placed["flops_by_op"]["mm"] * 4 > one["flops_by_op"]["mm"]
+    assert c["bytes"]["params"] > 0
+    assert (c["bytes"]["cache"] > 0) == (kind == "decode")
+    assert sum(placed["collectives"].values()) > 0
+
+
+def _cli_cell(tmp_path, arch, shape):
     code = ("import sys; sys.path.insert(0, 'src')\n"
             "from repro_torch.launch import dryrun\n"
-            f"dryrun.main(['--arch', 'llama3.2-1b', '--shape', 'decode_32k',"
+            f"dryrun.main(['--arch', {arch!r}, '--shape', {shape!r},"
             f" '--out', {str(tmp_path)!r}])\n"
             "print('{}')\n")
     _run(code)
-    rec = json.loads((tmp_path / "llama3.2-1b__decode_32k__pod1.json")
-                     .read_text())
+    return json.loads((tmp_path / f"{arch}__{shape}__pod1.json").read_text())
+
+
+def test_full_size_moe_decode_cell_from_the_command_line(tmp_path):
+    """olmoe-1b-7b's ``decode_32k`` on (16, 16): the 16 kv heads over
+    ``model`` (one a rank), the 128 slots over ``data`` (8 a rank), all
+    32768 rows; every rank routes the 128 tokens (capacity 20: 2 rows of
+    each expert a data rank, ranks 10-15 padding only)."""
+    rec = _cli_cell(tmp_path, "olmoe-1b-7b", "decode_32k")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["n_chips"] == 256
+    assert rec["bytes_per_device"]["cache"] == \
+        16 * 2 * 8 * 32768 * 1 * 128 * 2 + 16 * 8 * 4
+    assert rec["flops_per_device"] > 0
+    assert rec["collectives"]["reduce-scatter"] > 0
+    assert "not a measurement" in rec["roofline"]["estimate"]
+
+
+def test_full_size_decode_cell_from_the_command_line(tmp_path):
+    rec = _cli_cell(tmp_path, "llama3.2-1b", "decode_32k")
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["n_chips"] == 256
     # 8 kv heads over a model axis of 16: the cache is sequence-sharded,
