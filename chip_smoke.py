@@ -100,6 +100,21 @@ Phases, each fatal on failure:
    batch): the ranks' parts summed within one bf16 step of the unsharded
    layer, every rank's keep mask the unsharded one, each rank's capacity
    rows and ``Fe`` columns printed;
+4a'''. ssm sharding — the SSM and hybrid families' placed legs on a new
+   NCCL (1, 1) mesh: xlstm-1.3b at 8 of 48 layers (one super-block) and
+   zamba2-2.7b at 6 of 54 (one super-block), full width, bf16, f32 AdamW
+   moments, remat, 2 steps of 2 x 512 / 2 x 1024 tokens in 2
+   micro-batches through ``TrainRunner``, unplaced and placed from the
+   same state (losses and grad norms bit for bit, the same launches by
+   route); zamba2-2.7b compiled as the hybrid serving path compiles it and
+   xlstm-1.3b with int8 mLSTM leaves, 8 slots dripped 4 steps (int4x2
+   cache), unplaced and placed (logits bit for bit, the same launches);
+   then, in one process, the legs' local functions rank by rank at model
+   axes 4 and 16 on one full-width Mamba2 and one mLSTM layer (chunkwise
+   at T 512, and one recurrent step on a filled state): each rank's part
+   combined as the collectives would, within 1e-5 of the largest value of
+   the unsharded layer, the updated states too; xlstm-1.3b's and
+   zamba2-2.7b's ``decode_32k`` dry-run cells;
 4b. autotune — on the serve phase's compile: ``autotune_model`` at M = 8
    and 512 into a new table under ``chiprun_out/``, every candidate plan
    held against its plain version before it is timed (CUDA events, leaves
@@ -2064,7 +2079,8 @@ SEQ_TIME_CALLS = 8
 PDA_ROUTES = {"split": "launches_split", "single": "launches_single"}
 # the dry-run's cells on (16, 16), each in a process of its own
 DRYRUN_CELLS = (("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "train_4k"),
-                ("olmoe-1b-7b", "decode_32k"))
+                ("olmoe-1b-7b", "decode_32k"), ("xlstm-1.3b", "decode_32k"),
+                ("zamba2-2.7b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2473,6 +2489,332 @@ def moe_sharding(dev, report, dryrun):
     res["dryrun"] = dryrun["olmoe-1b-7b/decode_32k"]
     res["seconds"] = time.perf_counter() - t0
     report["moe_sharding"] = res
+    return res
+
+
+# ------------------------------------------------------------ ssm sharding
+
+# the SSM and hybrid legs' phase: (arch, layers, batch, seq) trained for 2
+# steps in 2 micro-batches — one super-block of each at full width (the
+# sLSTM's host-bound step loop holds xlstm-1.3b to T 512) — and their drips
+# at one super-block, 8 slots, 4 steps
+SSM_SHARD_TRAIN = (("xlstm-1.3b", 8, 2, 512), ("zamba2-2.7b", 6, 2, 1024))
+SSM_SHARD_MICRO = 2
+SSM_SHARD_STEPS = 2
+SSM_SHARD_DRIP = dict(slots=8, steps=4)
+SSM_SHARD_MODEL_AXES = (4, 16)
+# the local functions' inputs: 2 rows of 512 positions (two chunks), and
+# one recurrent step of 8 slots on a filled state
+SSM_SHARD_ROWS = ((2, 512), (8, 1))
+SSM_SHARD_TOL = 1e-5
+
+
+def ssm_sharding_train(dev, mesh):
+    """(a) each family's train step through ``TrainRunner``, unplaced and
+    then placed from the same state, each run's counts set to 0 just
+    before it and read just after: losses and gradient norms bit for bit,
+    the same launches by route (zamba2-2.7b's flash forward and remat
+    recompute on the tensor cores; xlstm-1.3b launches none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.model import init_params, n_superblocks
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.runtime import RunnerConfig, TrainRunner
+    from repro_torch.train.trainer import make_train_step
+
+    out = {}
+    for arch, layers, B, T in SSM_SHARD_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = init_params(cfg, seed=0, device=dev)
+        opt_cfg = AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+        opt = adamw_init(params, opt_cfg)
+        toks, labels = token_batch(0, B, T, cfg.vocab)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        rc = RunnerConfig(total_steps=SSM_SHARD_STEPS, ckpt_every=0,
+                          log_every=1)
+        placed, _, _ = sh.shard_params(params, cfg, mesh)
+        runs = {"unplaced": (params, opt, batch),
+                "placed": (placed, sh.shard_opt_state(opt, params, cfg, mesh),
+                           sh.shard_batch(batch, cfg, mesh))}
+        logs, counts = {}, {}
+        for name, (p, o, b) in runs.items():
+            runner = TrainRunner(make_train_step(cfg, opt_cfg,
+                                                 SSM_SHARD_MICRO),
+                                 lambda i, b=b: b, rc)
+            torch.cuda.synchronize()
+            reset_counts()
+            runner.run(p, o)
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+            logs[name] = runner.metrics_log
+            del runner
+        for a, b in zip(logs["unplaced"], logs["placed"]):
+            for k in ("loss", "grad_norm"):
+                require(math.isfinite(b[k]) and a[k] == b[k],
+                        f"ssm sharding: {arch} placed train step {k} {b[k]} "
+                        f"vs unplaced {a[k]}: not bit for bit")
+        n_attn = n_superblocks(cfg) if cfg.family == "hybrid" else 0
+        want = n_attn * 2 * SSM_SHARD_MICRO * SSM_SHARD_STEPS
+        require(counts["placed"] == counts["unplaced"]
+                and counts["placed"][FLASH_TC] == want
+                and counts["placed"]["flash_attention"] == want,
+                f"ssm sharding: {arch} train launches placed "
+                f"{counts['placed']} vs unplaced {counts['unplaced']}, "
+                f"expected {want} on the tensor cores")
+        out[arch] = {
+            "layers": layers, "batch": B, "seq": T,
+            "n_micro": SSM_SHARD_MICRO, "steps": SSM_SHARD_STEPS,
+            "losses": {k: [m["loss"] for m in v] for k, v in logs.items()},
+            "grad_norms": {k: [m["grad_norm"] for m in v]
+                           for k, v in logs.items()},
+            "step_ms": {k: [m["step_s"] * 1e3 for m in v]
+                        for k, v in logs.items()},
+            "bitwise": True,
+            "launches": {k: v for k, v in counts["placed"].items() if v}}
+        del params, opt, placed, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_sharding_drip(dev, mesh):
+    """(b) zamba2-2.7b at one super-block compiled as ``family_model``
+    compiles it, and xlstm-1.3b at one with int8 mLSTM leaves: 8 slots
+    dripped 4 steps on the int4x2 cache, unplaced and placed, each run's
+    counts set to 0 just before it and read just after: the logits equal
+    bit for bit at every step, the same launches by route; both steps'
+    eager host ms in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_sparse import CompressedModel
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as tm
+
+    spec = SSM_SHARD_DRIP
+    out = {}
+    for arch, layers in (("zamba2-2.7b", 6), ("xlstm-1.3b", 8)):
+        if arch == "zamba2-2.7b":
+            cm, cfg, info = family_model(arch, dev, layers)
+        else:
+            cfg = dataclasses.replace(get_config(arch), linear_mode="int8",
+                                      n_layers=layers)
+            cm = CompressedModel(params=tm.init_params(cfg, seed=0,
+                                                       device=dev),
+                                 patterns={}, report=[])
+            info = {"policies": {"blocks/mlstm": "int8 (synthetic)"}}
+        B = spec["slots"]
+        toks = torch.from_numpy(np.stack([p[:spec["steps"]] for p in
+                                          serve_prompts(cfg)[:B]])).to(dev)
+        placed, _, _ = sh.shard_params(cm.params, cfg, mesh, cm.patterns)
+
+        def run(p, place):
+            cache = tm.init_cache(cfg, B, 256, "int4x2", device=dev)
+            if place:
+                cache = sh.shard_cache(cache, cfg, mesh, "int4x2")
+            put = (lambda t: sh.shard_batch({"tokens": t}, cfg,
+                                            mesh)["tokens"]) \
+                if place else (lambda t: t)
+            logits = []
+            for i in range(spec["steps"]):
+                lg, cache = tm.decode_step(p, cfg, cache,
+                                           put(toks[:, i:i + 1]),
+                                           patterns=cm.patterns)
+                logits.append(lg.full_tensor() if place else lg)
+            step = lambda: tm.decode_step(p, cfg, cache,  # noqa: E731
+                                          put(toks[:, -1:]),
+                                          patterns=cm.patterns)
+            return logits, step
+
+        logits, steps, counts = {}, {}, {}
+        with torch.no_grad():
+            for name, p in (("unplaced", cm.params), ("placed", placed)):
+                torch.cuda.synchronize()
+                reset_counts()
+                logits[name], steps[name] = run(p, name == "placed")
+                torch.cuda.synchronize()
+                counts[name] = read_counts()
+            for i, (a, b) in enumerate(zip(logits["unplaced"],
+                                           logits["placed"])):
+                require(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+                        f"ssm sharding: {arch} placed drip step {i} logits "
+                        f"differ from the unplaced step's by "
+                        f"{float((a.float() - b.float()).abs().max())}")
+            require(counts["placed"] == counts["unplaced"]
+                    and counts["placed"]["quant_matmul"] > 0,
+                    f"ssm sharding: {arch} drip launches placed "
+                    f"{counts['placed']} vs unplaced {counts['unplaced']}")
+            ms = {}
+            for name, key in (("unplaced", "unplaced"), ("placed", "placed"),
+                              ("placed_again", "placed"),
+                              ("unplaced_again", "unplaced")):
+                ms[name] = host_ms(steps[key], iters=5)
+        out[arch] = {"layers": cfg.n_layers, "slots": B,
+                     "steps": spec["steps"], "bitwise": True,
+                     "policies": info["policies"], "decode_step_ms": ms,
+                     "launches": {k: v for k, v in counts["placed"].items()
+                                  if v}}
+        del cm, placed, steps
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def ssm_local_mamba(dev, gen):
+    """(c) zamba2-2.7b's Mamba2 layer at full width: each rank's part of
+    the leg at model axes 4 and 16 (``ssm.mamba_layout``, the conv state
+    cut as the rules cut it), through the leg's own local function
+    (``ssm.mamba_part``), handed the columns its all-to-alls deliver
+    (``take.cols`` of ``win``'s output and of the conv state); the parts'
+    outputs concatenated in rank order against the unsharded block; for
+    the recurrent step also each rank's S heads and the conv-state shard
+    that it writes back."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("zamba2-2.7b")
+    p = ssm.mamba2_init(gen, cfg)
+    N, P = cfg.ssm_state, ssm.MAMBA_HEADDIM
+    H = cfg.d_inner // P
+    dxbc = cfg.d_inner + 2 * N
+    leaves = (p["conv"], p["dt_bias"], p["a_log"], p["d_skip"])
+    out = {}
+    for B, T in SSM_SHARD_ROWS:
+        x = (torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        zxd = ssm.linear_apply(p["win"], x)
+        cs = S = None
+        decode = T == 1
+        if decode:
+            cs = torch.randn((B, 3, dxbc), generator=gen, device=dev)
+            S = torch.randn((B, H, P, N), generator=gen, device=dev) * 0.1
+        S_ref = None if S is None else S.clone()
+        ref, new_state = ssm._mamba_mix(zxd, *leaves, N, P, conv_state=cs,
+                                        S=S_ref)
+        for n in SSM_SHARD_MODEL_AXES:
+            parts, s_err, ranks = [], 0.0, []
+            for r in range(n):
+                lay = ssm.mamba_layout(H, P, N, n, r, True, decode, dev)
+                h0, Hl, Pl = lay["h0"], lay["Hl"], lay["Pl"]
+                require(Pl == P, f"ssm sharding: model {n} cuts a head")
+                hs = slice(h0, h0 + Hl)
+                s0, s1 = lay["state"]
+                S_r = conv_r = cs_r = None
+                if decode:
+                    S_r = S[:, hs].clone()
+                    conv_r = cs[..., s0:s1].clone()
+                    cs_r = cs.index_select(-1, lay["conv_take"].cols)
+                y = ssm.mamba_part(
+                    zxd.index_select(-1, lay["take"].cols), *leaves, lay, N,
+                    P, conv_state=cs_r, conv_out=conv_r, S=S_r, S_own=True)
+                parts.append(y)
+                if decode:
+                    s_err = max(s_err, rel_err(S_r, S_ref[:, hs]))
+                    require(torch.equal(conv_r, new_state[..., s0:s1]),
+                            f"ssm sharding: Mamba2 rank {r} of {n}'s conv "
+                            "state is not the unsharded one's")
+                ranks.append({"rank": r, "channels": [lay["c0"], lay["c1"]],
+                              "heads": [h0, h0 + Hl], "head_width": Pl,
+                              "columns_taken": int(len(lay["take"].cols))})
+            err = rel_err(torch.cat(parts, -1), ref)
+            require(err <= SSM_SHARD_TOL and s_err <= SSM_SHARD_TOL,
+                    f"ssm sharding: Mamba2 parts at model {n} on {B} x {T}: "
+                    f"{err} / state {s_err} > {SSM_SHARD_TOL} of the "
+                    "largest value")
+            out[f"{B}x{T}@{n}"] = {"rel_err": err, "state_rel_err": s_err,
+                                   "ranks": ranks[:2] + ranks[-1:]}
+    return out
+
+
+def ssm_local_mlstm(dev, gen):
+    """(c) xlstm-1.3b's mLSTM layer at full width: each rank's key slice
+    (``ssm.mlstm_layout``) through ``ssm.mlstm_state_part``, the parts
+    summed in rank order in f32 (the all-reduces and the reduce-scatter),
+    then each rank's columns through ``ssm.mlstm_out_part``, at model axes
+    4 and 16; the columns concatenated against the unsharded block
+    (``ssm._mlstm_mix``); for the recurrent step also each rank's key rows
+    of S and n."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("xlstm-1.3b")
+    p = ssm.mlstm_init(gen, cfg)
+    H, di = cfg.n_heads, cfg.d_inner
+    P = di // H
+    out = {}
+    for B, T in SSM_SHARD_ROWS:
+        x = (torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        q, k, v, gif, og = (ssm.linear_apply(p[n], x) for n in
+                            ("wq", "wk", "wv", "wif", "wog"))
+        S = n_ = None
+        if T == 1:
+            S = torch.randn((B, H, P, P), generator=gen, device=dev) * 0.01
+            n_ = torch.randn((B, H, P), generator=gen, device=dev)
+        S_ref = None if S is None else S.clone()
+        n_ref = None if n_ is None else n_.clone()
+        ref = ssm._mlstm_mix(q, k, v, gif, og, H, S_ref, n_ref)
+        for n in SSM_SHARD_MODEL_AXES:
+            sums, s_err = None, 0.0
+            for r in range(n):
+                lay = ssm.mlstm_layout(H, P, n, r, dev)
+                want, p0, p1 = lay["take"].cols, lay["p0"], lay["p1"]
+                st = None if S is None else (S[:, :, p0:p1].clone(),
+                                             n_[:, :, p0:p1].clone())
+                part = ssm.mlstm_state_part(q[..., want], k[..., want], v,
+                                            gif, H, P, *(st or ()))
+                sums = list(part) if sums is None else [
+                    None if a is None else a + b for a, b in zip(sums, part)]
+                if st is not None:
+                    s_err = max(s_err, rel_err(st[0], S_ref[:, :, p0:p1]),
+                                rel_err(st[1], n_ref[:, :, p0:p1]))
+            scores, inter, innr = sums
+            cols = []
+            for r in range(n):
+                lay = ssm.mlstm_layout(H, P, n, r, dev)
+                c0, c1 = lay["c0"], lay["c1"]
+                cols.append(ssm.mlstm_out_part(
+                    scores, inter[..., c0:c1], innr, v[..., c0:c1], gif,
+                    og[..., c0:c1], lay["h0"], P))
+            err = rel_err(torch.cat(cols, -1), ref)
+            require(err <= SSM_SHARD_TOL and s_err <= SSM_SHARD_TOL,
+                    f"ssm sharding: mLSTM parts at model {n} on {B} x {T}: "
+                    f"{err} / state {s_err} > {SSM_SHARD_TOL} of the "
+                    "largest value")
+            out[f"{B}x{T}@{n}"] = {"rel_err": err, "state_rel_err": s_err,
+                                   "key_rows": P // n, "columns": di // n}
+    return out
+
+
+def ssm_sharding(dev, report, dryrun):
+    """The SSM sharding phase: (a) the placed train steps and (b) the
+    placed drips on NCCL at world 1, (c) the legs' local functions rank by
+    rank, (d) xlstm-1.3b's and zamba2-2.7b's ``decode_32k`` dry-run cells
+    (run beside the earlier phases, joined in ``seq_cache``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        mesh = start_nccl(dev, store)
+        try:
+            res = {"train": ssm_sharding_train(dev, mesh),
+                   "drip": ssm_sharding_drip(dev, mesh)}
+        finally:
+            dist.destroy_process_group()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        res["local"] = {"mamba2": ssm_local_mamba(dev, gen),
+                        "mlstm": ssm_local_mlstm(dev, gen)}
+    torch.cuda.empty_cache()
+    res["dryrun"] = {k: dryrun[f"{k}/decode_32k"]
+                     for k in ("xlstm-1.3b", "zamba2-2.7b")}
+    res["seconds"] = time.perf_counter() - t0
+    report["ssm_sharding"] = res
     return res
 
 
@@ -5654,10 +5996,17 @@ def main() -> int:
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print(f"card: {report['card']}", flush=True)
+    start = time.perf_counter()
+    ends = report["phase_end_s"] = {}
+
+    def lap(name):
+        """The seconds from the start to the end of phase ``name``."""
+        ends[name] = round(time.perf_counter() - start, 1)
 
     t0 = time.perf_counter()
     build.build_all()
     report["build_s"] = time.perf_counter() - t0
+    lap("build")
     print(f"build: {report['build_s']:.1f} s", flush=True)
 
     out_dir = ROOT / "chiprun_out"
@@ -5681,10 +6030,12 @@ def main() -> int:
         print("tensor-core f32 sums vs plain, share of max|pre|: "
               + json.dumps(report["tc_f32_sum_err"]), flush=True)
         report["route_pairs"] = route_pairs(dev)
+        lap("sweeps")
         print("new routes beside their first designs (device ms): "
               + json.dumps(report["route_pairs"]), flush=True)
 
         cm, cfg, counts, tokens = serve(dev, report)
+        lap("serve")
         print(f"serve: {json.dumps(report['serve'])}", flush=True)
         print(f"twin check: {json.dumps(report['twin_check'])}", flush=True)
         print(f"capture check: {json.dumps(report['capture_check'])}",
@@ -5696,12 +6047,14 @@ def main() -> int:
         print(f"compiled forward: {json.dumps(report['compiled_forward'])}",
               flush=True)
         sh = sharding(cm, cfg, dev, report)
+        lap("sharding")
         print(f"sharding ({sh['seconds']:.1f} s) on {report['card']}: "
               + json.dumps({k: sh[k] for k in ("train", "decode")}),
               flush=True)
         print("sharding shard-local kernels (model axes 2 and 4): "
               + json.dumps(sh["kernels"]), flush=True)
         sq = seq_cache(dev, report, dry)
+        lap("seq_cache")
         print(f"seq cache reads, model axes 2 and 4 ({sq['seconds']:.1f} s) "
               f"on {report['card']}: " + json.dumps(sq["reads"]), flush=True)
         for arch, shape in DRYRUN_CELLS:
@@ -5709,12 +6062,21 @@ def main() -> int:
                   f"{torch.__version__}: "
                   + json.dumps(sq["dryrun"][f"{arch}/{shape}"]), flush=True)
         ms = moe_sharding(dev, report, sq["dryrun"])
+        lap("moe_sharding")
         print(f"moe sharding ({ms['seconds']:.1f} s) on {report['card']}: "
               + json.dumps({k: ms[k] for k in ("train", "drip")}),
               flush=True)
         print("moe sharding shard-local partials, (data, model) (2, 2) and "
               "(1, 4): " + json.dumps(ms["local"]), flush=True)
+        ss = ssm_sharding(dev, report, sq["dryrun"])
+        lap("ssm_sharding")
+        print(f"ssm sharding ({ss['seconds']:.1f} s) on {report['card']}: "
+              + json.dumps({k: ss[k] for k in ("train", "drip")}),
+              flush=True)
+        print("ssm sharding local parts, model axes 4 and 16: "
+              + json.dumps(ss["local"]), flush=True)
         tune = autotune(cm, cfg, dev, report, tokens)
+        lap("autotune")
         print("autotune (rule plan / tuned plan, us; NVIDIA card above): "
               + json.dumps({k: {f: r[f] for f in ("rule", "tuned",
                                                   "predicted_us")}
@@ -5739,6 +6101,7 @@ def main() -> int:
              for k, v in tune["decode_profile"].items()}), flush=True)
 
         kernels = measure_kernels(cm, cfg, dev, counts)
+        lap("measure_kernels")
         del cm
         params, x, cms = lenet(dev, report)
         print("lenet: " + json.dumps({
@@ -5747,8 +6110,10 @@ def main() -> int:
         lenet_kernels, report["lenet_kernels"] = measure_lenet_kernels(
             params, x, cms, dev)
         kernels += lenet_kernels
+        lap("lenet")
         del params, x, cms
         families(dev, report, kernels)
+        lap("families")
         fam = report["families"]
         print("families: " + json.dumps(
             {k: v for k, v in fam.items() if k not in ("rows", "lenet")}),
@@ -5761,6 +6126,7 @@ def main() -> int:
                   c: r["dse_estimate"] for c, r in fam["lenet"].items()}),
               flush=True)
         zoo(dev, report, kernels)
+        lap("zoo")
         mat = report["zoo"]["matrix"]
         print(f"zoo matrix ({mat['seconds']:.1f} s, launches "
               f"{json.dumps(mat['launches'])}); not run: "
@@ -5772,6 +6138,7 @@ def main() -> int:
                             for k, r in mat["cells"].items()}), flush=True)
         print("zoo rows: " + json.dumps(report["zoo_rows"]), flush=True)
         encoder_vlm_moe(dev, report)
+        lap("encoder_vlm_moe")
         evm = report["encoder_vlm_moe"]
         print(f"encoder/VLM/MoE ({evm['seconds']:.1f} s) launches by route: "
               + json.dumps({a: r.get("serve", r.get("forward", {})).get(
@@ -5780,6 +6147,7 @@ def main() -> int:
         print("encoder/VLM/MoE rows: "
               + json.dumps(report["encoder_vlm_moe_rows"]), flush=True)
         ssm_hybrid(dev, report)
+        lap("ssm_hybrid")
         sh = report["ssm_hybrid"]
         print(f"SSM/hybrid ({sh['seconds']:.1f} s) launches by route: "
               + json.dumps({a: r["serve"]["launches"] for a, r in sh.items()
@@ -5790,6 +6158,7 @@ def main() -> int:
         print("SSM/hybrid rows: " + json.dumps(report["ssm_hybrid_rows"]),
               flush=True)
         train_counts = train(dev, report)
+        lap("train")
         print("train: " + json.dumps({k: v for k, v in report["train"].items()
                                       if k != "profile"}), flush=True)
         prof = report["train"]["profile"]
@@ -5798,6 +6167,7 @@ def main() -> int:
             "top_device_us_per_step": top_device_us(
                 prof["device_us_per_step"])}), flush=True)
         train_families(dev, report)
+        lap("train_families")
         tf = report["train_families"]
         for arch, r in tf.items():
             if not isinstance(r, dict):
@@ -5815,6 +6185,10 @@ def main() -> int:
         print(f"train_families ({tf['seconds']:.1f} s) flash rows: "
               + json.dumps(report["train_families_rows"]), flush=True)
         kernels.append(measure_flash(dev, train_counts))
+        lap("measure_flash")
+        print("phase ends (s after the start; the dry-run cells ended "
+              f"{sq['dryrun']['seconds']:.1f} s after theirs): "
+              + json.dumps(ends), flush=True)
         for k in kernels:
             for phase in ("encoder_vlm_moe", "ssm_hybrid", "train_families"):
                 if k["name"] in report[f"{phase}_rows"]:

@@ -4,8 +4,10 @@ machine whose torch differs from the one the tests ran under.
 
 Spawns every mesh of ``tests/test_torch_sharding_apply.py`` (the dense
 family), ``tests/test_torch_moe_sharding.py`` and
-``tests/test_torch_moe_sharding_serve.py`` (the MoE family) and
-``tests/test_torch_seq_cache.py`` (the sequence-sharded cache) through
+``tests/test_torch_moe_sharding_serve.py`` (the MoE family),
+``tests/test_torch_{hybrid,xlstm}_sharding{,_serve}.py`` (the SSM and
+hybrid families) and ``tests/test_torch_seq_cache.py`` (the
+sequence-sharded cache) through
 ``tests/_sharding_workers.py`` on the CPU, then calls each of those files'
 test functions that read the ranks' results (every parametrization), or,
 for the sequence-sharded cache (whose file imports JAX), applies its
@@ -16,7 +18,9 @@ Prints one JSON line per file and mesh (the tests passed, failed with
 their messages, not run) and the torch version.  Runs on the CPU; imports
 nothing of JAX.
 
-Usage:  python3 scripts/gloo_placed_check.py
+Usage:  python3 scripts/gloo_placed_check.py [FILE ...]
+(FILE: a test file's name without ``.py``, or ``test_torch_seq_cache``;
+none: every file)
 """
 from __future__ import annotations
 
@@ -34,7 +38,11 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 FILES = {"test_torch_sharding_apply": "apply",
          "test_torch_moe_sharding": "moe_train",
-         "test_torch_moe_sharding_serve": "moe_serve"}
+         "test_torch_moe_sharding_serve": "moe_serve",
+         "test_torch_hybrid_sharding": "hybrid_train",
+         "test_torch_hybrid_sharding_serve": "hybrid_serve",
+         "test_torch_xlstm_sharding": "xlstm_train",
+         "test_torch_xlstm_sharding_serve": "xlstm_serve"}
 SEQ_REL = 1e-5
 
 
@@ -109,9 +117,12 @@ def main() -> int:
 
     from _sharding_workers import spawn_mesh
 
+    only = set(sys.argv[1:])
     for name, kind in FILES.items():
-        run_file(name, kind, spawn_mesh)
-    run_seq(spawn_mesh)
+        if not only or name in only:
+            run_file(name, kind, spawn_mesh)
+    if not only or "test_torch_seq_cache" in only:
+        run_seq(spawn_mesh)
     print(json.dumps({"torch": torch.__version__}))
     return 0
 

@@ -1,6 +1,6 @@
 """The DTensor legs of the dispatch: compiled linears, the MoE layer's
-routed experts, attention reads, the vocab-sharded embedding, head and
-loss on each rank's local shards.
+routed experts, the SSM blocks (Mamba2, mLSTM, sLSTM), attention reads,
+the vocab-sharded embedding, head and loss on each rank's local shards.
 
 A parameter placed by :mod:`repro_torch.launch.sharding` is a ``DTensor``
 on a ``DeviceMesh`` whose axes carry the reference's names (``pod`` /
@@ -34,18 +34,19 @@ gradient.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
+import numpy as np
 import torch
 
-__all__ = ["any_dtensor", "attn_full", "attn_packed", "cross_entropy",
-           "embed", "is_dtensor", "linear", "linear_layout", "linear_mode",
-           "local_apply",
-           "local_pattern",
-           "local_shard", "merge_heads", "model_coord", "moe", "moe_rows",
-           "place",
+__all__ = ["ColTake", "any_dtensor", "attn_full", "attn_packed",
+           "col_take", "cross_entropy", "embed", "even_range", "is_dtensor",
+           "linear", "linear_layout", "linear_mode", "local_apply",
+           "local_pattern", "local_shard", "mamba2", "merge_heads", "mlstm",
+           "model_coord", "moe", "moe_rows", "place", "regular_heads",
            "schedule_shardable", "seq_combine", "seq_dims", "seq_layout",
-           "seq_read", "split_heads", "tied_head", "unshard_dim",
+           "seq_read", "slstm", "split_heads", "tied_head", "unshard_dim",
            "upcast"]
 
 
@@ -487,6 +488,353 @@ def moe(x, router_w, eg, eu, ed, *, capacity: Callable, whole: Callable,
     y = local_apply(run, part_pl, _to(x, rep), _to(router_w, rep), *ws,
                     in_grad_placements=tuple(grads))
     return _to(y, list(x.placements)).to(x.dtype)
+
+
+# ------------------------------------------------------------ SSM blocks
+
+
+def even_range(size: int, n: int, r: int) -> Tuple[int, int]:
+    """``[lo, hi)``: rank ``r`` of ``n``'s part of ``size`` items, the
+    even shard where ``n`` divides ``size`` (else the balanced one)."""
+    return r * size // n, (r + 1) * size // n
+
+
+def regular_heads(lo: int, hi: int, P: int) -> Tuple[int, int, int]:
+    """``(h0, Hl, Pl)``: channels ``[lo, hi)`` of heads P wide as Hl heads
+    of Pl channels from head ``h0`` — whole heads, or a part of one head
+    (``Pl`` < P, starting at channel ``lo - h0·P`` of it).  A range that
+    spans part of a head and more raises."""
+    if lo % P == 0 and (hi - lo) % P == 0:
+        return lo // P, (hi - lo) // P, P
+    if lo // P == (hi - 1) // P:
+        return lo // P, 1, hi - lo
+    raise ValueError(f"channels [{lo}, {hi}) of heads {P} wide are neither "
+                     "whole heads nor a part of one head")
+
+
+def _part_grad(x_placements, md, cut: bool) -> list:
+    """The gradient placements of a gathered (replicated) weight that a
+    rank's part uses: ``Partial`` over ``model`` where the ranks there
+    each use their own part (``cut``) and over every data dim that cuts
+    the batch; else ``Replicate``."""
+    Partial, Replicate, Shard = _pl()
+    return [Partial() if (i == md and cut) or (
+        i != md and isinstance(p, Shard)) else Replicate()
+        for i, p in enumerate(x_placements)]
+
+
+def _model_partial(t) -> list:
+    """The gradient placements of an activation gathered over ``model``
+    whose ranks there each use their own part: its own placements,
+    ``Partial`` over ``model``."""
+    Partial, _, _ = _pl()
+    return _set(t.placements, _model_dim(t.device_mesh), Partial())
+
+
+def _cut_last(t, md) -> bool:
+    """Is the DTensor ``t`` sharded along its last dim over ``model``?"""
+    _, _, Shard = _pl()
+    p = _norm_dim(t.placements[md], t.ndim)
+    return isinstance(p, Shard) and p.dim == t.ndim - 1
+
+
+class ColTake(NamedTuple):
+    """Rank ``r``'s columns of an N-wide last dim cut evenly over n ranks
+    (:func:`col_take`), as index tensors on the device, made once:
+    ``cols``, the sorted global columns it wants (taken locally where
+    every rank holds all N); ``send``, the columns of its own shard that
+    the ranks want, in rank order; the all-to-all's split sizes."""
+    cols: torch.Tensor
+    send: torch.Tensor
+    send_counts: Tuple[int, ...]
+    recv_counts: Tuple[int, ...]
+
+
+def col_take(want: Sequence[np.ndarray], N: int, r: int, device) -> ColTake:
+    """The :class:`ColTake` of rank ``r`` where each rank ``s`` of
+    ``len(want)`` wants the sorted global columns ``want[s]`` of an N-wide
+    last dim whose even shard ``[s·N/n, (s+1)·N/n)`` it holds."""
+    n = len(want)
+    w = N // n
+
+    def inside(cols, s):
+        return (cols >= s * w) & (cols < (s + 1) * w)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    sends = [want[s][inside(want[s], r)] - r * w for s in range(n)]
+    return ColTake(idx(want[r]), idx(np.concatenate(sends)),
+                   tuple(len(c) for c in sends),
+                   tuple(int(inside(want[r], s).sum()) for s in range(n)))
+
+
+def _take_cols(t: torch.Tensor, cut: bool, plan: ColTake, group):
+    """This rank's columns ``plan.cols`` from the local ``t``: all N
+    columns (``cut`` False), or the even shard, when each rank sends every
+    other the columns it wants in one all-to-all (autograd: the backward
+    sends the gradients back and adds them where a column went to several
+    ranks)."""
+    if not cut:
+        return t.index_select(-1, plan.cols)
+    import torch.distributed._functional_collectives as funcol
+
+    buf = t.index_select(-1, plan.send).movedim(-1, 0).contiguous()
+    got = funcol.all_to_all_single_autograd(
+        buf, list(plan.recv_counts), list(plan.send_counts), group)
+    return got.movedim(0, -1)
+
+
+def _sync_part(state: torch.Tensor, dim: int, lo: int, hi: int, group):
+    """A replicated state of which this rank updated ``[lo, hi)`` along
+    ``dim`` (and each rank its own disjoint range): every rank's range
+    summed into all, with nothing else added (exact)."""
+    import torch.distributed._functional_collectives as funcol
+
+    part = torch.zeros_like(state)
+    part.narrow(dim, lo, hi - lo).copy_(state.narrow(dim, lo, hi - lo))
+    state.copy_(funcol.all_reduce(part, "sum", group))
+
+
+def _data_match(act, leaves, md) -> None:
+    """A cache leaf must cut its batch over the data dims as the
+    activations do: each rank's slots are its rows."""
+    _, _, Shard = _pl()
+    for t in leaves:
+        for i, (a, c) in enumerate(zip(act.placements, t.placements)):
+            if i != md and isinstance(a, Shard) != isinstance(c, Shard):
+                raise ValueError(
+                    f"a cache leaf placed {t.placements} against activations "
+                    f"placed {act.placements}: the batch must shard alike")
+
+
+def mamba2(zxd, conv, dt_bias, a_log, d_skip, *, cache: Optional[Dict],
+           dtype, whole: Callable, layout: Callable, part: Callable):
+    """A Mamba2 block between ``win`` and ``wout`` on DTensors: ``zxd`` (B,
+    T, 2·di + 2N + H) is ``win``'s output (column-parallel over ``model``,
+    or replicated where the rules drop the split), the batch over the data
+    axes; ``conv`` (W, di + 2N), the per-head ``dt_bias`` / ``a_log`` /
+    ``d_skip`` and, decoding, ``cache`` {"S": (B, H, P, N), "conv": (B, 3,
+    di + 2N)} as ``cache_specs`` places them.  Returns y (B, T, di) in
+    ``dtype``, ``Shard(-1)`` over ``model``: ``wout``'s row-parallel K
+    slice.
+
+    Every channel of x is its own scan given its head's dt and the shared
+    B and C, so rank r of ``model``'s n computes channels ``[r·di/n,
+    (r+1)·di/n)`` (whole heads — 5 of zamba2-2.7b's 80 at 16 — or part of
+    one) and nothing else.  ``layout(n, r, conv_cut, decode, device)``
+    (:func:`repro_torch.models.ssm.mamba_layout`) gives the rank's block:
+    ``take``, the :class:`ColTake` of ``win``'s columns it needs — its z,
+    its x, its heads' dt, all of B and C and, decoding, the raw xBC of its
+    conv-state shard; ``conv_take``, that of the conv-state channels its
+    conv reads; its channels ``c0`` / ``c1``.  One all-to-all of ``win``'s
+    column shards hands them over (each rank repeats the conv and the
+    ``C·Bᵀ`` products of B and C's 2N channels, which every head reads,
+    and, where its channels are part of a head, that head's decay); then
+    ``part(got, conv, dt_bias, a_log, d_skip, lay, conv_state=,
+    conv_out=, S=, S_own=)`` (``ssm.mamba_part``) runs the unplaced
+    block's arithmetic on the rank's block, updates its S in place — its
+    heads' shard (``S_own``), or, where the rules replicate S (H does not
+    split), its channels of the whole S, exchanged after — and writes back
+    its own shard of the conv state (``conv_out``).  The conv kernel and
+    the per-head vectors are gathered (their gradients ``Partial``).  With
+    one rank along ``model`` the local tensors run ``whole(zxd, conv,
+    dt_bias, a_log, d_skip, conv_state=, S=)`` — the unplaced
+    arithmetic."""
+    _, Replicate, Shard = _pl()
+    mesh = zxd.device_mesh
+    md = _model_dim(mesh)
+    n, r = model_coord(mesh)
+    rep = [Replicate()] * mesh.ndim
+    small = [_to(t, rep) for t in (conv, dt_bias, a_log, d_skip)]
+    c_leaves = [cache["conv"], cache["S"]] if cache is not None else []
+    _data_match(zxd, c_leaves, md)
+    w_grad = _part_grad(zxd.placements, md, n > 1)
+    if n == 1:
+        def run_whole(z_, k_, dt_, al_, ds_, *c_):
+            y, new = whole(z_, k_, dt_, al_, ds_,
+                           conv_state=c_[0] if c_ else None,
+                           S=c_[1] if c_ else None)
+            if c_:
+                c_[0].copy_(new)
+            return y.to(dtype)
+
+        return local_apply(run_whole, _set(zxd.placements, md, Replicate()),
+                           zxd, *small, *c_leaves,
+                           in_grad_placements=(None,) + (w_grad,) * 4
+                           + (None,) * len(c_leaves))
+    group = mesh.get_group(md)
+    cut = _cut_last(zxd, md)
+    if not cut:
+        zxd = _to(zxd, _set(zxd.placements, md, Replicate()))
+    decode = cache is not None
+    conv_cut = decode and _cut_last(cache["conv"], md)
+    s_own = decode and isinstance(
+        _norm_dim(cache["S"].placements[md], 4), Shard)
+
+    def run_part(z_, k_, dt_, al_, ds_, *c_):
+        lay = layout(n, r, conv_cut, decode, z_.device)
+        got = _take_cols(z_, cut, lay["take"], group)
+        conv_l, S_l = c_ if c_ else (None, None)
+        cs = None if conv_l is None else _take_cols(
+            conv_l, conv_cut, lay["conv_take"], group)
+        y = part(got, k_, dt_, al_, ds_, lay, conv_state=cs, conv_out=conv_l,
+                 S=S_l, S_own=s_own)
+        if S_l is not None and not s_own:
+            _sync_part(S_l.view(S_l.shape[0], -1, S_l.shape[-1]), 1,
+                       lay["c0"], lay["c1"], group)
+        return y.to(dtype)
+
+    z_grad = list(zxd.placements) if cut else _model_partial(zxd)
+    return local_apply(run_part, _set(zxd.placements, md, Shard(2)), zxd,
+                       *small, *c_leaves,
+                       in_grad_placements=(z_grad,) + (w_grad,) * 4
+                       + (None,) * len(c_leaves))
+
+
+def mlstm(q, k, v, gif, og, *, H: int, cache: Optional[Dict], dtype,
+          whole: Callable, layout: Callable, state_part: Callable,
+          out_part: Callable):
+    """An mLSTM block between its projections on DTensors: ``q``, ``k``,
+    ``v``, ``og`` (B, T, di) (column-parallel over ``model``: 256 columns
+    a rank of xlstm-1.3b's 4 heads of 1024 at 16, a quarter of a head) and
+    ``gif`` (B, T, 2H) as the linears give them, the batch over the data
+    axes; decoding, ``cache`` {"S": (B, H, P, P), "n": (B, H, P)} as
+    ``cache_specs`` places it (the key axis — dim 2 — over ``model``).
+    Returns y (B, T, di) in ``dtype``, ``Shard(-1)`` over ``model``: the
+    out gate applied, ``wo``'s row-parallel K slice.
+
+    The heads do not split over 16 ranks, but the key features do, as the
+    cache does: rank r of n owns key features ``[p0, p1) = [r·P/n,
+    (r+1)·P/n)`` of every head.  ``layout(n, r, device)``
+    (:func:`repro_torch.models.ssm.mlstm_layout`) gives them, ``take``,
+    the :class:`ColTake` of those q / k columns, and the rank's output
+    columns ``[c0, c1)`` from head ``h0`` (``cols_cut``; all of them where
+    n does not divide di).  One all-to-all each moves q's and k's column
+    shards to the key columns; v and the gates are gathered.
+    ``state_part`` (:func:`repro_torch.models.ssm.mlstm_state_part`) then
+    computes, on the rank's key slice, the partial scores ``q·kᵀ`` of
+    every chunk and the partial inter-chunk terms ``qd @ S`` and ``qd ·
+    n``, and runs the chunk state ``S`` — its own key rows — from its k
+    and the whole v (decoding, the cache's shard updated in place).  The
+    partial sums are reduced in f32: the scores and ``qd · n``
+    all-reduced, ``qd @ S`` reduce-scattered to each rank's columns.
+    ``out_part`` (``mlstm_out_part``) gives the rank's columns: the
+    decayed scores against its columns of v (its shard), plus the inter
+    terms, normalised and gated by its ``og`` shard.  No rank computes
+    another's scores, state or output columns; each repeats only the
+    gates' decay and, where its columns are part of a head (more ranks
+    than heads), that head's intra-chunk normaliser.  Where the rules
+    replicate S (P does not split), each rank updates its key rows of the
+    whole state and the rows are exchanged after.  With one rank along
+    ``model``, ``whole(q, k, v, gif, og, S=, n=)`` — the unplaced
+    arithmetic — runs on the local tensors."""
+    Partial, Replicate, Shard = _pl()
+    mesh = q.device_mesh
+    md = _model_dim(mesh)
+    n_m, r = model_coord(mesh)
+    di = int(q.shape[-1])
+    P = di // H
+    c_leaves = [cache["S"], cache["n"]] if cache is not None else []
+    _data_match(q, c_leaves, md)
+    act = list(q.placements)
+    if n_m == 1:
+        def run(q_, k_, v_, g_, o_, *c_):
+            return whole(q_, k_, v_, g_, o_,
+                         S=c_[0] if c_ else None,
+                         n=c_[1] if c_ else None).to(dtype)
+
+        return local_apply(run, _set(act, md, Replicate()), q, k, v, gif,
+                           og, *c_leaves)
+    group = mesh.get_group(md)
+    lay = layout(n_m, r, q.device)
+    rep_m = lambda t: _to(t, _set(t.placements, md, Replicate()))  # noqa
+    cuts = [_cut_last(t, md) for t in (q, k)]
+    q, k = (t if c else rep_m(t) for t, c in zip((q, k), cuts))
+    v_all, g_all = rep_m(v), rep_m(gif)
+    p0, p1 = lay["p0"], lay["p1"]
+    s_cut = cache is not None and isinstance(
+        _norm_dim(cache["S"].placements[md], 4), Shard)
+    part_pl = _set(act, md, Partial())
+
+    def state(q_, k_, v_, g_, *c_):
+        qr = _take_cols(q_, cuts[0], lay["take"], group)
+        kr = _take_cols(k_, cuts[1], lay["take"], group)
+        if not c_:
+            return state_part(qr, kr, v_, g_, H, P)
+        S_l, n_l = c_
+        S, n = (S_l, n_l) if s_cut else (S_l[:, :, p0:p1], n_l[:, :, p0:p1])
+        _, inter, innr = state_part(qr, kr, v_, g_, H, P, S, n)
+        if not s_cut:
+            _sync_part(S_l, 2, p0, p1, group)
+            _sync_part(n_l, 2, p0, p1, group)
+        return inter, innr
+
+    grads = tuple(list(t.placements) if c else _model_partial(t)
+                  for t, c in zip((q, k), cuts)) + (
+        _model_partial(v_all), _model_partial(g_all)) + (None,) * len(
+            c_leaves)
+    outs = local_apply(state, (part_pl,) * (2 if cache is not None else 3),
+                       q, k, v_all, g_all, *c_leaves,
+                       in_grad_placements=grads)
+    scores = None if cache is not None else outs[0]
+    inter, innr = outs[-2:]
+    cols = Shard(2) if lay["cols_cut"] else Replicate()
+    inter = _to(inter, _set(act, md, cols))
+    innr = _to(innr, _set(act, md, Replicate()))
+    v_c, og_c = (_to(t, _set(t.placements, md, cols)) for t in (v, og))
+    # the whole operands of the columns' part: each rank reads its own
+    # heads of them where the columns split
+    whole_grad = _set(act, md, Partial() if isinstance(cols, Shard)
+                      else Replicate())
+    if scores is not None:
+        scores = _to(scores, _set(act, md, Replicate()))
+
+    def out(inter_, innr_, v_, g_, o_, *s_):
+        return out_part(s_[0] if s_ else None, inter_, innr_, v_, g_, o_,
+                        lay["h0"], P).to(dtype)
+
+    c_pl = _set(act, md, cols)
+    extra = [scores] if scores is not None else []
+    return local_apply(out, c_pl, inter, innr, v_c, g_all, og_c, *extra,
+                       in_grad_placements=(c_pl, whole_grad, c_pl,
+                                           whole_grad, c_pl)
+                       + (whole_grad,) * len(extra))
+
+
+def slstm(xw, r, b, *, cache: Optional[Dict], dtype, run: Callable):
+    """An sLSTM block after its input projection on DTensors: ``xw`` (B, T,
+    4D) placed like the batch (the rules replicate the sLSTM over
+    ``model``: ``wx`` runs replicated), the recurrent weights ``r`` and
+    bias ``b`` as placed (FSDP over the data axes) and, decoding, ``cache``
+    {"h", "c", "n"} (B, D) placed like the batch.  Returns the h states (B,
+    T, D) in ``dtype``, placed like ``xw``.
+
+    The recurrence is sequential in T and its state is small, so nothing
+    splits over ``model``: every rank gathers ``r`` and ``b`` and runs the
+    whole step loop, ``run(xw, r, b, cache)``
+    (:func:`repro_torch.models.ssm._slstm_run`), on its local batch rows in
+    one local function (no DTensor dispatch a step), the cache's local
+    rows updated in place.  So x's gradient over ``model`` is
+    ``Replicate``: every model rank computes the same whole gradient."""
+    _, Replicate, _ = _pl()
+    mesh = xw.device_mesh
+    md = _model_dim(mesh)
+    rep = [Replicate()] * mesh.ndim
+    xw = _to(xw, _set(xw.placements, md, Replicate()))
+    r, b = _to(r, rep), _to(b, rep)
+    names = ("h", "c", "n")
+    c_leaves = [cache[k] for k in names] if cache is not None else []
+    _data_match(xw, c_leaves, md)
+    w_grad = _part_grad(xw.placements, md, False)
+
+    def fn(xw_, r_, b_, *c_):
+        return run(xw_, r_, b_, dict(zip(names, c_)) if c_ else None).to(
+            dtype)
+
+    return local_apply(fn, list(xw.placements), xw, r, b, *c_leaves,
+                       in_grad_placements=(list(xw.placements), w_grad,
+                                           w_grad) + (None,) * len(c_leaves))
 
 
 # ------------------------------------------------------------ attention

@@ -336,25 +336,10 @@ def _hybrid_superblock(p, shared, cfg, h, positions, cache, patterns,
     return h
 
 
-# the families whose layers have no DTensor leg yet: a placed step raises,
-# naming the leg it needs
-_UNPLACED_LEGS = {
-    "ssm": "the xLSTM blocks' (slstm_apply / mlstm_apply and their "
-           "recurrent states on DTensors)",
-    "hybrid": "the Mamba2 blocks' (mamba2_apply and its states on "
-              "DTensors)",
-}
-
-
 def _block(p_layer, params, cfg, h, positions, cache, patterns, dispatch,
            n_valid=None, t_bound=None, bt=None, packed_read="fused"):
     """One layer (super-block) of any family; ``cache`` None for the full
     sequence."""
-    if cfg.family in _UNPLACED_LEGS and sharded.is_dtensor(h):
-        raise NotImplementedError(
-            f"{cfg.name}: a placed (DTensor) step needs "
-            f"{_UNPLACED_LEGS[cfg.family]} sharded leg, which the port does "
-            f"not have yet: the {cfg.family} family runs unplaced")
     if cfg.family == "ssm":
         return _ssm_superblock(p_layer, cfg, h, cache, dispatch)
     if cfg.family == "hybrid":

@@ -25,7 +25,9 @@ magnitude of the one-process value (``rel``), over every leaf or output.
 * ``refuse``: a DTensor handed to a kernel wrapper raises.
 
 The MoE family (``tests/test_torch_moe_sharding*.py``, ``kind =
-"moe_train"`` / ``"moe_serve"``): ``tests/_moe_workers.py``.
+"moe_train"`` / ``"moe_serve"``): ``tests/_moe_workers.py``.  The SSM and
+hybrid families (``tests/test_torch_{hybrid,xlstm}_sharding*.py``):
+``tests/_ssm_workers.py``.
 
 The sequence-sharded cache (``tests/test_torch_seq_cache.py``, ``kind =
 "seq"``): :data:`SEQ_CASES` names, for each mesh, the (kv heads, batch) of
@@ -71,9 +73,9 @@ def _grads(tm, cfg, params, batch):
     return loss, {p: g for (p, _), g in zip(items, grads)}
 
 
-def _train_cases(mesh, cfg0, prepare=None):
+def _train_cases(mesh, cfg0, prepare=None, eps=1e-3):
     """The train cases on ``mesh``; ``prepare`` (a function of the
-    parameter tree) changes the seed-0 tree first."""
+    parameter tree) changes the seed-0 tree first; ``eps`` is AdamW's."""
     from repro_torch.launch import sharding as sh
     from repro_torch.models import model as tm
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -85,7 +87,7 @@ def _train_cases(mesh, cfg0, prepare=None):
     batch = {k: torch.from_numpy(rng.integers(0, cfg0.vocab, (4, 16))
                                  .astype(np.int32))
              for k in ("tokens", "labels")}
-    oc = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1, total_steps=4)
+    oc = AdamWConfig(lr=1e-2, eps=eps, warmup_steps=1, total_steps=4)
     for seq in (False, True):
         cfg = dataclasses.replace(cfg0, seq_shard=seq)
         params = tm.init_params(cfg, seed=0, device="cpu")
@@ -283,7 +285,9 @@ def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
     """One rank: every case of the ``shape`` mesh (``kind`` "apply": the
     train, decode, refusal and checkpoint cases; "seq": the
     sequence-sharded cache's; "moe_train" / "moe_serve": the MoE family's,
-    ``tests/_moe_workers.py``); puts ``(rank, results)`` or ``(rank,
+    ``tests/_moe_workers.py``; "hybrid_train" / "hybrid_serve" /
+    "xlstm_train" / "xlstm_serve": the SSM and hybrid families',
+    ``tests/_ssm_workers.py``); puts ``(rank, results)`` or ``(rank,
     traceback)`` on ``q``."""
     import torch.distributed as dist
 
@@ -302,6 +306,10 @@ def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
         if kind.startswith("moe"):
             from _moe_workers import moe_cases
             q.put((rank, moe_cases(mesh, kind)))
+            return
+        if kind.startswith(("hybrid", "xlstm")):
+            from _ssm_workers import ssm_cases
+            q.put((rank, ssm_cases(mesh, kind)))
             return
         cfg = reduced_config("llama3.2-1b")
         res = {"train": _train_cases(mesh, cfg),

@@ -16,8 +16,11 @@ process-global.
 * reduced olmoe-1b-7b's train, prefill and decode cells on the same mesh
   end ``ok``, their products (the MoE leg's experts among them) split four
   ways; olmoe-1b-7b's full-size ``decode_32k`` cell from the command line;
-* the SSM and hybrid families' placed steps raise, naming the leg they
-  lack;
+* reduced xlstm-1.3b's and zamba2-2.7b's train, prefill and decode cells
+  end ``ok``, their ``mm`` and ``bmm`` FLOPs a device equal to the legs'
+  reckoning: every product split four ways but those each ``model`` rank
+  repeats (the sLSTM's, and the Mamba2 chunks' ``C·Bᵀ``); xlstm-1.3b's
+  and zamba2-2.7b's full-size ``decode_32k`` cells from the command line;
 * a full-size cell through the command line (llama3.2-1b ``decode_32k``
   on (16, 16)) writes its record; an encoder's decode cell is skipped
   with the reference's reason;
@@ -97,15 +100,15 @@ with d.fake_group(4):
         out["moe"][s.kind] = {"placed": counts,
                               "one": one_process(moe, s, n_micro),
                               "bytes": per_rank}
-    out["unplaced"] = {}
     for arch in ("xlstm-1.3b", "zamba2-2.7b"):
         c = reduced_config(arch)
-        placed, per_rank = d.place_cell(c, shapes[2], mesh)
-        try:
-            d.run_step(c, shapes[2], placed, mesh)
-            out["unplaced"][arch] = None
-        except NotImplementedError as e:
-            out["unplaced"][arch] = [str(e), per_rank["cache"]]
+        out[arch] = {}
+        for s in shapes:
+            placed, per_rank = d.place_cell(c, s, mesh)
+            counts, n_micro = d.run_step(c, s, placed, mesh)
+            out[arch][s.kind] = {"placed": counts, "n_micro": n_micro,
+                                 "one": one_process(c, s, n_micro),
+                                 "bytes": per_rank}
 print(json.dumps(out))
 """
 
@@ -150,14 +153,53 @@ def test_flop_counter_double_count_trap(cells):
     assert t["torch"] in (t["global"], t["global"] + t["global"] // 4)
 
 
-def test_unported_families_name_their_missing_leg(cells):
-    """The SSM and hybrid families have no DTensor leg yet: their placed
-    step raises, naming it, after their per-rank bytes were read."""
-    legs = {"xlstm-1.3b": "mlstm_apply", "zamba2-2.7b": "mamba2_apply"}
-    for arch, leg in legs.items():
-        msg, cache_bytes = cells["unplaced"][arch]
-        assert leg in msg and "sharded leg" in msg, msg
-        assert cache_bytes > 0
+def _repeated(arch: str, kind: str):
+    """The ``(mm, bmm)`` FLOPs of one process's reduced step (4 rows of 16
+    tokens, or a decode row) that every ``model`` rank repeats on its
+    batch rows, by the legs' design (``core/sharded.py``): the sLSTM, which
+    the rules replicate over ``model`` — its input projection ``wx`` (mm)
+    and a step's recurrent product ``h @ r`` (bmm, T steps) — and in a
+    Mamba2 chunk the ``C·Bᵀ`` product of the B and C channels that every
+    rank takes (a decode step has none).  Every other product splits
+    four ways: batch over ``data``, heads / key features / columns /
+    channels over ``model``.  Training adds the backward's two products a
+    product (the first sLSTM step's h is a constant: one)."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch)
+    B, T = 4, 1 if kind == "decode" else 16
+    train = kind == "train"
+    if arch == "xlstm-1.3b":
+        D, H = cfg.d_model, cfg.n_heads
+        P = D // H
+        layers = cfg.n_layers // cfg.slstm_every
+        wx = 2 * B * T * D * 4 * D
+        step = 2 * H * B * P * 4 * P
+        return (layers * wx * (3 if train else 1),
+                layers * step * (3 * T - 1 if train else T))
+    if kind == "decode":
+        return 0, 0
+    cb = 2 * B * T * T * cfg.ssm_state * cfg.n_layers     # one chunk of T
+    return 0, cb * (3 if train else 1)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_reduced_ssm_cell_runs_and_splits_by_its_legs(cells, arch, kind):
+    """Reduced xlstm-1.3b and zamba2-2.7b on the fake (2, 2) mesh: the
+    placed step ends ``ok`` with each rank's products those of the legs'
+    design — a quarter of one process's, plus half of what every
+    ``model`` rank repeats (:func:`_repeated`) — and the legs' all-to-alls
+    among its collectives."""
+    c = cells[arch][kind]
+    placed, one = c["placed"], c["one"]
+    rep = dict(zip(("mm", "bmm"), _repeated(arch, kind)))
+    assert set(placed["flops_by_op"]) == set(one["flops_by_op"]) == set(rep)
+    for op, f in one["flops_by_op"].items():
+        assert placed["flops_by_op"][op] * 4 == f + rep[op], (arch, kind, op)
+    assert placed["collectives"]["all-to-all"] > 0
+    assert c["bytes"]["params"] > 0
+    assert (c["bytes"]["cache"] > 0) == (kind == "decode")
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -198,6 +240,25 @@ def test_full_size_moe_decode_cell_from_the_command_line(tmp_path):
         16 * 2 * 8 * 32768 * 1 * 128 * 2 + 16 * 8 * 4
     assert rec["flops_per_device"] > 0
     assert rec["collectives"]["reduce-scatter"] > 0
+    assert "not a measurement" in rec["roofline"]["estimate"]
+
+
+def test_full_size_ssm_decode_cells_from_the_command_line(tmp_path):
+    """xlstm-1.3b's and zamba2-2.7b's ``decode_32k`` on (16, 16): the 128
+    slots over ``data`` (8 a rank); the mLSTM state on 64 of 1024 key rows
+    a rank, the Mamba2 state on 5 of 80 heads, its conv window on 328 of
+    5248 channels, the shared attention's 32 kv heads 2 a rank."""
+    rec = _cli_cell(tmp_path, "xlstm-1.3b", "decode_32k")
+    assert rec["status"] == "ok", rec.get("traceback")
+    S, n = 6 * 7 * 8 * 4 * 64 * 1024 * 4, 6 * 7 * 8 * 4 * 64 * 4
+    assert rec["bytes_per_device"]["cache"] == S + n + 3 * 6 * 8 * 2048 * 4
+    assert rec["collectives"]["all-to-all"] > 0
+    rec = _cli_cell(tmp_path, "zamba2-2.7b", "decode_32k")
+    assert rec["status"] == "ok", rec.get("traceback")
+    kv = 2 * 9 * 8 * 32768 * 2 * 80 * 2 + 9 * 8 * 4
+    S, conv = 9 * 6 * 8 * 5 * 64 * 64 * 4, 9 * 6 * 8 * 3 * 328 * 4
+    assert rec["bytes_per_device"]["cache"] == kv + S + conv
+    assert rec["flops_per_device"] > 0
     assert "not a measurement" in rec["roofline"]["estimate"]
 
 
