@@ -133,6 +133,23 @@ Phases, each fatal on failure:
    on the staged route, hold the logits
    against ``dispatch="twin"``, and time images/s beside the masked-dense
    forward;
+5b. fig1   — the paper's Fig. 1 workflow (``repro_torch.train.
+   lenet_pipeline.run`` with the strategy rows at ``H100_SXM``, cost-model
+   estimates): LeNet-5 trained 80 steps, pruned (global magnitude for the
+   DSE's caps, then two-level block-aware masks), fine-tuned 200 masked
+   int4 QAT steps, compiled whole and FC-only; ``cm_whole`` deployed
+   through ``lenet_forward(fusion=True)`` on the 1024 test digits with the
+   counts set to 0 just before it: its launches by route as the compile's
+   report implies (register-tiled convs, the staged FC stack), the logits
+   within ``LENET_TOL`` of the twin, top-1 equal within one image, the
+   stored-bits ratio ``FIG1_STORED_BITS`` (unless a pruning tie kept more),
+   whole-model bytes at least 11x and above FC-only, both loss curves
+   falling; then ``examples/llm_sparse_train_torch.py`` at its ~100M
+   config, 30 steps pruned at 20 and a second run to 40 resumed from the
+   last checkpoint (every flash launch f32 on the CUDA-core route, the
+   pruned weights exactly 0, the masks kept, losses falling); then
+   ``examples/quickstart_torch.py`` and ``examples/serve_batched_torch.py``
+   with their own asserts;
 6. families — the newer payload families on the ported kernels:
    perchannel (8 and 4 bits), bfp8, int2 (quant at 2 bits), sparse at 2
    bits (int2x4 blocks) and actsparse (tau 0.05, under a ReLU: the fused
@@ -150,7 +167,7 @@ Phases, each fatal on failure:
    convs, the fused forward against the twin with its launches, and
    ``run_dse`` / ``balanced_folding_baseline`` at the Table-I budget on
    both HWSpecs (estimates);
-7. zoo     — qwen1.5-4b and starcoder2-7b at full width, cut to 10 and 8
+7. zoo     — qwen1.5-4b and starcoder2-7b at full width, cut to 6 and 4
    layers in depth (``ZOO_LAYERS``; bf16, random weights from a seed),
    each compiled with the serve phase's rules (no
    ``wg`` for starcoder2's GELU MLP; the untied head takes the cost
@@ -221,7 +238,7 @@ Phases, each fatal on failure:
    width (bf16, f32 AdamW moments, remat; ``TRAIN_FAMILY_PATHS``):
    olmoe-1b-7b (cut to 4 of 16 layers: 8 do not fit beside a functional
    AdamW) and zamba2-2.7b (9 super-blocks) at 4 x 2048 tokens in 4
-   micro-batches, xlstm-1.3b (cut to 24 of 48 layers) at 4 x 512 in 2,
+   micro-batches, xlstm-1.3b (cut to 16 of 48 layers) at 4 x 512 in 2,
    frozen
    ``block_aware_prune`` masks on each 2-D slice of the routed experts,
    the Mamba2 ``wout`` and shared MLP, the mLSTM projections; the twin
@@ -3757,6 +3774,219 @@ def measure_lenet_kernels(params, x, cms, dev):
     return entries, details
 
 
+# ------------------------------------------------- the paper's workflow
+
+
+# The Fig. 1 workflow at Table I's operating point (repro_torch.train.
+# lenet_pipeline): 80 dense steps, 200 masked int4 QAT fine-tuning steps
+FIG1_STEPS = (80, 200)
+# stored bits at the operating point's mask counts over dense f32 bits; it
+# depends on the counts alone, which block_aware_prune fixes (ceil of each
+# density) but for a tie at its in-block ">= thr", which keeps one more.
+# tests/test_torch_lenet_pipeline.py pins the same value on the CPU.
+FIG1_STORED_BITS = 52.04474067088003
+# the LLM example at a cut: its ~100M config, 30 steps (pruned at 20), then
+# a second run to 40 that resumes from the last committed step
+FIG1_LLM = dict(prune_at=20, ckpt_every=10, steps=(30, 40))
+
+
+def example(name):
+    """``examples/<name>_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fig1_want(cm):
+    """The launches one fused forward of a compiled LeNet takes by its
+    report: a sparse conv on block_sparse_conv, a quant conv on quant_conv,
+    each on its register-tiled route; the FC stack in one staged
+    fc_stack_matmul launch.  No band or stream route: no LeNet shape needs
+    one."""
+    want = {}
+    pol = {r.name: r.policy for r in cm.report}
+    for conv in ("conv1", "conv2"):
+        kernel, route = {"sparse": ("block_sparse_conv", BSC_REG),
+                         "quant": ("quant_conv", QCONV_REG)}[pol[conv]]
+        want[kernel] = want.get(kernel, 0) + 1
+        want[route] = want.get(route, 0) + 1
+    require(cm.fusion.get("fc_stack") == ("fc1", "fc2", "fc3"),
+            f"fig1: the FC stack is not fused: {cm.fusion}")
+    want.update({"fc_stack_matmul": 1, FCS_STAGED: 1})
+    return want
+
+
+def fig1_counts(masks):
+    """Each layer's kept weights against what the densities fix: kept
+    blocks x the in-block keep (a tie adds to it)."""
+    from repro_torch.train import lenet_pipeline as lp
+
+    out = {}
+    for name, m in masks.items():
+        conv = name.startswith("conv")
+        m2 = m.transpose(2, 0, 1, 3).reshape(-1, m.shape[-1]) if conv else m
+        bk, bn = (lp.CONV_BLOCK if conv else lp.BLOCK)[name]
+        n_blocks = (m2.shape[0] // bk) * (m2.shape[1] // bn)
+        bd = lp.CONV_BLOCK_DENSITY if conv else 0.5
+        ibd = 1.0 if conv else lp.FC_IN_BLOCK_DENSITY
+        fixed = max(1, math.ceil(bd * n_blocks)) \
+            * max(1, math.ceil(ibd * bk * bn))
+        out[name] = {"kept": int(m.sum()), "fixed": fixed}
+    return out
+
+
+def fig1_lenet(dev):
+    """(a): the workflow trained, pruned and QAT-fine-tuned on the card,
+    then ``cm_whole`` deployed through the fused kernels on the 1024 test
+    digits, against the twin path."""
+    from repro_torch.core import H100_SXM
+    from repro_torch.models.lenet import lenet_forward
+    from repro_torch.train import lenet_pipeline as lp
+
+    t0 = time.perf_counter()
+    reset_counts()
+    run = lp.run(hw=H100_SXM, device=dev, steps=FIG1_STEPS[0],
+                 finetune_steps=FIG1_STEPS[1])
+    torch.cuda.synchronize()
+    run_counts = read_counts()
+    run_s = time.perf_counter() - t0
+    bench = run.rows[-1]["bench"]
+    want = fig1_want(run.cm_whole)
+    # the run's one compressed forward: accuracy() of cm_whole
+    require(run_counts == {k: want.get(k, 0) for k in run_counts},
+            f"fig1: the workflow launched {run_counts}, expected {want}")
+    losses = {k: v.cpu().tolist() for k, v in run.losses.items()}
+    for k, v in losses.items():
+        require(all(math.isfinite(l) for l in v)
+                and np.mean(v[-10:]) < np.mean(v[:10]),
+                f"fig1: the {k} losses do not fall: {v[:10]} ... {v[-10:]}")
+
+    x, y = run.task.batch(*lp.TEST_BATCH, split="test")
+    xs = torch.from_numpy(x).to(dev)
+    with torch.no_grad():
+        reset_counts()
+        yk = lenet_forward(run.pruned_params, xs,
+                           compressed=run.cm_whole.layers, fusion=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        yt = lenet_forward(run.pruned_params, xs,
+                           compressed=run.cm_whole.layers, fusion=True,
+                           dispatch="twin")
+    require(counts == {k: want.get(k, 0) for k in counts},
+            f"fig1: the deployed forward launched {counts}, expected {want}")
+    require(tuple(yk.shape) == (len(y), 10) and bool(torch.isfinite(yk).all()),
+            "fig1: bad logits")
+    top = float(yt.abs().max())
+    err = float((yk - yt).abs().max())
+    require(err <= LENET_TOL * top,
+            f"fig1: fused vs twin logits max abs err {err} > {LENET_TOL} x "
+            f"{top}")
+    labels = torch.from_numpy(y).long()
+    right_k = int((yk.argmax(-1).cpu() == labels).sum())
+    right_t = int((yt.argmax(-1).cpu() == labels).sum())
+    require(abs(right_k - right_t) <= 1,
+            f"fig1: top-1 {right_k} fused vs {right_t} twin of {len(y)}")
+
+    kept = fig1_counts(run.masks)
+    ratio = bench["stored_bits_compression"]
+    if all(c["kept"] == c["fixed"] for c in kept.values()):
+        require(ratio == FIG1_STORED_BITS,
+                f"fig1: stored bits {ratio}x, pinned {FIG1_STORED_BITS}x")
+    else:
+        print(f"fig1: a tie in block_aware_prune kept more: {kept}",
+              flush=True)
+        require(all(c["kept"] >= c["fixed"] for c in kept.values())
+                and ratio < FIG1_STORED_BITS,
+                f"fig1: kept weights {kept}, stored bits {ratio}x")
+    whole, fc = run.cm_whole.byte_compression, run.cm_fc.byte_compression
+    require(whole >= lp.BYTE_COMPRESSION_FLOOR and whole > fc,
+            f"fig1: whole-model bytes {whole}x, FC-only {fc}x")
+    return {
+        "seconds_run": run_s, "steps": FIG1_STEPS,
+        "accuracy": {k: bench[f"accuracy_{k}"] for k in
+                     ("dense", "pruned_masked", "whole_compressed")},
+        "deployed_top1": {"fused": right_k, "twin": right_t,
+                          "images": len(y)},
+        "max_abs_err_vs_twin": err, "largest_logit": top,
+        "tol": LENET_TOL * top, "launches_run": run_counts,
+        "launches_deployed": counts,
+        "policies": {r.name: r.policy for r in run.cm_whole.report},
+        "stored_bits_compression": ratio, "kept": kept,
+        "whole_model_compression": whole, "fc_only_compression": fc,
+        "int8_container_compression": run.cm_whole.compression,
+        "whole_model_storage_bytes": run.cm_whole.container_storage_bytes,
+        "dense_storage_bytes": run.cm_whole.dense_bytes,
+        "losses_dense": losses["dense"], "losses_finetune": losses["finetune"],
+        "rows_h100_sxm_estimates": [
+            {k: v for k, v in r.items() if k != "bench"} for r in run.rows],
+    }
+
+
+def fig1_llm(dev):
+    """(b): the LLM example at a cut, stopped and resumed from its last
+    committed step; every flash launch on the CUDA-core route (f32)."""
+    import tempfile
+
+    mod = example("llm_sparse_train")
+    c = FIG1_LLM
+    with tempfile.TemporaryDirectory() as ck:
+        argv = ["--prune-at", str(c["prune_at"]), "--ckpt-every",
+                str(c["ckpt_every"]), "--ckpt", ck]
+        reset_counts()
+        t0 = time.perf_counter()
+        first = mod.main(argv + ["--steps", str(c["steps"][0])])
+        second = mod.main(argv + ["--steps", str(c["steps"][1])])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    layers = len(second["params"]["blocks"]["mlp"]["wg"]["w"])
+    flash = 2 * layers * c["steps"][1]          # 2 micro-batches a step
+    want = {"flash_attention": flash, FLASH_CC: flash}
+    require(counts == {k: want.get(k, 0) for k in counts},
+            f"fig1 llm: launched {counts}, expected {want}")
+    resumed = c["steps"][1] - c["steps"][0]
+    require(len(second["sparse_losses"]) == resumed,
+            f"fig1 llm: the second run trained "
+            f"{len(second['sparse_losses'])} steps, not {resumed}")
+    require(second["max_pruned"] == 0.0 and first["max_pruned"] == 0.0,
+            f"fig1 llm: a pruned weight is {second['max_pruned']}")
+    for key, m in first["masks"].items():
+        require(torch.equal(second["masks"][key], m),
+                f"fig1 llm: {key}'s mask changed across the resume")
+    losses = first["dense_losses"] + first["sparse_losses"] \
+        + second["sparse_losses"]
+    require(all(math.isfinite(v) for v in losses)
+            and np.mean(losses[-5:]) < np.mean(losses[:5]),
+            f"fig1 llm: the losses do not fall: {losses}")
+    return {"seconds": seconds, "launches": counts, "layers": layers,
+            "losses": losses, "max_pruned": second["max_pruned"]}
+
+
+def fig1(dev, report):
+    """The paper's Fig. 1 workflow and the port's example entry points on
+    the card: (a) ``fig1_lenet``, (b) ``fig1_llm``, (c) ``quickstart_torch``
+    and ``serve_batched_torch``'s ``main`` with their own asserts."""
+    t0 = time.perf_counter()
+    out = {"lenet": fig1_lenet(dev), "llm": fig1_llm(dev)}
+    reset_counts()
+    qs = example("quickstart").main([])
+    counts = read_counts()
+    require(counts["block_sparse_matmul"] > 0 and counts["quant_matmul"] > 0
+            and counts["block_sparse_conv"] > 0,
+            f"fig1 quickstart: its compiled leaves launched {counts}")
+    out["quickstart"] = {"errors": qs,
+                         "launches": {k: v for k, v in counts.items() if v}}
+    reqs = example("serve_batched").main([])
+    out["serve_batched"] = {"tokens": sum(len(r.out) for r in reqs)}
+    out["seconds"] = time.perf_counter() - t0
+    report["fig1"] = out
+    return out
+
+
 # ---------------------------------------------------------------- training
 
 
@@ -3961,8 +4191,8 @@ def measure_flash(dev, counts):
 # 24 B a parameter and the masks: at 4 layers (1.88 G parameters) the peak
 # is 51.5 GB on an H100 80GB, which at 8 layers (3.56 G) reckons ~97 GB,
 # past the card's 80 GiB.
-# xlstm-1.3b runs T 512 (its sLSTM runs a step at a time) at 24 of its 48
-# layers (3 of 6 super-blocks): whole, its host-bound steps took 115-133 s
+# xlstm-1.3b runs T 512 (its sLSTM runs a step at a time) at 16 of its 48
+# layers (2 of 6 super-blocks): whole, its host-bound steps took 115-133 s
 # of a script that ran 852-1038 s, past half its limit.  zamba2-2.7b's
 # ``win`` (10,448 columns, not a multiple of 128) is not masked.
 TRAIN_FAMILY_PATHS = (
@@ -3971,7 +4201,7 @@ TRAIN_FAMILY_PATHS = (
     ("zamba2-2.7b", None, 4, 2048, 4,
      (("blocks", "mamba", "wout", "w"),)
      + tuple(("shared_attn", "mlp", n, "w") for n in ("wg", "wu", "wd"))),
-    ("xlstm-1.3b", 24, 4, 512, 2,
+    ("xlstm-1.3b", 16, 4, 512, 2,
      tuple(("blocks", "mlstm", n, "w") for n in ("wq", "wk", "wv", "wo"))),
 )
 TRAIN_FAMILY_STEPS = 4
@@ -4778,7 +5008,9 @@ ZOO_LEAVES = {"qwen1.5-4b": ("blocks/attn/wq", "blocks/mlp/wg",
 ZOO_M = 8
 # the zoo configs' depth on the card: a quarter of their layers (40 and
 # 32), at full width, so the script stays well inside its time limit
-ZOO_LAYERS = {"qwen1.5-4b": 10, "starcoder2-7b": 8}
+# cut in depth to keep the script within its time limit: 6 of qwen1.5-4b's
+# 40 layers and 4 of starcoder2-7b's 32
+ZOO_LAYERS = {"qwen1.5-4b": 6, "starcoder2-7b": 4}
 # The zoo configs' int4x2 twin bound.  qwen1.5-4b keeps TWIN_TOL.  For
 # starcoder2-7b the gap is int4 K/V code flips compounding through its 32
 # layers (measured at its full depth): a one-step bf16 difference flips a code, which moves that value
@@ -6112,6 +6344,23 @@ def main() -> int:
         kernels += lenet_kernels
         lap("lenet")
         del params, x, cms
+        fig1(dev, report)
+        lap("fig1")
+        f1 = report["fig1"]
+        print(f"fig1 ({f1['seconds']:.1f} s) on {report['card']}: " + json.dumps(
+            {k: v for k, v in f1["lenet"].items()
+             if k not in ("losses_dense", "losses_finetune",
+                          "rows_h100_sxm_estimates")}), flush=True)
+        print("fig1 losses (dense, then the masked int4 QAT fine-tune): "
+              + json.dumps({k: f1["lenet"][k] for k in
+                            ("losses_dense", "losses_finetune")}), flush=True)
+        print("fig1 strategy rows (latency, throughput and resource are "
+              "cost-model estimates from the H100 SXM datasheet, not "
+              "measured): " + json.dumps(f1["lenet"]["rows_h100_sxm_estimates"]),
+              flush=True)
+        print("fig1 examples: " + json.dumps(
+            {k: f1[k] for k in ("llm", "quickstart", "serve_batched")}),
+            flush=True)
         families(dev, report, kernels)
         lap("families")
         fam = report["families"]

@@ -77,8 +77,8 @@ def main(argv=None):
 
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     if cfg.frontend:
-        raise SystemExit("frontend archs: use examples/ drivers with "
-                         "precomputed embeddings")
+        raise SystemExit("frontend archs: use the port's example drivers "
+                         "(examples/*_torch.py) with precomputed embeddings")
     dev = resolve_device(args.device)
     mesh = None
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:

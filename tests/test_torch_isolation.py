@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and importing the port
-builds nothing."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and none of the port's examples (``examples/*_torch.py``)
+imports JAX or the JAX package, and importing the port builds nothing."""
 import ast
 import subprocess
 import sys
@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    return files + [ROOT / "chip_smoke.py"] + examples
 
 
 def _imported_roots(path: Path):

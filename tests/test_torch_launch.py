@@ -3,7 +3,8 @@
 ``reduced_config`` sizes.
 
 * ``launch.train`` refuses a frontend arch (the encoder's frames, the
-  VLM's prefix) with the reference's message, and trains the MoE, SSM and
+  VLM's prefix) with the reference's message (naming the port's example
+  drivers in place of the reference's), and trains the MoE, SSM and
   hybrid families a few steps with checkpoints;
 * ``launch.serve`` submits the reference launcher's seeded requests (the
   same prompts and budgets, read off the reference's ``main`` with its
@@ -44,7 +45,11 @@ def test_train_refuses_frontend_archs_as_the_reference(arch, monkeypatch,
     want = _reference_exit(jtrain.main, argv, monkeypatch)
     with pytest.raises(SystemExit) as e:
         ttrain.main(argv + ["--device", "cpu"])
-    assert str(e.value) == want and "frontend" in want
+    # the reference's message, naming the port's drivers for its own
+    assert str(e.value) == want.replace(
+        "examples/ drivers",
+        "the port's example drivers (examples/*_torch.py)")
+    assert "frontend" in want and str(e.value) != want
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
