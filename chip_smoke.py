@@ -19,8 +19,9 @@ Phases, each fatal on failure:
    128}; and the single kernel for shapes outside the split build: dead,
    ragged and full slots, bitwise equal across extents and calls) and of the flash
    kernel (tensor cores for bf16 Dh 64/80/96/128, CUDA cores for the rest:
-   causal or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, and its op's
-   gradient) and of the fused convs (register-tiled at LeNet's shapes,
+   causal or not, GQA, ragged and unequal Tq / Tk, bf16 and f32, a
+   sequence-sharded rank's query offset on both routes, and its op's
+   gradient, at an offset too) and of the fused convs (register-tiled at LeNet's shapes,
    strided and unpooled, f32 and bf16 x; band for the 3 x 3 pool, and for
    every register-tiled case again) and of the FC stack (staged, f32 and
    bf16 x, at the edge of shared memory; stream for every staged case
@@ -71,9 +72,15 @@ Phases, each fatal on failure:
    row-parallel, the MLP's blocks replicated where their pattern does not
    partition, a crafted partitioning ``wg`` on local schedules), the tied
    head vocab-sharded, the packed reads (C = 1, 16) and the training
-   flash call with its op's backward on local heads — combined as the
-   collective would and held within one bf16 step of the unsharded call,
-   each kernel call on the route its shape rule names;
+   flash call with its op's backward on local heads, and the placed
+   ``seq_shard`` leg (``attn_full_dispatch`` on CUDA DTensors, q cut along
+   T) at each rank of a fake (1, n) group, each rank's rows at their query
+   offset (bf16 on the tensor cores, and an f32 call on the CUDA cores) —
+   combined as the collective would and held within one bf16 step of the
+   unsharded call (dk, dv summed over n ranks: n steps), each kernel call
+   on the route its shape rule names; each rank's sequence-sharded flash
+   call at model 4, and the whole call, timed on 4 input copies beside
+   its bound, plain version and SDPA with the offset rows' mask;
 4a'. seq cache — the sequence-sharded KV cache: llama3.2-1b's packed
    reads (int4x2 and int4, 8 slots over 512 rows, decode and the 16-row
    chunk) cut into the ranges of model axes 2 and 4, each range's split
@@ -991,16 +998,21 @@ def sweep_attention(rng, dev):
     return cases
 
 
-def sweep_flash(rng, dev):
+def sweep_flash(rng, dev, report):
     """The flash kernels against their plain version.  The CUDA-core cases:
     causal and not, G in {1, 4}, Dh in {16, 64, 128} (and 40, 256), ragged
     T, Tq != Tk, B in {1, 3}, bf16 and f32, q read through a strided view,
     and bf16 Dh 64 with rows that are not 16-byte multiples; f32 Dh 80 and
     96, and bf16 Dh 96 with such rows.  The tensor-core cases: bf16, Dh 64,
     80, 96 and 128, causal and not, G in {1, 2, 4}, Tq / Tk ragged and
-    unequal up to 2048, B in {1, 3}, q strided.  Each
+    unequal up to 2048, B in {1, 3}, q strided.  The query offsets of a
+    sequence-sharded rank (``OFFSET_FLASH``): causal and not, G in {1, 4},
+    f32 Dh 64 and 80 (CUDA cores), bf16 Dh 64, 80, 96 and 128 (tensor
+    cores), against ``flash_attention_plain(q_offset=...)``.  Each
     call must take the route ``flash_route`` names.  Then the op's gradient
-    against autograd through ``chunked_attention``."""
+    against autograd through ``chunked_attention``, at offset 0 and, on
+    each route, at an offset.  The host seconds of the offset cases go to
+    ``report["flash_q_offset_sweep_s"]``."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.layers import chunked_attention
@@ -1014,12 +1026,17 @@ def sweep_flash(rng, dev):
                (False, 1, 64, 257, 100, 1), (True, 2, 80, 130, 130, 0),
                (False, 4, 96, 257, 100, 0), (True, 1, 96, 100, 100, 1)]
     both = (torch.float32, torch.bfloat16)
-    runs = [(s_, both) for s_ in shapes] + [
-        ((causal, G, Dh, Tq, Tk, 0), (torch.bfloat16,))
+    runs = [(s_, both, 0) for s_ in shapes] + [
+        ((causal, G, Dh, Tq, Tk, 0), (torch.bfloat16,), 0)
         for causal in (True, False) for Dh in fk.TC_DH for G in (1, 2, 4)
         for Tq, Tk in ((100, 100), (257, 257), (2048, 1000), (257, 2048))]
-    cases = 0
-    for i, (shape, dts) in enumerate(runs):
+    first_offset = len(runs)
+    runs += [((causal, G, Dh, Tq, off + Tq + extra, 0), (dt,), off)
+             for causal in (True, False) for G in (1, 4)
+             for dt, Dh in OFFSET_FLASH_DH for off, Tq, extra in OFFSET_FLASH]
+    cases, offset_s = 0, 0.0
+    for i, (shape, dts, off) in enumerate(runs):
+        t0 = time.perf_counter()
         causal, G, Dh, Tq, Tk, pad = shape
         B, Hkv = (1, 3)[i % 2], 2
         for dt in dts:
@@ -1035,29 +1052,58 @@ def sweep_flash(rng, dev):
             require(route == want, f"flash_route sent {shape} {dt} to the "
                                    f"{route} route, not {want}")
             y = took_route(fk, routes, route, lambda: fk.flash_attention_fwd(
-                q, k, v, causal=causal))
-            ref = fk.flash_attention_plain(q, k, v, causal=causal)
+                q, k, v, causal=causal, q_offset=off))
+            ref = fk.flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=off)
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
             require(err <= flash_tol(dt, ref),
                     f"flash_attention {route} causal={causal} G={G} Dh={Dh} "
-                    f"Tq={Tq} Tk={Tk} B={B} {dt}: max abs err {err}")
+                    f"Tq={Tq} Tk={Tk} q_offset={off} B={B} {dt}: max abs "
+                    f"err {err}")
             cases += 1
+        if i >= first_offset:
+            offset_s += time.perf_counter() - t0
     # the op's gradient: its backward is autograd through chunked_attention
-    q, k, v = (torch.randn(s_, device=dev).to(torch.bfloat16)
-               for s_ in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64)))
-    g = torch.randn((2, 300, 8, 64), device=dev).to(torch.bfloat16)
-    grads = []
-    for fn in (lambda a, b, c: flash_attention(a, b, c, True),
-               lambda a, b, c: chunked_attention(a, b, c, causal=True)):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        fn(*leaves).backward(g)
-        grads.append([t.grad.float() for t in leaves])
-    for name, a, b in zip("qkv", *grads):
-        err = float((a - b).abs().max())
-        require(err <= flash_tol(torch.bfloat16, b),
-                f"flash_attention gradient d{name}: max abs err {err}")
-    return cases + 1
+    # (at the rows' offset); (dtype, Dh, Tq, Tk, q_offset, route)
+    for dt, Dh, Tq, Tk, off, want in (
+            (torch.bfloat16, 64, 300, 300, 0, "tensor_core"),
+            (torch.bfloat16, 64, 300, 400, 100, "tensor_core"),
+            (torch.float32, 80, 100, 1164, 1000, "cuda_core")):
+        t0 = time.perf_counter()
+        q = torch.randn((2, Tq, 8, Dh), device=dev).to(dt)
+        k, v = (torch.randn((2, Tk, 2, Dh), device=dev).to(dt)
+                for _ in range(2))
+        g = torch.randn((2, Tq, 8, Dh), device=dev).to(dt)
+        grads = []
+        for fn in (lambda a, b, c: took_route(
+                       fk, routes, want,
+                       lambda: flash_attention(a, b, c, True, off)),
+                   lambda a, b, c: chunked_attention(a, b, c, causal=True,
+                                                     q_offset=off)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fn(*leaves).backward(g)
+            grads.append([t.grad.float() for t in leaves])
+        for name, a, b in zip("qkv", *grads):
+            err = float((a - b).abs().max())
+            require(err <= flash_tol(dt, b),
+                    f"flash_attention gradient d{name} ({want}, q_offset "
+                    f"{off}): max abs err {err}")
+        cases += 1
+        if off:
+            offset_s += time.perf_counter() - t0
+    report["flash_q_offset_sweep_s"] = offset_s
+    return cases
+
+
+# A sequence-sharded rank's flash calls (``core/sharded.py`` ``attn_full``):
+# (q_offset, Tq, keys past q_offset + Tq), offsets neither multiples of 64
+# nor of the 128-row q tile among them, on each route's head dims
+OFFSET_FLASH = ((0, 24, 40), (64, 100, 0), (100, 257, 37), (1000, 512, 0),
+                (1000, 24, 117))
+OFFSET_FLASH_DH = ((torch.float32, 64), (torch.float32, 80),
+                   (torch.bfloat16, 64), (torch.bfloat16, 80),
+                   (torch.bfloat16, 96), (torch.bfloat16, 128))
 
 
 def flash_tol(dtype, ref) -> float:
@@ -1929,9 +1975,12 @@ def sharding_kernels(cm, cfg, dev):
     partitioning ``wg`` besides) at a decode step's and a prefill chunk's
     rows, the tied head vocab-sharded, and the packed attention reads
     (decode and 16-row chunk) and the training flash forward and its op's
-    backward on each rank's local heads; each combined output within one
-    bf16 step of max|ref| of the unsharded call, each kernel call on the
-    route its shape rule names."""
+    backward on each rank's local heads and, through the placed leg, on
+    each rank's rows of a sequence-sharded q (``sharding_flash_seq``);
+    each combined output within one bf16 step of max|ref| of the
+    unsharded call, each kernel call on the route its shape rule names;
+    each rank's sequence-sharded flash call at model 4 timed
+    (``seq_flash_rows``)."""
     from repro_torch.core import payload_registry
     from repro_torch.core.dispatch import linear_dispatch
     from repro_torch.kernels.flash_attention import decode_packed as dp
@@ -1989,7 +2038,10 @@ def sharding_kernels(cm, cfg, dev):
                        "err": float((y.float() - ref.float()).abs().max())}
         row["attention"] = sharding_attention(cfg, dev, n, dp)
         row["flash"] = sharding_flash(cfg, dev, n, fk, flash_attention)
+        row["flash_seq"] = sharding_flash_seq(cfg, dev, n, fk)
         out[f"model_{n}"] = row
+    out["flash_seq_rows_model_4"] = seq_flash_rows(
+        cfg, dev, out["model_4"]["flash_seq"]["bfloat16"]["extents"], fk)
     return out
 
 
@@ -2061,6 +2113,138 @@ def sharding_flash(cfg, dev, n, fk, flash_attention):
         require(errs[name] <= tol_for(torch.bfloat16, ref[i].float()),
                 f"sharding: flash {name} at model {n}: {errs[name]}")
     return {"routes": routes, "err": errs}
+
+
+def sharding_flash_seq(cfg, dev, n, fk):
+    """The training flash call sequence-sharded (``seq_shard``: q cut along
+    T over ``model``, k and v replicated) at model n, through the placed
+    leg a step runs: ``attn_full_dispatch`` on CUDA DTensors at each rank r
+    of a fake (1, n) group (its collectives move nothing, so each rank's
+    local work is what that rank computes) — q placed ``Shard(1)``, the
+    rank's rows where DTensor cuts T (``sharded.local_extent``), one
+    launch on the route ``flash_route`` names, forward and the op's
+    backward.  Each rank's out against the whole call's rows, dq, dk and dv
+    summed in f32 over the ranks (dq: disjoint rows; dk, dv: the leg's
+    ``Partial``) against the whole call: out and dq within one bf16 step
+    of max|ref|, dk and dv within n.  llama3.2-1b's call (one micro-batch,
+    2 x 2048, bf16, causal: the tensor-core route) and an f32 call (1 x
+    512: the CUDA-core route, f32 tolerances)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.core import sharded
+    from repro_torch.core.dispatch import attn_full_dispatch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh
+
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    routes = {"tensor_core": "launches_tc", "cuda_core": "launches_cc"}
+    out = {}
+    for dt, B, T, want in (
+            (torch.bfloat16, TRAIN["batch"] // TRAIN["n_micro"],
+             TRAIN["seq"], "tensor_core"),
+            (torch.float32, 1, 512, "cuda_core")):
+        t0 = time.perf_counter()
+        q, k, v, g = ((torch.randn((B, T, h_, Dh), device=dev) / 2).to(dt)
+                      for h_ in (H, Hkv, Hkv, H))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*leaves, True)
+        ref = [o.detach()] + list(torch.autograd.grad(o, leaves, g))
+        outs, sums, extents, shapes = [], None, [], []
+        for r in range(n):
+            with fake_group(n, rank=r):
+                mesh = make_mesh((1, n), ("data", "model"), dev.type)
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                qd = sharded.place(leaves[0], mesh, [Replicate(), Shard(1)])
+                kd, vd = (sharded.place(t, mesh, [Replicate()] * 2)
+                          for t in leaves[1:])
+                off, rows = sharded.local_extent(qd, 1)
+                od = took_route(fk, routes, want, lambda: attn_full_dispatch(
+                    qd, kd, vd, causal=True))
+                ol = od.to_local()
+                grads = torch.autograd.grad(ol, leaves,
+                                            g[:, off:off + rows])
+            d = ol.detach().float() - ref[0][:, off:off + rows].float()
+            outs.append(float(d.abs().max()))
+            part = [t.float() for t in grads]
+            sums = part if sums is None else [a + b
+                                              for a, b in zip(sums, part)]
+            extents.append([off, rows])
+            shapes.append(list(od.shape))
+        starts = [sum(e[1] for e in extents[:i]) for i in range(n)]
+        require([e[0] for e in extents] == starts
+                and sum(e[1] for e in extents) == T,
+                f"sharding: seq-sharded ranks at model {n} cut {T} rows as "
+                f"{extents}")
+        require(all(s_ == list(q.shape) for s_ in shapes),
+                f"sharding: seq-sharded flash outputs at model {n} have "
+                f"global shapes {shapes}, not {list(q.shape)}")
+        errs = {"out": max(outs)}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs[name] = float((sums[i] - ref[i + 1].float()).abs().max())
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            tol = tol_for(dt, ref[i].float()) * (1 if i < 2 else n)
+            require(errs[name] <= tol,
+                    f"sharding: seq-sharded flash {name} at model {n} "
+                    f"({dt}): {errs[name]} > {tol}")
+        out[str(dt).split(".")[-1]] = {
+            "route": want, "launches": n, "err": errs, "extents": extents,
+            "seconds": time.perf_counter() - t0}
+    return out
+
+
+def seq_flash_rows(cfg, dev, extents, fk):
+    """Each rank's flash call of the sequence-sharded training call
+    (llama3.2-1b, 2 x 2048, bf16, causal) at the ranks' ``extents`` ((first
+    row, rows) each, as ``sharding_flash_seq`` read them off DTensor),
+    and the whole call: kernel, plain version and SDPA (an explicit boolean
+    mask of the offset rows: ``is_causal`` aligns at 0) device ms, each on
+    4 copies of its inputs as ``flash_row`` times them, beside the bound
+    from the rank's causal pairs (rows at q_offset + i see q_offset + i + 1
+    keys) and the bytes it needs (k and v to q_offset + Tq)."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, T = TRAIN["batch"] // TRAIN["n_micro"], TRAIN["seq"]
+    ins = [[torch.randn((B, T, h_, Dh), device=dev).to(torch.bfloat16)
+            for h_ in (H, Hkv, Hkv)] for _ in range(4)]
+    heads = [[t.permute(0, 2, 1, 3) for t in qkv] for qkv in ins]
+    rows = []
+    for r, (off, Tq) in enumerate(extents):
+        q_r = [qkv[0][:, off:off + Tq].contiguous() for qkv in ins]
+        qh = [t.permute(0, 2, 1, 3) for t in q_r]
+        k, v = ins[0][1:]
+        y = fk.flash_attention_fwd(q_r[0], k, v, causal=True, q_offset=off)
+        ref = fk.flash_attention_plain(q_r[0], k, v, causal=True,
+                                       q_offset=off)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        require(err <= flash_tol(torch.bfloat16, ref),
+                f"sharding: rank {r}'s flash call ({off}, {Tq}): {err}")
+        kend = min(T, off + Tq)
+        pairs = Tq * off + Tq * (Tq + 1) / 2
+        b_ms, b_by = bound(nbytes(q_r[0], k[:, :kend], v[:, :kend], y),
+                           4.0 * B * H * Dh * pairs, "bf16")
+        qpos = off + torch.arange(Tq, device=dev)
+        mask = torch.arange(T, device=dev)[None, :] <= qpos[:, None]
+        rows.append({
+            "rank": r, "q_offset": off, "rows": Tq, "max_abs_err": err,
+            "pairs_share": pairs / (T * (T + 1) / 2),
+            "ms": device_ms(lambda i: lambda: fk.flash_attention_fwd(
+                q_r[i], *ins[i][1:], causal=True, q_offset=off), 4),
+            "plain_ms": device_ms(lambda i: lambda: fk.flash_attention_plain(
+                q_r[i], *ins[i][1:], causal=True, q_offset=off), 2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(
+                lambda i: lambda: F.scaled_dot_product_attention(
+                    qh[i], *heads[i][1:], attn_mask=mask, enable_gqa=True),
+                4)})
+    whole_ms = device_ms(lambda i: lambda: fk.flash_attention_fwd(
+        *ins[i], causal=True), 4)
+    return {"ranks": rows, "whole_ms": whole_ms,
+            "ranks_sum_ms": sum(r_["ms"] for r_ in rows),
+            "seconds": time.perf_counter() - t0}
 
 
 def sharding(cm, cfg, dev, report):
@@ -6254,7 +6438,7 @@ def main() -> int:
             "block_sparse_conv": sweep_sparse_conv(rng, dev),
             "quant_conv": sweep_quant_conv(rng, dev),
             "fc_stack_matmul": sweep_fc_stack(rng, dev),
-            "flash_attention": sweep_flash(rng, dev),
+            "flash_attention": sweep_flash(rng, dev, report),
         }
         print(f"kernels vs plain versions: {report['sweep_cases']} cases pass",
               flush=True)

@@ -427,13 +427,16 @@ def attn_full_dispatch(
     dispatch: Union[None, str, DispatchConfig] = None,
     leaf: Optional[str] = None,
 ) -> torch.Tensor:
-    """Full-sequence attention, causal positions aligned at 0.  A CUDA tensor
+    """Full-sequence attention, q's rows at positions 0..Tq-1 of k's (a
+    sequence-sharded rank's at its query offset, below).  A CUDA tensor
     takes the ``flash_attention`` op under ``auto`` and ``kernel`` (a shape
     the kernel cannot take raises); ``twin``, and ``auto`` on the CPU, take
     :func:`repro_torch.models.layers.chunked_attention`, which is also what
     the op's backward recomputes.  Placed (DTensor) q, k, v run on each
     rank's local heads, or its local query rows when q is
-    sequence-sharded (:func:`repro_torch.core.sharded.attn_full`)."""
+    sequence-sharded (:func:`repro_torch.core.sharded.attn_full`), at
+    their absolute positions: the rank's query offset goes to the kernel
+    and to the op's recompute alike."""
     # imported here: models.layers imports this module
     from ..kernels.flash_attention.ops import flash_attention
     from ..models.layers import chunked_attention
@@ -443,13 +446,7 @@ def attn_full_dispatch(
 
     def run(q, k, v, q_offset=0):
         if use_kernel(cfg, q, name) and q.is_cuda:
-            if q_offset:
-                raise NotImplementedError(
-                    f"{name}: the flash kernel aligns causal positions at 0 "
-                    f"and takes no query offset ({q_offset}): "
-                    "sequence-sharded attention over more than one rank "
-                    "does not run on the card yet")
-            return flash_attention(q, k, v, causal)
+            return flash_attention(q, k, v, causal, q_offset)
         return chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
 
     with named_range("attention.flash"):

@@ -121,24 +121,34 @@ def local_shard(t: torch.Tensor, placements, mesh_shape: Sequence[int],
 
 def place(t: torch.Tensor, mesh, placements):
     """``t`` (the same full tensor on every rank, as one seed draws it) as a
-    DTensor on ``mesh``: each rank keeps its own shard, with no
-    communication."""
+    DTensor on ``mesh``: each rank keeps its own shard, cut as DTensor
+    cuts (:func:`local_extent`), with no communication."""
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
 
-    coords = [int(mesh.get_local_rank(i)) for i in range(mesh.ndim)]
-    loc = local_shard(t, placements, tuple(mesh.shape), coords).contiguous()
-    return DTensor.from_local(loc, mesh, list(placements), run_check=False,
-                              shape=t.shape, stride=t.contiguous().stride())
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, placements)
+    loc = t[tuple(slice(o, o + s) for o, s in zip(offset, shape))]
+    return DTensor.from_local(loc.contiguous(), mesh, list(placements),
+                              run_check=False, shape=t.shape,
+                              stride=t.contiguous().stride())
 
 
 def local_apply(fn: Callable, out_placements, *args,
-                in_grad_placements=None):
+                in_grad_placements=None, out_shape=None):
     """``fn`` on the local shards of ``args`` (DTensors pass their local
     tensor, anything else passes as is), its outputs wrapped with
     ``out_placements`` — ``local_map`` with the mesh of the first DTensor
     argument.  ``in_grad_placements`` (one entry an argument, None: the
     argument's own placements) are the placements of the gradients that
-    ``fn``'s backward gives the local inputs."""
+    ``fn``'s backward gives the local inputs.  ``out_shape`` is the global
+    shape of an output whose sharded dim the ranks need not split evenly:
+    ``local_map`` takes it as the local size times the ranks, which is
+    wrong where DTensor cut the input as ``torch.chunk`` does (a
+    sequence-sharded T: ``ceil(T / n)`` rows a rank, the last ranks
+    shorter)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
 
     mesh = next(a.device_mesh for a in args if is_dtensor(a))
@@ -147,10 +157,30 @@ def local_apply(fn: Callable, out_placements, *args,
         in_grad_placements = tuple(
             list(a.placements) if g is None and is_dtensor(a) else g
             for a, g in zip(args, in_grad_placements))
-    return local_map(fn, out_placements=out_placements,
-                     in_placements=None,
-                     in_grad_placements=in_grad_placements,
-                     device_mesh=mesh)(*args)
+    out = local_map(fn, out_placements=out_placements,
+                    in_placements=None,
+                    in_grad_placements=in_grad_placements,
+                    device_mesh=mesh)(*args)
+    if out_shape is None or out.shape == torch.Size(out_shape):
+        return out
+    shape = torch.Size(out_shape)
+    return DTensor.from_local(
+        out.to_local(), out.device_mesh, list(out.placements),
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def local_extent(t, dim: int) -> Tuple[int, int]:
+    """``(first index, size)`` of this rank's shard of DTensor ``t`` along
+    ``dim``, as DTensor cuts it: ``torch.chunk``'s ``ceil(size / n)`` a
+    rank, the last ranks shorter or empty, the mesh dims nested in mesh
+    order."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return int(offset[dim]), int(shape[dim])
 
 
 def _grad_for_weight(w_placements, x_placements, md) -> list:
@@ -396,7 +426,8 @@ def split_heads(t, H: int, Dh: int):
 def merge_heads(t):
     """(B, T, H, Dh) -> (B, T, H·Dh) on the local shard."""
     return local_apply(lambda a: a.reshape(*a.shape[:2], -1),
-                       list(t.placements), t)
+                       list(t.placements), t,
+                       out_shape=(*t.shape[:2], t.shape[2] * t.shape[3]))
 
 
 def rope(x, positions, theta: float, fn: Callable):
@@ -888,7 +919,7 @@ def attn_full(q, k, v, *, causal: bool, run: Callable):
     if n > 1 and isinstance(qp, Shard) and qp.dim == 1:       # seq-sharded
         want = _set(q.placements, md, Replicate())
         k, v = _to(k, want), _to(v, want)
-        off = r * (q.shape[1] // n)
+        off, _ = local_extent(q, 1)
         kv_grad = _set(k.placements, md, Partial())
         fn = lambda q_, k_, v_: run(q_, k_, v_, off)       # noqa: E731
     elif n > 1 and isinstance(qp, Shard) and qp.dim == 2:     # head-sharded
@@ -909,7 +940,7 @@ def attn_full(q, k, v, *, causal: bool, run: Callable):
         fn = lambda q_, k_, v_: run(q_, k_, v_, 0)         # noqa: E731
     return local_apply(fn, list(q.placements), q, k, v,
                        in_grad_placements=(list(q.placements), kv_grad,
-                                           kv_grad))
+                                           kv_grad), out_shape=q.shape)
 
 
 # ------------------------------------------- a sequence-sharded KV cache
@@ -932,19 +963,12 @@ def seq_layout(leaf):
     rows that read or write it — the leaf's, less its T axis (q and the new
     k / v rows whole over those dims; batch and kv heads as the cache
     shards them) — and the first row and row count of this rank's range
-    (the mesh dims nest in mesh order, as ``local_shard`` cuts)."""
+    (:func:`local_extent`)."""
     _, Replicate, _ = _pl()
-    mesh = leaf.device_mesh
     dims = seq_dims(leaf)
     pl = [Replicate() if i in dims else p
           for i, p in enumerate(leaf.placements)]
-    n, idx = 1, 0
-    for i in dims:
-        size = int(mesh.size(i))
-        n *= size
-        idx = idx * size + int(mesh.get_local_rank(i))
-    t_local = int(leaf.shape[1]) // n
-    return dims, pl, idx * t_local, t_local
+    return (dims, pl) + local_extent(leaf, 1)
 
 
 def seq_combine(o: torch.Tensor, lse: torch.Tensor, reduce: Callable

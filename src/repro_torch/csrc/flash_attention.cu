@@ -9,9 +9,11 @@
 // online softmax over key tiles (running max m, running sum l, accumulator
 // acc, all f32), masked scores set to the finite -1e30, and the output
 // acc / max(l, 1e-30) cast to the input type.  Causal masking keeps
-// kpos <= qpos with both aligned at position 0; key tiles entirely in the
-// future of a q tile's last row are never read.  GQA: head h reads kv head
-// h / (H / Hkv).  q, k and v are read in their (B, T, heads, Dh) layout
+// kpos <= q_offset + qpos: q's row 0 sits at absolute position q_offset (0
+// for a whole sequence; a sequence-sharded rank's first row otherwise, its
+// k and v the whole sequence); key tiles entirely in the future of a q
+// tile's last row are never read.  GQA: head h reads kv head h / (H /
+// Hkv).  q, k and v are read in their (B, T, heads, Dh) layout
 // through strides; the ragged edge of Tq and Tk is masked here, so any shape
 // runs.
 //
@@ -55,7 +57,7 @@ __global__ void __launch_bounds__(NT)
                      int Tk, int H, int Hkv, int Dh, long long sqb,
                      long long sqt, long long sqh, long long skb, long long skt,
                      long long skh, long long svb, long long svt, long long svh,
-                     float scale, int causal) {
+                     float scale, int causal, int q_offset) {
   extern __shared__ float sm[];
   const int ldq = Dh + 1, ldk = Dh + 1, ldv = 8 * DPL, ldp = BK + 1;
   float* qs = sm;
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
   }
 
-  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
+  const int kend = causal ? min(Tk, q_offset + q0 + BQ) : Tk;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // previous tile consumed; q tile visible
     for (int e = tid; e < BK * ldv; e += NT) {
@@ -122,7 +124,7 @@ __global__ void __launch_bounds__(NT)
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + row0 + i;
+      const int qpos = q_offset + q0 + row0 + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -185,7 +187,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
                      int B, int Tq, int Tk, int H, int Hkv, int Dh,
                      const long long* sq, const long long* sk,
                      const long long* sv, float scale, int causal,
-                     cudaStream_t stream) {
+                     int q_offset, cudaStream_t stream) {
   const size_t bytes = smem_floats(Dh, DPL) * sizeof(float);
   auto kern = flash_fwd_kernel<T, DPL>;
   if (bytes > 48 * 1024) {
@@ -198,7 +200,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, H, Hkv, Dh,
       sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], scale,
-      causal);
+      causal, q_offset);
   return cudaGetLastError();
 }
 
@@ -207,12 +209,12 @@ cudaError_t dispatch_dpl(const void* q, const void* k, const void* v,
                          void* out, int B, int Tq, int Tk, int H, int Hkv,
                          int Dh, const long long* sq, const long long* sk,
                          const long long* sv, float scale, int causal,
-                         cudaStream_t s) {
+                         int q_offset, cudaStream_t s) {
   const int need = (Dh + 7) / 8;
 #define FA_CASE(N)                                                          \
   if (need <= N)                                                            \
     return launch_t<T, N>(q, k, v, out, B, Tq, Tk, H, Hkv, Dh, sq, sk, sv, \
-                          scale, causal, s);
+                          scale, causal, q_offset, s);
   FA_CASE(1) FA_CASE(2) FA_CASE(4) FA_CASE(8) FA_CASE(16) FA_CASE(32)
 #undef FA_CASE
   return cudaErrorInvalidValue;
@@ -223,21 +225,24 @@ cudaError_t dispatch_dpl(const void* q, const void* k, const void* v,
 // q: (B, Tq, H, Dh), k / v: (B, Tk, Hkv, Dh), all f32 (bf16 = 0) or all bf16
 // (bf16 = 1), unit stride along Dh; sq / sk / sv hold each tensor's (batch,
 // position, head) strides in elements.  out: (B, Tq, H, Dh) contiguous, in
-// the input type.  Needs 1 <= Dh <= 256 and H % Hkv == 0 (the wrapper
-// checks).  Returns the launch's cudaError_t (0 on success).
+// the input type.  q_offset: the absolute position of q's row 0 (causal
+// only; 0 <= q_offset <= 2^30).  Needs 1 <= Dh <= 256 and H % Hkv == 0
+// (the wrapper checks).  Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bf16, int B,
                                       int Tq, int Tk, int H, int Hkv, int Dh,
                                       long long sqb, long long sqt, long long sqh,
                                       long long skb, long long skt, long long skh,
                                       long long svb, long long svt, long long svh,
-                                      float scale, int causal, void* stream) {
+                                      float scale, int causal, int q_offset,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long sq[3] = {sqb, sqt, sqh}, sk[3] = {skb, skt, skh},
                   sv[3] = {svb, svt, svh};
   if (bf16)
     return (int)dispatch_dpl<__nv_bfloat16>(q, k, v, out, B, Tq, Tk, H, Hkv, Dh,
-                                            sq, sk, sv, scale, causal, s);
+                                            sq, sk, sv, scale, causal,
+                                            q_offset, s);
   return (int)dispatch_dpl<float>(q, k, v, out, B, Tq, Tk, H, Hkv, Dh, sq, sk,
-                                  sv, scale, causal, s);
+                                  sv, scale, causal, q_offset, s);
 }

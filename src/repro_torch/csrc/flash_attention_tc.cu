@@ -13,8 +13,10 @@
 // What it computes, as the TPU kernel does: o = softmax(q.k^T * scale) . v per
 // (batch, head) with an online softmax over 64-key tiles (running max m, sum
 // l and accumulator in f32), masked scores set to the finite -1e30, output
-// acc / max(l, 1e-30) in bf16; causal masking keeps kpos <= qpos with both
-// aligned at position 0; head h reads kv head h / (H / Hkv).  bf16 x bf16
+// acc / max(l, 1e-30) in bf16; causal masking keeps kpos <= q_offset + qpos
+// (q's row 0 at absolute position q_offset: 0 for a whole sequence, a
+// sequence-sharded rank's first row otherwise, not necessarily a multiple of
+// a tile); head h reads kv head h / (H / Hkv).  bf16 x bf16
 // products are exact in f32, so s = (q.k) * scale, with the scale applied in
 // f32 after the product, matches the reference's q.float() * scale before
 // the dot up to summation order.  The one new rounding is P to bf16 before
@@ -142,7 +144,7 @@ __global__ void __launch_bounds__(NT, DH == 128 ? 1 : 2)
                     int Tk, int H, int Hkv, long long sqb, long long sqt,
                     long long sqh, long long skb, long long skt, long long skh,
                     long long svb, long long svt, long long svh,
-                    float scale_log2, int causal) {
+                    float scale_log2, int causal, int q_offset) {
   constexpr int KV_BYTES = halves<DH>() * half_bytes(BK);  // one K or V stage
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -159,12 +161,13 @@ __global__ void __launch_bounds__(NT, DH == 128 ? 1 : 2)
   const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);  // and r0 + 8
   const int cq = 2 * (lane & 3);
   const int wq0 = q0 + 64 * wg;                  // first q row of the warpgroup
+  const int wp0 = q_offset + wq0;                // and its absolute position
 
   const bf16* qb = q + b * sqb + h * sqh;
   const bf16* kb = k + b * skb + hk * skh;
   const bf16* vb = v + b * svb + hk * svh;
 
-  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
+  const int kend = causal ? min(Tk, q_offset + q0 + BQ) : Tk;
   const int ntiles = (kend + BK - 1) / BK;
 
   load_tile<BQ, DH>(sQ, qb, sqt, q0, Tq, tid);
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(NT, DH == 128 ? 1 : 2)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    if (!causal || k0 <= wq0 + 63) {  // else wholly in this warpgroup's future
+    if (!causal || k0 <= wp0 + 63) {  // else wholly in this warpgroup's future
       const uint32_t kst = sK + (it % NS) * KV_BYTES;
       const uint32_t vst = sV + (it % NS) * KV_BYTES;
 
@@ -214,11 +217,11 @@ __global__ void __launch_bounds__(NT, DH == 128 ? 1 : 2)
       wgmma_wait_all();
       fence_regs(s);
 
-      if (k0 + BK > Tk || (causal && k0 + BK - 1 > wq0)) {
+      if (k0 + BK > Tk || (causal && k0 + BK - 1 > wp0)) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int key = k0 + 8 * (i / 4) + cq + (i & 1);
-          const int qpos = wq0 + r0 + 8 * ((i >> 1) & 1);
+          const int qpos = wp0 + r0 + 8 * ((i >> 1) & 1);
           if (key >= Tk || (causal && key > qpos)) s[i] = NEG_INF;
         }
       }
@@ -294,7 +297,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
                      int B, int Tq, int Tk, int H, int Hkv,
                      const long long* sq, const long long* sk,
                      const long long* sv, float scale, int causal,
-                     cudaStream_t stream) {
+                     int q_offset, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DH>();
   auto kern = flash_tc_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -305,7 +308,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, H, Hkv,
       sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, q_offset);
   return cudaGetLastError();
 }
 
@@ -315,28 +318,31 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
 // Dh, the (batch, position, head) strides sq / sk / sv in elements, each a
 // multiple of 8, base pointers 16-byte aligned.  out: (B, Tq, H, Dh)
 // contiguous bf16.  Needs Dh in {64, 80, 96, 128} and H % Hkv == 0 (the
-// wrapper's flash_route checks all of it).  Returns the launch's cudaError_t.
+// wrapper's flash_route checks all of it).  q_offset: the absolute position
+// of q's row 0 (causal only; 0 <= q_offset <= 2^30).  Returns the launch's
+// cudaError_t.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Tq,
     int Tk, int H, int Hkv, int Dh, long long sqb, long long sqt,
     long long sqh, long long skb, long long skt, long long skh, long long svb,
-    long long svt, long long svh, float scale, int causal, void* stream) {
+    long long svt, long long svh, float scale, int causal, int q_offset,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long sq[3] = {sqb, sqt, sqh}, sk[3] = {skb, skt, skh},
                   sv[3] = {svb, svt, svh};
   switch (Dh) {
     case 64:
       return (int)launch_t<64>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                               scale, causal, s);
+                               scale, causal, q_offset, s);
     case 80:
       return (int)launch_t<80>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                               scale, causal, s);
+                               scale, causal, q_offset, s);
     case 96:
       return (int)launch_t<96>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                               scale, causal, s);
+                               scale, causal, q_offset, s);
     case 128:
       return (int)launch_t<128>(q, k, v, out, B, Tq, Tk, H, Hkv, sq, sk, sv,
-                                scale, causal, s);
+                                scale, causal, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

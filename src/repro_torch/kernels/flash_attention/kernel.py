@@ -13,6 +13,10 @@
   :data:`BK`-key tiles with the finite mask value :data:`NEG_INF`, causal
   positions aligned at 0 (``kpos <= qpos``), output ``acc / max(l, 1e-30)``
   in q's dtype.
+
+Both take ``q_offset``, the absolute position of q's first row (0 for a
+whole sequence, a sequence-sharded rank's first row otherwise): causal
+masking then keeps ``kpos <= q_offset + qpos``; non-causal calls ignore it.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ def _lib(route: str):
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, *head, I, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, L, ctypes.c_float, I, P]
+                       L, L, L, L, L, L, L, L, L, ctypes.c_float, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -90,17 +94,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
+                        causal: bool = True, q_offset: int = 0,
                         name: str = "flash_attention") -> torch.Tensor:
     """Attention of q (B, Tq, H, Dh) over k, v (B, Tk, Hkv, Dh) -> (B, Tq,
-    H, Dh) in q's dtype."""
+    H, Dh) in q's dtype; q's row i sits at position ``q_offset + i``."""
     global launches, launches_tc, launches_cc
     refuse_dtensor(name, q, k, v)
     _check(q, k, v, name)
+    q_offset = _offset(q_offset, name)
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)
     route = flash_route(q, k, v)
-    out = _launch(q, k, v, causal, route, name)
+    out = _launch(q, k, v, causal, route, name, q_offset)
     launches += 1
     if route == "tensor_core":
         launches_tc += 1
@@ -109,8 +115,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _offset(q_offset, name: str) -> int:
+    q_offset = int(q_offset)
+    if not 0 <= q_offset <= 2 ** 30:      # the kernels' positions are int32
+        raise ValueError(f"{name}: q_offset must be in [0, 2^30], got "
+                         f"{q_offset}")
+    return q_offset
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            route: str, name: str = "flash_attention") -> torch.Tensor:
+            route: str, name: str = "flash_attention",
+            q_offset: int = 0) -> torch.Tensor:
     """Launch the ``route`` kernel on CUDA tensors that passed ``_check``;
     counts nothing (the wrapper counts)."""
     B, Tq, H, Dh = (int(d) for d in q.shape)
@@ -143,30 +158,32 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     err = _lib(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), *head, B, Tq, Tk, H, Hkv, Dh,
                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      1.0 / math.sqrt(Dh), int(bool(causal)),
+                      1.0 / math.sqrt(Dh), int(bool(causal)), int(q_offset),
                       torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     return out
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          q_offset: int = 0) -> torch.Tensor:
     """Plain version: the kernel's online softmax over :data:`BK`-key tiles,
     every tile in one pass over all q rows (a tile wholly in a row's future
     leaves the row's (m, l, acc) unchanged, as the kernel's skip does)."""
     _check(q, k, v, "flash_attention_plain")
+    q_offset = _offset(q_offset, "flash_attention_plain")
     B, Tq, H, Dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     dev = q.device
     qf = (q.to(torch.float32) * (1.0 / math.sqrt(Dh))).reshape(
         B, Tq, Hkv, G, Dh)
-    qpos = torch.arange(Tq, device=dev)
+    qpos = q_offset + torch.arange(Tq, device=dev)
     m = torch.full((B, Hkv, G, Tq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, G, Tq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, G, Tq, Dh), dtype=torch.float32, device=dev)
-    # keys at or past Tq lie in the future of every row
-    for lo in range(0, min(Tk, Tq) if causal else Tk, BK):
+    # keys at or past q_offset + Tq lie in the future of every row
+    for lo in range(0, min(Tk, q_offset + Tq) if causal else Tk, BK):
         hi = min(lo + BK, Tk)
         kf = k[:, lo:hi].to(torch.float32)
         vf = v[:, lo:hi].to(torch.float32)

@@ -121,12 +121,12 @@ def _skip_reason(cfg, shape_name):
 
 class fake_group:
     """``with fake_group(world):`` — torch's fake process group of
-    ``world`` ranks in this process, as rank 0 (its collectives move
-    nothing), torn down on exit.  It is process-global: it refuses to start
-    beside another process group."""
+    ``world`` ranks in this process, as ``rank`` (0 by default; its
+    collectives move nothing), torn down on exit.  It is process-global: it
+    refuses to start beside another process group."""
 
-    def __init__(self, world: int):
-        self.world = int(world)
+    def __init__(self, world: int, rank: int = 0):
+        self.world, self.rank = int(world), int(rank)
 
     def __enter__(self):
         import torch.distributed as dist
@@ -136,7 +136,7 @@ class fake_group:
             raise RuntimeError(
                 "the dry-run's fake process group needs a process of its "
                 f"own: a {dist.get_backend()} group is already started")
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
+        dist.init_process_group("fake", store=FakeStore(), rank=self.rank,
                                 world_size=self.world)
         return self
 

@@ -23,6 +23,10 @@ magnitude of the one-process value (``rel``), over every leaf or output.
 * ``ckpt``: each rank a host (two or four), the placed parameters and
   moments saved and restored to placements.
 * ``refuse``: a DTensor handed to a kernel wrapper raises.
+* ``uneven`` (``tests/test_torch_seq_shard_uneven.py``): the ``seq_shard``
+  train case alone at a T the ``model`` axis does not divide
+  (:data:`UNEVEN_T`): DTensor cuts T as ``torch.chunk`` does, so the
+  ranks' query rows start at multiples of ``ceil(T / n)``.
 
 The MoE family (``tests/test_torch_moe_sharding*.py``, ``kind =
 "moe_train"`` / ``"moe_serve"``): ``tests/_moe_workers.py``.  The SSM and
@@ -73,9 +77,11 @@ def _grads(tm, cfg, params, batch):
     return loss, {p: g for (p, _), g in zip(items, grads)}
 
 
-def _train_cases(mesh, cfg0, prepare=None, eps=1e-3):
+def _train_cases(mesh, cfg0, prepare=None, eps=1e-3, T=16,
+                 seqs=(False, True)):
     """The train cases on ``mesh``; ``prepare`` (a function of the
-    parameter tree) changes the seed-0 tree first; ``eps`` is AdamW's."""
+    parameter tree) changes the seed-0 tree first; ``eps`` is AdamW's;
+    4 sequences of ``T`` tokens; ``seqs`` the ``seq_shard`` settings."""
     from repro_torch.launch import sharding as sh
     from repro_torch.models import model as tm
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -84,11 +90,11 @@ def _train_cases(mesh, cfg0, prepare=None, eps=1e-3):
 
     out = {}
     rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg0.vocab, (4, 16))
+    batch = {k: torch.from_numpy(rng.integers(0, cfg0.vocab, (4, T))
                                  .astype(np.int32))
              for k in ("tokens", "labels")}
     oc = AdamWConfig(lr=1e-2, eps=eps, warmup_steps=1, total_steps=4)
-    for seq in (False, True):
+    for seq in seqs:
         cfg = dataclasses.replace(cfg0, seq_shard=seq)
         params = tm.init_params(cfg, seed=0, device="cpu")
         if prepare is not None:
@@ -217,6 +223,12 @@ def _refuse_case(mesh):
     return None
 
 
+# mesh -> the tokens a sequence of the ``uneven`` train case: rows the
+# ``model`` axis does not divide (at model 4, 18 rows are chunks of 5, 5, 5
+# and 3; at model 2, 17 rows are 9 and 8)
+UNEVEN_T = {(1, 4): 18, (2, 2): 17}
+
+
 # mesh -> the (n_kv_heads, batch) cases whose cache is cut along T there:
 # over model (kv heads it does not divide), over the data axes (a batch of
 # one), or over both
@@ -283,7 +295,8 @@ def _seq_cases(mesh):
 
 def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
     """One rank: every case of the ``shape`` mesh (``kind`` "apply": the
-    train, decode, refusal and checkpoint cases; "seq": the
+    train, decode, refusal and checkpoint cases; "uneven": the
+    ``seq_shard`` train case at :data:`UNEVEN_T`; "seq": the
     sequence-sharded cache's; "moe_train" / "moe_serve": the MoE family's,
     ``tests/_moe_workers.py``; "hybrid_train" / "hybrid_serve" /
     "xlstm_train" / "xlstm_serve": the SSM and hybrid families',
@@ -312,6 +325,10 @@ def run_rank(rank, world, shape, init, ckdir, q, kind="apply"):
             q.put((rank, ssm_cases(mesh, kind)))
             return
         cfg = reduced_config("llama3.2-1b")
+        if kind == "uneven":
+            q.put((rank, _train_cases(mesh, cfg, T=UNEVEN_T[shape],
+                                      seqs=(True,))))
+            return
         res = {"train": _train_cases(mesh, cfg),
                "decode": _decode_cases(mesh, cfg),
                "refuse": _refuse_case(mesh)}
